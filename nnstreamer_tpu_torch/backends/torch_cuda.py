@@ -1,0 +1,187 @@
+"""torch-cuda: the filter backend that runs PyTorch models on the GPU.
+
+Port of ``nnstreamer_tpu/backends/jax_xla.py`` (unsharded path).  Model
+resolution (the ``model=`` property):
+
+* a name registered in-process via :func:`register_torch_model`;
+* any other name with custom prop ``arch:<zoo-name>`` builds a model
+  family from ``nnstreamer_tpu_torch.models`` (``model=zoo
+  custom=arch:mobilenet_v2,dtype:bfloat16``), initialized from ``seed``.
+
+Placement: the model runs on ``cuda:0`` (``gpu.N`` picks another card)
+unless the accelerator wish list says ``cpu``; with no CUDA device and no
+cpu wish, ``open`` raises.  Micro-batches are padded up to the next power
+of two by repeating the last row, so the set of batch shapes the model
+sees stays small, and outputs are sliced back.  A fused postprocess (a
+decoder's device half) runs on the model outputs on the same device.
+Inference runs under ``torch.inference_mode()``.
+"""
+
+from __future__ import annotations
+
+import inspect
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
+from .base import FilterBackend, register_backend
+
+_registry_lock = threading.Lock()
+_model_registry: Dict[str, Tuple[torch.nn.Module, Optional[StreamSpec], Optional[StreamSpec]]] = {}
+
+
+def register_torch_model(
+    name: str,
+    module: torch.nn.Module,
+    in_spec: Optional[StreamSpec] = None,
+    out_spec: Optional[StreamSpec] = None,
+) -> None:
+    """Register an in-process model under `name`.
+
+    ``module(*inputs)`` takes one batched tensor per input (leading batch
+    dim) and returns a tensor or a list/tuple of tensors.  The backend
+    moves the module to its device when it opens."""
+    with _registry_lock:
+        _model_registry[name] = (module, in_spec, out_spec)
+
+
+def unregister_torch_model(name: str) -> bool:
+    with _registry_lock:
+        return _model_registry.pop(name, None) is not None
+
+
+def pick_device(wishes: List[str]) -> torch.device:
+    """The first satisfiable accelerator wish: ``cpu``, or a CUDA card for
+    ``auto``/``default``/``gpu``/``gpu.N``.  Raises when none is."""
+    for wish in wishes:
+        kind, _, ordinal = wish.lower().partition(".")
+        if kind == "cpu":
+            return torch.device("cpu")
+        if kind in ("auto", "default", "gpu", "cuda") and torch.cuda.is_available():
+            index = int(ordinal) if ordinal.isdigit() else 0
+            if index >= torch.cuda.device_count():
+                raise RuntimeError(f"accelerator {wish!r}: no CUDA device {index}")
+            return torch.device("cuda", index)
+    raise RuntimeError(
+        f"torch-cuda: no CUDA device for accelerator wishes {wishes} "
+        "(pass accelerator=cpu to run on the CPU)")
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _normalize_out(out) -> List[Any]:
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+class TorchCuda(FilterBackend):
+    NAME = "torch-cuda"
+
+    def __init__(self):
+        super().__init__()
+        self._module: Optional[torch.nn.Module] = None
+        self._device: Optional[torch.device] = None
+        self._in_spec: Optional[StreamSpec] = None
+        self._out_spec: Optional[StreamSpec] = None
+        self._posts: List[Callable[[List[Any]], List[Any]]] = []
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        return self._device
+
+    # -- model loading ------------------------------------------------------
+    def _resolve_model(self, model_path: Optional[str]):
+        if not model_path:
+            raise ValueError("torch-cuda requires model= (registry key or zoo)")
+        with _registry_lock:
+            entry = _model_registry.get(model_path)
+        if entry is not None:
+            return entry
+        arch = self.custom_props.get("arch")
+        if arch:
+            from .. import models as zoo
+
+            return zoo.build(arch, self.custom_props)
+        raise FileNotFoundError(
+            f"torch-cuda cannot resolve model {model_path!r} "
+            "(not registered; for the zoo pass custom=arch:<zoo-name>)")
+
+    def open(self, model_path, props):
+        super().open(model_path, props)
+        module, self._in_spec, self._out_spec = self._resolve_model(model_path)
+        self._device = pick_device(props.get("accelerators") or ["auto"])
+        self._module = module.to(self._device).eval()
+        self._posts = []
+
+    def close(self):
+        self._module = None
+        self._posts = []
+
+    def get_model_info(self):
+        return self._in_spec, self._out_spec
+
+    # -- device-fused postprocess -------------------------------------------
+    def append_postprocess(self, fn: Callable[[List[Any]], List[Any]]) -> None:
+        """Run ``fn`` on the model outputs, on this backend's device, inside
+        every invoke: only its (usually tiny) result leaves the card.  A
+        postprocess that takes a ``device`` keyword gets this backend's
+        device."""
+        try:
+            takes_device = "device" in inspect.signature(fn).parameters
+        except (TypeError, ValueError):
+            takes_device = False
+        if takes_device:
+            self._posts.append(lambda outs, _fn=fn: _fn(outs, device=self._device))
+        else:
+            self._posts.append(fn)
+
+    def set_input_info(self, in_spec: StreamSpec) -> StreamSpec:
+        """Output schema of one frame, found by running a batch of one
+        zero frame through the model and its postprocess."""
+        if not in_spec.is_static:
+            raise ValueError("torch-cuda needs a static input schema")
+        dummies = [np.zeros((1,) + t.shape, t.dtype) for t in in_spec.tensors]
+        outs = self.invoke_batch(dummies)
+        host = [o.cpu().numpy() for o in outs]
+        spec = StreamSpec(
+            tuple(TensorSpec(tuple(o.shape[1:]), o.dtype) for o in host),
+            FORMAT_STATIC, in_spec.framerate)
+        self._out_spec = spec
+        return spec
+
+    # -- execution ----------------------------------------------------------
+    def _put(self, a: Any) -> torch.Tensor:
+        return torch.as_tensor(a).to(self._device)
+
+    @staticmethod
+    def _pad_rows(t: torch.Tensor, bucket: int) -> torch.Tensor:
+        """Pad dim 0 to `bucket` rows by repeating the last row."""
+        n = int(t.shape[0])
+        if bucket == n:
+            return t
+        return torch.cat([t, t[-1:].expand((bucket - n,) + tuple(t.shape[1:]))])
+
+    def invoke(self, inputs: List[Any]) -> List[Any]:
+        return [o[0] for o in self.invoke_batch([self._put(a)[None] for a in inputs])]
+
+    def invoke_batch(self, inputs: List[Any]) -> List[Any]:
+        """One model call for the whole micro-batch; outputs stay on the
+        device, sliced back to the batch's true size."""
+        n = int(inputs[0].shape[0])
+        bucket = _next_pow2(n)
+        xs = [self._pad_rows(self._put(a), bucket) for a in inputs]
+        with torch.inference_mode():
+            outs = _normalize_out(self._module(*xs))
+            for post in self._posts:
+                outs = _normalize_out(post(outs))
+        return [o[:n] for o in outs] if bucket != n else outs
+
+
+register_backend(TorchCuda)

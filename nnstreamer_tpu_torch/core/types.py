@@ -1,0 +1,156 @@
+"""Tensor type system and stream-schema ("caps") negotiation.
+
+Port of ``nnstreamer_tpu/core/types.py``, reduced to what the pipeline
+needs: per-tensor specs, stream specs, their compatibility check, and
+the dtype names.  Shapes are numpy order (outermost first); ``None`` marks a
+flexible dimension.  dtypes are numpy dtypes: schemas describe the host
+side of the stream, whatever device the tensors live on.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+RANK_LIMIT = 16
+TENSOR_COUNT_LIMIT = 256
+
+_TYPE_NAMES = {
+    name: np.dtype(name)
+    for name in (
+        "int8", "uint8", "int16", "uint16", "int32", "uint32", "int64",
+        "uint64", "float16", "float32", "float64",
+    )
+}
+try:  # numpy has no bfloat16 of its own; ml_dtypes adds it where installed
+    import ml_dtypes
+
+    _TYPE_NAMES["bfloat16"] = np.dtype(ml_dtypes.bfloat16)
+except ImportError:  # pragma: no cover — the main path needs no bf16 schema
+    pass
+
+_NAME_BY_DTYPE = {v: k for k, v in _TYPE_NAMES.items()}
+
+FORMAT_STATIC = "static"
+FORMAT_FLEXIBLE = "flexible"
+FORMATS = (FORMAT_STATIC, FORMAT_FLEXIBLE)
+
+DimsT = Tuple[Optional[int], ...]
+
+
+def dtype_from_name(name: str) -> np.dtype:
+    """Map a type name ("float32") to a numpy dtype."""
+    key = name.strip().lower()
+    if key not in _TYPE_NAMES:
+        raise ValueError(f"unknown tensor element type: {name!r}")
+    return _TYPE_NAMES[key]
+
+
+def dtype_to_name(dtype) -> str:
+    """Map a numpy dtype to its canonical name."""
+    dt = np.dtype(dtype)
+    if dt not in _NAME_BY_DTYPE:
+        raise ValueError(f"unsupported tensor element type: {dtype!r}")
+    return _NAME_BY_DTYPE[dt]
+
+
+def dims_to_string(shape: Sequence[Optional[int]]) -> str:
+    """Innermost-first dimension string ("3:224:224"), the reference's
+    dialect; 0 marks a flexible dimension."""
+    return ":".join("0" if d is None else str(d) for d in reversed(tuple(shape)))
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Static description of one tensor in a stream (name, dtype, dims)."""
+
+    shape: DimsT
+    dtype: np.dtype = np.dtype(np.float32)
+    name: str = ""
+
+    def __post_init__(self):
+        norm = []
+        for d in self.shape:
+            if d is None:
+                norm.append(None)
+                continue
+            if isinstance(d, bool) or not isinstance(d, (int, np.integer)) or int(d) <= 0:
+                raise ValueError(f"bad dimension {d!r} in shape {tuple(self.shape)!r}")
+            norm.append(int(d))
+        object.__setattr__(self, "shape", tuple(norm))
+        object.__setattr__(self, "dtype", np.dtype(self.dtype))
+        if len(self.shape) > RANK_LIMIT:
+            raise ValueError(f"rank {len(self.shape)} exceeds limit {RANK_LIMIT}")
+        if self.dtype not in _NAME_BY_DTYPE:
+            raise ValueError(f"unsupported dtype {self.dtype!r}")
+
+    @property
+    def is_static(self) -> bool:
+        return all(d is not None for d in self.shape)
+
+    def is_compatible(self, other: "TensorSpec") -> bool:
+        """True if a buffer described by `other` can flow where `self` is
+        expected (flexible dims act as wildcards)."""
+        if self.dtype != np.dtype(other.dtype) or len(self.shape) != len(other.shape):
+            return False
+        return all(a is None or b is None or a == b for a, b in zip(self.shape, other.shape))
+
+
+@dataclass(frozen=True)
+class StreamSpec:
+    """Schema of a tensor stream: N tensors per frame + format + rate."""
+
+    tensors: Tuple[TensorSpec, ...] = ()
+    fmt: str = FORMAT_STATIC
+    framerate: Optional[Fraction] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "tensors", tuple(self.tensors))
+        if self.fmt not in FORMATS:
+            raise ValueError(f"unknown stream format {self.fmt!r}")
+        if len(self.tensors) > TENSOR_COUNT_LIMIT:
+            raise ValueError(f"{len(self.tensors)} tensors exceeds limit {TENSOR_COUNT_LIMIT}")
+        if self.framerate is not None:
+            object.__setattr__(self, "framerate", Fraction(self.framerate))
+
+    @property
+    def num_tensors(self) -> int:
+        return len(self.tensors)
+
+    @property
+    def is_static(self) -> bool:
+        return self.fmt == FORMAT_STATIC and all(t.is_static for t in self.tensors)
+
+    @property
+    def is_any(self) -> bool:
+        """A zero-tensor flexible schema is the wildcard (≙ ANY caps)."""
+        return self.fmt == FORMAT_FLEXIBLE and not self.tensors
+
+    def is_compatible(self, other: "StreamSpec") -> bool:
+        if self.is_any or other.is_any:
+            return True
+        if self.fmt != other.fmt:
+            return False
+        if self.fmt == FORMAT_FLEXIBLE:
+            return True
+        if self.num_tensors != other.num_tensors:
+            return False
+        return all(a.is_compatible(b) for a, b in zip(self.tensors, other.tensors))
+
+    def to_string(self) -> str:
+        """Reference-caps-like text, e.g.
+        ``tensors,format=static,num=1,dimensions=3:224:224,types=uint8``."""
+        parts = [f"tensors,format={self.fmt}", f"num={self.num_tensors}"]
+        if self.tensors:
+            parts.append("dimensions=" + ".".join(dims_to_string(t.shape) for t in self.tensors))
+            parts.append("types=" + ".".join(dtype_to_name(t.dtype) for t in self.tensors))
+        if self.framerate is not None:
+            parts.append(f"framerate={self.framerate.numerator}/{self.framerate.denominator}")
+        return ",".join(parts)
+
+
+# Wildcard schema: matches anything (reference: ANY caps).
+ANY = StreamSpec((), FORMAT_FLEXIBLE, None)

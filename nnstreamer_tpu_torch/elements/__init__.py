@@ -1,0 +1,4 @@
+"""Stream elements.  Importing this package registers every element
+factory (≙ plugin registration)."""
+
+from . import basic, decoder, filter  # noqa: F401
