@@ -2,33 +2,50 @@
 """Chip smoke test of the PyTorch/CUDA port (``nnstreamer_tpu_torch``) on
 one NVIDIA GPU.  Run from the root of a checkout::
 
-    python3 chip_smoke.py [--frames 2048] [--seed 0]
+    python3 chip_smoke.py [--frames 2048] [--vit-frames 1024] [--prompts 16] [--seed 0]
 
 Phases (any failure exits non-zero before the result lines are printed):
 
 1. device: a CUDA device must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. build: compiles every CUDA kernel of the main path from ``csrc/`` with
-   nvcc (one process per source, in parallel) and prints the seconds.
-3. kernels: calls each kernel's wrapper on the card at the main path's
-   shapes and at awkward ones (ragged lengths, unaligned starts, ties,
-   -inf and NaN rows) and holds it against its plain PyTorch version:
-   bit-equal for ``normalize_u8``, index- and value-equal (NaN positions
-   included) for ``top1``.  Times each with CUDA events (median of 25
-   runs of 10 launches each, queued behind a device sleep so host launch
-   overhead is not counted) beside its plain version, the one PyTorch
-   call computing the same function where there is one, and the least
-   time the card could take (the larger of bytes over memory bandwidth and
-   operations over peak rate, H100 SXM data sheet).
-4. main path: the MobileNet-v2 image-labeling pipeline at full width
-   (224x224, width 1.0, 1001 classes, bf16, random weights from a seed)
-   through ``parse_pipeline`` with ``framework=torch-cuda``, ``--frames``
-   seeded uint8 frames pushed one by one.  Every frame must come back
-   with a label index in [0, 1001); both kernels' launch counters, zeroed
-   just before, must have moved at least once per micro-batch; the labels
-   must equal those of the same model called directly on the frames in
-   batches of 128 followed by ``top1_plain``.  Prints frames/s, the
-   end-to-end frame latency and the per-batch model latency.
+2. build: compiles every CUDA kernel of the three paths from ``csrc/``
+   with nvcc (one process per source, all started together) and prints
+   the seconds.
+3. kernels: calls each kernel's wrapper on the card at the paths' shapes
+   and at awkward ones and holds it against its plain PyTorch version:
+   bit-equal for ``normalize_u8`` (ragged lengths, unaligned starts),
+   index- and value-equal for ``top1`` (ties, -inf and NaN rows), and for
+   ``flash_attention`` within atol = rtol = 2e-5 in float32, 1e-2 for
+   bfloat16 outputs (compared in float32: about one bf16 ulp), 1e-4 for
+   the lse (ViT-B/16 and GPT-2-small shapes as the models lay q, k, v out,
+   ragged T, T = 1, D of 32 and 128, Tq != Tk).  Times each with CUDA
+   events (median of 25 runs of 10 launches each, queued behind a device
+   sleep so host launch overhead is not counted) beside its plain version,
+   the one PyTorch call computing the same function where there is one
+   (``torch.max``, ``scaled_dot_product_attention``), and the least time
+   the card could take (the larger of bytes over memory bandwidth and
+   operations over the peak rate of their type, H100 SXM data sheet).
+4. paths, each driven through ``parse_pipeline`` with
+   ``framework=torch-cuda`` at full width with random weights from
+   ``--seed``, every launch counter set to 0 just before and read just
+   after; each kernel of the path must have launched (at least once per
+   micro-batch; flash attention once per layer per micro-batch), and the
+   outputs must equal those of the same module called directly on the
+   same inputs in the pipeline's own micro-batch sizes (so both see the
+   same shapes), followed by the plain ``top1``:
+   a. MobileNet-v2 image labeling (224x224, 1001 classes, bf16),
+      ``--frames`` uint8 frames pushed one by one;
+   b. ViT-B/16 image labeling (224x224, patch 16, 768 wide, 12 heads, 12
+      layers, MLP 3072, 1001 classes, bf16, ``attn:flash``),
+      ``--vit-frames`` frames; plus, on 8 frames, a float32 copy of the
+      module with attention by the kernel against the same copy with
+      attention by ``flash_attention_plain`` (TF32 off), within 1e-4;
+   c. GPT-2-small scoring (vocab 50257, 768 wide, 12 heads, 12 layers,
+      MLP 3072, 1024 tokens, bf16, ``attn:flash``): ``--prompts`` prompts
+      of 1024 tokens, full-sequence logits; the per-position argmax of
+      every returned (1024, 50257) frame must equal the direct call's.
+   Prints frames/s or sequences/s and tokens/s, latencies and the direct
+   per-batch time beside the card line.
 5. summary: one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -41,14 +58,27 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside the
-# tensor cores (the kernels here do scalar float32 work)
+# H100 SXM data sheet: HBM3 bandwidth, the float32 rate outside the tensor
+# cores, the dense bf16 tensor-core rate
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+VIT_CUSTOM = ("arch:vit,size:224,patch:16,d_model:768,heads:12,layers:12,d_ff:3072,"
+              "classes:1001,attn:flash,dtype:bfloat16")
+LM_CUSTOM = ("arch:transformer,vocab:50257,d_model:768,heads:12,layers:12,d_ff:3072,seq:1024,"
+             "attn:flash,dtype:bfloat16")
+
+
+def custom_props(custom: str) -> dict:
+    """``k1:v1,k2:v2`` as a dict."""
+    return dict(item.split(":", 1) for item in custom.split(","))
 
 
 def card_line() -> str:
@@ -80,8 +110,8 @@ def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -162,84 +192,307 @@ def check_top1(torch, lab) -> dict:
             "bound_by": by, "library_ms": library, "match": True}
 
 
-def run_main_path(torch, np, pre, lab, frames: int, seed: int, card: str) -> dict:
+def check_flash(torch, fa) -> dict:
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 2e-5, bf16: 1e-2}
+
+    def qkv(b, tq, h, d, dtype, tk=None, fused=False):
+        if fused:  # the models' layout: (B, T, H, D) views of one qkv projection
+            x = torch.randn(b, tq, 3 * h * d, device=dev, generator=g).to(dtype)
+            return [a.reshape(b, tq, h, d) for a in x.split(h * d, dim=-1)]
+        return [torch.randn(b, t, h, d, device=dev, generator=g).to(dtype)
+                for t in (tq, tk or tq, tk or tq)]
+
+    # (label, shape (B, Tq, H, D), Tk, dtype, causal, q/k/v as the models lay them out)
+    cases = [
+        ("ViT-B/16", (128, 197, 12, 64), None, bf16, False, True),
+        ("GPT-2 small", (8, 1024, 12, 64), None, bf16, True, True),
+        ("f32 ragged", (2, 100, 2, 64), None, f32, False, False),
+        ("f32 ragged", (2, 100, 2, 64), None, f32, True, True),
+        ("T=1", (2, 1, 2, 64), None, f32, True, False),
+        ("T=1", (2, 1, 2, 64), None, bf16, False, True),
+        ("D=32", (2, 77, 3, 32), None, f32, True, False),
+        ("D=32", (2, 77, 3, 32), None, bf16, False, True),
+        ("D=128", (2, 130, 2, 128), None, f32, False, True),
+        ("D=128", (2, 130, 2, 128), None, bf16, True, False),
+        ("lse Tq!=Tk", (2, 128, 2, 64), 320, f32, False, False),
+        ("lse Tq!=Tk", (2, 128, 2, 64), 320, bf16, False, False),
+        ("lse T=197", (2, 197, 2, 64), None, f32, True, True),
+        ("lse T=197", (2, 197, 2, 64), None, bf16, True, False),
+    ]
+    err = lse_err = 0.0
+    for label, (b, tq, h, d), tk, dtype, causal, fused in cases:
+        q, k, v = qkv(b, tq, h, d, dtype, tk, fused)
+        want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal, with_lse=True)
+        outs = [fa.flash_attention(q, k, v, causal=causal)]
+        if label.startswith("lse"):
+            out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+            outs.append(out)
+            torch.cuda.synchronize()
+            e = (lse - want_lse).abs().max().item()
+            if lse.shape != want_lse.shape or not e <= 1e-4:
+                raise AssertionError(f"flash_attention_lse {label} {dtype}: lse off by {e}")
+            lse_err = max(lse_err, e)
+        torch.cuda.synchronize()
+        for got in outs:
+            if got.shape != want.shape or got.dtype != dtype or not torch.allclose(
+                    got.float(), want.float(), atol=tol[dtype], rtol=tol[dtype]):
+                diff = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"flash_attention {label} {(b, tq, h, d)} {dtype} "
+                                     f"causal={causal}: off the plain version by {diff}")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    print(f"flash_attention: {len(cases)} cases within tolerance of the plain version "
+          f"(f32 atol=rtol=2e-5, bf16 1e-2, lse 1e-4); max abs err {err:.3g}, lse {lse_err:.3g}")
+
+    shapes = []
+    for label, shape, causal in (("ViT-B/16", (128, 197, 12, 64), False),
+                                 ("GPT-2 small", (8, 1024, 12, 64), True)):
+        b, t, h, d = shape
+        q, k, v = qkv(b, t, h, d, bf16, fused=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kernel = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal))
+        library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+        ops = 4 * b * h * t * t * d / (2 if causal else 1)
+        bound, by = bound_ms(4 * b * t * h * d * 2, ops, BF16_OPS_PER_S)  # q, k, v in; out
+        print(f"flash_attention {label} {shape} bf16 causal={causal}: kernel_ms {kernel:.4f}, "
+              f"plain_ms {plain:.4f}, library_ms {library:.4f} (scaled_dot_product_attention), "
+              f"bound_ms {bound:.4f} ({by})")
+        shapes.append({"shape": label, "causal": causal, "ms": kernel, "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": by, "library_ms": library})
+    main = shapes[0]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "nnstreamer_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "nnstreamer_tpu/ops/flash_attention.py:148",
+            "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"], "match": True,
+            "shapes": shapes}
+
+
+class Counters:
+    """Every kernel wrapper's launch count, zeroed and read around a path."""
+
+    def __init__(self, modules: dict):
+        self.modules = modules
+
+    def zero(self) -> None:
+        for mod in self.modules.values():
+            mod.LAUNCHES = 0
+
+    def read(self) -> dict:
+        return {name: mod.LAUNCHES for name, mod in self.modules.items()}
+
+
+@contextmanager
+def recording_batches(pipe, name: str):
+    """Record the size of every micro-batch the filter `name` hands its
+    backend, in order."""
+    backend = pipe[name].backend
+    inner, sizes = backend.invoke_batch, []
+
+    def invoke_batch(inputs):
+        sizes.append(int(inputs[0].shape[0]))
+        return inner(inputs)
+
+    backend.invoke_batch = invoke_batch
+    try:
+        yield sizes
+    finally:
+        del backend.invoke_batch
+
+
+def direct_batches(torch, module, inputs, sizes):
+    """The module called directly on `inputs` (host numpy) in the given
+    micro-batch sizes, each padded to a power of two by repeating its last
+    row as the backend pads it; yields (first row, n, outputs of the n
+    rows, host clock before the copy in)."""
+    k = 0
+    with torch.inference_mode():
+        for n in sizes:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            x = torch.from_numpy(inputs[k:k + n]).cuda()
+            bucket = 1 << (n - 1).bit_length()
+            if bucket != n:
+                x = torch.cat([x, x[-1:].expand((bucket - n,) + tuple(x.shape[1:]))])
+            out = module(x)[:n]
+            yield k, n, out, t
+            k += n
+
+
+def run_labeling_path(torch, np, lab, counters, name, custom, kernels_per_batch, frames, seed,
+                      card, labels) -> dict:
+    """One image-labeling path: `frames` seeded 224x224 frames pushed one by
+    one; checks labels, launches and the direct call; returns the path's
+    launches, micro-batches and module."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
-    labels = work / "labels.txt"
-    labels.write_text("\n".join(f"class{i}" for i in range(1001)))
     rng = np.random.default_rng(seed)
     images = rng.integers(0, 256, (frames, 224, 224, 3), dtype=np.uint8)
-
-    pre.LAUNCHES = lab.LAUNCHES = 0
     pipe = parse_pipeline(
-        "appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
-        f"custom=arch:mobilenet_v2,dtype:bfloat16,seed:{seed} max-batch=128 batch-timeout=20 "
+        f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
+        f"custom={custom},seed:{seed} max-batch=128 batch-timeout=20 "
         f"! tensor_decoder mode=image_labeling option1={labels} ! tensor_sink name=out")
     arrived = {}
     pipe["out"].connect_new_data(lambda f: arrived.__setitem__(int(f.pts), time.perf_counter()))
+    counters.zero()
     pipe.start()
     try:
-        pushed = []
-        t0 = time.perf_counter()
-        for i in range(frames):
-            pushed.append(time.perf_counter())
-            pipe["src"].push(images[i], pts=float(i))
-        pipe["src"].end_of_stream()
-        pipe.wait(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = {"normalize_u8": pre.LAUNCHES, "top1": lab.LAUNCHES}
-        batches = pipe["f"].invokes
+        with recording_batches(pipe, "f") as sizes:
+            pushed = []
+            t0 = time.perf_counter()
+            for i in range(frames):
+                pushed.append(time.perf_counter())
+                pipe["src"].push(images[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = counters.read()
+        batches = len(sizes)
         module = pipe["f"].backend._module
         out = pipe["out"].frames
         if len(out) != frames or [f.pts for f in out] != list(range(frames)):
-            raise AssertionError(f"{len(out)} of {frames} frames came back, or out of order")
+            raise AssertionError(f"{name}: {len(out)} of {frames} frames came back, or out of order")
         got = np.array([f.meta["label_index"] for f in out])
         if not ((got >= 0) & (got < 1001)).all() or out[0].meta["label"] != f"class{got[0]}":
-            raise AssertionError("a label index outside [0, 1001)")
-        for name, n in launches.items():
-            if n < batches:
-                raise AssertionError(f"{name}: {n} launches for {batches} micro-batches")
-        # reference: the same module called directly, batches of 128, then
-        # top1_plain; bf16 convolutions and the float32 classifier (TF32 off)
+            raise AssertionError(f"{name}: a label index outside [0, 1001)")
+        for kernel, per_batch in kernels_per_batch.items():
+            if launches[kernel] < per_batch * batches:
+                raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times for "
+                                     f"{batches} micro-batches (want >= {per_batch} each)")
+        # reference: the same module called directly, then top1_plain; bf16
+        # compute, float32 head (TF32 off)
         want, batch_s = [], []
-        with torch.inference_mode():
-            for k in range(0, frames, 128):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                logits = module(torch.from_numpy(images[k:k + 128]).cuda())
-                want.append(lab.top1_plain(logits)[0].cpu().numpy())
-                batch_s.append(time.perf_counter() - t)
+        for _, _, logits, t in direct_batches(torch, module, images, sizes):
+            want.append(lab.top1_plain(logits)[0].cpu().numpy())
+            batch_s.append(time.perf_counter() - t)
         want = np.concatenate(want)
         if not np.array_equal(got, want):
             bad = np.flatnonzero(got != want)
-            raise AssertionError(
-                f"{len(bad)} pipeline labels differ from the direct call (first frames {bad[:8]})")
+            raise AssertionError(f"{name}: {len(bad)} pipeline labels differ from the direct "
+                                 f"call (first frames {bad[:8]})")
     finally:
         pipe.stop()
     lat = sorted(arrived[i] - pushed[i] for i in range(frames))
-    fps = frames / wall
     # steady state: from the first micro-batch's arrival (it carries the
     # card's lazy set-up: cuDNN handles, kernel selection) to the last
-    first = min(127, frames - 1)
+    first = sizes[0] - 1
     span = max(arrived.values()) - arrived[first]
     steady = (frames - first - 1) / span if span > 0 else float("nan")
     p50, p99 = lat[len(lat) // 2] * 1e3, lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
     batch_ms = statistics.median(batch_s[1:] or batch_s) * 1e3
-    print(f"main path: {frames} frames in {batches} micro-batches, labels equal to the direct "
-          f"call; launches {launches}")
-    print(f"main path: {fps:.1f} frames/s overall, {steady:.1f} frames/s after the first "
-          f"micro-batch; frame latency (push to sink) p50 {p50:.2f} ms p99 {p99:.2f} ms; "
-          f"direct model call per 128-frame batch (copy in, model, top1, copy out) "
+    print(f"{name} path: {frames} frames in {batches} micro-batches (sizes {sorted(set(sizes))}), "
+          f"labels equal to the direct call; launches {launches}")
+    print(f"{name} path: {frames / wall:.1f} frames/s overall, {steady:.1f} frames/s after the "
+          f"first micro-batch; frame latency (push to sink) p50 {p50:.2f} ms p99 {p99:.2f} ms; "
+          f"direct model call per {max(sizes)}-frame batch (copy in, model, top1, copy out) "
           f"{batch_ms:.2f} ms (host clock, synchronized); on {card}")
-    return {"launches": launches, "batches": batches}
+    return {"launches": launches, "batches": batches, "module": module, "images": images}
+
+
+def check_vit_float32(torch, module, images) -> float:
+    """A float32 copy of the ViT on 8 frames: attention by the kernel
+    against attention by flash_attention_plain (TF32 off)."""
+    from nnstreamer_tpu_torch.models import build, transformer
+    from nnstreamer_tpu_torch.ops import flash_attention as fa
+
+    copy, _, _ = build("vit", custom_props(VIT_CUSTOM) | {"dtype": "float32"})
+    copy.load_state_dict(module.state_dict())
+    copy = copy.cuda().eval()
+    x = torch.from_numpy(images[:8]).cuda()
+    with torch.inference_mode():
+        got = copy(x)
+        with mock.patch.object(transformer, "flash_attention", fa.flash_attention_plain):
+            want = copy(x)
+    err = (got - want).abs().max().item()
+    if got.shape != want.shape or not torch.isfinite(got).all() or not err <= 1e-4:
+        raise AssertionError(f"ViT float32: kernel attention off the plain one by {err}")
+    print(f"ViT path: float32 copy on 8 frames, attention by the kernel vs by the plain version: "
+          f"max abs logit difference {err:.3g} (limit 1e-4)")
+    return err
+
+
+def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str) -> dict:
+    """GPT-2-small scoring: `prompts` seeded prompts of 1024 tokens through
+    appsrc ! tensor_filter ! tensor_sink; checks every frame's per-position
+    argmax against the direct call and the flash launches."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    props = custom_props(LM_CUSTOM)
+    seq, vocab, layers = int(props["seq"]), int(props["vocab"]), int(props["layers"])
+    tokens = np.random.default_rng(seed).integers(0, vocab, (prompts, seq), dtype=np.int32)
+    pipe = parse_pipeline(
+        f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
+        f"custom={LM_CUSTOM},seed:{seed} max-batch=8 ! tensor_sink name=out")
+    arrived = {}
+    pipe["out"].connect_new_data(lambda f: arrived.__setitem__(int(f.pts), time.perf_counter()))
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            t0 = time.perf_counter()
+            for i in range(prompts):
+                pipe["src"].push(tokens[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = counters.read()
+        out = pipe["out"].frames
+        if len(out) != prompts or [f.pts for f in out] != list(range(prompts)):
+            raise AssertionError(f"LM: {len(out)} of {prompts} frames came back, or out of order")
+        got = []
+        for f in out:
+            logits = f.tensors[0]
+            if logits.shape != (seq, vocab) or logits.dtype != np.float32 or not np.isfinite(
+                    logits).all():
+                raise AssertionError(f"LM: a frame of {logits.shape} {logits.dtype}, or not finite")
+            got.append(logits.argmax(-1))
+        got = np.stack(got)
+        del out, logits
+        pipe["out"].frames.clear()
+        if launches["flash_attention"] < layers * len(sizes):
+            raise AssertionError(f"LM: flash_attention launched {launches['flash_attention']} "
+                                 f"times for {len(sizes)} invokes of {layers} layers")
+        module = pipe["f"].backend._module
+        want, batch_s = [], []
+        for _, n, logits, t in direct_batches(torch, module, tokens, sizes):
+            want.append(logits.argmax(-1).cpu().numpy())
+            batch_s.append((time.perf_counter() - t, n))
+        want = np.concatenate(want)
+        if not np.array_equal(got, want):
+            bad = np.argwhere(got != want)
+            raise AssertionError(f"LM: {len(bad)} argmax positions differ from the direct call "
+                                 f"(first (prompt, position) {bad[:4].tolist()})")
+    finally:
+        pipe.stop()
+    full = [s for s, n in batch_s if n == max(sizes)]
+    batch_ms = statistics.median(full[1:] or full) * 1e3
+    # steady state: from the first invoke's last frame (it carries the
+    # card's lazy set-up) to the last
+    first = sizes[0] - 1
+    span = max(arrived.values()) - arrived[first]
+    steady = (prompts - first - 1) / span if span > 0 else float("nan")
+    print(f"LM path: {prompts} prompts of {seq} tokens in {len(sizes)} invokes (sizes {sizes}), "
+          f"per-position argmax equal to the direct call; launches {launches}")
+    print(f"LM path: {prompts / wall:.2f} sequences/s, {prompts * seq / wall:.1f} tokens/s "
+          f"(push to last logits frame at the sink, logits copied to the host), "
+          f"{steady:.2f} sequences/s after the first invoke; direct model "
+          f"call per {max(sizes)}-prompt batch {batch_ms:.2f} ms (host clock, synchronized); "
+          f"on {card}")
+    return {"launches": launches, "batches": len(sizes)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", type=int, default=2048, help="frames pushed through the pipeline")
-    ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the frames")
+    ap.add_argument("--frames", type=int, default=2048, help="frames through MobileNet-v2")
+    ap.add_argument("--vit-frames", type=int, default=1024, help="frames through ViT-B/16")
+    ap.add_argument("--prompts", type=int, default=16, help="1024-token prompts through GPT-2 small")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     args = ap.parse_args()
 
     if not (ROOT / "nnstreamer_tpu_torch" / "csrc").is_dir():
@@ -250,6 +503,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
+    t_start = time.perf_counter()
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; card {card}")
@@ -259,19 +513,48 @@ def main() -> int:
     print("TF32 off for convolutions and matmuls (float32 comparisons)")
 
     from nnstreamer_tpu_torch.ops import _build
+    from nnstreamer_tpu_torch.ops import flash_attention as fa
     from nnstreamer_tpu_torch.ops import labeling as lab
     from nnstreamer_tpu_torch.ops import preprocess as pre
 
     t = time.perf_counter()
-    _build.build(["normalize_u8", "top1"])
-    print(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, both kernels in parallel)")
+    _build.build(["normalize_u8", "top1", "flash_attention"])
+    print(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, three kernels in parallel)")
 
-    kernels = [check_normalize(torch, pre), check_top1(torch, lab)]
-    run = run_main_path(torch, np, pre, lab, args.frames, args.seed, card)
+    kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa)]
+    counters = Counters({"normalize_u8": pre, "top1": lab, "flash_attention": fa})
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    labels = work / "labels.txt"
+    labels.write_text("\n".join(f"class{i}" for i in range(1001)))
+
+    paths = {}
+    paths["mobilenet_v2"] = run_labeling_path(
+        torch, np, lab, counters, "MobileNet-v2", "arch:mobilenet_v2,dtype:bfloat16",
+        {"normalize_u8": 1, "top1": 1}, args.frames, args.seed, card, labels)
+    paths["vit"] = run_labeling_path(
+        torch, np, lab, counters, "ViT-B/16", VIT_CUSTOM,
+        {"flash_attention": int(custom_props(VIT_CUSTOM)["layers"]), "top1": 1},
+        args.vit_frames, args.seed, card, labels)
+    check_vit_float32(torch, paths["vit"].pop("module"), paths["vit"].pop("images"))
+    for p in paths.values():
+        p.pop("module", None)
+        p.pop("images", None)
+    torch.cuda.empty_cache()
+    paths["gpt2_small"] = run_lm_path(torch, np, counters, args.prompts, args.seed, card)
+
     for k in kernels:
-        k["launches"] = run["launches"][k["name"]]
-        k["launches_per_microbatch"] = k["launches"] / run["batches"]
-
+        by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
+        k["microbatches_by_path"] = {name: p["batches"] for name, p in paths.items()
+                                     if by_path[name]}
+        k["kernel_ms"] = k["ms"]
+    flash = kernels[2]["launches_by_path"]
+    print("flash_attention launches per model call: " + ", ".join(
+        f"{name} {flash[name]} in {paths[name]['batches']} = {flash[name] / paths[name]['batches']:g}"
+        for name in ("vit", "gpt2_small")))
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -155,7 +155,9 @@ def build(custom_props=None):
 
     module(images_u8 (N, size, size, 3)) -> logits (N, classes).  Custom
     props: ``dtype`` (bfloat16 | float32 | float16), ``size``, ``classes``,
-    ``width``, ``seed`` — the JAX build's, with the same defaults.
+    ``width``, ``seed`` — the JAX build's.  ``dtype`` defaults to bfloat16
+    here; the zoo's ``build`` sets it from the device first (bfloat16 with a
+    CUDA device, float32 without), as the JAX zoo does.
     """
     props = custom_props or {}
     dtype = _DTYPES[props.get("dtype", "bfloat16")]

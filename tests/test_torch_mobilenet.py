@@ -107,3 +107,26 @@ def test_build_is_seeded_and_keeps_classifier_float32():
     with torch.inference_mode():
         out = a(x)
     assert out.dtype == torch.float32 and out.shape == (2, 10) and torch.isfinite(out).all()
+
+
+def test_zoo_default_dtype_follows_the_device(models, monkeypatch):
+    # no dtype prop: the JAX zoo takes core/hw.py's probe, float32 on a host
+    # CPU, so its model here is the float32 one of the `models` fixture; the
+    # port's zoo probes torch.cuda.is_available() and must agree with it
+    from nnstreamer_tpu.core.hw import preferred_dtype
+
+    size, fn, variables, _, _ = models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert preferred_dtype() == "float32" == _PROPS["dtype"]
+    props = {k: v for k, v in _PROPS.items() if k != "dtype"}
+    module, _, _ = torch_build("mobilenet_v2", dict(props, size=str(size)))
+    module.load_state_dict(state_dict_from_flax(variables), strict=True)
+    assert module.stem.conv.weight.dtype == torch.float32
+    x = np.random.default_rng(size + 1).integers(0, 256, (3, size, size, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        got = module.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(fn(variables, [x])[0]), rtol=1e-4, atol=1e-4)
+    # with a card: bfloat16, for every family
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    module, _, _ = torch_build("mobilenet_v2", dict(props, size=str(size)))
+    assert module.stem.conv.weight.dtype == torch.bfloat16

@@ -3,11 +3,13 @@
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/torch_port_profile.py [--frames 2048] [--seed 0]
+    python3 tools/torch_port_profile.py [--frames 2048] [--seed 0] [--custom arch:...]
 
-It builds the full-width MobileNet-v2 labeling pipeline of
-``chip_smoke.py`` (224x224, width 1.0, 1001 classes, bf16, seeded random
-weights), warms it up with one micro-batch, and then measures in turn:
+It builds a full-width image-labeling pipeline of ``chip_smoke.py`` —
+MobileNet-v2 by default (224x224, width 1.0, 1001 classes, bf16, seeded
+random weights), or the zoo model that ``--custom`` names (the filter's
+``custom=`` string, e.g. ``chip_smoke.VIT_CUSTOM`` for ViT-B/16) — warms
+it up with one micro-batch, and then measures in turn:
 
 * pipeline: frames/s through ``parse_pipeline`` (appsrc -> tensor_filter
   -> tensor_decoder -> tensor_sink, max-batch=128), under
@@ -56,6 +58,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--custom", default="arch:mobilenet_v2,dtype:bfloat16",
+                    help="the filter's custom= string: a zoo model taking 224x224 uint8 frames")
     args = ap.parse_args()
 
     import numpy as np
@@ -74,12 +78,12 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     images = rng.integers(0, 256, (args.frames + BATCH, 224, 224, 3), dtype=np.uint8)
     frames = [images[i] for i in range(len(images))]
-    out = {"card": card}
+    out = {"card": card, "custom": args.custom}
 
     # -- pipeline, steady state under the profiler ---------------------------
     pipe = parse_pipeline(
         "appsrc name=src max-buffers=256 ! tensor_filter name=f framework=torch-cuda model=zoo "
-        f"custom=arch:mobilenet_v2,dtype:bfloat16,seed:{args.seed} max-batch={BATCH} "
+        f"custom={args.custom},seed:{args.seed} max-batch={BATCH} "
         "batch-timeout=20 ! tensor_decoder mode=image_labeling ! tensor_sink name=out max-stored=1")
     arrived = [0]
     done = {BATCH: threading.Event(), len(frames): threading.Event()}
@@ -127,7 +131,8 @@ def main() -> int:
         print(f"  {ms:9.3f} ms  {name[:100]}")
 
     # -- the same work without the pipeline, and its parts --------------------
-    module, _, _ = build("mobilenet_v2", {"dtype": "bfloat16", "seed": str(args.seed)})
+    props = dict(item.split(":", 1) for item in args.custom.split(","))
+    module, _, _ = build(props.pop("arch"), dict(props, seed=str(args.seed)))
     module = module.cuda().eval()
 
     def step(k):
