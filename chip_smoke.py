@@ -17,19 +17,27 @@ Phases (any failure exits non-zero before the result lines are printed):
    index- and value-equal for ``top1`` (ties, -inf and NaN rows), and for
    ``flash_attention`` within atol = rtol = 2e-5 in float32, 1e-2 for
    bfloat16 outputs (compared in float32: about one bf16 ulp), 1e-4 for
-   the lse (ViT-B/16 and GPT-2-small shapes as the models lay q, k, v out,
-   ragged T, T = 1, D of 32 and 128, Tq != Tk).  Times each with CUDA
+   the lse, on both routes (bfloat16 on the tensor cores, float32 on the
+   CUDA cores): ViT-B/16 and GPT-2-small shapes as the models lay q, k, v
+   out, ragged T (causal T = 1000), T = 1, D of 8, 32, 40, 96 and 128,
+   Tq < Tk with a ragged Tk of 300, Tq > Tk, (B, H, T, D) storage read as
+   (B, T, H, D), odd token strides on the float32 route; and bfloat16
+   views the kernel cannot read (a base off by one element, a token
+   stride of H*D + 4) must raise without a launch.  Times each with CUDA
    events (median of 25 runs of 10 launches each, queued behind a device
    sleep so host launch overhead is not counted) beside its plain version,
    the one PyTorch call computing the same function where there is one
    (``torch.max``, ``scaled_dot_product_attention``), and the least time
    the card could take (the larger of bytes over memory bandwidth and
-   operations over the peak rate of their type, H100 SXM data sheet).
+   operations over the peak rate of their type, H100 SXM data sheet);
+   flash attention in bfloat16 at both paths' shapes and in float32 at
+   ViT-B/16's.
 4. paths, each driven through ``parse_pipeline`` with
    ``framework=torch-cuda`` at full width with random weights from
    ``--seed``, every launch counter set to 0 just before and read just
    after; each kernel of the path must have launched (at least once per
-   micro-batch; flash attention once per layer per micro-batch), and the
+   micro-batch; flash attention once per layer per micro-batch, every one
+   of them on the bfloat16 tensor-core route), and the
    outputs must equal those of the same module called directly on the
    same inputs in the pipeline's own micro-batch sizes (so both see the
    same shapes), followed by the plain ``top1``:
@@ -192,6 +200,14 @@ def check_top1(torch, lab) -> dict:
             "bound_by": by, "library_ms": library, "match": True}
 
 
+def tf32_off(torch) -> None:
+    """float32 references compare exactly only without TF32: turn it off
+    for convolutions and matmuls."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("TF32 off for convolutions and matmuls (float32 comparisons)")
+
+
 def check_flash(torch, fa) -> dict:
     import torch.nn.functional as F
 
@@ -200,33 +216,52 @@ def check_flash(torch, fa) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     tol = {f32: 2e-5, bf16: 1e-2}
 
-    def qkv(b, tq, h, d, dtype, tk=None, fused=False):
-        if fused:  # the models' layout: (B, T, H, D) views of one qkv projection
+    def qkv(b, tq, h, d, dtype, tk=None, layout="plain"):
+        if layout == "fused":  # the models' layout: (B, T, H, D) views of one qkv projection
             x = torch.randn(b, tq, 3 * h * d, device=dev, generator=g).to(dtype)
             return [a.reshape(b, tq, h, d) for a in x.split(h * d, dim=-1)]
-        return [torch.randn(b, t, h, d, device=dev, generator=g).to(dtype)
-                for t in (tq, tk or tq, tk or tq)]
+        ts = (tq, tk or tq, tk or tq)
+        if layout == "bhtd":  # (B, H, T, D) storage: head stride T*D, token stride D
+            return [torch.randn(b, h, t, d, device=dev, generator=g).to(dtype).transpose(1, 2)
+                    for t in ts]
+        if layout == "odd":  # token stride H*D + 4: not a multiple of 8
+            return [torch.randn(b, t, h * d + 4, device=dev, generator=g).to(dtype)[..., :h * d]
+                    .reshape(b, t, h, d) for t in ts]
+        return [torch.randn(b, t, h, d, device=dev, generator=g).to(dtype) for t in ts]
 
-    # (label, shape (B, Tq, H, D), Tk, dtype, causal, q/k/v as the models lay them out)
+    # (label, shape (B, Tq, H, D), Tk, dtype, causal, how q/k/v are laid out)
     cases = [
-        ("ViT-B/16", (128, 197, 12, 64), None, bf16, False, True),
-        ("GPT-2 small", (8, 1024, 12, 64), None, bf16, True, True),
-        ("f32 ragged", (2, 100, 2, 64), None, f32, False, False),
-        ("f32 ragged", (2, 100, 2, 64), None, f32, True, True),
-        ("T=1", (2, 1, 2, 64), None, f32, True, False),
-        ("T=1", (2, 1, 2, 64), None, bf16, False, True),
-        ("D=32", (2, 77, 3, 32), None, f32, True, False),
-        ("D=32", (2, 77, 3, 32), None, bf16, False, True),
-        ("D=128", (2, 130, 2, 128), None, f32, False, True),
-        ("D=128", (2, 130, 2, 128), None, bf16, True, False),
-        ("lse Tq!=Tk", (2, 128, 2, 64), 320, f32, False, False),
-        ("lse Tq!=Tk", (2, 128, 2, 64), 320, bf16, False, False),
-        ("lse T=197", (2, 197, 2, 64), None, f32, True, True),
-        ("lse T=197", (2, 197, 2, 64), None, bf16, True, False),
+        ("ViT-B/16", (128, 197, 12, 64), None, bf16, False, "fused"),
+        ("GPT-2 small", (8, 1024, 12, 64), None, bf16, True, "fused"),
+        ("f32 ragged", (2, 100, 2, 64), None, f32, False, "plain"),
+        ("f32 ragged", (2, 100, 2, 64), None, f32, True, "fused"),
+        ("T=1", (2, 1, 2, 64), None, f32, True, "plain"),
+        ("T=1", (2, 1, 2, 64), None, bf16, False, "fused"),
+        ("D=32", (2, 77, 3, 32), None, f32, True, "plain"),
+        ("D=32", (2, 77, 3, 32), None, bf16, False, "fused"),
+        ("D=128", (2, 130, 2, 128), None, f32, False, "fused"),
+        ("D=128", (2, 130, 2, 128), None, bf16, True, "plain"),
+        ("lse Tq!=Tk", (2, 128, 2, 64), 320, f32, False, "plain"),
+        ("lse Tq!=Tk", (2, 128, 2, 64), 320, bf16, False, "plain"),
+        ("lse T=197", (2, 197, 2, 64), None, f32, True, "fused"),
+        ("lse T=197", (2, 197, 2, 64), None, bf16, True, "plain"),
+        # the tensor-core route's padded contraction (D to 64 or 128)
+        ("D=8", (2, 77, 3, 8), None, bf16, False, "plain"),
+        ("D=8", (2, 77, 3, 8), None, bf16, True, "fused"),
+        ("D=40", (2, 130, 2, 40), None, bf16, True, "fused"),
+        ("D=40", (2, 130, 2, 40), None, bf16, False, "plain"),
+        ("D=128", (2, 130, 2, 128), None, bf16, False, "fused"),
+        ("D=96", (2, 130, 2, 96), None, bf16, True, "fused"),
+        ("causal T=1000", (2, 1000, 2, 64), None, bf16, True, "fused"),
+        ("lse ragged Tk=300", (2, 128, 2, 64), 300, bf16, False, "plain"),
+        ("lse ragged Tk=300", (2, 197, 3, 64), 300, bf16, False, "bhtd"),
+        ("lse Tq>Tk", (2, 300, 2, 64), 70, bf16, False, "plain"),
+        ("(B,H,T,D) storage", (2, 200, 3, 64), None, bf16, True, "bhtd"),
+        ("odd token stride", (2, 100, 2, 64), None, f32, False, "odd"),
     ]
     err = lse_err = 0.0
-    for label, (b, tq, h, d), tk, dtype, causal, fused in cases:
-        q, k, v = qkv(b, tq, h, d, dtype, tk, fused)
+    for label, (b, tq, h, d), tk, dtype, causal, layout in cases:
+        q, k, v = qkv(b, tq, h, d, dtype, tk, layout)
         want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal, with_lse=True)
         outs = [fa.flash_attention(q, k, v, causal=causal)]
         if label.startswith("lse"):
@@ -245,25 +280,48 @@ def check_flash(torch, fa) -> dict:
                 raise AssertionError(f"flash_attention {label} {(b, tq, h, d)} {dtype} "
                                      f"causal={causal}: off the plain version by {diff}")
             err = max(err, (got.float() - want.float()).abs().max().item())
+    # what the bfloat16 kernel's TMA reads cannot take raises, never falls back
+    refused = 0
+    flat = torch.randn(2 * 64 * 2 * 64 + 8, device=dev, generator=g).to(bf16)
+    bad_views = {"16-byte aligned": flat[1:1 + 2 * 64 * 2 * 64].view(2, 64, 2, 64),
+                 "multiples of 8": qkv(2, 64, 2, 64, bf16, layout="odd")[0]}
+    for match, bad in bad_views.items():
+        ok = torch.randn(2, 64, 2, 64, device=dev, generator=g).to(bf16)
+        before = fa.LAUNCHES
+        try:
+            fa.flash_attention(bad, ok, ok, causal=False)
+        except ValueError as e:
+            if match not in str(e) or fa.LAUNCHES != before:
+                raise AssertionError(f"flash_attention on a misaligned view: {e}") from e
+            refused += 1
+        else:
+            raise AssertionError(f"flash_attention took a view that is not {match}")
     print(f"flash_attention: {len(cases)} cases within tolerance of the plain version "
-          f"(f32 atol=rtol=2e-5, bf16 1e-2, lse 1e-4); max abs err {err:.3g}, lse {lse_err:.3g}")
+          f"(f32 atol=rtol=2e-5, bf16 1e-2, lse 1e-4); max abs err {err:.3g}, lse {lse_err:.3g}; "
+          f"{refused} misaligned bf16 views refused")
 
     shapes = []
-    for label, shape, causal in (("ViT-B/16", (128, 197, 12, 64), False),
-                                 ("GPT-2 small", (8, 1024, 12, 64), True)):
+    for label, shape, causal, dtype in (("ViT-B/16", (128, 197, 12, 64), False, bf16),
+                                        ("GPT-2 small", (8, 1024, 12, 64), True, bf16),
+                                        ("ViT-B/16", (128, 197, 12, 64), False, f32)):
         b, t, h, d = shape
-        q, k, v = qkv(b, t, h, d, bf16, fused=True)
+        q, k, v = qkv(b, t, h, d, dtype, layout="fused")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         kernel = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
         plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal))
         library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
         ops = 4 * b * h * t * t * d / (2 if causal else 1)
-        bound, by = bound_ms(4 * b * t * h * d * 2, ops, BF16_OPS_PER_S)  # q, k, v in; out
-        print(f"flash_attention {label} {shape} bf16 causal={causal}: kernel_ms {kernel:.4f}, "
-              f"plain_ms {plain:.4f}, library_ms {library:.4f} (scaled_dot_product_attention), "
-              f"bound_ms {bound:.4f} ({by})")
-        shapes.append({"shape": label, "causal": causal, "ms": kernel, "plain_ms": plain,
-                       "bound_ms": bound, "bound_by": by, "library_ms": library})
+        route = fa.route(dtype)
+        rate = BF16_OPS_PER_S if route == "tensor_cores" else FP32_OPS_PER_S
+        nbytes = 4 * b * t * h * d * q.element_size()  # q, k, v in; out
+        bound, by = bound_ms(nbytes, ops, rate)
+        name = str(dtype).replace("torch.", "")
+        print(f"flash_attention {label} {shape} {name} causal={causal} ({route}): "
+              f"kernel_ms {kernel:.4f}, plain_ms {plain:.4f}, library_ms {library:.4f} "
+              f"(scaled_dot_product_attention), bound_ms {bound:.4f} ({by})")
+        shapes.append({"shape": label, "dtype": name, "causal": causal, "route": route,
+                       "ms": kernel, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                       "library_ms": library})
     main = shapes[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "nnstreamer_tpu_torch/csrc/flash_attention.cu",
@@ -275,17 +333,18 @@ def check_flash(torch, fa) -> dict:
 
 
 class Counters:
-    """Every kernel wrapper's launch count, zeroed and read around a path."""
+    """Every kernel wrapper's launch count, zeroed and read around a path:
+    name -> (module, attribute)."""
 
-    def __init__(self, modules: dict):
-        self.modules = modules
+    def __init__(self, counts: dict):
+        self.counts = counts
 
     def zero(self) -> None:
-        for mod in self.modules.values():
-            mod.LAUNCHES = 0
+        for mod, attr in self.counts.values():
+            setattr(mod, attr, 0)
 
     def read(self) -> dict:
-        return {name: mod.LAUNCHES for name, mod in self.modules.items()}
+        return {name: getattr(mod, attr) for name, (mod, attr) in self.counts.items()}
 
 
 @contextmanager
@@ -455,9 +514,10 @@ def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str) -> dict
         got = np.stack(got)
         del out, logits
         pipe["out"].frames.clear()
-        if launches["flash_attention"] < layers * len(sizes):
-            raise AssertionError(f"LM: flash_attention launched {launches['flash_attention']} "
-                                 f"times for {len(sizes)} invokes of {layers} layers")
+        for kernel in ("flash_attention", "flash_attention_tensor_cores"):
+            if launches[kernel] < layers * len(sizes):
+                raise AssertionError(f"LM: {kernel} launched {launches[kernel]} times for "
+                                     f"{len(sizes)} invokes of {layers} layers")
         module = pipe["f"].backend._module
         want, batch_s = [], []
         for _, n, logits, t in direct_batches(torch, module, tokens, sizes):
@@ -507,10 +567,7 @@ def main() -> int:
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; card {card}")
-    # float32 references compare exactly only without TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print("TF32 off for convolutions and matmuls (float32 comparisons)")
+    tf32_off(torch)
 
     from nnstreamer_tpu_torch.ops import _build
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -522,7 +579,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, three kernels in parallel)")
 
     kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa)]
-    counters = Counters({"normalize_u8": pre, "top1": lab, "flash_attention": fa})
+    counters = Counters({"normalize_u8": (pre, "LAUNCHES"), "top1": (lab, "LAUNCHES"),
+                         "flash_attention": (fa, "LAUNCHES"),
+                         "flash_attention_tensor_cores": (fa, "LAUNCHES_TENSOR_CORES")})
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     labels = work / "labels.txt"
@@ -532,9 +591,10 @@ def main() -> int:
     paths["mobilenet_v2"] = run_labeling_path(
         torch, np, lab, counters, "MobileNet-v2", "arch:mobilenet_v2,dtype:bfloat16",
         {"normalize_u8": 1, "top1": 1}, args.frames, args.seed, card, labels)
+    vit_layers = int(custom_props(VIT_CUSTOM)["layers"])
     paths["vit"] = run_labeling_path(
         torch, np, lab, counters, "ViT-B/16", VIT_CUSTOM,
-        {"flash_attention": int(custom_props(VIT_CUSTOM)["layers"]), "top1": 1},
+        {"flash_attention": vit_layers, "flash_attention_tensor_cores": vit_layers, "top1": 1},
         args.vit_frames, args.seed, card, labels)
     check_vit_float32(torch, paths["vit"].pop("module"), paths["vit"].pop("images"))
     for p in paths.values():
@@ -550,6 +610,8 @@ def main() -> int:
         k["microbatches_by_path"] = {name: p["batches"] for name, p in paths.items()
                                      if by_path[name]}
         k["kernel_ms"] = k["ms"]
+    kernels[2]["launches_tensor_cores_by_path"] = {
+        name: p["launches"]["flash_attention_tensor_cores"] for name, p in paths.items()}
     flash = kernels[2]["launches_by_path"]
     print("flash_attention launches per model call: " + ", ".join(
         f"{name} {flash[name]} in {paths[name]['batches']} = {flash[name] / paths[name]['batches']:g}"

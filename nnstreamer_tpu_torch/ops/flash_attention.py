@@ -4,12 +4,17 @@ Port of ``nnstreamer_tpu/ops/flash_attention.py`` (forward and lse).  The
 public layout is the JAX package's: q, k, v are (B, T, H, D), the output
 is (B, T, H, D) in q's dtype, the lse (B, H, Tq) float32.  On a CUDA
 tensor the wrappers launch the hand-written kernel
-``csrc/flash_attention.cu`` (bfloat16 or float32, D a multiple of 8 up to
-128, any batch/token/head strides with D contiguous, any T: the kernel
-streams K/V tiles and masks the ragged one itself) or raise; on a CPU
-tensor they run :func:`flash_attention_plain`.  Tile sizes are the
-kernel's own.  The recompute-backward ``flash_attention_grad`` waits for
-the training slice: a CUDA call that needs a gradient raises.
+``csrc/flash_attention.cu`` or raise; on a CPU tensor they run
+:func:`flash_attention_plain`.  The kernel has two routes, chosen by
+dtype (:func:`route`): bfloat16 runs on the tensor cores (wgmma, work
+items of 128 query rows), float32 on the CUDA cores (blocks of 64 rows).
+Both take D a multiple of 8 up to 128, any T (the kernel streams K/V tiles
+and masks the ragged one itself) and strided (B, T, H, D) views with D
+contiguous; the bfloat16 route reads q, k, v through TMA tensor maps, so
+it also needs 16-byte aligned bases and batch, token and head strides that
+are multiples of 8 elements (:func:`check_kernel_args`).  The
+recompute-backward ``flash_attention_grad`` waits for the training slice:
+a CUDA call that needs a gradient raises.
 """
 
 from __future__ import annotations
@@ -21,11 +26,16 @@ import torch
 
 from . import _build
 
-#: kernel launches made by :func:`flash_attention` / :func:`flash_attention_lse`
+#: kernel launches made by :func:`flash_attention` / :func:`flash_attention_lse`, both routes
 LAUNCHES = 0
+#: the launches of those that ran the bfloat16 tensor-core kernel
+LAUNCHES_TENSOR_CORES = 0
 
 _NEG_INF = -1e30  # the masked score, as the Pallas kernel has it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+#: query rows per work item (bfloat16) or block (float32) of each route
+QUERY_TILE = {"tensor_cores": 128, "cuda_cores": 64}
 _SIGNATURES = {
     "nns_flash_attention": (
         *(ctypes.c_void_p,) * 5, *(ctypes.c_int,) * 6, *(ctypes.c_int64,) * 9,
@@ -48,19 +58,49 @@ def _check_shapes(q_shape: Sequence[int], k_shape: Sequence[int], v_shape: Seque
         raise ValueError(f"causal flash needs aligned q/k positions (Tq={tq}, Tk={tk})")
 
 
-def check_kernel_args(q_shape: Sequence[int], k_shape: Sequence[int], dtype: torch.dtype) -> None:
+def route(dtype: torch.dtype) -> str:
+    """Which kernel a CUDA call in `dtype` launches: ``"tensor_cores"``
+    (bfloat16, wgmma) or ``"cuda_cores"`` (float32, which TF32 on the
+    tensor cores would round to about three decimal digits)."""
+    if dtype not in _ROUTES:
+        raise TypeError(f"the flash-attention kernel takes bfloat16 or float32, not {dtype}")
+    return _ROUTES[dtype]
+
+
+def check_kernel_args(q_shape: Sequence[int], k_shape: Sequence[int], dtype: torch.dtype,
+                      views: Sequence[torch.Tensor] = ()) -> None:
     """Raise for what the CUDA kernel does not take: a dtype other than
     bfloat16/float32, a head dim that is not a multiple of 8 in [8, 128],
-    more than 2**31 - 1 (batch, head) pairs or T of 2**31 or more."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"the flash-attention kernel takes bfloat16 or float32, not {dtype}")
+    more than 2**31 - 1 (batch, head) pairs, T of 2**31 or more, or a grid
+    too large for the route's tiles of :data:`QUERY_TILE` query rows: the
+    tensor-core kernel walks one work item per (batch, head, query tile),
+    at most 2**31 - 1; the CUDA-core kernel at most 65535 query tiles.  For
+    each of `views` (the q, k, v tensors): D must be contiguous, and on
+    the bfloat16 route the base must be 16-byte aligned and the batch,
+    token and head strides multiples of 8 elements."""
+    kernel = route(dtype)
+    tile = QUERY_TILE[kernel]
     b, tq, h, d = q_shape
     if d % 8 or not 8 <= d <= 128:
         raise ValueError(f"the flash-attention kernel takes a head dim that is a multiple of 8 "
                          f"in [8, 128], got D={d}")
-    if b * h >= 2**31 or max(tq, k_shape[1]) >= 2**31 or -(-tq // 64) > 65535:
+    tiles = -(-tq // tile)
+    grid_ok = b * h * tiles < 2**31 if kernel == "tensor_cores" else tiles <= 65535
+    if b * h >= 2**31 or max(tq, k_shape[1]) >= 2**31 or not grid_ok:
         raise ValueError(f"flash attention: q {tuple(q_shape)} / k {tuple(k_shape)} too large "
-                         "for the kernel's grid")
+                         f"for the kernel's grid ({tile}-row query tiles)")
+    for name, t in zip("qkv", views):
+        if t.stride(-1) != 1:
+            raise ValueError("flash attention: the CUDA kernel needs D contiguous (stride 1)")
+        if kernel != "tensor_cores":
+            continue
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention: {name} starts at an address that is not "
+                             "16-byte aligned, which the bfloat16 kernel's TMA reads need")
+        if any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"flash attention: {name}'s batch, token and head strides "
+                             f"{tuple(t.stride()[:3])} must be multiples of 8 elements (16 "
+                             "bytes) for the bfloat16 kernel's TMA reads")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -89,7 +129,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_lse: bool):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_TENSOR_CORES
     _check_shapes(q.shape, k.shape, v.shape, causal)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash attention: q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
@@ -97,9 +137,7 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_l
         return flash_attention_plain(q, k, v, causal=causal, with_lse=True)
     if q.device.type != "cuda" or not (q.device == k.device == v.device):
         raise ValueError(f"flash attention: tensors on {q.device}, {k.device}, {v.device}")
-    check_kernel_args(q.shape, k.shape, q.dtype)
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash attention: the CUDA kernel needs D contiguous (stride 1)")
+    check_kernel_args(q.shape, k.shape, q.dtype, views=(q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash attention on CUDA has no backward yet (the training slice, "
                            "ROADMAP A9): call it under torch.inference_mode()")
@@ -118,6 +156,8 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_l
                 torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "flash_attention")
         LAUNCHES += 1
+        if route(q.dtype) == "tensor_cores":
+            LAUNCHES_TENSOR_CORES += 1
     return out, lse
 
 

@@ -7,8 +7,9 @@ kernel's numerics.  Same inputs from ``numpy.random.default_rng``.  Float32
 at ``atol=3e-5`` (``tests/test_flash_attention.py``'s tolerance: the two
 sum in another order); bfloat16 inputs compared in float32 at
 ``atol=rtol=1e-2``, about one bf16 ulp of the output.  Plus the port's
-``reference_attention`` against the JAX one, and the CUDA path's argument
-checks as pure functions of shapes (no card here).
+``reference_attention`` against the JAX one, and the CUDA kernel's route
+choice and argument checks as pure functions of dtypes, shapes, strides
+and addresses (views on the meta device; no card here).
 """
 
 import jax.numpy as jnp
@@ -129,3 +130,89 @@ def test_kernel_argument_check_takes_the_slice_shapes():
         fa.check_kernel_args((2, 64, 2, 64), (2, 64, 2, 64), torch.float16)
     with pytest.raises(ValueError, match="too large"):
         fa.check_kernel_args((2**16, 64, 2**15, 64), (2**16, 64, 2**15, 64), torch.bfloat16)
+
+
+# --- the CUDA kernel's two routes and what each takes (pure functions of
+# dtypes, shapes, strides and addresses; views on the meta device) ---
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"),
+                                         (torch.float32, "cuda_cores")])
+def test_route_follows_the_dtype(dtype, route):
+    assert fa.route(dtype) == route
+
+
+def test_route_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.route(torch.float16)
+
+
+@pytest.mark.parametrize("block,b,t", [("EncoderBlock", 128, 197), ("Block", 8, 1024)],
+                         ids=["vit_b16", "gpt2_small"])
+def test_kernel_args_take_the_models_own_views(block, b, t, monkeypatch):
+    # the port's own blocks at full width, on meta: q, k, v are views of one
+    # fused projection at 0, H*D and 2*H*D elements with token stride 3*H*D
+    from nnstreamer_tpu_torch.models import transformer, vit
+
+    seen = []
+
+    def record(q, k, v, *, causal):
+        fa.check_kernel_args(q.shape, k.shape, q.dtype, views=(q, k, v))
+        seen.append((tuple(q.shape), q.stride(), k.data_ptr() - q.data_ptr(),
+                     v.data_ptr() - q.data_ptr(), causal))
+        return q
+
+    monkeypatch.setattr(transformer, "flash_attention", record)
+    with torch.device("meta"):
+        cls = getattr(vit if block == "EncoderBlock" else transformer, block)
+        cls(768, 12, 3072, torch.bfloat16, attn_impl="flash")(
+            torch.empty(b, t, 768, dtype=torch.bfloat16))
+    assert seen == [((b, t, 12, 64), (t * 2304, 2304, 64, 1), 768 * 2, 2 * 768 * 2,
+                     block == "Block")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_args_take_a_head_major_view(dtype):
+    # (B, H, T, D) storage read as (B, T, H, D): head stride T*D, token stride D
+    q = torch.empty(2, 3, 200, 64, device="meta", dtype=dtype).transpose(1, 2)
+    fa.check_kernel_args(q.shape, q.shape, dtype, views=(q, q, q))
+
+
+def _bf16(*shape):
+    return torch.empty(*shape, device="meta", dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: _bf16(2 * 64 * 2 * 64 + 8)[1:1 + 2 * 64 * 2 * 64].view(2, 64, 2, 64),
+     "k starts at an address that is not 16-byte aligned"),
+    (lambda: _bf16(2, 64, 2 * 64 + 4)[..., :128].reshape(2, 64, 2, 64),
+     r"k's batch, token and head strides \(8448, 132, 64\) must be multiples of 8"),
+    (lambda: _bf16(2, 64, 2, 68)[..., :64], "multiples of 8 elements"),
+    (lambda: _bf16(2, 64, 2, 128)[..., ::2], "D contiguous"),
+], ids=["base_off_by_one_element", "token_stride_132", "head_stride_68", "d_strided"])
+def test_kernel_args_refuse_what_the_bf16_kernel_cannot_read(make, match):
+    ok = _bf16(2, 64, 2, 64)
+    bad = make()
+    with pytest.raises(ValueError, match=match):
+        fa.check_kernel_args(ok.shape, bad.shape, torch.bfloat16, views=(ok, bad, ok))
+
+
+def test_float32_route_takes_any_batch_token_head_strides():
+    # the CUDA-core kernel reads element by element: no alignment rule
+    odd = torch.empty(2, 64, 2 * 64 + 4, device="meta")[..., :128].reshape(2, 64, 2, 64)
+    shifted = torch.empty(2 * 64 * 2 * 64 + 1, device="meta")[1:].view(2, 64, 2, 64)
+    fa.check_kernel_args(odd.shape, odd.shape, torch.float32, views=(odd, shifted, odd))
+
+
+@pytest.mark.parametrize("dtype,heads,t_fits,t_over", [
+    # bfloat16: one work item per (batch, head, 128-row query tile), < 2**31
+    (torch.bfloat16, 2**16, 128 * (2**15 - 1), 128 * (2**15 - 1) + 1),
+    # float32: at most 65535 query tiles of 64 rows
+    (torch.float32, 1, 64 * 65535, 64 * 65535 + 1),
+], ids=["tensor_cores", "cuda_cores"])
+def test_grid_limit_follows_the_query_tile(dtype, heads, t_fits, t_over):
+    fa.check_kernel_args((1, t_fits, heads, 64), (1, t_fits, heads, 64), dtype)
+    with pytest.raises(ValueError, match="too large"):
+        fa.check_kernel_args((1, t_over, heads, 64), (1, t_over, heads, 64), dtype)
+    # the float32 limit is not the bfloat16 one: 128-row tiles halve the count
+    fa.check_kernel_args((1, 64 * 65535 + 1, 1, 64), (1, 64 * 65535 + 1, 1, 64), torch.bfloat16)
