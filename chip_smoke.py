@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result lines are printed):
 3. kernels: calls each kernel's wrapper on the card at the paths' shapes
    and at awkward ones and holds it against its plain PyTorch version:
    bit-equal for ``normalize_u8`` (ragged lengths, unaligned starts),
-   index- and value-equal for ``top1`` (ties, -inf and NaN rows), and for
+   index- and value-equal for ``top1`` and ``top1_packed`` (float32,
+   bfloat16 and float16; ties, -inf and NaN rows, a row stride of 1024
+   for 1001 columns, rows starting at element offsets 1 and 3), and for
    ``flash_attention`` within atol = rtol = 2e-5 in float32, 1e-2 for
    bfloat16 outputs (compared in float32: about one bf16 ulp), 1e-4 for
    the lse, on both routes (bfloat16 on the tensor cores, float32 on the
@@ -31,13 +33,20 @@ Phases (any failure exits non-zero before the result lines are printed):
    the card could take (the larger of bytes over memory bandwidth and
    operations over the peak rate of their type, H100 SXM data sheet);
    flash attention in bfloat16 at both paths' shapes and in float32 at
-   ViT-B/16's.
+   ViT-B/16's.  ``top1`` is also timed packed, as the three-launch
+   composition it replaces in the decoder's device half (split kernel,
+   ``.to``, ``torch.stack``), in bfloat16, and beside an empty launch
+   (the launch floor); the host ms per ``device_fn`` call of both
+   compositions (100 calls queued behind a device sleep, median of 7);
+   and ``torch.profiler`` must see exactly one kernel in one
+   ``device_fn`` call.
 4. paths, each driven through ``parse_pipeline`` with
    ``framework=torch-cuda`` at full width with random weights from
    ``--seed``, every launch counter set to 0 just before and read just
    after; each kernel of the path must have launched (at least once per
    micro-batch; flash attention once per layer per micro-batch, every one
-   of them on the bfloat16 tensor-core route), and the
+   of them on the bfloat16 tensor-core route; ``top1`` exactly once per
+   micro-batch), and the
    outputs must equal those of the same module called directly on the
    same inputs in the pipeline's own micro-batch sizes (so both see the
    same shapes), followed by the plain ``top1``:
@@ -118,6 +127,36 @@ def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def host_ms(torch, fn, calls: int = 100, reps: int = 7) -> float:
+    """Median host time of one ``fn()`` call while the card sleeps (~100
+    ms per rep, far longer than the calls take to queue): what a call costs
+    the host (Python, allocation, ctypes, the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(200_000_000)
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t) / calls * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def cuda_kernels(torch, fn) -> list:
+    """Names of the CUDA kernels one ``fn()`` call runs, from
+    ``torch.profiler`` (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -164,40 +203,100 @@ def check_normalize(torch, pre) -> dict:
             "bound_by": by, "library_ms": None, "match": True}
 
 
-def check_top1(torch, lab) -> dict:
+def same_values(a, b) -> bool:
+    """Equal shapes and values, NaN where the other has NaN."""
+    import torch
+
+    nan = torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def top1_cases(torch, dtype, g) -> list:
+    """(label, logits) pairs in `dtype` on the card: the paths' (128, 1001)
+    with planted ties, -inf and NaN rows, small and long rows, and strided
+    and misaligned views of it whose neighbours outside the view are +inf
+    (a kernel reading past its row would pick them)."""
     dev = torch.device("cuda", 0)
-    g = torch.Generator(device=dev).manual_seed(2)
     main = torch.randn(128, 1001, device=dev, generator=g)
     main[1, [7, 500, 1000]] = 40.0  # ties: the first index wins
     main[2, :] = 3.0  # a whole row tied
     main[3, :] = float("-inf")  # all -inf: index 0
     main[4, [9, 900]] = float("nan")  # NaN is the maximum: the first NaN wins
-    main[5, 1000] = float("inf")  # the ragged tail (1001 = 31 * 32 + 9)
-    cases = [main, torch.randn(1, 1, device=dev, generator=g),
-             torch.randn(37, 31, device=dev, generator=g),
-             torch.randn(300, 4097, device=dev, generator=g)]
-    err = 0.0
-    for x in cases:
-        (idx, val), (ridx, rval) = lab.top1(x), lab.top1_plain(x)
-        torch.cuda.synchronize()
-        nan = torch.isnan(rval)
-        if not (torch.equal(idx, ridx) and torch.equal(torch.isnan(val), nan)
-                and torch.equal(val[~nan], rval[~nan])):
-            raise AssertionError(f"top1 {tuple(x.shape)}: differs from the plain version")
-        finite = ~nan & torch.isfinite(rval)
-        err = max(err, (val[finite] - rval[finite]).abs().max().item() if finite.any() else 0.0)
+    main[5, 1000] = float("inf")  # the ragged tail
+    main = main.to(dtype)
+    wide = torch.full((128, 1024), float("inf"), device=dev, dtype=dtype)
+    wide[:, :1001] = main
+    cases = [("(128, 1001)", main), ("[:, :1001] of (128, 1024)", wide[:, :1001])]
+    for offset in (1, 3):  # row r starts at element offset + 1001 * r
+        flat = torch.full((128 * 1001 + 8,), float("inf"), device=dev, dtype=dtype)
+        view = flat[offset:offset + 128 * 1001].view(128, 1001)
+        view.copy_(main)
+        cases.append((f"(128, 1001) at element offset {offset}", view))
+    for shape in ((1, 1), (37, 31), (300, 4097)):
+        cases.append((str(shape), torch.randn(*shape, device=dev, generator=g).to(dtype)))
+    return cases
+
+
+def check_top1(torch, lab) -> dict:
+    from nnstreamer_tpu_torch.decoders.image_label import ImageLabeling
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    n = err = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for label, x in top1_cases(torch, dtype, g):
+            (idx, val), (ridx, rval) = lab.top1(x), lab.top1_plain(x)
+            packed, rpacked = lab.top1_packed(x), lab.top1_packed_plain(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, ridx) and same_values(val, rval)):
+                raise AssertionError(f"top1 {label} {dtype}: differs from the plain version")
+            if not same_values(packed, rpacked):
+                raise AssertionError(f"top1_packed {label} {dtype}: differs from the plain version")
+            finite = torch.isfinite(rval)
+            err = max(err, (val[finite] - rval[finite]).abs().max().item() if finite.any() else 0.0)
+            n += 1
+    main = top1_cases(torch, torch.float32, g)[0][1]
+    main_bf16 = main.to(torch.bfloat16)
     rows, cols = main.shape
-    kernel = time_ms(lambda: lab.top1(main))
-    plain = time_ms(lambda: lab.top1_plain(main))
-    library = time_ms(lambda: torch.max(main, dim=1))
+
+    decoder = ImageLabeling()
+
+    def three_launches(outs):  # the device half as three launches: split kernel, .to, stack
+        idx, score = lab.top1(outs[0])
+        return [torch.stack([idx.to(torch.float32), score], dim=-1)]
+
+    one = cuda_kernels(torch, lambda: decoder.device_fn([main]))
+    three = cuda_kernels(torch, lambda: three_launches([main]))
+    if len(one) != 1 or "top1" not in one[0] or len(three) != 3:
+        raise AssertionError(f"device_fn ran kernels {one} (want only top1's), the "
+                             f"three-launch composition {three} (want 3)")
+    t = {"ms": time_ms(lambda: lab.top1(main)),
+         "packed_ms": time_ms(lambda: lab.top1_packed(main)),
+         "three_launch_ms": time_ms(lambda: three_launches([main])),
+         "library_ms": time_ms(lambda: torch.max(main, dim=1)),
+         "plain_ms": time_ms(lambda: lab.top1_plain(main)),
+         "packed_plain_ms": time_ms(lambda: lab.top1_packed_plain(main)),
+         "launch_floor_ms": time_ms(lambda: torch.cuda._sleep(0)),
+         "bf16_ms": time_ms(lambda: lab.top1(main_bf16)),
+         "host_ms_device_fn": host_ms(torch, lambda: decoder.device_fn([main])),
+         "host_ms_three_launch": host_ms(torch, lambda: three_launches([main]))}
     bound, by = bound_ms(rows * cols * 4 + rows * 8, rows * cols)  # one compare per element
-    print(f"top1 {tuple(main.shape)} float32: {len(cases)} cases equal (ties, -inf, NaN); "
-          f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, torch.max {library:.4f} ms, "
-          f"bound {bound:.5f} ms ({by})")
+    bf16_bound, _ = bound_ms(rows * cols * 2 + rows * 8, rows * cols)
+    print(f"top1: {n} cases (float32, bfloat16, float16; ties, -inf, NaN, strided and "
+          f"misaligned rows) index- and value-equal to the plain versions, split and packed")
+    print(f"top1 {tuple(main.shape)} float32: kernel {t['ms']:.4f} ms, packed {t['packed_ms']:.4f} "
+          f"ms, three-launch composition {t['three_launch_ms']:.4f} ms, torch.max "
+          f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, packed plain "
+          f"{t['packed_plain_ms']:.4f} ms, empty launch {t['launch_floor_ms']:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}); bfloat16 kernel {t['bf16_ms']:.4f} ms (bound {bf16_bound:.5f})")
+    print(f"top1 device half: device_fn runs {len(one)} kernel ({one[0]}), the three-launch "
+          f"composition {len(three)}; host ms per call {t['host_ms_device_fn']:.4f} against "
+          f"{t['host_ms_three_launch']:.4f}")
     return {"name": "top1", "route": "cuda", "source": "nnstreamer_tpu_torch/csrc/top1.cu",
-            "replaces": "nnstreamer_tpu/ops/labeling.py:29",
-            "max_abs_err": err, "ms": kernel, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": by, "library_ms": library, "match": True}
+            "replaces": "nnstreamer_tpu/ops/labeling.py:29", "max_abs_err": err, **t,
+            "bound_ms": bound, "bound_by": by, "bf16_bound_ms": bf16_bound, "cases": n,
+            "device_fn_kernels": len(one), "three_launch_kernels": len(three), "match": True}
 
 
 def tf32_off(torch) -> None:
@@ -424,6 +523,9 @@ def run_labeling_path(torch, np, lab, counters, name, custom, kernels_per_batch,
             if launches[kernel] < per_batch * batches:
                 raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times for "
                                      f"{batches} micro-batches (want >= {per_batch} each)")
+        if launches["top1"] != batches:  # the decoder's device half: one launch per micro-batch
+            raise AssertionError(f"{name}: top1 launched {launches['top1']} times for {batches} "
+                                 f"micro-batches (want exactly one each)")
         # reference: the same module called directly, then top1_plain; bf16
         # compute, float32 head (TF32 off)
         want, batch_s = [], []

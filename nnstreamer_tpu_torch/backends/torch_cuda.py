@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.buffer import materialize
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
 from .base import FilterBackend, register_backend
 
@@ -149,7 +150,7 @@ class TorchCuda(FilterBackend):
             raise ValueError("torch-cuda needs a static input schema")
         dummies = [np.zeros((1,) + t.shape, t.dtype) for t in in_spec.tensors]
         outs = self.invoke_batch(dummies)
-        host = [o.cpu().numpy() for o in outs]
+        host = materialize(outs)
         spec = StreamSpec(
             tuple(TensorSpec(tuple(o.shape[1:]), o.dtype) for o in host),
             FORMAT_STATIC, in_spec.framerate)

@@ -16,7 +16,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .types import StreamSpec
+from .types import BFLOAT16, StreamSpec
 
 _seq = itertools.count()
 
@@ -25,10 +25,26 @@ def _is_torch(t: Any) -> bool:
     return type(t).__module__.split(".")[0] == "torch"
 
 
+def to_numpy(t: Any) -> np.ndarray:
+    """A torch tensor as a host numpy array, copied through ``Tensor.cpu()``,
+    which waits for the work producing it.  bfloat16, which numpy lacks,
+    becomes an ``ml_dtypes.bfloat16`` array through an int16 view, as the
+    JAX package's host arrays are; without ml_dtypes that raises TypeError."""
+    t = t.detach().cpu()
+    if str(t.dtype) != "torch.bfloat16":
+        return t.numpy()
+    if BFLOAT16 is None:
+        raise TypeError("a bfloat16 tensor reaches the host as a numpy array only through "
+                        "ml_dtypes, which is not installed")
+    import torch
+
+    return t.view(torch.int16).numpy().view(BFLOAT16)
+
+
 def materialize(tensors: Sequence[Any]) -> List[np.ndarray]:
-    """Bring a tensor list to host numpy arrays.  Device tensors copy
-    through ``Tensor.cpu()``, which waits for the work producing them."""
-    return [t.detach().cpu().numpy() if _is_torch(t) else np.asarray(t) for t in tensors]
+    """Bring a tensor list to host numpy arrays (:func:`to_numpy` for torch
+    tensors)."""
+    return [to_numpy(t) if _is_torch(t) else np.asarray(t) for t in tensors]
 
 
 @dataclass

@@ -34,6 +34,9 @@ except ImportError:  # pragma: no cover — the main path needs no bf16 schema
 
 _NAME_BY_DTYPE = {v: k for k, v in _TYPE_NAMES.items()}
 
+#: numpy's bfloat16 (``ml_dtypes``), or None where ml_dtypes is not installed
+BFLOAT16: Optional[np.dtype] = _TYPE_NAMES.get("bfloat16")
+
 FORMAT_STATIC = "static"
 FORMAT_FLEXIBLE = "flexible"
 FORMATS = (FORMAT_STATIC, FORMAT_FLEXIBLE)

@@ -49,19 +49,17 @@ class ImageLabeling:
     # -- device-fused half (pipeline fusion pass) ---------------------------
     def device_fn(self, outs, device=None):
         """Device half, run inside the upstream filter's backend call on its
-        device: fused argmax+max (the ``top1`` kernel on CUDA), so only
-        (index, score) — 8 bytes/frame — crosses to the host.
+        device: fused argmax+max of float32, bfloat16 or float16 logits, so
+        only (index, score) — 8 bytes/frame — crosses to the host.
 
         The pair is packed into ONE float32 (B, 2) tensor, a single copy per
         micro-batch; float32 holds the index exactly (class counts are
-        << 2^24)."""
-        import torch
-
-        from ..ops.labeling import top1
+        << 2^24).  On CUDA the ``top1`` kernel writes the packed tensor
+        itself: one launch per micro-batch."""
+        from ..ops.labeling import top1_packed
 
         logits = outs[0] if device is None else outs[0].to(device)
-        idx, score = top1(logits)
-        return [torch.stack([idx.to(torch.float32), score], dim=-1)]  # (B, 2)
+        return [top1_packed(logits)]  # (B, 2)
 
     def decode_fused(self, frame: TensorFrame, in_spec) -> TensorFrame:
         """Host finishing after device_fn: tensor is [idx, score]."""

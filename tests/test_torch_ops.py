@@ -6,16 +6,21 @@ on the card; here they are held against ``nnstreamer_tpu.ops`` on the CPU
 (where the JAX ops take their jnp path, the Pallas kernels' reference).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from nnstreamer_tpu.decoders.image_label import ImageLabeling as JaxImageLabeling
 from nnstreamer_tpu.ops import normalize_u8 as jax_normalize_u8
 from nnstreamer_tpu.ops.labeling import top1 as jax_top1
+from nnstreamer_tpu_torch.core import buffer
+from nnstreamer_tpu_torch.decoders.image_label import ImageLabeling
 from nnstreamer_tpu_torch.ops import _build, labeling, normalize_u8, normalize_u8_plain, top1, top1_plain
-from nnstreamer_tpu_torch.ops import preprocess
+from nnstreamer_tpu_torch.ops import preprocess, top1_packed, top1_packed_plain
 
 torch.set_num_threads(2)
 
@@ -118,6 +123,120 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(no_kernel_build):
         top1(torch.zeros(2, 0))
     with pytest.raises(ValueError):
         top1(torch.zeros(2, 3, 4))
+
+
+def _typed(x, dtype):
+    """float32 numpy logits cast with numpy to `dtype`: (the numpy array
+    JAX takes, the torch tensor holding the same bits)."""
+    a = x.astype(_JNP[dtype])
+    if dtype == torch.float32:
+        return a, torch.from_numpy(a)
+    return a, torch.from_numpy(a.view(np.int16)).view(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(_logit_cases()))
+def test_top1_half_types_match_jax(case, dtype):
+    # argmax in the input type, max cast to float32, as jax_top1 does
+    a, x = _typed(_logit_cases()[case], dtype)
+    ref_idx, ref_val = (np.asarray(r) for r in jax_top1(a))
+    for idx, val in (top1_plain(x), top1(x)):
+        assert idx.dtype == torch.int32 and val.dtype == torch.float32
+        np.testing.assert_array_equal(idx.numpy(), ref_idx)
+        np.testing.assert_array_equal(val.numpy(), ref_val)  # NaN positions included
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(_logit_cases()))
+def test_top1_packed_matches_jax_device_fn(case, dtype):
+    a, x = _typed(_logit_cases()[case], dtype)
+    (ref,) = JaxImageLabeling().device_fn([a], platform="cpu")
+    ref = np.asarray(ref)
+    for got in (top1_packed_plain(x), top1_packed(x), ImageLabeling().device_fn([x])[0]):
+        assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+        np.testing.assert_array_equal(got.numpy(), ref)  # exact, NaN positions included
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("view", ["narrow_columns", "odd_offset", "transposed"])
+def test_top1_strided_rows_match_contiguous(view, dtype):
+    rng = np.random.default_rng(5)
+    wide = torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32)).to(dtype)
+    wide[2, [3, 17]] = 9.0  # a tie
+    x = {"narrow_columns": wide[:, :37],  # row stride 40, 37 columns
+         "odd_offset": wide.view(-1)[3:3 + 5 * 33].view(5, 33),  # storage offset 3
+         "transposed": wide[:, :6].t()}[view]  # column stride 40: copied once
+    dense = x.contiguous()
+    for a, b in zip(top1(x), top1(dense)):
+        assert torch.equal(a, b)
+    assert torch.equal(top1_packed(x), top1_packed(dense))
+
+
+@pytest.fixture
+def fake_kernel(monkeypatch):
+    """The wrapper's CUDA branch on CPU tensors, with the kernel library
+    replaced by a recorder of the entry point's arguments."""
+    calls = []
+
+    class Lib:
+        def nns_top1(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "load", lambda name, signatures: Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 7})())
+    return calls
+
+
+def test_top1_launch_reads_views_in_place(fake_kernel):
+    wide = torch.zeros(4, 1024, dtype=torch.bfloat16)
+    launches = labeling.LAUNCHES
+    x = wide[:, :1001]  # unit-stride columns: read in place with its row stride
+    packed = torch.empty(4, 2)
+    labeling._launch(x, packed=packed)
+    (ptr, dtype, rows, cols, row_stride, idx, val, out, stream), = fake_kernel
+    assert (ptr, dtype, rows, cols, row_stride) == (x.data_ptr(), 1, 4, 1001, 1024)
+    assert (idx, val, out, stream) == (None, None, packed.data_ptr(), 7)
+    odd = wide.view(-1)[3:3 + 2 * 1001].view(2, 1001)  # starts 3 elements in
+    idx, val = torch.empty(2, dtype=torch.int32), torch.empty(2)
+    labeling._launch(odd, idx=idx, val=val)
+    assert fake_kernel[1][:5] == (odd.data_ptr(), 1, 2, 1001, 1001)
+    assert fake_kernel[1][5:8] == (idx.data_ptr(), val.data_ptr(), None)
+    labeling._launch(torch.zeros(8, 3).t(), packed=torch.empty(3, 2))  # columns not unit stride
+    assert fake_kernel[2][2:5] == (3, 8, 8)  # a contiguous copy
+    labeling._launch(torch.zeros(0, 5), packed=torch.empty(0, 2))  # no rows: no launch
+    assert len(fake_kernel) == 3 and labeling.LAUNCHES == launches + 3
+
+
+def test_top1_refusals_without_a_launch(no_kernel_build):
+    launches = labeling.LAUNCHES
+    for fn in (top1, top1_packed):
+        with pytest.raises(TypeError):
+            fn(torch.zeros(2, 3, dtype=torch.float64))
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(torch.empty(2, 3, device="meta"))
+    # float32 holds every index exactly only below 2**24 columns (meta: nothing allocated)
+    with pytest.raises(ValueError, match="0 < C < 16777216"):
+        top1_packed(torch.empty(2, 2**24, device="meta"))
+    with pytest.raises(ValueError, match="0 < C < 16777216"):
+        top1_packed(torch.empty(2**24, dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        top1(torch.empty(2, 2**24, device="meta"))  # the split form holds any int32 index
+    assert labeling.LAUNCHES == launches
+
+
+def test_bf16_materializes_through_ml_dtypes(monkeypatch):
+    x = torch.tensor([[1.5, -2.0, 3.0e38], [0.0, float("nan"), -1.0]]).to(torch.bfloat16)
+    (host,) = buffer.materialize([x[:, 1:]])
+    assert host.dtype == jnp.bfloat16 and host.shape == (2, 2)
+    np.testing.assert_array_equal(host.astype(np.float32), x[:, 1:].float().numpy())
+    monkeypatch.setattr(buffer, "BFLOAT16", None)
+    with pytest.raises(TypeError, match="ml_dtypes"):
+        buffer.materialize([x])
+    (f32,) = buffer.materialize([x.float()])  # other types need no ml_dtypes
+    assert f32.dtype == np.float32
 
 
 def test_kernel_library_name_tracks_source_and_flags(monkeypatch):

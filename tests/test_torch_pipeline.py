@@ -108,6 +108,60 @@ def test_pipeline_labels_match_jax(registered, frames, jax_labels, variant):
     np.testing.assert_allclose(score, jax_labels[1], rtol=1e-4, atol=1e-4)
 
 
+BF16_MODEL, BF16_CLASSES = "torch_parity_bf16_head", 1001
+
+
+class _Bf16Head(torch.nn.Module):
+    """A model whose head emits bfloat16 logits: its float32 input, cast."""
+
+    def forward(self, x):
+        return x.to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def bf16_head():
+    import jax.numpy as jnp
+
+    register_jax_model(BF16_MODEL, lambda p, xs: [xs[0].astype(jnp.bfloat16)], None)
+    register_torch_model(BF16_MODEL, _Bf16Head())
+    rng = np.random.default_rng(13)
+    logits = [rng.standard_normal(BF16_CLASSES).astype(np.float32) for _ in range(6)]
+    logits[1][[40, 700]] = 8.0  # a tie: the first index wins
+    logits[2][[3, 4]] = 8.01, 8.02  # both 8.0 in bfloat16: a tie float32 would not have
+    yield logits
+    unregister_jax_model(BF16_MODEL)
+    unregister_torch_model(BF16_MODEL)
+
+
+def _bf16_labels(parse, framework, frames, decoder=""):
+    pipe = parse(
+        f"appsrc name=src ! tensor_filter framework={framework} model={BF16_MODEL} "
+        f"accelerator=cpu max-batch=4 batch-timeout=200 ! tensor_decoder name=dec {decoder} "
+        "mode=image_labeling ! tensor_sink name=out")
+    pipe.start()
+    try:
+        for i, f in enumerate(frames):
+            pipe["src"].push(f, pts=float(i))
+        pipe["src"].end_of_stream()
+        pipe.wait(timeout=120)
+        fused = pipe["dec"]._fused
+    finally:
+        pipe.stop()
+    out = pipe["out"].frames
+    assert [f.pts for f in out] == list(range(len(frames)))
+    return fused, [(f.meta["label_index"], f.meta["label_score"]) for f in out]
+
+
+@pytest.mark.parametrize("decoder", ["", "device-fused=never"])
+def test_bf16_head_labels_match_jax(bf16_head, decoder):
+    fused, want = _bf16_labels(jax_parse_pipeline, "jax-xla", bf16_head)
+    assert fused
+    fused, got = _bf16_labels(parse_pipeline, "torch-cuda", bf16_head, decoder)
+    assert fused == (decoder == "")
+    assert got == want  # index and score exact
+    assert want[1][0] == 40 and want[2][0] == 3
+
+
 def test_fusion_pass_switches_decoder_to_fused(registered):
     pipe = parse_pipeline(
         f"appsrc name=src ! tensor_filter name=f model={MODEL} accelerator=cpu max-batch=4 "

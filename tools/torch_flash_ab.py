@@ -47,15 +47,17 @@ sys.path.insert(0, str(ROOT))
 SHAPES = (("ViT-B/16", (128, 197, 12, 64), False), ("GPT-2 small", (8, 1024, 12, 64), True))
 
 
-def build(fa, sources: dict) -> dict:
-    """name -> loaded library of each source, all compiled at once."""
+def build(signatures: dict, sources: dict, tag: str = "flash") -> dict:
+    """name -> loaded library of each source, all compiled at once into
+    ``build/<tag>_ab/``, with ``argtypes`` set for each entry point of
+    `signatures` that the library has."""
     from nnstreamer_tpu_torch.ops import _build
 
-    out = ROOT / "build" / "flash_ab"
+    out = ROOT / "build" / f"{tag}_ab"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, src in sources.items():
-        so = out / f"libflash_{name}.so"
+        so = out / f"lib{tag}_{name}.so"
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(src)]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                            text=True))
@@ -67,27 +69,13 @@ def build(fa, sources: dict) -> dict:
         lib = ctypes.CDLL(str(so))
         lib.nns_error_string.argtypes = [ctypes.c_int]
         lib.nns_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in fa._SIGNATURES.items():
+        for fn, argtypes in signatures.items():
+            if not hasattr(lib, fn):
+                continue
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
-
-
-def host_ms(torch, fn, calls: int = 100, reps: int = 7) -> float:
-    """Median host time of one ``fn()`` call while the card sleeps (~100
-    ms per rep, far longer than the calls take to queue)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(200_000_000)
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - t) / calls * 1e3)
-        torch.cuda.synchronize()
-    return statistics.median(times)
 
 
 def main() -> int:
@@ -110,7 +98,7 @@ def main() -> int:
     chip_smoke.tf32_off(torch)
     sources = {"checkout": _build.CSRC / "flash_attention.cu", "other": args.against.resolve()}
     t = time.perf_counter()
-    libs = build(fa, sources)
+    libs = build(fa._SIGNATURES, sources)
     print(f"build: {time.perf_counter() - t:.1f} s (two sources in parallel)")
 
     result = {"card": card, "sources": {k: str(v) for k, v in sources.items()}, "check_flash": {},
@@ -134,11 +122,11 @@ def main() -> int:
             for label, ((q, k, v), causal) in inputs.items():
                 call = partial(fa.flash_attention, q, k, v, causal=causal)
                 result["device_ms"][name][label].append(chip_smoke.time_ms(call))
-                result["host_ms"][name][label].append(host_ms(torch, call))
+                result["host_ms"][name][label].append(chip_smoke.host_ms(torch, call))
     result["sdpa_host_ms"] = {}
     for label, ((q, k, v), causal) in inputs.items():
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        result["sdpa_host_ms"][label] = host_ms(
+        result["sdpa_host_ms"][label] = chip_smoke.host_ms(
             torch, partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=causal))
 
     for label, _, _ in SHAPES:
