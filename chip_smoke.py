@@ -61,9 +61,31 @@ Phases (any failure exits non-zero before the result lines are printed):
       MLP 3072, 1024 tokens, bf16, ``attn:flash``): ``--prompts`` prompts
       of 1024 tokens, full-sequence logits; the per-position argmax of
       every returned (1024, 50257) frame must equal the direct call's.
+   d. GPT-2-small generation (the same model, seed and custom; the
+      KV-cache path computes attention densely in float32, as the JAX
+      package's decode does, so no kernel may launch on it):
+      1. ``generate:32`` through the filter (``max-batch=8``), 8 prompts of
+         128 tokens pushed one by one, equal to the direct call;
+      2. float32: KV-cache greedy tokens (2 prompts of 128, 16 new) equal
+         to re-running the full forward (``attn:xla``) per token up to the
+         first step whose top-2 logit margin is under 1e-3;
+      3. 32 prompts of seeded lengths 64-448 pushed at once through
+         ``tensor_generator slots=16 max-new=64 chunk=16
+         prefill-chunk=128``, every stream's chunk meta well-formed, the
+         first 8 also through ``slots=0``; tokens/s of both, time to first
+         chunk and chunk interval p50/p99, the decode step's wall, device
+         and host ms, busy share and host synchronizations per call
+         (``torch.profiler``), KV-cache bytes and ``max_memory_allocated``;
+      4. float32: 8 prompts through ``slots=4`` equal to one-shot B = 1
+         under the same margin rule;
+      5. threefry bits and uniforms of a (16, 50257) draw bit-equal on the
+         card and the CPU; with temperature 0.8, top_k 40, gen_seed 1, a
+         single slotted occupant equal to one-shot B = 1 up to a top-2
+         margin of logits/T + gumbel under 1e-3 (4 prompts).
    Prints frames/s or sequences/s and tokens/s, latencies and the direct
    per-batch time beside the card line.
-5. summary: one ``{"kernels": [...]}`` JSON line, the card line, and last
+5. summary: a ``{"generation": {...}}`` JSON line (path d's numbers), one
+   ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -75,6 +97,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from contextlib import contextmanager
 from pathlib import Path
 from unittest import mock
@@ -151,10 +174,14 @@ def cuda_kernels(torch, fn) -> list:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    for _ in range(2):  # a process's first profile may record no device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if names:
+            break
+    return names
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
@@ -649,6 +676,325 @@ def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str) -> dict
     return {"launches": launches, "batches": len(sizes)}
 
 
+def top2_margin(z):
+    """Per row of z (B, V): the largest value less the second largest."""
+    top = z.topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def agree_until_tie(got, want, margins, limit: float = 1e-3) -> int:
+    """Tokens (n,) must be equal at every step before the first whose
+    reference top-2 margin is under `limit`; returns that step (n when no
+    margin is)."""
+    import numpy as np
+
+    low = np.flatnonzero(np.asarray(margins) < limit)
+    first = int(low[0]) if low.size else len(want)
+    if not np.array_equal(np.asarray(got)[:first], np.asarray(want)[:first]):
+        bad = int(np.flatnonzero(np.asarray(got)[:first] != np.asarray(want)[:first])[0])
+        raise AssertionError(f"tokens differ at step {bad}, before the first near-tie step "
+                             f"{first} (margin {margins[bad]:.3g} there)")
+    return first
+
+
+def full_forward_margins(torch, lm, tokens, tp: int):
+    """Top-2 logit margins of the full forward (no cache) of tokens (1, T),
+    for the steps after the prompt."""
+    with torch.inference_mode():
+        return top2_margin(lm(tokens)[0, tp - 1:-1]).cpu().numpy()
+
+
+def stream_tokens(frames, n_tokens: int):
+    """One stream's chunk frames, checked: chunk indices 0.., one final (the
+    last), each tokens_done the running sum; returns the tokens."""
+    import numpy as np
+
+    frames = sorted(frames, key=lambda f: f.meta["chunk_index"])
+    meta = [(f.meta["chunk_index"], f.meta["final"], f.meta["tokens_done"]) for f in frames]
+    sizes = [f.tensors[0].shape[1] for f in frames]
+    if ([m[0] for m in meta] != list(range(len(frames))) or [m[1] for m in meta]
+            != [False] * (len(frames) - 1) + [True]
+            or [m[2] for m in meta] != list(np.cumsum(sizes)) or sum(sizes) != n_tokens):
+        raise AssertionError(f"generation: chunk meta {meta} with sizes {sizes} is not one "
+                             f"stream of {n_tokens} tokens")
+    return np.concatenate([f.tensors[0] for f in frames], axis=1)[0]
+
+
+def run_generator(np, custom: str, prompts, max_new: int, chunk: int, slots: int,
+                  prefill_chunk: int = 128, keep=None):
+    """`prompts` pushed at once through appsrc ! tensor_generator !
+    tensor_sink; returns the tokens per prompt, the push clock per prompt,
+    the arrival clock of every chunk by prompt, the wall seconds and
+    whatever `keep(pipe)` returned before the pipeline stopped."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(
+        f"appsrc name=src ! tensor_generator name=g custom={custom} max-new={max_new} "
+        f"chunk={chunk} slots={slots} prefill-chunk={prefill_chunk} ! tensor_sink name=out")
+    arrived = {}
+    pipe["out"].connect_new_data(
+        lambda f: arrived.setdefault(int(f.pts), []).append(time.perf_counter()))
+    pipe.start()
+    try:
+        pushed = []
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            pushed.append(time.perf_counter())
+            pipe["src"].push(p, pts=float(i))
+        pipe["src"].end_of_stream()
+        pipe.wait(timeout=600)
+        wall = max(max(v) for v in arrived.values()) - t0
+        kept = keep(pipe) if keep is not None else None
+    finally:
+        pipe.stop()
+    by = {}
+    for f in pipe["out"].frames:
+        by.setdefault(int(f.pts), []).append(f)
+    if sorted(by) != list(range(len(prompts))):
+        raise AssertionError(f"generation: streams {sorted(by)} came back for {len(prompts)} "
+                             "prompts")
+    toks = [stream_tokens(by[i], max_new) for i in range(len(prompts))]
+    return toks, pushed, arrived, wall, kept
+
+
+def pct(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(len(v) * q))]
+
+
+def decode_step_profile(torch, model, k: int = 16, scans: int = 4) -> dict:
+    """A slot model's decode call of k tokens with every slot active, as
+    the engine makes it (the call, then its tokens to the host): wall ms
+    per token step (host clock, synchronized), device ms per step (the
+    profiler's kernel time), busy share, host ms to issue one step while
+    the card sleeps, and the host synchronizations per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.init_cache()
+    s = model.slots
+    dev = model.device
+    tok = torch.zeros(s, dtype=torch.int32, device=dev)
+    gen = torch.ones(s, dtype=torch.int32, device=dev)
+    active = torch.ones(s, dtype=torch.int32, device=dev)
+
+    def scan():
+        out = model.decode_fn(k)(cache, tok, gen, active)
+        return out[3].cpu()
+
+    scan()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(scans):
+        scan()
+    wall = (time.perf_counter() - t) / (scans * k) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(scans):
+            scan()
+    events = prof.events()
+    kernel_us = sum(e.device_time_total for e in events if e.device_type.name == "CUDA")
+    syncs = [e for e in events if e.device_type.name == "CPU"
+             and e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+    where = Counter(f"{e.name} in {e.cpu_parent.name if e.cpu_parent else '-'}" for e in syncs)
+    host = host_ms(torch, lambda: model.decode_fn(1)(cache, tok, gen, active), calls=1)
+    if int(cache.pos.max()) >= model.cfg.max_seq:
+        raise AssertionError("decode profile ran past max_seq")
+    device = kernel_us / 1e3 / (scans * k)
+    return {"wall_ms_per_step": wall, "device_ms_per_step": device,
+            "busy_share": device / wall if wall else float("nan"),
+            "host_ms_per_step": host, "syncs_per_call": len(syncs) / scans,
+            "syncs": dict(where)}
+
+
+def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
+    """GPT-2-small generation (path d): one-shot ``generate:<N>`` through the
+    filter, cache against no cache, the slotted throughput run with the
+    unslotted path beside it, slotted against one-shot in float32, and the
+    sampling checks.  Flash attention must launch 0 times."""
+    from nnstreamer_tpu_torch.models import transformer as tr
+    from nnstreamer_tpu_torch.ops import threefry as tf
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    props = custom_props(LM_CUSTOM) | {"seed": str(seed)}
+    props.pop("arch")
+    custom = f"{LM_CUSTOM},seed:{seed}"
+    vocab = int(props["vocab"])
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 4)
+    counters.zero()
+    t_path = time.perf_counter()
+    laps = []
+
+    def lap(name):
+        laps.append((name, round(time.perf_counter() - t_path - sum(t for _, t in laps), 1)))
+
+    # 1. one-shot generate:<N> through the filter against the direct call
+    prompts = rng.integers(0, vocab, (8, 128), dtype=np.int32)
+    pipe = parse_pipeline(
+        f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
+        f"custom={custom},generate:32 max-batch=8 ! tensor_sink name=out")
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            for i in range(8):
+                pipe["src"].push(prompts[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+        module = pipe["f"].backend._module
+        got = np.stack([f.tensors[0] for f in pipe["out"].frames])
+        want = np.concatenate([out.cpu().numpy() for _, _, out, _ in
+                               direct_batches(torch, module, prompts, sizes)])
+    finally:
+        pipe.stop()
+    if got.shape != (8, 160) or got.dtype != np.int32 or not np.array_equal(got, want):
+        raise AssertionError(f"generate:32 through the filter: {got.shape} {got.dtype}, "
+                             "or tokens not those of the direct call")
+    if not np.array_equal(got[:, :128], prompts) or not ((got >= 0) & (got < vocab)).all():
+        raise AssertionError("generate:32: the prompt is not echoed or a token is out of range")
+    del module
+    lap("one-shot")
+    print(f"generation path: generate:32 through tensor_filter, 8 prompts of 128 tokens in "
+          f"micro-batches {sizes}: tokens equal to the direct call")
+
+    # 2. float32: the KV-cache generation against the full forward per token
+    f32_props = props | {"dtype": "float32", "attn": "xla"}
+    lm32 = tr.lm_from_props(f32_props, dev)
+    prompts2 = torch.from_numpy(rng.integers(0, vocab, (2, 128), dtype=np.int32)).to(dev)
+    cached = tr.make_generate(lm32, 16)(prompts2)[:, 128:].cpu().numpy()
+    first_tie = []
+    for b in range(2):
+        seq = prompts2[b:b + 1].clone()
+        ref, margins = [], []
+        with torch.inference_mode():
+            for _ in range(16):
+                last = lm32(seq)[:, -1]
+                ref.append(int(last.argmax(-1)))
+                margins.append(float(top2_margin(last)[0]))
+                seq = torch.cat([seq, last.argmax(-1, keepdim=True).to(seq.dtype)], dim=1)
+        first_tie.append(agree_until_tie(cached[b], ref, margins))
+    lap("cache vs full forward")
+    print(f"generation path: float32 KV-cache tokens equal to the full forward per token up "
+          f"to the first step with a top-2 margin under 1e-3: steps {first_tie} of 16")
+
+    # 3. throughput: 32 prompts of 64-448 tokens at once through slots=16,
+    # the first 8 also through slots=0
+    lengths = rng.integers(64, 449, 32)
+    prompts3 = [rng.integers(0, vocab, int(n), dtype=np.int32) for n in lengths]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def keep(pipe):
+        eng = pipe["g"]._engine
+        return {"model": eng.model, "kv_bytes": eng._cache.nbytes, "snapshot": eng.snapshot()}
+
+    toks16, pushed, arrived, wall16, kept = run_generator(np, custom, prompts3, 64, 16, 16,
+                                                          keep=keep)
+    peak = torch.cuda.max_memory_allocated()
+    lap("slots=16")
+    step = decode_step_profile(torch, kept.pop("model"))
+    lap("decode step profile")
+    toks0, pushed0, arrived0, wall0, _ = run_generator(np, custom, prompts3[:8], 64, 16, 0)
+    lap("slots=0")
+    same = sum(np.array_equal(a, b) for a, b in zip(toks0, toks16[:8]))
+    ttft = [(arrived[i][0] - pushed[i]) * 1e3 for i in range(32)]
+    gaps = [(b - a) * 1e3 for i in range(32) for a, b in zip(arrived[i], arrived[i][1:])]
+    tput = {"slots16_tokens_per_s": 32 * 64 / wall16, "slots0_tokens_per_s": 8 * 64 / wall0,
+            "ttft_ms_p50": pct(ttft, 0.5), "ttft_ms_p99": pct(ttft, 0.99),
+            "chunk_interval_ms_p50": pct(gaps, 0.5), "chunk_interval_ms_p99": pct(gaps, 0.99),
+            "kv_cache_bytes": kept["kv_bytes"], "max_memory_allocated": peak,
+            "slots0_streams_equal": same, **step, **kept["snapshot"]}
+    print(f"generation path: slots=16 max-new=64 chunk=16 prefill-chunk=128, 32 prompts of "
+          f"{int(lengths.min())}-{int(lengths.max())} tokens: chunk meta well-formed; "
+          f"{tput['slots16_tokens_per_s']:.1f} tokens/s (slots=0, first 8 prompts: "
+          f"{tput['slots0_tokens_per_s']:.1f}; {same} of 8 streams token for token equal to "
+          f"slots=16); time to first chunk p50 {tput['ttft_ms_p50']:.1f} ms p99 "
+          f"{tput['ttft_ms_p99']:.1f} ms; chunk interval p50 {tput['chunk_interval_ms_p50']:.1f}"
+          f" ms p99 {tput['chunk_interval_ms_p99']:.1f} ms; on {card}")
+    print(f"generation path: decode step (16 slots, calls of 16): wall {step['wall_ms_per_step']:.3f}"
+          f" ms, device {step['device_ms_per_step']:.3f} ms (busy {step['busy_share']:.1%}), "
+          f"host {step['host_ms_per_step']:.3f} ms to issue one step; "
+          f"{step['syncs_per_call']:g} host synchronizations per call ({step['syncs']}); KV cache "
+          f"{kept['kv_bytes'] / 2**20:.1f} MiB, max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"engine {kept['snapshot']}")
+
+    # 4. float32: slots=4 streams against one-shot B = 1 per prompt
+    lengths4 = rng.integers(64, 257, 8)
+    prompts4 = [rng.integers(0, vocab, int(n), dtype=np.int32) for n in lengths4]
+    custom32 = ",".join(f"{k}:{v}" for k, v in f32_props.items())
+    toks4, *_ = run_generator(np, custom32, prompts4, 32, 8, 4, prefill_chunk=64)
+    ties = []
+    for p, got4 in zip(prompts4, toks4):
+        x = torch.from_numpy(p[None]).to(dev)
+        one = tr.make_generate(lm32, 32)(x)
+        margins = full_forward_margins(torch, lm32, one, len(p))
+        ties.append(agree_until_tie(got4, one[0, len(p):].cpu().numpy(), margins))
+    lap("slots=4 vs one-shot")
+    print(f"generation path: float32 slots=4, 8 prompts: tokens equal to one-shot B = 1 up to "
+          f"the first top-2 margin under 1e-3 (steps {ties} of 32)")
+
+    # 5. sampling: threefry bits on the card and the CPU; a single slotted
+    # occupant against one-shot B = 1
+    key = tf.fold_in(tf.prng_key(1), 7)
+    on_card, on_cpu = tf.uniform(key, (16, vocab), device=dev), tf.uniform(key, (16, vocab))
+    if not torch.equal(bits(on_card).cpu(), bits(on_cpu)) or not torch.equal(
+            tf.random_bits(key, (16, vocab), dev).cpu(), tf.random_bits(key, (16, vocab))):
+        raise AssertionError("threefry: a (16, 50257) draw differs between the card and the CPU")
+    temp, top_k, gen_seed = 0.8, 40, 1
+    slot_model = tr.SlotModel(lm32, 4, temp, top_k, gen_seed)
+    sampled_ties = []
+    for p in [rng.integers(0, vocab, int(n), dtype=np.int32) for n in rng.integers(64, 257, 4)]:
+        x = torch.from_numpy(p[None]).to(dev)
+        one = tr.make_generate(lm32, 24, temp, top_k, gen_seed)(x)[0, len(p):].cpu().numpy()
+        margins = sampled_margins(torch, tr, tf, lm32, x, one, temp, top_k, gen_seed)
+        got5 = single_occupant(torch, slot_model, x, 24, slot=2)
+        sampled_ties.append(agree_until_tie(got5, one, margins))
+    lap("sampling")
+    launches = counters.read()
+    if any(launches.values()):
+        raise AssertionError(f"generation path: kernels launched {launches} (want none: the "
+                             "decode path reaches no kernel)")
+    print(f"generation path: threefry (16, {vocab}) bits and uniforms bit-equal on the card and "
+          f"the CPU; temperature {temp} top_k {top_k} gen_seed {gen_seed}: a single slotted "
+          f"occupant equal to one-shot B = 1 up to the first top-2 margin of logits/T + gumbel "
+          f"under 1e-3 (steps {sampled_ties} of 24); launches {launches}; "
+          f"{time.perf_counter() - t_path:.1f} s ({laps})")
+    return {"launches": launches, "batches": len(sizes), "generation": tput}
+
+
+def sampled_margins(torch, tr, tf, lm, x, toks, temp, top_k, seed):
+    """One-shot sampling's top-2 margin of logits/T + gumbel per step, the
+    tokens `toks` fed back (the same cache path as ``make_generate``)."""
+    key0 = tf.prng_key(seed)
+    margins = []
+    with torch.inference_mode():
+        cache = tr.KVCache.zeros(lm.cfg, 1, x.device)
+        logits = lm(x, cache)[:, -1]
+        for i, t in enumerate(toks):
+            scaled = logits.float() / torch.full((), temp, device=x.device)
+            kth = scaled.topk(top_k, dim=-1).values[:, -1:]
+            scaled = torch.where(scaled >= kth, scaled, -1e30)
+            z = scaled + tf.gumbel(key0 if i == 0 else tf.fold_in(key0, i), scaled.shape,
+                                   x.device)
+            margins.append(float(top2_margin(z)[0]))
+            logits = lm(torch.tensor([[int(t)]], device=x.device), cache)[:, -1]
+    return margins
+
+
+def single_occupant(torch, model, x, n: int, slot: int):
+    """The tokens of one stream alone in `slot` of a slot model: prefill,
+    token 1, then decode calls of 5, 8 and the rest."""
+    cache = model.reset_slot(model.init_cache(), slot)
+    cache, logits = model.prefill_fn(x.shape[1])(cache, x, slot)
+    first = model.pick_first(logits)
+    tok, gen, active = (torch.zeros(model.slots, dtype=torch.int32, device=x.device)
+                        for _ in range(3))
+    tok[slot], gen[slot], active[slot] = int(first[0]), 1, 1
+    out = [first]
+    for k in (5, 8, n - 14):
+        cache, tok, gen, toks = model.decode_fn(k)(cache, tok, gen, active)
+        out.append(toks[slot])
+    return torch.cat(out).cpu().numpy()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=2048, help="frames through MobileNet-v2")
@@ -704,6 +1050,9 @@ def main() -> int:
         p.pop("images", None)
     torch.cuda.empty_cache()
     paths["gpt2_small"] = run_lm_path(torch, np, counters, args.prompts, args.seed, card)
+    torch.cuda.empty_cache()
+    paths["gpt2_small_generation"] = run_generation_path(torch, np, counters, args.seed, card)
+    print(json.dumps({"generation": paths["gpt2_small_generation"].pop("generation")}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

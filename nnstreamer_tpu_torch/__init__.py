@@ -7,7 +7,11 @@ every TPU kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``.  This package imports ``torch`` and numpy, never JAX and never
 ``nnstreamer_tpu``.
 
-Ported so far: the MobileNet-v2 image-labeling pipeline::
+Ported so far: image labeling (MobileNet-v2, ViT) and transformer-LM
+scoring through ``tensor_filter framework=torch-cuda``, and KV-cache
+generation (``generate:<N>`` through the filter, ``tensor_generator``
+streaming one request at a time or continuous batching with
+``slots=N``)::
 
     appsrc ! tensor_filter framework=torch-cuda model=zoo
         custom=arch:mobilenet_v2 max-batch=128 !

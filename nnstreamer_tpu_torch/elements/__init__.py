@@ -1,4 +1,4 @@
 """Stream elements.  Importing this package registers every element
 factory (≙ plugin registration)."""
 
-from . import basic, decoder, filter  # noqa: F401
+from . import basic, decoder, filter, generator  # noqa: F401

@@ -4,9 +4,12 @@ Port of ``nnstreamer_tpu/pipeline/pipeline.py``, reduced to the
 scheduling core: static schema negotiation (``_negotiate``), the device
 fusion pass that folds a decoder's device half into the upstream filter
 (``_fuse_device_chains``), one worker thread per element with a bounded
-mailbox between threads (backpressure), micro-batch draining for
-elements that batch (``preferred_batch`` > 1, filled for up to
-``batch_wait_s``), and EOS propagation.
+mailbox between threads (backpressure; an element's ``max-buffers``
+property sets its depth), micro-batch draining for elements that batch
+(``preferred_batch`` > 1, filled for up to ``batch_wait_s``), the idle
+hook (``handle_idle``, called when the mailbox is empty, and
+``pending_frames``, which shortens the poll while the element holds
+work), and EOS propagation.
 
 Not ported yet (see ROADMAP.md): telemetry, watchdog, flight recorder,
 memory monitor, deadline QoS, supervision/restart, drain, hot reload and
@@ -152,6 +155,8 @@ class Pipeline:
                 # a micro-batching element needs its full batch to fit in
                 # the mailbox or batches can never form at max-batch size
                 size = max(self.default_queue_size, getattr(el, "preferred_batch", 1))
+                if el.props.get("max-buffers"):
+                    size = int(el.props["max-buffers"])
                 el._mailbox = queue.Queue(maxsize=size)
                 target, args = self._run_element, (el, incoming[el.name] or {0})
             self._threads.append(
@@ -266,6 +271,11 @@ class Pipeline:
         want = getattr(el, "preferred_batch", 1)
         batching = want > 1 and hasattr(el, "handle_frame_batch")
         wait_s = getattr(el, "batch_wait_s", 0.0)
+        # an element holding work outside its mailbox (the generator's slot
+        # engine) is polled sooner while it has some, and its idle hook
+        # releases what finished meanwhile
+        pending = getattr(el, "pending_frames", None)
+        idle = getattr(el, "handle_idle", None)
         caps_pads: Set[int] = set()
         eos_pads: Set[int] = set()
         # items popped while filling a batch that end it (an event, another
@@ -276,8 +286,11 @@ class Pipeline:
                 pad, item = stash.popleft()
             else:
                 try:
-                    pad, item = box.get(timeout=0.1)
+                    poll = 0.02 if pending is not None and pending() > 0 else 0.1
+                    pad, item = box.get(timeout=poll)
                 except queue.Empty:
+                    if idle is not None and not self._push_all(el, idle()):
+                        return
                     continue
             if item is _STOP:
                 return

@@ -13,7 +13,7 @@ import torch
 from nnstreamer_tpu.models import build as jax_build
 from nnstreamer_tpu_torch.backends.torch_cuda import register_torch_model, unregister_torch_model
 from nnstreamer_tpu_torch.models import build as torch_build
-from nnstreamer_tpu_torch.models.transformer import state_dict_from_flax
+from nnstreamer_tpu_torch.models.transformer import GenerateLM, TransformerLM, state_dict_from_flax
 from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
 torch.set_num_threads(2)
@@ -91,10 +91,31 @@ def test_pipeline_logits_match_jax(models):
 
 @pytest.mark.parametrize("prop", ["generate:4", "decode:1", "slotted:1", "mesh:dp=1"])
 def test_generation_paths_raise(prop):
+    # as the JAX zoo: generate:<N> builds the generation entry, decode and
+    # slotted are ignored (the logits entry); mesh waits for ROADMAP A11
     key, _, value = prop.partition(":")
-    with pytest.raises(NotImplementedError, match="A7"):
-        torch_build("transformer", dict(_PROPS, **{key: value}))
-    torch_build("transformer", dict(_PROPS, generate="0"))  # 0: the logits entry
+    props = dict(_PROPS, **{key: value})
+    if key == "mesh":
+        with pytest.raises(NotImplementedError, match="A11"):
+            torch_build("transformer", props)
+        return
+    module, _, out_spec = torch_build("transformer", props)
+    jax_out = jax_build("transformer", props)[3]
+    toks = torch.from_numpy(_tokens(1, 4)[0, :6])
+    with torch.inference_mode():
+        out = module(toks)
+    if key == "generate":
+        assert isinstance(module, GenerateLM)
+        assert out.shape == (10,) and out.dtype == torch.int32
+        assert torch.equal(out[:6], toks)
+        assert out_spec.tensors[0].shape == (None,) and out_spec.tensors[0].dtype == np.int32
+    else:
+        assert isinstance(module, TransformerLM) and out.shape == (6, 64)
+        assert out_spec.tensors[0].shape == (None, 64)
+    assert (out_spec.tensors[0].shape, out_spec.tensors[0].dtype) == (
+        jax_out.tensors[0].shape, jax_out.tensors[0].dtype)
+    logits, _, _ = torch_build("transformer", dict(_PROPS, generate="0"))  # 0: the logits entry
+    assert isinstance(logits, TransformerLM)
 
 
 def test_int8_raises_and_long_sequences_are_refused():
