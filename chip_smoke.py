@@ -42,7 +42,11 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``device_fn`` call.
 4. paths, each driven through ``parse_pipeline`` with
    ``framework=torch-cuda`` at full width with random weights from
-   ``--seed``, every launch counter set to 0 just before and read just
+   ``--seed``, with the filter's asynchronous feed at its defaults
+   (``ingest-lane=auto dispatch-depth=4``: the lane must stage every
+   micro-batch and, where outputs go to the host through the dispatch
+   window, the window must reap every invoke; a synchronous fallback fails
+   the run), every launch counter set to 0 just before and read just
    after; each kernel of the path must have launched (at least once per
    micro-batch; flash attention once per layer per micro-batch, every one
    of them on the bfloat16 tensor-core route; ``top1`` exactly once per
@@ -51,7 +55,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    same inputs in the pipeline's own micro-batch sizes (so both see the
    same shapes), followed by the plain ``top1``:
    a. MobileNet-v2 image labeling (224x224, 1001 classes, bf16),
-      ``--frames`` uint8 frames pushed one by one;
+      ``--frames`` uint8 frames pushed one by one; then again with
+      ``ingest-lane=off dispatch-depth=1`` (the synchronous filter), whose
+      labels must equal the defaults'; each mode's card busy share over a
+      steady window (a second pipeline, ``torch.profiler``);
    b. ViT-B/16 image labeling (224x224, patch 16, 768 wide, 12 heads, 12
       layers, MLP 3072, 1001 classes, bf16, ``attn:flash``),
       ``--vit-frames`` frames; plus, on 8 frames, a float32 copy of the
@@ -60,12 +67,16 @@ Phases (any failure exits non-zero before the result lines are printed):
    c. GPT-2-small scoring (vocab 50257, 768 wide, 12 heads, 12 layers,
       MLP 3072, 1024 tokens, bf16, ``attn:flash``): ``--prompts`` prompts
       of 1024 tokens, full-sequence logits; the per-position argmax of
-      every returned (1024, 50257) frame must equal the direct call's.
+      every returned (1024, 50257) frame must equal the direct call's,
+      and the synchronous mode's; before it, the host ms of one logits
+      batch to the host (pageable ``.cpu()``, pinned allocation fresh and
+      cached, the copy into pinned memory).
    d. GPT-2-small generation (the same model, seed and custom; the
       KV-cache path computes attention densely in float32, as the JAX
       package's decode does, so no kernel may launch on it):
       1. ``generate:32`` through the filter (``max-batch=8``), 8 prompts of
-         128 tokens pushed one by one, equal to the direct call;
+         128 tokens pushed one by one, equal to the direct call, staged by
+         the lane and reaped by the window;
       2. float32: KV-cache greedy tokens (2 prompts of 128, 16 new) equal
          to re-running the full forward (``attn:xla``) per token up to the
          first step whose top-2 logit margin is under 1e-3;
@@ -82,9 +93,12 @@ Phases (any failure exits non-zero before the result lines are printed):
          card and the CPU; with temperature 0.8, top_k 40, gen_seed 1, a
          single slotted occupant equal to one-shot B = 1 up to a top-2
          margin of logits/T + gumbel under 1e-3 (4 prompts).
-   Prints frames/s or sequences/s and tokens/s, latencies and the direct
-   per-batch time beside the card line.
-5. summary: a ``{"generation": {...}}`` JSON line (path d's numbers), one
+   Prints frames/s or sequences/s and tokens/s, latencies, the direct
+   per-batch time and the feed's counters (lane staged and stacking ms per
+   batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
+   beside the card line.
+5. summary: a ``{"feed_ab": {...}}`` JSON line (paths a and c in both
+   modes), a ``{"generation": {...}}`` JSON line (path d's numbers), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -491,6 +505,165 @@ def recording_batches(pipe, name: str):
         del backend.invoke_batch
 
 
+def feed_stats(filt) -> dict:
+    """The filter's asynchronous feed over one run: the lane's staged
+    micro-batches and stacking ms per batch, the window's reaped invokes,
+    full-window waits and dwell p50, and the staging pool's reuse rate in
+    this run."""
+    lane, win = filt._lane, filt._inflight
+    staged = lane.staged if lane is not None else 0
+    pool = lane.pool if lane is not None else None
+    dwell = win.dwell.percentiles_us()
+    return {"lane": lane is not None, "staged": staged,
+            "stack_ms_per_batch": lane.stack_s * 1e3 / staged if staged else None,
+            "reaped": win.reaped, "dispatch_waits": win.dispatch_waits,
+            "dwell_p50_ms": dwell["p50"] / 1e3 if dwell else None,
+            "pool_reuse_rate": pool.reuse_rate if pool is not None else None}
+
+
+def feed_line(stats: dict) -> str:
+    def num(v, fmt):
+        return "none" if v is None else format(v, fmt)
+
+    return (f"lane staged {stats['staged']} micro-batches, stacking "
+            f"{num(stats['stack_ms_per_batch'], '.3f')} ms per batch; window reaped "
+            f"{stats['reaped']}, dispatch_waits {stats['dispatch_waits']}, dwell p50 "
+            f"{num(stats['dwell_p50_ms'], '.3f')} ms; staging pool reuse_rate "
+            f"{num(stats['pool_reuse_rate'], '.3f')}")
+
+
+def check_feed(name: str, stats: dict, batches: int, window: bool) -> None:
+    """With the defaults on, no micro-batch may take the synchronous route:
+    the lane staged every one and (where outputs go to the host through
+    the window) the window reaped every invoke."""
+    if not stats["lane"] or stats["staged"] != batches:
+        raise AssertionError(f"{name}: the ingest lane staged {stats['staged']} of {batches} "
+                             "micro-batches (the defaults must stage every one)")
+    if window and stats["reaped"] != batches:
+        raise AssertionError(f"{name}: the dispatch window reaped {stats['reaped']} of "
+                             f"{batches} invokes (the defaults must park every one)")
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def busy_share(torch, np, text: str, images, warm: int) -> float:
+    """The card's busy share over a steady window: ``text``'s pipeline
+    takes `warm` frames first, then the rest of `images` under
+    ``torch.profiler`` (device activity only); the union of the kernels'
+    and copies' device intervals over the host wall of that window.  None
+    when the profiler saw no device activity."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(text)
+    seen, marks = [0], {warm: threading.Event(), len(images): threading.Event()}
+
+    def on_frame(_):
+        seen[0] += 1
+        if seen[0] in marks:
+            marks[seen[0]].set()
+
+    pipe["out"].connect_new_data(on_frame)
+    pipe.start()
+    try:
+        for i in range(warm):
+            pipe["src"].push(images[i])
+        if not marks[warm].wait(300):
+            raise AssertionError("busy share: the warm-up frames did not arrive")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for i in range(warm, len(images)):
+                pipe["src"].push(images[i])
+            if not marks[len(images)].wait(300):
+                raise AssertionError("busy share: the frames did not arrive")
+            wall = time.perf_counter() - t
+        pipe["src"].end_of_stream()
+        pipe.wait(timeout=60)
+    finally:
+        pipe.stop()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type.name == "CUDA"]
+    return union_us(spans) / (wall * 1e6) if spans else None
+
+
+def logits_copy_ms(torch, shape) -> dict:
+    """Host ms (synchronized, median of 3) to bring one float32 logits batch
+    of `shape` to the host: ``.cpu()`` into fresh pageable memory; a fresh
+    pinned allocation (host cache emptied first), a pinned allocation the
+    caching host allocator hands back, and the ``non_blocking`` copy into
+    pinned memory."""
+    x = torch.empty(shape, dtype=torch.float32, device="cuda").normal_()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    res = {"pageable": [], "pinned_fresh": [], "pinned_cached": [], "pinned_copy": []}
+    for _ in range(3):
+        res["pageable"].append(timed(lambda: x.cpu())[1])
+        if empty is not None:
+            empty()
+            res["pinned_fresh"].append(timed(lambda: torch.empty(shape, pin_memory=True))[1])
+        host = torch.empty(shape, pin_memory=True)
+        res["pinned_copy"].append(timed(lambda: host.copy_(x, non_blocking=True))[1])
+        del host
+        res["pinned_cached"].append(timed(lambda: torch.empty(shape, pin_memory=True))[1])
+    del x
+    if empty is not None:
+        empty()
+    return {k: statistics.median(v) if v else None for k, v in res.items()}
+
+
+#: the filter's feed off: the synchronous filter
+SYNC_FEED = "ingest-lane=off dispatch-depth=1"
+
+
+def feed_turns(run, name: str, want, key: str, window: bool, keys: tuple) -> dict:
+    """The feed's A/B of one path, in turns (synchronous, defaults,
+    defaults, synchronous; each a fresh pipeline after the path's counted
+    run): every run's `key` outputs must equal `want` (the counted run's),
+    and each defaults run must have staged (and, with `window`, reaped)
+    every micro-batch.  Returns each mode's runs' `keys`, latencies and
+    feed counters, and prints each mode's medians."""
+    import numpy as np
+
+    runs = {"defaults": [], SYNC_FEED: []}
+    for mode in (SYNC_FEED, "defaults", "defaults", SYNC_FEED):
+        r = run("" if mode == "defaults" else mode, not runs[mode])
+        if not np.array_equal(r.pop(key), want):
+            raise AssertionError(f"{name}: {key} of the {mode} run differ from the counted run's")
+        if mode == "defaults":
+            check_feed(name, r["feed"], r["batches"], window=window)
+        runs[mode].append({**{k: r.get(k, r["feed"].get(k)) for k in keys},
+                           "latency_ms_p50": r["latency_ms_p50"],
+                           "latency_ms_p99": r["latency_ms_p99"], **r["feed"]})
+    for mode, rs in runs.items():
+        med = {k: statistics.median(x[k] for x in rs if x[k] is not None)
+               for k in keys + ("latency_ms_p50", "latency_ms_p99")
+               if any(x[k] is not None for x in rs)}
+        print(f"{name} feed A/B [{mode}], median of {len(rs)} runs: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in med.items()))
+    return runs
+
+
 def direct_batches(torch, module, inputs, sizes):
     """The module called directly on `inputs` (host numpy) in the given
     micro-batch sizes, each padded to a power of two by repeating its last
@@ -510,19 +683,26 @@ def direct_batches(torch, module, inputs, sizes):
             k += n
 
 
+def labeling_text(custom: str, seed: int, labels, extra: str = "", sink: str = "") -> str:
+    return (f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
+            f"custom={custom},seed:{seed} max-batch=128 batch-timeout=20 {extra} "
+            f"! tensor_decoder mode=image_labeling option1={labels} ! tensor_sink name=out {sink}")
+
+
 def run_labeling_path(torch, np, lab, counters, name, custom, kernels_per_batch, frames, seed,
-                      card, labels) -> dict:
+                      card, labels, extra: str = "", busy: bool = False) -> dict:
     """One image-labeling path: `frames` seeded 224x224 frames pushed one by
-    one; checks labels, launches and the direct call; returns the path's
-    launches, micro-batches and module."""
+    one, the filter's feed set by `extra` (the defaults when empty); checks
+    labels, launches and the direct call; returns the path's launches,
+    micro-batches, labels, feed statistics and module.  With `busy`, a
+    second pipeline of the same configuration measures the card's busy
+    share over a steady window."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
     rng = np.random.default_rng(seed)
     images = rng.integers(0, 256, (frames, 224, 224, 3), dtype=np.uint8)
-    pipe = parse_pipeline(
-        f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
-        f"custom={custom},seed:{seed} max-batch=128 batch-timeout=20 "
-        f"! tensor_decoder mode=image_labeling option1={labels} ! tensor_sink name=out")
+    text = labeling_text(custom, seed, labels, extra)
+    pipe = parse_pipeline(text)
     arrived = {}
     pipe["out"].connect_new_data(lambda f: arrived.__setitem__(int(f.pts), time.perf_counter()))
     counters.zero()
@@ -539,6 +719,7 @@ def run_labeling_path(torch, np, lab, counters, name, custom, kernels_per_batch,
             wall = time.perf_counter() - t0
         launches = counters.read()
         batches = len(sizes)
+        feed = feed_stats(pipe["f"])
         module = pipe["f"].backend._module
         out = pipe["out"].frames
         if len(out) != frames or [f.pts for f in out] != list(range(frames)):
@@ -574,13 +755,23 @@ def run_labeling_path(torch, np, lab, counters, name, custom, kernels_per_batch,
     steady = (frames - first - 1) / span if span > 0 else float("nan")
     p50, p99 = lat[len(lat) // 2] * 1e3, lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
     batch_ms = statistics.median(batch_s[1:] or batch_s) * 1e3
-    print(f"{name} path: {frames} frames in {batches} micro-batches (sizes {sorted(set(sizes))}), "
-          f"labels equal to the direct call; launches {launches}")
-    print(f"{name} path: {frames / wall:.1f} frames/s overall, {steady:.1f} frames/s after the "
-          f"first micro-batch; frame latency (push to sink) p50 {p50:.2f} ms p99 {p99:.2f} ms; "
-          f"direct model call per {max(sizes)}-frame batch (copy in, model, top1, copy out) "
+    share = busy_share(torch, np, labeling_text(custom, seed, labels, extra, "max-stored=1"),
+                       images[:min(frames, 1152)], 128) if busy else None
+    feed["busy_share"] = share
+    mode = f" [{extra}]" if extra else " [defaults]"
+    print(f"{name} path{mode}: {frames} frames in {batches} micro-batches (sizes "
+          f"{sorted(set(sizes))}), labels equal to the direct call; launches {launches}")
+    print(f"{name} path{mode}: {frames / wall:.1f} frames/s overall, {steady:.1f} frames/s after "
+          f"the first micro-batch; frame latency (push to sink) p50 {p50:.2f} ms p99 {p99:.2f} "
+          f"ms; direct model call per {max(sizes)}-frame batch (copy in, model, top1, copy out) "
           f"{batch_ms:.2f} ms (host clock, synchronized); on {card}")
-    return {"launches": launches, "batches": batches, "module": module, "images": images}
+    busy_text = "not measured" if share is None else f"{share:.1%}"
+    print(f"{name} path{mode}: {feed_line(feed)}"
+          + (f"; card busy {busy_text} over a steady window of {min(frames, 1152) - 128} frames "
+             "(torch.profiler, device activity)" if busy else "") + f"; on {card}")
+    return {"launches": launches, "batches": batches, "module": module, "images": images,
+            "labels": got, "feed": feed, "fps": frames / wall, "fps_steady": steady,
+            "latency_ms_p50": p50, "latency_ms_p99": p99}
 
 
 def check_vit_float32(torch, module, images) -> float:
@@ -605,31 +796,38 @@ def check_vit_float32(torch, module, images) -> float:
     return err
 
 
-def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str) -> dict:
+def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str, extra: str = "") -> dict:
     """GPT-2-small scoring: `prompts` seeded prompts of 1024 tokens through
-    appsrc ! tensor_filter ! tensor_sink; checks every frame's per-position
-    argmax against the direct call and the flash launches."""
+    appsrc ! tensor_filter ! tensor_sink, the filter's feed set by `extra`
+    (the defaults when empty); checks every frame's per-position argmax
+    against the direct call and the flash launches; returns the argmaxes,
+    launches, invokes and feed statistics."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
     props = custom_props(LM_CUSTOM)
     seq, vocab, layers = int(props["seq"]), int(props["vocab"]), int(props["layers"])
     tokens = np.random.default_rng(seed).integers(0, vocab, (prompts, seq), dtype=np.int32)
+    # batch-timeout: every mode sees the same full micro-batches
     pipe = parse_pipeline(
         f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
-        f"custom={LM_CUSTOM},seed:{seed} max-batch=8 ! tensor_sink name=out")
+        f"custom={LM_CUSTOM},seed:{seed} max-batch=8 batch-timeout=1000 {extra} "
+        "! tensor_sink name=out")
     arrived = {}
     pipe["out"].connect_new_data(lambda f: arrived.__setitem__(int(f.pts), time.perf_counter()))
     counters.zero()
     pipe.start()
     try:
         with recording_batches(pipe, "f") as sizes:
+            pushed = []
             t0 = time.perf_counter()
             for i in range(prompts):
+                pushed.append(time.perf_counter())
                 pipe["src"].push(tokens[i], pts=float(i))
             pipe["src"].end_of_stream()
             pipe.wait(timeout=600)
             wall = time.perf_counter() - t0
         launches = counters.read()
+        feed = feed_stats(pipe["f"])
         out = pipe["out"].frames
         if len(out) != prompts or [f.pts for f in out] != list(range(prompts)):
             raise AssertionError(f"LM: {len(out)} of {prompts} frames came back, or out of order")
@@ -659,21 +857,34 @@ def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str) -> dict
                                  f"(first (prompt, position) {bad[:4].tolist()})")
     finally:
         pipe.stop()
+        empty = getattr(torch._C, "_host_emptyCache", None)
+        if empty is not None:
+            empty()  # the pinned logits the frames held
     full = [s for s, n in batch_s if n == max(sizes)]
     batch_ms = statistics.median(full[1:] or full) * 1e3
     # steady state: from the first invoke's last frame (it carries the
-    # card's lazy set-up) to the last
+    # card's lazy set-up) to the last; not measured when the window released
+    # the invokes together (less than one direct call apart)
     first = sizes[0] - 1
     span = max(arrived.values()) - arrived[first]
-    steady = (prompts - first - 1) / span if span > 0 else float("nan")
-    print(f"LM path: {prompts} prompts of {seq} tokens in {len(sizes)} invokes (sizes {sizes}), "
-          f"per-position argmax equal to the direct call; launches {launches}")
-    print(f"LM path: {prompts / wall:.2f} sequences/s, {prompts * seq / wall:.1f} tokens/s "
+    steady = (prompts - first - 1) / span if span * 1e3 >= batch_ms else None
+    lat = sorted(arrived[i] - pushed[i] for i in range(prompts))
+    p50, p99 = lat[len(lat) // 2] * 1e3, lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
+    outside = wall * 1e3 / len(sizes) - batch_ms
+    mode = f" [{extra}]" if extra else " [defaults]"
+    print(f"LM path{mode}: {prompts} prompts of {seq} tokens in {len(sizes)} invokes (sizes "
+          f"{sizes}), per-position argmax equal to the direct call; launches {launches}")
+    print(f"LM path{mode}: {prompts / wall:.2f} sequences/s, {prompts * seq / wall:.1f} tokens/s "
           f"(push to last logits frame at the sink, logits copied to the host), "
-          f"{steady:.2f} sequences/s after the first invoke; direct model "
-          f"call per {max(sizes)}-prompt batch {batch_ms:.2f} ms (host clock, synchronized); "
-          f"on {card}")
-    return {"launches": launches, "batches": len(sizes)}
+          + ("not measured" if steady is None else f"{steady:.2f}")
+          + " sequences/s after the first invoke; latency (push to sink) p50 "
+          f"{p50:.1f} ms p99 {p99:.1f} ms; direct model call per {max(sizes)}-prompt batch "
+          f"{batch_ms:.2f} ms (host clock, synchronized), time outside the model "
+          f"{outside:.1f} ms per invoke (wall / invokes - direct call); on {card}")
+    print(f"LM path{mode}: {feed_line(feed)}; on {card}")
+    return {"launches": launches, "batches": len(sizes), "argmax": got, "feed": feed,
+            "sps": prompts / wall, "sps_steady": steady, "latency_ms_p50": p50,
+            "latency_ms_p99": p99, "outside_ms_per_invoke": outside}
 
 
 def top2_margin(z):
@@ -831,7 +1042,7 @@ def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
     prompts = rng.integers(0, vocab, (8, 128), dtype=np.int32)
     pipe = parse_pipeline(
         f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
-        f"custom={custom},generate:32 max-batch=8 ! tensor_sink name=out")
+        f"custom={custom},generate:32 max-batch=8 batch-timeout=1000 ! tensor_sink name=out")
     pipe.start()
     try:
         with recording_batches(pipe, "f") as sizes:
@@ -839,6 +1050,7 @@ def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
                 pipe["src"].push(prompts[i], pts=float(i))
             pipe["src"].end_of_stream()
             pipe.wait(timeout=600)
+        check_feed("generate:32", feed_stats(pipe["f"]), len(sizes), window=True)
         module = pipe["f"].backend._module
         got = np.stack([f.tensors[0] for f in pipe["out"].frames])
         want = np.concatenate([out.cpu().numpy() for _, _, out, _ in
@@ -853,7 +1065,8 @@ def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
     del module
     lap("one-shot")
     print(f"generation path: generate:32 through tensor_filter, 8 prompts of 128 tokens in "
-          f"micro-batches {sizes}: tokens equal to the direct call")
+          f"micro-batches {sizes}, staged by the ingest lane and reaped by the dispatch "
+          f"window: tokens equal to the direct call")
 
     # 2. float32: the KV-cache generation against the full forward per token
     f32_props = props | {"dtype": "float32", "attn": "xla"}
@@ -1036,22 +1249,53 @@ def main() -> int:
     labels.write_text("\n".join(f"class{i}" for i in range(1001)))
 
     paths = {}
-    paths["mobilenet_v2"] = run_labeling_path(
-        torch, np, lab, counters, "MobileNet-v2", "arch:mobilenet_v2,dtype:bfloat16",
-        {"normalize_u8": 1, "top1": 1}, args.frames, args.seed, card, labels)
+    mobilenet = ("MobileNet-v2", "arch:mobilenet_v2,dtype:bfloat16",
+                 {"normalize_u8": 1, "top1": 1}, args.frames, args.seed, card, labels)
+    # the path's counted run (it pays the process's first cuDNN set-up),
+    # then the feed's A/B in turns
+    paths["mobilenet_v2"] = run_labeling_path(torch, np, lab, counters, *mobilenet)
+    check_feed("MobileNet-v2", paths["mobilenet_v2"]["feed"], paths["mobilenet_v2"]["batches"],
+               window=False)
+    feed_ab = {"mobilenet_v2": feed_turns(
+        lambda extra, busy: run_labeling_path(torch, np, lab, counters, *mobilenet,
+                                              extra=extra, busy=busy),
+        "MobileNet-v2", paths["mobilenet_v2"]["labels"], "labels", window=False,
+        keys=("fps", "fps_steady", "busy_share"))}
     vit_layers = int(custom_props(VIT_CUSTOM)["layers"])
     paths["vit"] = run_labeling_path(
         torch, np, lab, counters, "ViT-B/16", VIT_CUSTOM,
         {"flash_attention": vit_layers, "flash_attention_tensor_cores": vit_layers, "top1": 1},
         args.vit_frames, args.seed, card, labels)
+    check_feed("ViT-B/16", paths["vit"]["feed"], paths["vit"]["batches"], window=False)
     check_vit_float32(torch, paths["vit"].pop("module"), paths["vit"].pop("images"))
     for p in paths.values():
         p.pop("module", None)
         p.pop("images", None)
     torch.cuda.empty_cache()
+    lm_shape = (8, int(custom_props(LM_CUSTOM)["seq"]), int(custom_props(LM_CUSTOM)["vocab"]))
+    copy_ms = logits_copy_ms(torch, lm_shape)
+    print(f"LM logits batch {lm_shape} float32 to the host, host ms: .cpu() into pageable memory "
+          f"{copy_ms['pageable']:.1f}; pinned allocation fresh "
+          + ("not measured" if copy_ms["pinned_fresh"] is None else f"{copy_ms['pinned_fresh']:.1f}")
+          + f", from the caching host allocator {copy_ms['pinned_cached']:.3f}; non_blocking copy "
+          f"into pinned memory {copy_ms['pinned_copy']:.1f}; on {card}")
+    torch.cuda.empty_cache()
     paths["gpt2_small"] = run_lm_path(torch, np, counters, args.prompts, args.seed, card)
+    check_feed("LM", paths["gpt2_small"]["feed"], paths["gpt2_small"]["batches"], window=True)
+    torch.cuda.empty_cache()
+    feed_ab["gpt2_small"] = feed_turns(
+        lambda extra, busy: run_lm_path(torch, np, counters, args.prompts, args.seed, card,
+                                        extra=extra),
+        "LM", paths["gpt2_small"].pop("argmax"), "argmax", window=True,
+        keys=("sps", "sps_steady", "outside_ms_per_invoke"))
+    feed_ab["gpt2_small"]["logits_copy_ms"] = copy_ms
+    feed_ab["card"] = card
     torch.cuda.empty_cache()
     paths["gpt2_small_generation"] = run_generation_path(torch, np, counters, args.seed, card)
+    print(json.dumps({"feed_ab": feed_ab}))
+    for p in paths.values():
+        for k in ("labels", "feed"):
+            p.pop(k, None)
     print(json.dumps({"generation": paths["gpt2_small_generation"].pop("generation")}))
 
     for k in kernels:

@@ -2,8 +2,10 @@
 
 Port of ``nnstreamer_tpu/backends/base.py``: ``open/close``,
 ``get_model_info``/``set_input_info``, ``invoke`` (one frame) and
-``invoke_batch`` (a leading batch dim), plus the accelerator wish-list
-parser and backend registration in the subplugin registry.
+``invoke_batch`` (a leading batch dim), the staging hooks of the filter's
+ingest lane (``SUPPORTS_STAGING``, ``to_device``, ``staging_placement``),
+plus the accelerator wish-list parser and backend registration in the
+subplugin registry.
 """
 
 from __future__ import annotations
@@ -36,6 +38,12 @@ class FilterBackend:
 
     NAME = "base"
 
+    #: True when :meth:`to_device` performs a real placement (a COPY off
+    #: the staging buffer): the filter's ingest lane only engages then.
+    #: Host-resident backends keep the default: their "device tensors"
+    #: would alias the reusable staging memory.
+    SUPPORTS_STAGING = False
+
     def __init__(self):
         self.model_path: Optional[str] = None
         self.custom_props: Dict[str, str] = {}
@@ -66,6 +74,25 @@ class FilterBackend:
     def invoke_batch(self, inputs: List[Any]) -> List[Any]:
         """Run a micro-batch: each array has a leading batch dim."""
         raise NotImplementedError
+
+    def to_device(self, arrays: List[Any]) -> List[Any]:
+        """Place host-staged arrays on this backend's device: the hook the
+        filter's ingest lane calls from the LANE thread.  Contract (when
+        :attr:`SUPPORTS_STAGING` is True): return only after the contents
+        of ``arrays`` are fully copied off, because the caller reuses those
+        buffers immediately.  The default is the identity (host backends
+        consume host arrays directly), which is why the base class keeps
+        ``SUPPORTS_STAGING = False``."""
+        return list(arrays)
+
+    def staging_placement(self):
+        """Hashable token naming WHERE :meth:`to_device` places staged
+        batches.  The staging-buffer pool keys its rings on it (and pins
+        the buffers of a CUDA placement), so buffers of one placement are
+        never handed to a caller staging for another
+        (``core.buffer.DeviceBufferPool``).  ``None`` = no placement
+        identity (host backends)."""
+        return None
 
     @property
     def supports_batch(self) -> bool:

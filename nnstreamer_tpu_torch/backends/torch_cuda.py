@@ -10,16 +10,30 @@ resolution (the ``model=`` property):
 
 Placement: the model runs on ``cuda:0`` (``gpu.N`` picks another card)
 unless the accelerator wish list says ``cpu``; with no CUDA device and no
-cpu wish, ``open`` raises.  Micro-batches are padded up to the next power
-of two by repeating the last row, so the set of batch shapes the model
-sees stays small, and outputs are sliced back.  A fused postprocess (a
-decoder's device half) runs on the model outputs on the same device.
-Inference runs under ``torch.inference_mode()``.
+cpu wish, ``open`` raises.  A registered module is never moved: the
+backend uses it as it is when it already lives on the target device in
+eval mode, and a private copy otherwise.  Micro-batches are padded up to
+the next power of two by repeating the last row, so the set of batch
+shapes the model sees stays small, and outputs are sliced back.  A fused
+postprocess (a decoder's device half) runs on the model outputs on the
+same device.  Inference runs under ``torch.inference_mode()``, on the
+calling thread's current CUDA stream.
+
+Staging (the filter's ingest lane, ``to_device``): on CUDA the lane's
+pinned staging buffer is copied on a separate copy stream with
+``non_blocking=True`` and ``to_device`` returns once the copy's event has
+completed; the compute stream waits on that event before the batch's
+first launch, and each staged tensor is recorded on the compute stream so
+the caching allocator cannot hand its memory to the next copy while the
+model still reads it.  On the CPU ``to_device`` copies off the staging
+buffer (a ``torch.from_numpy`` view would alias the pooled buffer).
 """
 
 from __future__ import annotations
 
+import copy
 import inspect
+import itertools
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -43,8 +57,10 @@ def register_torch_model(
     """Register an in-process model under `name`.
 
     ``module(*inputs)`` takes one batched tensor per input (leading batch
-    dim) and returns a tensor or a list/tuple of tensors.  The backend
-    moves the module to its device when it opens."""
+    dim) and returns a tensor or a list/tuple of tensors.  Opening a filter
+    never moves or mode-switches the registered module: the backend runs it
+    as it is when its parameters and buffers already live on the filter's
+    device and it is in eval mode, and runs a private copy otherwise."""
     with _registry_lock:
         _model_registry[name] = (module, in_spec, out_spec)
 
@@ -71,6 +87,21 @@ def pick_device(wishes: List[str]) -> torch.device:
         "(pass accelerator=cpu to run on the CPU)")
 
 
+def _placed(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """``module`` when it already lives on `device` in eval mode, else a
+    private copy placed there in eval mode (the original stays as it is)."""
+    tensors = itertools.chain(module.parameters(), module.buffers())
+    if not any(m.training for m in module.modules()) and all(
+            t.device == device for t in tensors):
+        return module
+    return copy.deepcopy(module).to(device).eval()
+
+
+#: attribute that :meth:`TorchCuda.to_device` sets on each staged CUDA
+#: tensor: the copy stream's event the compute stream must wait on
+_COPY_EVENT = "_nns_copy_event"
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -84,11 +115,13 @@ def _normalize_out(out) -> List[Any]:
 
 class TorchCuda(FilterBackend):
     NAME = "torch-cuda"
+    SUPPORTS_STAGING = True  # to_device copies off the staging buffer, on both placements
 
     def __init__(self):
         super().__init__()
         self._module: Optional[torch.nn.Module] = None
         self._device: Optional[torch.device] = None
+        self._copy_stream = None  # the ingest lane's host-to-device stream (CUDA)
         self._in_spec: Optional[StreamSpec] = None
         self._out_spec: Optional[StreamSpec] = None
         self._posts: List[Callable[[List[Any]], List[Any]]] = []
@@ -104,26 +137,32 @@ class TorchCuda(FilterBackend):
         with _registry_lock:
             entry = _model_registry.get(model_path)
         if entry is not None:
-            return entry
+            return entry + (True,)
         arch = self.custom_props.get("arch")
         if arch:
             from .. import models as zoo
 
-            return zoo.build(arch, self.custom_props)
+            return zoo.build(arch, self.custom_props) + (False,)
         raise FileNotFoundError(
             f"torch-cuda cannot resolve model {model_path!r} "
             "(not registered; for the zoo pass custom=arch:<zoo-name>)")
 
     def open(self, model_path, props):
         super().open(model_path, props)
-        module, self._in_spec, self._out_spec = self._resolve_model(model_path)
+        module, self._in_spec, self._out_spec, registered = self._resolve_model(model_path)
         self._device = pick_device(props.get("accelerators") or ["auto"])
-        self._module = module.to(self._device).eval()
+        # a registered module is shared with its registrant and other
+        # filters; a zoo build is this backend's own
+        self._module = (_placed(module, self._device) if registered
+                        else module.to(self._device).eval())
         self._posts = []
+        self._copy_stream = (torch.cuda.Stream(self._device)
+                             if self._device.type == "cuda" else None)
 
     def close(self):
         self._module = None
         self._posts = []
+        self._copy_stream = None
 
     def get_model_info(self):
         return self._in_spec, self._out_spec
@@ -157,8 +196,41 @@ class TorchCuda(FilterBackend):
         self._out_spec = spec
         return spec
 
+    # -- staging (the filter's ingest lane) ---------------------------------
+    def staging_placement(self):
+        return ("dev", self._device.type, self._device.index)
+
+    def to_device(self, arrays: List[Any]) -> List[Any]:
+        """Copy host-staged arrays to this backend's device; runs on the
+        lane thread and returns once the copies are complete (the lane
+        reuses the buffers right after).  On CUDA the copies run on the
+        copy stream, and each returned tensor carries the copy's event for
+        :meth:`invoke_batch`."""
+        dev = self._device
+        if dev.type != "cuda":
+            # a private copy: from_numpy alone would alias the pooled buffer
+            return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+        with torch.cuda.device(dev), torch.cuda.stream(self._copy_stream):
+            # the pool's buffers are views of pinned tensors: true async copies
+            xs = [torch.from_numpy(np.asarray(a)).to(dev, non_blocking=True) for a in arrays]
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        done.synchronize()
+        for x in xs:
+            setattr(x, _COPY_EVENT, done)
+        return xs
+
     # -- execution ----------------------------------------------------------
     def _put(self, a: Any) -> torch.Tensor:
+        event = getattr(a, _COPY_EVENT, None)
+        if event is not None:
+            # a tensor staged on the copy stream: order the compute stream
+            # after its copy, and keep the allocator from reusing its memory
+            # until the compute stream is done with it
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(event)
+            a.record_stream(stream)
+            return a
         return torch.as_tensor(a).to(self._device)
 
     @staticmethod

@@ -1,9 +1,10 @@
-"""Application source and sink.
+"""Application source and sink, and the thread-boundary queue.
 
-Port of ``AppSrc`` and ``TensorSink`` from ``nnstreamer_tpu/elements/basic.py``:
-``appsrc`` is fed by the application (``push``, ``push_block``,
-``end_of_stream``); ``tensor_sink`` stores frames and calls the
-``connect_new_data`` callbacks, splitting micro-batches back into frames.
+Port of ``AppSrc``, ``TensorSink`` and ``Queue`` from
+``nnstreamer_tpu/elements/basic.py``: ``appsrc`` is fed by the application
+(``push``, ``push_block``, ``end_of_stream``); ``tensor_sink`` stores
+frames and calls the ``connect_new_data`` callbacks, splitting
+micro-batches back into frames; ``queue`` ends a fused streaming thread.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 
 from ..core.buffer import BatchFrame, TensorFrame
 from ..core.types import ANY, StreamSpec
-from ..pipeline.element import Property, SinkElement, SourceElement, element
+from ..pipeline.element import Property, SinkElement, SourceElement, TransformElement, element
 
 
 def _as_tensor(a: Any) -> Any:
@@ -127,3 +128,24 @@ class TensorSink(SinkElement):
             self.frames.pop(0)
         for cb in self._callbacks:
             cb(frame)
+
+
+@element("queue")
+class Queue(TransformElement):
+    """Thread-boundary element (≙ GstQueue): the explicit way to break a
+    fused streaming thread.  A linear chain shares ONE worker thread under
+    the scheduler's fusion pass; a ``queue`` ends the segment, giving the
+    downstream half its own thread and a bounded mailbox of
+    ``max-buffers`` items, where pipeline parallelism pays (a slow stage
+    that should overlap its neighbours).  The ``leaky`` modes are not
+    ported yet (ROADMAP A4.2)."""
+
+    BATCH_AWARE = True  # batch-transparent pass-through
+    THREAD_BOUNDARY = True  # the explicit fusion boundary
+
+    PROPERTIES = {
+        "max-buffers": Property(int, 16, "bounded queue depth (backpressure)"),
+    }
+
+    def transform(self, frame):
+        return frame

@@ -129,6 +129,10 @@ class TensorGenerator(Element):
                 "nnstreamer_tpu_torch yet (ROADMAP A7)")
         enabled, wishes = parse_accelerator(self.props["accelerator"])
         self._device = pick_device(wishes if enabled else ["cpu"])
+        # slotted mode needs its OWN mailbox and thread: the scheduler's
+        # idle hook and pending_frames poll, which release the engine's
+        # chunks between input frames, run for chain heads only
+        self.THREAD_BOUNDARY = slots > 0
         if slots > 0:
             from ..core.slots import SlotEngine
 

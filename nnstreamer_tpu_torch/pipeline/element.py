@@ -4,8 +4,9 @@ Port of ``nnstreamer_tpu/pipeline/element.py``: declared, string-parsable
 properties (``PROPERTIES``), src pads and links, schema negotiation by
 ``accept_spec``/``derive_spec``, and the processing hooks the scheduler
 calls (``handle_frame``, ``handle_event``; sources ``frames()``, sinks
-``render()``).  Supervision, liveness and the common properties of the
-JAX package are not part of this port yet.
+``render()``), and the fusion hints ``THREAD_BOUNDARY`` /
+``FUSE_DOWNSTREAM``.  Supervision, liveness and the common properties of
+the JAX package are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -91,6 +92,14 @@ class Element:
     #: a BatchFrame reaches this element whole only when True; otherwise
     #: the scheduler splits it into logical frames first
     BATCH_AWARE = False
+
+    #: True = this element keeps its own mailbox and streaming thread: the
+    #: scheduler's fusion pass never runs it inline on its upstream's
+    #: thread (``queue``; a slotted ``tensor_generator``)
+    THREAD_BOUNDARY = False
+
+    #: False = the element's downstream never runs inline on its thread
+    FUSE_DOWNSTREAM = True
 
     FACTORY_NAME = "element"
     NUM_SINK_PADS: int = 1

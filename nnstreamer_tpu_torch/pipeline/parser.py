@@ -25,8 +25,11 @@ class ParseError(ValueError):
     pass
 
 
-def parse_pipeline(text: str, name: str = "pipeline") -> Pipeline:
-    """Parse a pipeline description into an (unstarted) Pipeline."""
+def parse_pipeline(text: str, name: str = "pipeline", fuse: Optional[bool] = None) -> Pipeline:
+    """Parse a pipeline description into an (unstarted) Pipeline.
+
+    ``fuse``: streaming-thread fusion (None = the ``NNS_FUSE`` default,
+    on; False = one thread per element)."""
     try:
         tokens = shlex.split(text.replace("\n", " "))
     except ValueError as e:
@@ -34,7 +37,7 @@ def parse_pipeline(text: str, name: str = "pipeline") -> Pipeline:
     if not tokens:
         raise ParseError("empty pipeline description")
 
-    pipe = Pipeline(name)
+    pipe = Pipeline(name, fuse=fuse)
     current: Optional[Element] = None
     link_requested = False
     for tok in tokens:

@@ -3,23 +3,26 @@
 Port of ``nnstreamer_tpu/pipeline/pipeline.py``, reduced to the
 scheduling core: static schema negotiation (``_negotiate``), the device
 fusion pass that folds a decoder's device half into the upstream filter
-(``_fuse_device_chains``), one worker thread per element with a bounded
-mailbox between threads (backpressure; an element's ``max-buffers``
-property sets its depth), micro-batch draining for elements that batch
-(``preferred_batch`` > 1, filled for up to ``batch_wait_s``), the idle
-hook (``handle_idle``, called when the mailbox is empty, and
-``pending_frames``, which shortens the poll while the element holds
-work), and EOS propagation.
+(``_fuse_device_chains``), the streaming-thread fusion pass
+(``_compute_segments``: each maximal fusable linear chain runs on ONE
+worker thread, its later elements inline on the head's thread, with a
+bounded mailbox only at the head; ``fuse=False`` or ``NNS_FUSE=0`` gives
+one thread per element), backpressure between threads (an element's
+``max-buffers`` property sets its mailbox depth), micro-batch draining
+for elements that batch (``preferred_batch`` > 1, filled for up to
+``batch_wait_s``), the idle hook (``handle_idle``, called when the head's
+mailbox is empty, and ``pending_frames``, which shortens the poll while
+the element holds work), and EOS propagation.
 
 Not ported yet (see ROADMAP.md): telemetry, watchdog, flight recorder,
-memory monitor, deadline QoS, supervision/restart, drain, hot reload and
-streaming-thread fusion.  A failing element stops the pipeline and
-``wait()`` re-raises its error.
+memory monitor, deadline QoS, supervision/restart, drain and hot reload.
+A failing element stops the pipeline and ``wait()`` re-raises its error.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -32,14 +35,61 @@ from .element import Element, ElementError, SourceElement
 _STOP = object()  # mailbox sentinel: the worker exits
 
 
+class _ElemState:
+    """Per-element dispatch state inside one streaming-thread worker: the
+    connected sink pads, the pads that saw caps and EOS, and the in-segment
+    route (the fused downstream element's state, the src pad carrying that
+    link and the sink pad it lands on; None = outputs leave through
+    mailboxes)."""
+
+    __slots__ = ("el", "connected", "eos_pads", "caps_pads", "finished",
+                 "next_state", "next_pad", "out_pad")
+
+    def __init__(self, el: Element):
+        self.el = el
+        self.connected: Set[int] = {0}
+        self.eos_pads: Set[int] = set()
+        self.caps_pads: Set[int] = set()
+        self.finished = False
+        self.next_state: Optional["_ElemState"] = None
+        self.next_pad = 0
+        self.out_pad = 0
+
+
+class _Seg:
+    """One streaming thread: a maximal fusable linear chain of elements.
+
+    ``chain[0]`` is the head (a source, or the one element with a mailbox);
+    every later element receives its input inline on the head's thread —
+    GStreamer semantics: elements share a streaming thread unless an
+    explicit ``queue`` boundary is inserted."""
+
+    __slots__ = ("chain", "states", "stash")
+
+    def __init__(self, chain: List[Element]):
+        self.chain = chain
+        self.states: Dict[str, _ElemState] = {}
+        # items popped from the head mailbox while filling a batch that end
+        # it (an event, another pad's frame): they run next, in order
+        self.stash: deque = deque()
+
+
+def _env_fuse() -> bool:
+    return os.environ.get("NNS_FUSE", "1").lower() not in ("0", "false", "no")
+
+
 class Pipeline:
     """A running graph of elements."""
 
-    def __init__(self, name: str = "pipeline", default_queue_size: int = 16):
+    def __init__(self, name: str = "pipeline", default_queue_size: int = 16,
+                 fuse: Optional[bool] = None):
         self.name = name
         self.log = logging.getLogger(f"nnstreamer_tpu_torch.{name}")
         self.elements: Dict[str, Element] = {}
         self.default_queue_size = default_queue_size
+        # streaming-thread fusion (None = the NNS_FUSE default, on)
+        self._fuse = _env_fuse() if fuse is None else bool(fuse)
+        self._segments: List[_Seg] = []
         self.errors: List[BaseException] = []
         self._threads: List[threading.Thread] = []
         self._stop_flag = threading.Event()
@@ -118,6 +168,95 @@ class Pipeline:
                 el._auto_batch_through = True
             self.log.info("device-fused %s -> %s", el.name, dst.name)
 
+    # -- streaming-thread fusion pass ----------------------------------------
+    def _compute_segments(self) -> List[_Seg]:
+        """Partition the element graph into streaming threads: each maximal
+        fusable linear chain becomes ONE worker (its inner mailboxes are
+        elided).  An edge up->down fuses iff:
+
+        * fusion is enabled (``fuse=``/``NNS_FUSE``),
+        * ``up``'s ONLY outgoing link is to ``down`` and ``down``'s only
+          input is ``up`` (branches keep thread boundaries),
+        * ``down`` does not declare ``THREAD_BOUNDARY`` (``queue``, a
+          slotted ``tensor_generator``; they still drive their own fused
+          downstream),
+        * ``up`` does not declare ``FUSE_DOWNSTREAM = False``,
+        * ``down`` has no leaky policy (a drop decision needs a queue),
+        * neither side micro-batches (``preferred_batch > 1`` needs a
+          mailbox to drain batches from, and its downstream boundary is
+          what overlaps invoke with decode).
+
+        Runs after element start() (``preferred_batch`` needs live
+        backends) and after negotiation."""
+        incoming: Dict[str, int] = {n: 0 for n in self.elements}
+        for el in self.elements.values():
+            for pad in el.srcpads:
+                for dst, _ in pad.links:
+                    incoming[dst.name] += 1
+
+        def total_out(el: Element) -> int:
+            return sum(len(p.links) for p in el.srcpads)
+
+        def fusable(up: Element, down: Element) -> bool:
+            if not self._fuse or isinstance(down, SourceElement):
+                return False
+            if total_out(up) != 1 or incoming[down.name] != 1:
+                return False
+            if getattr(down, "THREAD_BOUNDARY", False):
+                return False
+            if not getattr(up, "FUSE_DOWNSTREAM", True):
+                return False
+            if getattr(down, "leaky_policy", ""):
+                return False
+            return not (getattr(up, "preferred_batch", 1) > 1
+                        or getattr(down, "preferred_batch", 1) > 1)
+
+        fused_up: Dict[str, Element] = {}  # down name -> its fused upstream
+        for el in self.elements.values():
+            if total_out(el) == 1:
+                for pad in el.srcpads:
+                    for dst, _ in pad.links:
+                        if fusable(el, dst):
+                            fused_up[dst.name] = el
+        segs: List[_Seg] = []
+        for el in self.elements.values():
+            if el.name in fused_up:
+                continue  # not a head
+            chain = [el]
+            cur = el
+            while True:
+                nxt = None
+                for pad in cur.srcpads:
+                    for dst, _ in pad.links:
+                        if fused_up.get(dst.name) is cur:
+                            nxt = dst
+                if nxt is None:
+                    break
+                chain.append(nxt)
+                cur = nxt
+            seg = _Seg(chain)
+            for e in chain:
+                st = _ElemState(e)
+                st.connected = {
+                    pad for other in self.elements.values() for sp in other.srcpads
+                    for d, pad in sp.links if d is e
+                } or {0}
+                seg.states[e.name] = st
+            for a, b in zip(chain, chain[1:]):  # in-segment routing links
+                sa = seg.states[a.name]
+                for i, pad in enumerate(a.srcpads):
+                    for dst, sink_pad in pad.links:
+                        if dst is b:
+                            sa.next_state = seg.states[b.name]
+                            sa.out_pad = i
+                            sa.next_pad = sink_pad
+            segs.append(seg)
+        if self._fuse and any(len(s.chain) > 1 for s in segs):
+            self.log.info("fused %d elements onto %d streaming thread(s): %s",
+                          len(self.elements), len(segs),
+                          " | ".join("+".join(e.name for e in s.chain) for s in segs))
+        return segs
+
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Pipeline":
         if self._started:
@@ -138,7 +277,7 @@ class Pipeline:
                 except Exception:
                     self.log.exception("stop() failed for %s", el.name)
             raise
-        incoming = self._incoming()
+        self._segments = self._compute_segments()
         self._pending_sinks = sum(
             1 for el in self.elements.values()
             if not isinstance(el, SourceElement) and not any(p.is_linked for p in el.srcpads)
@@ -148,19 +287,20 @@ class Pipeline:
         self._sinks_done.clear()
         if self._pending_sinks == 0:
             self._sinks_done.set()
-        for el in self.elements.values():
-            if isinstance(el, SourceElement):
-                target, args = self._run_source, (el,)
+        for seg in self._segments:
+            head = seg.chain[0]
+            if isinstance(head, SourceElement):
+                target = self._run_source
             else:
                 # a micro-batching element needs its full batch to fit in
                 # the mailbox or batches can never form at max-batch size
-                size = max(self.default_queue_size, getattr(el, "preferred_batch", 1))
-                if el.props.get("max-buffers"):
-                    size = int(el.props["max-buffers"])
-                el._mailbox = queue.Queue(maxsize=size)
-                target, args = self._run_element, (el, incoming[el.name] or {0})
+                size = max(self.default_queue_size, getattr(head, "preferred_batch", 1))
+                if head.props.get("max-buffers"):
+                    size = int(head.props["max-buffers"])
+                head._mailbox = queue.Queue(maxsize=size)
+                target = self._run_chain_head
             self._threads.append(
-                threading.Thread(target=target, args=args, name=el.name, daemon=True))
+                threading.Thread(target=target, args=(seg,), name=head.name, daemon=True))
         for t in self._threads:
             t.start()
         self._started = True
@@ -206,15 +346,18 @@ class Pipeline:
             raise TimeoutError(f"pipeline {self.name!r} did not finish in {timeout}s")
 
     # -- worker runtime ------------------------------------------------------
-    def _fail(self, el: Element, e: BaseException) -> None:
-        """Record a fatal element failure and stop the stream."""
+    def _fail(self, el: Element, e: BaseException) -> bool:
+        """Record a fatal element failure and stop the stream; False (the
+        worker must exit)."""
         self.log.error("element %s failed", el.name, exc_info=e)
         self.errors.append(e)
         self._stop_flag.set()
         self._sinks_done.set()  # unblock wait()
+        return False
 
     def _push(self, el: Element, src_pad: int, item) -> bool:
-        """Push one item downstream with backpressure; False if stopping."""
+        """Push one item into the mailboxes downstream of a segment, with
+        backpressure; False if stopping."""
         for dst, sink_pad in el.srcpads[src_pad].links:
             while True:
                 if self._stop_flag.is_set():
@@ -226,61 +369,122 @@ class Pipeline:
                     continue
         return True
 
-    def _push_all(self, el: Element, outs) -> bool:
-        for sp, out in outs or ():
-            if not self._push(el, sp, out):
+    def _route_one(self, seg: _Seg, st: _ElemState, sp: int, item) -> bool:
+        """Route one output item: inline into the fused downstream element
+        when the link stays inside the segment, else out through its
+        mailbox.  False = the worker must exit."""
+        nxt = st.next_state
+        if nxt is not None:
+            if sp == st.out_pad:
+                return self._dispatch(seg, nxt, st.next_pad, item)
+            return True  # an unlinked src pad: dropped, as _push drops it
+        return self._push(st.el, sp, item)
+
+    def _route_outs(self, seg: _Seg, st: _ElemState, outs) -> bool:
+        """Route a call's outputs (a list, or a lazy iterable forwarded as
+        it produces them)."""
+        for sp, out in outs:
+            if not self._route_one(seg, st, sp, out):
                 return False
         return True
 
-    def _finish_eos(self, el: Element) -> None:
-        """EOS arrived on every connected pad: forward it, or end the
-        stream at a terminal element."""
+    def _finish_eos(self, seg: _Seg, st: _ElemState) -> bool:
+        """``st.el`` consumed EOS on every connected pad: propagate it, or
+        end the stream at a terminal element.  Returns False: the element,
+        and through the inline EOS cascade everything downstream of it in
+        this segment, is done."""
+        el = st.el
+        st.finished = True
         if any(p.is_linked for p in el.srcpads):
             for i in range(len(el.srcpads)):
-                self._push(el, i, EOS())
-            return
-        with self._sink_lock:
-            self._pending_sinks -= 1
-            if self._pending_sinks <= 0:
-                self._sinks_done.set()
+                self._route_one(seg, st, i, EOS())
+        else:
+            with self._sink_lock:
+                self._pending_sinks -= 1
+                if self._pending_sinks <= 0:
+                    self._sinks_done.set()
+        return False
 
-    def _run_source(self, el: SourceElement) -> None:
+    def _dispatch(self, seg: _Seg, st: _ElemState, pad: int, item) -> bool:
+        """Process one in-band item on ``st.el``, inline on the segment's
+        thread; an error is the element's own.  False = the worker must
+        exit (error recorded, stopping, or the stream finished)."""
+        el = st.el
+        try:
+            if isinstance(item, TensorFrame):
+                if isinstance(item, BatchFrame) and not el.BATCH_AWARE:
+                    # per-frame elements get logical frames, never a batch axis
+                    for f in item.split():
+                        if not self._route_outs(seg, st, el.handle_frame(pad, f) or ()):
+                            return False
+                    return True
+                return self._route_outs(seg, st, el.handle_frame(pad, item) or ())
+            if isinstance(item, CapsEvent):
+                el.set_sink_spec(pad, item.spec)
+                st.caps_pads.add(pad)
+                if st.caps_pads >= st.connected:
+                    for i in range(len(el.srcpads)):
+                        if not self._route_one(seg, st, i, CapsEvent(el.derive_spec(i))):
+                            return False
+                return True
+            if isinstance(item, EOS):
+                st.eos_pads.add(pad)
+                handle_eos = getattr(el, "handle_eos", None)
+                if handle_eos is not None and not self._route_outs(
+                        seg, st, handle_eos(pad) or ()):
+                    return False
+                if st.eos_pads >= st.connected:
+                    return self._finish_eos(seg, st)
+                return True
+            return self._route_outs(seg, st, el.handle_event(pad, item) or ())
+        except BaseException as e:  # noqa: BLE001 — the element's boundary
+            return self._fail(el, e)
+
+    def _run_source(self, seg: _Seg) -> None:
+        el = seg.chain[0]
+        st = seg.states[el.name]
         try:
             for i in range(len(el.srcpads)):
-                if not self._push(el, i, CapsEvent(el.output_spec())):
+                if not self._route_one(seg, st, i, CapsEvent(el.output_spec())):
                     return
             for frame in el.frames():
                 if self._stop_flag.is_set():
                     return
-                outs = el.handle_event(0, frame) if isinstance(frame, Event) else [(0, frame)]
-                if not self._push_all(el, outs):
+                if isinstance(frame, Event):
+                    if not self._route_outs(seg, st, el.handle_event(0, frame) or ()):
+                        return
+                elif not self._route_one(seg, st, 0, frame):
                     return
             for i in range(len(el.srcpads)):
-                self._push(el, i, EOS())
+                # unchecked: a fused downstream finishing returns False
+                self._route_one(seg, st, i, EOS())
         except BaseException as e:  # noqa: BLE001 — worker boundary
             self._fail(el, e)
 
-    def _run_element(self, el: Element, connected: Set[int]) -> None:
+    def _run_chain_head(self, seg: _Seg) -> None:
+        el = seg.chain[0]
         try:
-            self._element_loop(el, connected)
+            self._chain_loop(seg)
         except BaseException as e:  # noqa: BLE001 — worker boundary
             self._fail(el, e)
 
-    def _element_loop(self, el: Element, connected: Set[int]) -> None:
+    def _chain_loop(self, seg: _Seg) -> None:
+        el = seg.chain[0]
+        st = seg.states[el.name]
         box = el._mailbox
         want = getattr(el, "preferred_batch", 1)
         batching = want > 1 and hasattr(el, "handle_frame_batch")
         wait_s = getattr(el, "batch_wait_s", 0.0)
-        # an element holding work outside its mailbox (the generator's slot
-        # engine) is polled sooner while it has some, and its idle hook
-        # releases what finished meanwhile
+        # an element holding work outside its mailbox (the filter's window
+        # and staged batch, the generator's slot engine) is polled sooner
+        # while it has some, and its idle hook releases what finished
         pending = getattr(el, "pending_frames", None)
         idle = getattr(el, "handle_idle", None)
-        caps_pads: Set[int] = set()
-        eos_pads: Set[int] = set()
-        # items popped while filling a batch that end it (an event, another
-        # pad's frame): they run next, in order
-        stash: deque = deque()
+        # fused tails with deferred output get their idle flush too
+        tail_idles = [(seg.states[e.name], e.handle_idle)
+                      for e in seg.chain[1:] if hasattr(e, "handle_idle")]
+        stash = seg.stash
+        stash.clear()
         while not self._stop_flag.is_set():
             if stash:
                 pad, item = stash.popleft()
@@ -289,37 +493,26 @@ class Pipeline:
                     poll = 0.02 if pending is not None and pending() > 0 else 0.1
                     pad, item = box.get(timeout=poll)
                 except queue.Empty:
-                    if idle is not None and not self._push_all(el, idle()):
+                    if idle is not None and not self._route_outs(seg, st, idle() or ()):
                         return
+                    for t_st, t_idle in tail_idles:
+                        try:
+                            t_outs = t_idle() or ()
+                        except BaseException as e:  # noqa: BLE001 — the tail's error
+                            self._fail(t_st.el, e)
+                            return
+                        if not self._route_outs(seg, t_st, t_outs):
+                            return
                     continue
             if item is _STOP:
                 return
-            if isinstance(item, TensorFrame):
-                if batching:
-                    outs = el.handle_frame_batch(
-                        pad, self._fill_batch(box, stash, pad, item, want, wait_s))
-                elif isinstance(item, BatchFrame) and not el.BATCH_AWARE:
-                    outs = [o for f in item.split() for o in el.handle_frame(pad, f) or ()]
-                else:
-                    outs = el.handle_frame(pad, item)
-                if not self._push_all(el, outs):
+            if batching and isinstance(item, TensorFrame):
+                frames = self._fill_batch(box, stash, pad, item, want, wait_s)
+                if not self._route_outs(seg, st, el.handle_frame_batch(pad, frames) or ()):
                     return
-            elif isinstance(item, CapsEvent):
-                el.set_sink_spec(pad, item.spec)
-                caps_pads.add(pad)
-                if caps_pads >= connected:
-                    for i in range(len(el.srcpads)):
-                        if not self._push(el, i, CapsEvent(el.derive_spec(i))):
-                            return
-            elif isinstance(item, EOS):
-                eos_pads.add(pad)
-                handle_eos = getattr(el, "handle_eos", None)
-                if handle_eos is not None and not self._push_all(el, handle_eos(pad)):
-                    return
-                if eos_pads >= connected:
-                    self._finish_eos(el)
-                    return
-            elif not self._push_all(el, el.handle_event(pad, item)):
+            elif not self._dispatch(seg, st, pad, item):
+                return
+            if st.finished:
                 return
 
     @staticmethod

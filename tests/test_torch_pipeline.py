@@ -108,6 +108,34 @@ def test_pipeline_labels_match_jax(registered, frames, jax_labels, variant):
     np.testing.assert_allclose(score, jax_labels[1], rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("decoder", ["", "device-fused=never"])
+def test_labels_match_jax_with_the_feed_on(registered, frames, jax_labels, decoder):
+    """The slice as a whole: the ingest lane stages every micro-batch (4, 4
+    and 2 frames) and, with the decoder on the host, the dispatch window
+    reaps every invoke; labels equal the JAX package's."""
+    pipe = parse_pipeline(
+        f"appsrc name=src ! tensor_filter name=f model={MODEL} accelerator=cpu max-batch=4 "
+        f"batch-timeout=200 ingest-lane=on dispatch-depth=4 ! tensor_decoder {decoder} "
+        "mode=image_labeling ! tensor_sink name=out")
+    pipe.start()
+    try:
+        for i, f in enumerate(frames):
+            pipe["src"].push(f, pts=float(i))
+        pipe["src"].end_of_stream()
+        pipe.wait(timeout=120)
+        f = pipe["f"]
+        staged, reaped, invokes = f._lane.staged, f._inflight.reaped, f.invokes
+    finally:
+        pipe.stop()
+    out = pipe["out"].frames
+    assert [f.pts for f in out] == list(range(N_FRAMES))
+    assert staged == invokes == 3
+    assert reaped == (0 if decoder == "" else 3)  # batch-through parks nothing
+    np.testing.assert_array_equal([f.meta["label_index"] for f in out], jax_labels[0])
+    np.testing.assert_allclose([f.meta["label_score"] for f in out], jax_labels[1],
+                               rtol=1e-4, atol=1e-4)
+
+
 BF16_MODEL, BF16_CLASSES = "torch_parity_bf16_head", 1001
 
 
