@@ -59,6 +59,32 @@ Phases (any failure exits non-zero before the result lines are printed):
       ``ingest-lane=off dispatch-depth=1`` (the synchronous filter), whose
       labels must equal the defaults'; each mode's card busy share over a
       steady window (a second pipeline, ``torch.profiler``);
+   e. the same MobileNet-v2 composed with NNStreamer's stream elements
+      (run right after path a):
+      1. host frames, timed: ``videotestsrc`` (--frames/2 random 224x224
+         frames from --seed) ``! tensor_converter ! tee``, one branch
+         ``queue ! tensor_filter ! tensor_decoder``, the other ``queue !
+         tensor_transform`` (typecast, add -127.5, div 127.5) ``!
+         tensor_transform`` (clamp -1:1), joined by ``tensor_mux`` and parted
+         by ``tensor_demux``: labels equal to the direct call in the same
+         micro-batch sizes, every preprocessed tensor bit-equal to numpy's
+         ``clip((x.astype(float32) + -127.5) / 127.5, -1, 1)``, frame i of
+         both branches paired, ``normalize_u8`` and ``top1`` exactly once
+         per micro-batch (the filter derives its schema without a model
+         call); frames/s and latency beside path a's;
+      2. card frames, not timed: 256 of the frames pushed through
+         ``appsrc`` as CUDA tensors into a ``tee`` feeding every
+         ``tensor_transform`` mode, an ``apply=`` subset behind a
+         ``tensor_mux``, ``tensor_merge ! tensor_split ! tensor_aggregator``,
+         ``tensor_if`` (channel means near 64 and 128 against 100),
+         ``tensor_crop`` against a second source of fixed regions, and the
+         MobileNet filter (batch-through, its micro-batches kept whole at one
+         sink and split into card rows by the scheduler for a
+         ``tensor_transform`` and by a ``split-batches`` sink): every output
+         reaching a sink must be a CUDA tensor, each transform's torch route must have run on
+         every frame, and the outputs must equal those of the same pipeline
+         fed the same frames as numpy arrays (``stand`` within rtol and atol
+         1e-5, the rest bit for bit; tensor_if decisions and labels exact).
    b. ViT-B/16 image labeling (224x224, patch 16, 768 wide, 12 heads, 12
       layers, MLP 3072, 1001 classes, bf16, ``attn:flash``),
       ``--vit-frames`` frames; plus, on 8 frames, a float32 copy of the
@@ -87,6 +113,8 @@ Phases (any failure exits non-zero before the result lines are printed):
          chunk and chunk interval p50/p99, the decode step's wall, device
          and host ms, busy share and host synchronizations per call
          (``torch.profiler``), KV-cache bytes and ``max_memory_allocated``;
+         then, in bf16, one prompt alone in ``slots=16`` and the same prompt
+         among 15 others: its tokens must be equal (neighbour independence);
       4. float32: 8 prompts through ``slots=4`` equal to one-shot B = 1
          under the same margin rule;
       5. threefry bits and uniforms of a (16, 50257) draw bit-equal on the
@@ -98,7 +126,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
    beside the card line.
 5. summary: a ``{"feed_ab": {...}}`` JSON line (paths a and c in both
-   modes), a ``{"generation": {...}}`` JSON line (path d's numbers), one
+   modes), a ``{"generation": {...}}`` JSON line (path d's numbers), a
+   ``{"composed": {...}}`` JSON line (path e's numbers), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -674,7 +703,7 @@ def direct_batches(torch, module, inputs, sizes):
         for n in sizes:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            x = torch.from_numpy(inputs[k:k + n]).cuda()
+            x = torch.from_numpy(inputs[k:k + n]).to("cuda")
             bucket = 1 << (n - 1).bit_length()
             if bucket != n:
                 x = torch.cat([x, x[-1:].expand((bucket - n,) + tuple(x.shape[1:]))])
@@ -794,6 +823,273 @@ def check_vit_float32(torch, module, images) -> float:
     print(f"ViT path: float32 copy on 8 frames, attention by the kernel vs by the plain version: "
           f"max abs logit difference {err:.3g} (limit 1e-4)")
     return err
+
+
+COMPOSED_E1 = (
+    "videotestsrc name=src num-buffers={frames} width={size} height={size} pattern=random "
+    "seed={seed} ! tensor_converter ! tee name=t "
+    "t. ! queue ! tensor_filter name=f framework=torch-cuda model=zoo custom={custom},seed:{seed} "
+    "max-batch=128 batch-timeout=1000 ! tensor_decoder mode=image_labeling "
+    "option1={labels} ! m. "
+    "t. ! queue ! tensor_transform mode=arithmetic option=typecast:float32,add:-127.5,div:127.5 "
+    "! tensor_transform mode=clamp option=-1:1 ! m. "
+    "tensor_mux name=m ! tensor_demux name=d  d. ! tensor_sink name=labels  "
+    "d. ! tensor_sink name=pre")
+
+# phase e2: every element on card frames; (sink, element options) per tee branch
+COMPOSED_E2_TRANSFORMS = [
+    ("typecast", "mode=typecast option=float32"),
+    ("add", "mode=arithmetic option=add:-127.5"),
+    ("sub", "mode=arithmetic option=typecast:float32,sub:0.25"),
+    ("mul", "mode=arithmetic option=mul:0.5|2|3"),
+    ("div", "mode=arithmetic option=typecast:float32,div:3.3"),
+    ("clamp", "mode=clamp option=30:200"),
+    ("transpose", "mode=transpose option=1:0:2"),
+    ("dimchg", "mode=dimchg option=0:2"),
+    ("stand", "mode=stand option=default"),
+]
+
+
+def composed_e2_text(custom: str, seed: int, size: int) -> str:
+    """Phase e2's pipeline: a tee of every frame into each transform mode,
+    an ``apply=`` subset behind a mux, merge -> split -> aggregator,
+    tensor_if, tensor_crop against a second source of regions, and the
+    MobileNet filter (batch-through: its logits stay where it computed
+    them) into a tee: one sink takes each micro-batch whole, a
+    tensor_transform gets its rows from the scheduler's split, and a
+    split-batches sink splits it itself; every sink keeps what it gets
+    where it lives."""
+    sink = "to-host=false"
+    seg = size * 100 // 224  # the merged frame is 2*size wide: split it 100 + 348 at 224
+    parts = ["appsrc name=src ! tee name=t"]
+    for name, opts in COMPOSED_E2_TRANSFORMS:
+        parts.append(f"t. ! queue ! tensor_transform name=x_{name} {opts} ! "
+                     f"tensor_sink name={name} {sink}")
+    parts += [
+        "t. ! queue ! mx.  t. ! queue ! mx.  tensor_mux name=mx ! tensor_transform name=x_apply "
+        f"mode=arithmetic option=typecast:float32,mul:2 apply=1 ! tensor_sink name=apply {sink}",
+        "t. ! queue ! mg.  t. ! queue ! tensor_transform name=x_flip mode=transpose option=0:2:1 "
+        "! mg.  tensor_merge name=mg option=1 ! tensor_split name=sp "
+        f"tensorseg={seg},{2 * size - seg} option=1 "
+        f"sp. ! tensor_aggregator frames-out=2 frames-dim=3 ! tensor_sink name=aggregator {sink} "
+        f"sp. ! tensor_sink name=split {sink}",
+        "t. ! queue ! tensor_if compared-value=tensor_average_value compared-value-option=0 "
+        "supplied-value=100 operator=gt then=passthrough else=fill_values else-option=7 ! "
+        f"tensor_sink name=if {sink}",
+        "t. ! queue ! c.  appsrc name=regions ! c.  tensor_crop name=c ! "
+        f"tensor_sink name=crop {sink}",
+        "t. ! queue ! tensor_filter name=f framework=torch-cuda model=zoo "
+        f"custom={custom},seed:{seed} "
+        "max-batch=128 batch-timeout=10000 batch-through=true ! tee name=ft "
+        f"ft. ! tensor_sink name=filter {sink} split-batches=false "
+        "ft. ! tensor_transform name=x_logits mode=arithmetic option=mul:2 ! "
+        f"tensor_sink name=logits {sink} "
+        f"ft. ! tensor_sink name=rows {sink}",
+    ]
+    return "  ".join(parts)
+
+
+COMPOSED_E2_SINKS = ([n for n, _ in COMPOSED_E2_TRANSFORMS]
+                     + ["apply", "aggregator", "split", "if", "crop", "filter", "logits", "rows"])
+CROP_REGIONS = [[10, 20, 64, 48], [150, 150, 100, 100], [0, 0, 224, 1]]
+
+
+def run_composed_path(torch, np, lab, counters, seed: int, card: str, labels, frames: int,
+                      e2_frames: int = 256, custom: str = "arch:mobilenet_v2,dtype:bfloat16",
+                      size: int = 224, beside=None) -> dict:
+    """Path e: MobileNet-v2 labeling composed with NNStreamer's stream
+    elements.  e1 (host frames, timed): videotestsrc -> converter -> tee;
+    one branch labels (queue, filter, decoder), the other preprocesses
+    (queue, arithmetic, clamp); mux -> demux -> two sinks.  Labels must
+    equal the direct call in the same micro-batch sizes, every ``pre``
+    tensor numpy's clip((x.astype(float32) - 127.5) / 127.5, -1, 1) bit for
+    bit, frame i of both branches paired (pts i/30), normalize_u8 and top1
+    exactly one launch per micro-batch.  e2 (card frames, not timed): the same
+    frames pushed as card tensors through every stream element (phase e2's
+    graph); every output reaching a sink must be a card tensor, and equal
+    what the same pipeline makes of the frames pushed as numpy arrays."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    text = COMPOSED_E1.format(frames=frames, size=size, seed=seed, custom=custom, labels=labels)
+    pipe = parse_pipeline(text)
+    made, arrived = {}, {}
+    source = pipe["src"].frames
+
+    def timed_frames():
+        for f in source():
+            made[f.pts] = time.perf_counter()
+            yield f
+
+    pipe["src"].frames = timed_frames
+    pipe["labels"].connect_new_data(lambda f: arrived.__setitem__(f.pts, time.perf_counter()))
+    # the source declares a static schema, so the filter derives its fused
+    # output schema at negotiation; that runs no model call and launches
+    # nothing, so every launch counted here belongs to a micro-batch
+    counters.zero()
+    t0 = time.perf_counter()
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            pipe.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        module = pipe["f"].backend._module
+        got_labels, got_pre = pipe["labels"].frames, pipe["pre"].frames
+    finally:
+        pipe.stop()
+    batches = len(sizes)
+    dt = 1 / 30
+    if (len(got_labels) != frames or len(got_pre) != frames
+            or [f.pts for f in got_labels] != [i * dt for i in range(frames)]
+            or [f.pts for f in got_pre] != [i * dt for i in range(frames)]):
+        raise AssertionError(f"composed path: {len(got_labels)} label and {len(got_pre)} pre "
+                             f"frames of {frames}, or not paired frame i with frame i in order")
+    rng = np.random.default_rng(seed)
+    images = np.stack([rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+                       for _ in range(frames)])
+    got = np.array([f.meta["label_index"] for f in got_labels])
+    idx = np.array([int(f.tensors[0][0]) for f in got_labels])
+    want = np.concatenate([lab.top1_plain(logits)[0].cpu().numpy()
+                           for _, _, logits, _ in direct_batches(torch, module, images, sizes)])
+    if not np.array_equal(got, want) or not np.array_equal(idx, want):
+        bad = np.flatnonzero(got != want)
+        raise AssertionError(f"composed path: {len(bad)} labels differ from the direct call "
+                             f"(first frames {bad[:8]})")
+    for i, f in enumerate(got_pre):
+        ref = np.clip((images[i].astype(np.float32) + -127.5) / 127.5, -1, 1)
+        if f.tensors[0].dtype != ref.dtype or not np.array_equal(f.tensors[0], ref):
+            raise AssertionError(f"composed path: pre of frame {i} differs from numpy's clip")
+    if launches["normalize_u8"] != batches or launches["top1"] != batches:
+        raise AssertionError(f"composed path: launches {launches} for {batches} micro-batches "
+                             "(want normalize_u8 and top1 exactly once each per micro-batch)")
+    lat = sorted(arrived[i * dt] - made[i * dt] for i in range(frames))
+    first = sizes[0] - 1
+    span = max(arrived.values()) - arrived[first * dt]
+    steady = (frames - first - 1) / span if span > 0 else float("nan")
+    p50, p99 = lat[len(lat) // 2] * 1e3, lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
+    print(f"composed path e1: {frames} videotestsrc frames through converter, tee, two queued "
+          f"branches, mux and demux in {batches} micro-batches (sizes {sorted(set(sizes))}); "
+          f"labels equal to the direct call, pre bit-equal to numpy's clip, frame i paired with "
+          f"frame i; launches {launches}")
+    a = ("" if beside is None else
+         f" (path a in this run: {beside['fps_steady']:.1f} frames/s after the first "
+         f"micro-batch, p50 {beside['latency_ms_p50']:.2f} ms, "
+         f"p99 {beside['latency_ms_p99']:.2f} ms)")
+    print(f"composed path e1: {frames / wall:.1f} frames/s overall, {steady:.1f} frames/s after "
+          f"the first micro-batch; frame latency (source to labels sink) p50 {p50:.2f} ms p99 "
+          f"{p99:.2f} ms{a}; on {card}")
+    e2 = run_composed_e2(torch, np, counters, images[:e2_frames], custom, seed)
+    return {"launches": launches, "batches": batches, "fps": frames / wall,
+            "fps_steady": steady, "latency_ms_p50": p50, "latency_ms_p99": p99, "e2": e2}
+
+
+def run_composed_e2(torch, np, counters, images, custom: str, seed: int) -> dict:
+    """Phase e2 (see ``composed_e2_text``): `images` pushed as card tensors,
+    then as numpy arrays, through the same pipeline; outputs compared.  The
+    filter's outputs are card tensors in both runs: its rows are checked
+    within the card run (each row sink against the whole micro-batches,
+    the transformed rows against twice the rows), the rest across runs."""
+    from nnstreamer_tpu_torch.ops import labeling as lab
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    n = len(images)
+    # even frames darkened, so tensor_if sees means near 64 and 128 against 100
+    frames = [x // 2 if i % 2 == 0 else x for i, x in enumerate(images)]
+    regions = np.array(CROP_REGIONS, np.int32)
+
+    def run(on_card: bool):
+        pipe = parse_pipeline(composed_e2_text(custom, seed, images.shape[1]))
+        off_card = []
+
+        def check(sink):
+            def cb(f):
+                for t in f.tensors:
+                    if not (isinstance(t, torch.Tensor) and t.device.type == "cuda"):
+                        off_card.append(sink)
+            return cb
+
+        if on_card:
+            for s in COMPOSED_E2_SINKS:
+                pipe[s].connect_new_data(check(s))
+        counters.zero()
+        pipe.start()
+        try:
+            with recording_batches(pipe, "f") as sizes:
+                for i, x in enumerate(frames):
+                    pipe["src"].push(torch.from_numpy(x).cuda() if on_card else x, pts=float(i))
+                    pipe["regions"].push(regions, pts=float(i))
+                pipe["src"].end_of_stream()
+                pipe["regions"].end_of_stream()
+                pipe.wait(timeout=600)
+            launches = counters.read()
+            applied = {name: pipe[f"x_{name}"].torch_applied
+                       for name in [m for m, _ in COMPOSED_E2_TRANSFORMS] + ["apply", "logits"]}
+            out = {s: pipe[s].frames for s in COMPOSED_E2_SINKS}
+            module = pipe["f"].backend._module
+        finally:
+            pipe.stop()
+        return out, off_card, applied, launches, sizes, module
+
+    card, off_card, applied, launches, sizes, module = run(True)
+    host, _, host_applied, _, host_sizes, _ = run(False)
+    if off_card:
+        raise AssertionError(f"composed e2: outputs off the card at sinks {sorted(set(off_card))}")
+    if (any(v != n for v in applied.values()) or host_applied.pop("logits") != n
+            or any(host_applied.values())):
+        raise AssertionError(f"composed e2: torch-route applications {applied} on card frames, "
+                             f"{host_applied} on host frames (want {n} each on card frames; "
+                             f"on host frames {n} on the filter's card rows and 0 elsewhere)")
+
+    def arrays(f):
+        return [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+                for t in f.tensors]
+
+    def labels_of(frames_):
+        return np.concatenate([lab.top1_plain(f.tensors[0])[0].cpu().numpy() for f in frames_])
+
+    rows = torch.cat([f.tensors[0] for f in card["filter"]])
+    if (len(card["rows"]) != n or len(card["logits"]) != n
+            or not torch.equal(torch.stack([f.tensors[0] for f in card["rows"]]), rows)
+            or not torch.equal(torch.stack([f.tensors[0] for f in card["logits"]]), rows * 2)):
+        raise AssertionError(f"composed e2: {len(card['rows'])} rows and {len(card['logits'])} "
+                             f"transformed rows of {n}, or not the filter's micro-batches' rows")
+    for s in COMPOSED_E2_SINKS:
+        if s in ("filter", "logits", "rows"):
+            continue
+        if len(card[s]) != len(host[s]):
+            raise AssertionError(f"composed e2 {s}: {len(card[s])} frames on the card route, "
+                                 f"{len(host[s])} on the host route")
+        for k, (a, b) in enumerate(zip(card[s], host[s])):
+            for x, y in zip(arrays(a), arrays(b)):
+                same = (x.dtype == y.dtype and x.shape == y.shape
+                        and (np.allclose(x, y, rtol=1e-5, atol=1e-5) if s == "stand"
+                             else np.array_equal(x, y)))
+                if not same:
+                    raise AssertionError(
+                        f"composed e2 {s}: frame {k} differs between the card and host routes "
+                        f"({x.dtype}{x.shape} vs {y.dtype}{y.shape})")
+    ifs = [bool((f.tensors[0] == 7).all()) for f in card["if"]]
+    if ifs != [i % 2 == 0 for i in range(n)]:
+        raise AssertionError("composed e2: tensor_if decisions are not the frames' own")
+    got = labels_of(card["filter"])
+    want = np.concatenate([lab.top1_plain(logits)[0].cpu().numpy() for _, _, logits, _ in
+                           direct_batches(torch, module, np.stack(frames), sizes)])
+    if sizes != host_sizes or not np.array_equal(got, labels_of(host["filter"])) \
+            or not np.array_equal(got, want):
+        raise AssertionError(f"composed e2: filter labels differ (micro-batches {sizes} on the "
+                             f"card route, {host_sizes} on the host route)")
+    if launches["normalize_u8"] != len(sizes):
+        raise AssertionError(f"composed e2: normalize_u8 launched {launches['normalize_u8']} "
+                             f"times for {len(sizes)} micro-batches")
+    print(f"composed path e2: {n} card frames through tee, {len(COMPOSED_E2_TRANSFORMS)} "
+          f"tensor_transform modes and an apply= subset, mux, merge, split, aggregator, "
+          f"tensor_if, tensor_crop and the MobileNet filter (micro-batches {sizes}; kept whole, "
+          f"split for a tensor_transform and by a sink): every output "
+          f"a card tensor ({sum(len(v) for v in card.values())} frames at {len(card)} sinks), "
+          f"torch-route applications {applied}, equal to the host route (stand within rtol 1e-5, "
+          f"atol 1e-5; the rest bit for bit), tensor_if decisions and labels exact; launches "
+          f"{launches}")
+    return {"frames": n, "sinks": len(card), "microbatches": sizes, "launches": launches}
 
 
 def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str, extra: str = "") -> dict:
@@ -968,6 +1264,23 @@ def run_generator(np, custom: str, prompts, max_new: int, chunk: int, slots: int
     return toks, pushed, arrived, wall, kept
 
 
+def check_neighbours(np, custom: str, rng, vocab: int) -> None:
+    """ROADMAP C2: at a fixed width (slots=16), a greedy stream's tokens do
+    not depend on its neighbours: one 200-token prompt alone against the
+    same prompt eighth among 15 others of 64-448 tokens, 64 new tokens."""
+    mine = rng.integers(0, vocab, 200, dtype=np.int32)
+    others = [rng.integers(0, vocab, int(n), dtype=np.int32) for n in rng.integers(64, 449, 15)]
+    alone, *_ = run_generator(np, custom, [mine], 64, 16, 16)
+    among, *_ = run_generator(np, custom, others[:7] + [mine] + others[7:], 64, 16, 16)
+    if not np.array_equal(alone[0], among[7]):
+        first = int(np.flatnonzero(alone[0] != among[7])[0])
+        raise AssertionError(f"C2: a stream's tokens in slots=16 depend on its neighbours (alone "
+                             f"and eighth among 15 others differ from token {first} of 64)")
+    print(f"generation path: slots=16 ({custom_props(custom).get('dtype')}), a 200-token prompt "
+          "alone and eighth among 15 others of 64-448 tokens: its 64 greedy tokens are equal "
+          "(ROADMAP C2)")
+
+
 def pct(values, q: float) -> float:
     v = sorted(values)
     return v[min(len(v) - 1, int(len(v) * q))]
@@ -1129,6 +1442,10 @@ def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
           f"{kept['kv_bytes'] / 2**20:.1f} MiB, max_memory_allocated {peak / 2**30:.2f} GiB; "
           f"engine {kept['snapshot']}")
 
+    # 3b. neighbour independence in bf16 (ROADMAP C2)
+    check_neighbours(np, custom, rng, vocab)
+    lap("neighbours")
+
     # 4. float32: slots=4 streams against one-shot B = 1 per prompt
     lengths4 = rng.integers(64, 257, 8)
     prompts4 = [rng.integers(0, vocab, int(n), dtype=np.int32) for n in lengths4]
@@ -1261,6 +1578,9 @@ def main() -> int:
                                               extra=extra, busy=busy),
         "MobileNet-v2", paths["mobilenet_v2"]["labels"], "labels", window=False,
         keys=("fps", "fps_steady", "busy_share"))}
+    paths["composed_mobilenet_v2"] = run_composed_path(
+        torch, np, lab, counters, args.seed, card, labels, frames=args.frames // 2,
+        beside=paths["mobilenet_v2"])
     vit_layers = int(custom_props(VIT_CUSTOM)["layers"])
     paths["vit"] = run_labeling_path(
         torch, np, lab, counters, "ViT-B/16", VIT_CUSTOM,
@@ -1297,6 +1617,9 @@ def main() -> int:
         for k in ("labels", "feed"):
             p.pop(k, None)
     print(json.dumps({"generation": paths["gpt2_small_generation"].pop("generation")}))
+    composed = paths["composed_mobilenet_v2"]
+    print(json.dumps({"composed": {k: composed.pop(k) for k in (
+        "fps", "fps_steady", "latency_ms_p50", "latency_ms_p99", "e2")} | {"card": card}}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core.buffer import materialize
-from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
+from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec, dtype_to_name
 from .base import FilterBackend, register_backend
 
 _registry_lock = threading.Lock()
@@ -124,7 +124,9 @@ class TorchCuda(FilterBackend):
         self._copy_stream = None  # the ingest lane's host-to-device stream (CUDA)
         self._in_spec: Optional[StreamSpec] = None
         self._out_spec: Optional[StreamSpec] = None
-        self._posts: List[Callable[[List[Any]], List[Any]]] = []
+        self._declared_out: Optional[StreamSpec] = None  # the model's own, before any post
+        # fused postprocesses: (fn, whether it takes a ``device`` keyword)
+        self._posts: List[Tuple[Callable[..., Any], bool]] = []
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -150,6 +152,7 @@ class TorchCuda(FilterBackend):
     def open(self, model_path, props):
         super().open(model_path, props)
         module, self._in_spec, self._out_spec, registered = self._resolve_model(model_path)
+        self._declared_out = self._out_spec
         self._device = pick_device(props.get("accelerators") or ["auto"])
         # a registered module is shared with its registrant and other
         # filters; a zoo build is this backend's own
@@ -177,18 +180,30 @@ class TorchCuda(FilterBackend):
             takes_device = "device" in inspect.signature(fn).parameters
         except (TypeError, ValueError):
             takes_device = False
-        if takes_device:
-            self._posts.append(lambda outs, _fn=fn: _fn(outs, device=self._device))
-        else:
-            self._posts.append(fn)
+        self._posts.append((fn, takes_device))
+
+    def _run_posts(self, outs: List[Any], device: torch.device) -> List[Any]:
+        for fn, takes_device in self._posts:
+            outs = _normalize_out(fn(outs, device=device) if takes_device else fn(outs))
+        return outs
 
     def set_input_info(self, in_spec: StreamSpec) -> StreamSpec:
-        """Output schema of one frame, found by running a batch of one
-        zero frame through the model and its postprocess."""
+        """Output schema of one frame.  With a declared model output (the
+        zoo's), one zero row of it goes through the fused postprocesses on
+        the host, where the ops run their plain versions: no model call and
+        no kernel launch, as the JAX backend's ``eval_shape`` runs nothing.
+        Without one, a batch of one zero frame runs through the model and
+        its postprocesses on the device."""
         if not in_spec.is_static:
             raise ValueError("torch-cuda needs a static input schema")
-        dummies = [np.zeros((1,) + t.shape, t.dtype) for t in in_spec.tensors]
-        outs = self.invoke_batch(dummies)
+        declared = self._declared_out
+        if declared is not None and declared.is_static:
+            rows = [torch.zeros((1,) + t.shape, dtype=getattr(torch, dtype_to_name(t.dtype)))
+                    for t in declared.tensors]
+            with torch.inference_mode():
+                outs = self._run_posts(rows, torch.device("cpu"))
+        else:
+            outs = self.invoke_batch([np.zeros((1,) + t.shape, t.dtype) for t in in_spec.tensors])
         host = materialize(outs)
         spec = StreamSpec(
             tuple(TensorSpec(tuple(o.shape[1:]), o.dtype) for o in host),
@@ -251,9 +266,7 @@ class TorchCuda(FilterBackend):
         bucket = _next_pow2(n)
         xs = [self._pad_rows(self._put(a), bucket) for a in inputs]
         with torch.inference_mode():
-            outs = _normalize_out(self._module(*xs))
-            for post in self._posts:
-                outs = _normalize_out(post(outs))
+            outs = self._run_posts(_normalize_out(self._module(*xs)), self._device)
         return [o[:n] for o in outs] if bucket != n else outs
 
 

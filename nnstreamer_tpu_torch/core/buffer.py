@@ -6,8 +6,9 @@ item), the in-band events, the asynchronous device-to-host copies of the
 filter's dispatch window (:func:`start_host_copies`, :class:`HostCopy`)
 and the staging-buffer pool of its ingest lane (:class:`DeviceBufferPool`).
 Payloads are numpy arrays or ``torch.Tensor``s; a filter keeps its outputs
-on its device and only :func:`materialize` (sinks, decoders,
-``BatchFrame.split``, the window's reaper) brings them to the host.
+on its device (``BatchFrame.split`` keeps them there too) and only
+:func:`materialize` (sinks, decoders, the window's reaper) brings them to
+the host.
 """
 
 from __future__ import annotations
@@ -110,6 +111,40 @@ def materialize(tensors: Sequence[Any]) -> List[np.ndarray]:
     ]
 
 
+def _torch_pieces(tensors: Sequence[Any]) -> List[Any]:
+    """Every piece as a torch tensor on the device of the first torch piece
+    (a host array joins the device tensors, never the other way round)."""
+    import torch
+
+    dev = next(t.device for t in tensors if _is_torch(t))
+    return [t if _is_torch(t) else torch.as_tensor(np.asarray(t), device=dev) for t in tensors]
+
+
+def concat_tensors(tensors: Sequence[Any], axis: int) -> Any:
+    """Concatenate along `axis`: ``torch.cat`` on the device when any piece
+    is a torch tensor, ``np.concatenate`` otherwise."""
+    if any(_is_torch(t) for t in tensors):
+        import torch
+
+        return torch.cat(_torch_pieces(tensors), dim=axis)
+    return np.concatenate([np.asarray(t) for t in tensors], axis=axis)
+
+
+def stack_tensors(tensors: Sequence[Any]) -> Any:
+    """Stack on a new leading axis: ``torch.stack`` on the device when any
+    piece is a torch tensor, ``np.stack`` otherwise."""
+    if any(_is_torch(t) for t in tensors):
+        import torch
+
+        return torch.stack(_torch_pieces(tensors))
+    return np.stack([np.asarray(t) for t in tensors])
+
+
+def as_array(t: Any) -> Any:
+    """A torch tensor as it is, anything else as a numpy array."""
+    return t if _is_torch(t) else np.asarray(t)
+
+
 @dataclass
 class TensorFrame:
     """One frame of a tensor stream: N tensors + timestamps + metadata."""
@@ -124,6 +159,10 @@ class TensorFrame:
         """New frame with the same timestamps, COPIED meta, another payload
         (decoders stamp keys into the copy, never into a shared dict)."""
         return replace(self, tensors=list(tensors), meta=dict(self.meta))
+
+    def pick(self, indices: Sequence[int]) -> "TensorFrame":
+        """Subset/reorder the tensors (tensorpick), meta copied."""
+        return self.with_tensors([self.tensors[i] for i in indices])
 
     def to_host(self) -> "TensorFrame":
         """All payloads as numpy arrays; host frames return self."""
@@ -147,9 +186,20 @@ class BatchFrame(TensorFrame):
     def batch_size(self) -> int:
         return len(self.frames_info)
 
+    @classmethod
+    def from_frames(cls, tensors: Sequence[Any], frames: Sequence[TensorFrame]) -> "BatchFrame":
+        """A batch of `tensors` (leading axis = frame) carrying the pts,
+        duration and meta of each of `frames`."""
+        first = frames[0]
+        return cls(tensors=list(tensors), pts=first.pts, duration=first.duration,
+                   meta=dict(first.meta), frames_info=[(f.pts, f.duration, f.meta) for f in frames])
+
     def split(self) -> List[TensorFrame]:
-        """Materialize on host and fan back out into per-frame views."""
-        mats = materialize(self.tensors)
+        """Fan back out into per-frame views.  A torch tensor stays where it
+        lives (row views on its own device); a started :class:`HostCopy`
+        and any other payload come to the host through :func:`materialize`.
+        Call ``to_host()`` first for host rows from one copy per tensor."""
+        mats = [t if _is_torch(t) else materialize([t])[0] for t in self.tensors]
         return [
             TensorFrame([m[b] for m in mats], pts=p, duration=d, meta=dict(fm))
             for b, (p, d, fm) in enumerate(self.frames_info)

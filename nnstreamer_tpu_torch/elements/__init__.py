@@ -1,4 +1,17 @@
 """Stream elements.  Importing this package registers every element
 factory (≙ plugin registration)."""
 
-from . import basic, decoder, filter, generator  # noqa: F401
+from . import (  # noqa: F401
+    aggregator,
+    basic,
+    converter,
+    debug,
+    decoder,
+    filter,
+    flow,
+    generator,
+    mux,
+    repo,
+    sparse,
+    transform,
+)

@@ -88,13 +88,13 @@ class TensorDecoder(TransformElement):
 
     def handle_frame(self, pad, frame):
         # batch-through: the upstream filter hands the whole micro-batch as
-        # ONE device-resident BatchFrame; split() does the single (tiny,
-        # post-device_fn) device->host copy
+        # ONE device-resident BatchFrame; to_host() does the single (tiny,
+        # post-device_fn) device->host copy before the split
         if isinstance(frame, BatchFrame):
             spec = self.sink_specs.get(0, ANY)
             if (self._fused and not self.props["split-batches"]
                     and hasattr(self._dec, "decode_fused_batch")):
                 return [(0, self._dec.decode_fused_batch(frame, spec))]
             dec = self._dec.decode_fused if self._fused else self._dec.decode
-            return [(0, dec(f, spec)) for f in frame.split()]
+            return [(0, dec(f, spec)) for f in frame.to_host().split()]
         return super().handle_frame(pad, frame)

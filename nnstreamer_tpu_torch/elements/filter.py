@@ -36,6 +36,7 @@ from ..core.buffer import (
     Flush,
     TensorFrame,
     _is_torch,
+    concat_tensors,
     materialize,
     start_host_copies,
 )
@@ -46,13 +47,7 @@ from ..pipeline.element import ElementError, Property, TransformElement, element
 
 def _concat(pieces: List[Any]):
     """Concatenate batch pieces on axis 0 (torch when any piece is)."""
-    if len(pieces) == 1:
-        return pieces[0]
-    if any(_is_torch(p) for p in pieces):
-        import torch
-
-        return torch.cat([torch.as_tensor(p) for p in pieces])
-    return np.concatenate([np.asarray(p) for p in pieces])
+    return pieces[0] if len(pieces) == 1 else concat_tensors(pieces, 0)
 
 
 def _batched_tensors(frames: Sequence[TensorFrame]) -> List[Any]:
@@ -113,6 +108,9 @@ class TensorFilter(TransformElement):
         self.backend: Optional[FilterBackend] = None
         self._model_in: Optional[StreamSpec] = None
         self._model_out: Optional[StreamSpec] = None
+        # output schemas the backend derived, per input schema (negotiation
+        # and the caps event ask for the same one)
+        self._derived: Dict[StreamSpec, StreamSpec] = {}
         # set by the pipeline's device-fusion pass for one run
         self._auto_batch_through = False
         self.invokes = 0  # backend calls (one per micro-batch or frame)
@@ -141,6 +139,7 @@ class TensorFilter(TransformElement):
             raise ElementError(f"{self.name}: backend cannot fuse a postprocess")
         self.backend.append_postprocess(fn)
         self._model_out = None
+        self._derived.clear()
 
     # -- batching hook for the scheduler ------------------------------------
     @property
@@ -172,6 +171,7 @@ class TensorFilter(TransformElement):
         be.open(self.props["model"] or None, props)
         self.backend = be
         self._model_in, self._model_out = be.get_model_info()
+        self._derived = {}
         # async device feed, armed for the fresh backend
         self._inflight = CompletionWindow(self.name)
         self._win_async = None
@@ -215,7 +215,9 @@ class TensorFilter(TransformElement):
             return self._model_out
         in_spec = self.sink_specs.get(0, ANY)
         if self.backend is not None and in_spec.tensors:
-            return self.backend.set_input_info(in_spec)
+            if in_spec not in self._derived:
+                self._derived[in_spec] = self.backend.set_input_info(in_spec)
+            return self._derived[in_spec]
         return ANY
 
     # -- processing ---------------------------------------------------------

@@ -208,7 +208,7 @@ class TensorGenerator(Element):
             return self._handle_slotted(frame)
         if self._prefill is None:
             raise ElementError(f"{self.name} not started")
-        logical = frame.split() if isinstance(frame, BatchFrame) else [frame]
+        logical = frame.to_host().split() if isinstance(frame, BatchFrame) else [frame]
 
         def multi():
             # one stream per logical prompt, lazily: chunks of prompt j
@@ -244,7 +244,7 @@ class TensorGenerator(Element):
         boundary instead of queueing behind it."""
         max_new = int(self.props["max-new"])
         chunk = max(1, int(self.props["chunk"]))
-        logical = frame.split() if isinstance(frame, BatchFrame) else [frame]
+        logical = frame.to_host().split() if isinstance(frame, BatchFrame) else [frame]
         rejects = []
         for lf in logical:
             prompt = self._validated_prompt(lf, max_new)

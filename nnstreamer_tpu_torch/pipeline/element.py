@@ -4,9 +4,11 @@ Port of ``nnstreamer_tpu/pipeline/element.py``: declared, string-parsable
 properties (``PROPERTIES``), src pads and links, schema negotiation by
 ``accept_spec``/``derive_spec``, and the processing hooks the scheduler
 calls (``handle_frame``, ``handle_event``; sources ``frames()``, sinks
-``render()``), and the fusion hints ``THREAD_BOUNDARY`` /
-``FUSE_DOWNSTREAM``.  Supervision, liveness and the common properties of
-the JAX package are not part of this port yet.
+``render()``), request pads (``NUM_SINK_PADS``/``NUM_SRC_PADS = None``:
+N:1 elements allocate a sink pad per link, 1:N elements a src pad per
+branch), and the fusion hints ``THREAD_BOUNDARY`` / ``FUSE_DOWNSTREAM``.
+Supervision, liveness and the common properties of the JAX package are
+not part of this port yet.
 """
 
 from __future__ import annotations
@@ -84,8 +86,9 @@ class SrcPad:
 class Element:
     """Base pipeline element.
 
-    Subclass contract: class attrs ``NUM_SINK_PADS`` / ``NUM_SRC_PADS``,
-    ``PROPERTIES``; override ``accept_spec``, ``derive_spec``,
+    Subclass contract: class attrs ``NUM_SINK_PADS`` / ``NUM_SRC_PADS``
+    (``None`` = request pads, created on link), ``PROPERTIES``; override
+    ``accept_spec``, ``derive_spec``,
     ``handle_frame``, ``handle_event``, ``start``/``stop`` as needed.
     """
 
@@ -102,15 +105,15 @@ class Element:
     FUSE_DOWNSTREAM = True
 
     FACTORY_NAME = "element"
-    NUM_SINK_PADS: int = 1
-    NUM_SRC_PADS: int = 1
+    NUM_SINK_PADS: Optional[int] = 1
+    NUM_SRC_PADS: Optional[int] = 1
     PROPERTIES: Dict[str, Property] = {}
 
     def __init__(self, name: Optional[str] = None):
         self.name = name or f"{self.FACTORY_NAME}{id(self) & 0xFFFF}"
         self.log = logging.getLogger(f"nnstreamer_tpu_torch.{self.name}")
         self.props: Dict[str, Any] = {k: p.default for k, p in self.PROPERTIES.items()}
-        self.srcpads: List[SrcPad] = [SrcPad() for _ in range(self.NUM_SRC_PADS)]
+        self.srcpads: List[SrcPad] = [SrcPad() for _ in range(self.NUM_SRC_PADS or 0)]
         self.sink_specs: Dict[int, StreamSpec] = {}
         self._pipeline = None  # set by Pipeline.add
         self._mailbox = None  # set by Pipeline.start for elements with sink pads
@@ -123,12 +126,54 @@ class Element:
             raise ElementError(f"{self.name}: unknown property {key!r}")
         self.props[key] = decl.parse(value)
 
+    def get_property(self, key: str) -> Any:
+        key = key.replace("_", "-")
+        if key not in self.props:
+            raise ElementError(f"{self.name}: unknown property {key!r}")
+        return self.props[key]
+
     # -- pads ---------------------------------------------------------------
-    def link(self, downstream: "Element", src_pad: int = 0, sink_pad: int = 0) -> "Element":
-        """Link this element's src pad to downstream's sink pad; returns
-        downstream for chaining: ``a.link(b).link(c)``."""
-        self.srcpads[src_pad].link(downstream, sink_pad)
+    def request_src_pad(self) -> SrcPad:
+        """A new src pad (request-pad elements: tee, demux, split, if)."""
+        pad = SrcPad()
+        self.srcpads.append(pad)
+        return pad
+
+    def srcpad(self, i: int = 0) -> SrcPad:
+        """Src pad `i`; a request-pad element allocates up to it."""
+        if self.NUM_SRC_PADS is None:
+            while len(self.srcpads) <= i:
+                self.request_src_pad()
+        return self.srcpads[i]
+
+    def link(self, downstream: "Element", src_pad: int = 0,
+             sink_pad: Optional[int] = None) -> "Element":
+        """Link this element's src pad to downstream's sink pad (None = the
+        next free one of a request-pad element, else 0); returns downstream
+        for chaining: ``a.link(b).link(c)``."""
+        if sink_pad is None:
+            sink_pad = downstream.next_sink_pad()
+        elif downstream.NUM_SINK_PADS is None:
+            # an explicit index keeps the allocation counter consistent
+            downstream._next_sink = max(downstream._next_sink, sink_pad + 1)
+        self.srcpad(src_pad).link(downstream, sink_pad)
         return downstream
+
+    _next_sink = 0
+
+    def next_sink_pad(self) -> int:
+        """Allocate the next sink pad index (N:1 request pads)."""
+        if self.NUM_SINK_PADS == 1:
+            return 0
+        i = self._next_sink
+        self._next_sink += 1
+        return i
+
+    @property
+    def num_sink_pads(self) -> int:
+        if self.NUM_SINK_PADS is not None:
+            return self.NUM_SINK_PADS
+        return max(self._next_sink, 1)
 
     # -- negotiation --------------------------------------------------------
     def accept_spec(self, pad: int, spec: StreamSpec) -> StreamSpec:

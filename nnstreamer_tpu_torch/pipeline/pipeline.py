@@ -12,7 +12,11 @@ one thread per element), backpressure between threads (an element's
 for elements that batch (``preferred_batch`` > 1, filled for up to
 ``batch_wait_s``), the idle hook (``handle_idle``, called when the head's
 mailbox is empty, and ``pending_frames``, which shortens the poll while
-the element holds work), and EOS propagation.
+the element holds work), fan-out (a pad with several links, request src
+pads), N:1 EOS (an element finishes once every connected sink pad saw
+EOS), leaky mailboxes (``queue leaky=upstream|downstream``: a full box
+drops frames, never events), ``Flush`` (a head drops the frames still in
+its mailbox and keeps the events, in order), and EOS propagation.
 
 Not ported yet (see ROADMAP.md): telemetry, watchdog, flight recorder,
 memory monitor, deadline QoS, supervision/restart, drain and hot reload.
@@ -29,10 +33,73 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Set
 
-from ..core.buffer import EOS, BatchFrame, CapsEvent, Event, TensorFrame
+from ..core.buffer import EOS, BatchFrame, CapsEvent, Event, Flush, TensorFrame
 from .element import Element, ElementError, SourceElement
 
 _STOP = object()  # mailbox sentinel: the worker exits
+
+
+class _LeakyMailbox:
+    """Bounded mailbox with GstQueue leaky semantics, every decision taken
+    under one lock: a frame arriving at a full box either replaces the
+    oldest queued FRAME (``downstream``; events keep their position) or is
+    itself discarded (``upstream``).  Events go through ``put`` with a
+    bounded timeout, and callers retry, so events are never dropped or
+    reordered."""
+
+    def __init__(self, maxsize: int, policy: str):
+        self._dq: deque = deque()
+        self._max = max(1, maxsize)
+        self.policy = policy  # "upstream" | "downstream"
+        self._mtx = threading.Lock()
+        self._not_empty = threading.Condition(self._mtx)
+        self._not_full = threading.Condition(self._mtx)
+
+    def put_frame(self, item) -> None:
+        """Non-blocking frame delivery under the leaky policy."""
+        with self._mtx:
+            if len(self._dq) >= self._max:
+                if self.policy == "upstream":
+                    return  # the newest frame is the loss
+                for i, old in enumerate(self._dq):  # downstream: the oldest frame
+                    if isinstance(old[1], TensorFrame):
+                        del self._dq[i]
+                        break
+                else:
+                    return  # only events queued: the incoming frame is the loss
+            self._dq.append(item)
+            self._not_empty.notify()
+
+    def put(self, item, timeout: Optional[float] = None) -> None:
+        if timeout is None:  # no stop-flag escape here: callers loop
+            raise ValueError("_LeakyMailbox.put requires a bounded timeout")
+        with self._mtx:
+            if len(self._dq) >= self._max:
+                self._not_full.wait_for(lambda: len(self._dq) < self._max, timeout=timeout)
+                if len(self._dq) >= self._max:
+                    raise queue.Full
+            self._dq.append(item)
+            self._not_empty.notify()
+
+    def put_nowait(self, item) -> None:
+        self.put(item, timeout=0.0)
+
+    def get(self, timeout: Optional[float] = None):
+        with self._mtx:
+            if not self._dq:
+                self._not_empty.wait_for(lambda: bool(self._dq), timeout=timeout)
+                if not self._dq:
+                    raise queue.Empty
+            item = self._dq.popleft()
+            self._not_full.notify()
+            return item
+
+    def get_nowait(self):
+        return self.get(timeout=0.0)
+
+    def qsize(self) -> int:
+        with self._mtx:
+            return len(self._dq)
 
 
 class _ElemState:
@@ -105,6 +172,13 @@ class Pipeline:
                 raise ElementError(f"duplicate element name {el.name!r}")
             self.elements[el.name] = el
             el._pipeline = self
+        return elements[-1]
+
+    def chain(self, *elements: Element) -> Element:
+        """Add and link elements in order; returns the last."""
+        self.add(*elements)
+        for a, b in zip(elements, elements[1:]):
+            a.link(b)
         return elements[-1]
 
     def __getitem__(self, name: str) -> Element:
@@ -297,7 +371,9 @@ class Pipeline:
                 size = max(self.default_queue_size, getattr(head, "preferred_batch", 1))
                 if head.props.get("max-buffers"):
                     size = int(head.props["max-buffers"])
-                head._mailbox = queue.Queue(maxsize=size)
+                leaky = getattr(head, "leaky_policy", "")
+                head._mailbox = (_LeakyMailbox(size, leaky) if leaky
+                                 else queue.Queue(maxsize=size))
                 target = self._run_chain_head
             self._threads.append(
                 threading.Thread(target=target, args=(seg,), name=head.name, daemon=True))
@@ -332,6 +408,14 @@ class Pipeline:
         self._threads.clear()
         self._started = False
 
+    def run(self, timeout: Optional[float] = None) -> None:
+        """start + wait + stop."""
+        self.start()
+        try:
+            self.wait(timeout)
+        finally:
+            self.stop()
+
     def wait(self, timeout: Optional[float] = None) -> None:
         """Block until EOS reached every sink; re-raise the first element
         error.  A timed-out wait tears the pipeline down before raising
@@ -357,8 +441,15 @@ class Pipeline:
 
     def _push(self, el: Element, src_pad: int, item) -> bool:
         """Push one item into the mailboxes downstream of a segment, with
-        backpressure; False if stopping."""
+        backpressure; False if stopping.  A frame bound for a leaky
+        mailbox never blocks (the box drops a frame instead); events always
+        take the blocking path."""
+        is_frame = isinstance(item, TensorFrame)
         for dst, sink_pad in el.srcpads[src_pad].links:
+            box = dst._mailbox
+            if is_frame and isinstance(box, _LeakyMailbox):
+                box.put_frame((sink_pad, item))
+                continue
             while True:
                 if self._stop_flag.is_set():
                     return False
@@ -436,9 +527,28 @@ class Pipeline:
                 if st.eos_pads >= st.connected:
                     return self._finish_eos(seg, st)
                 return True
+            if isinstance(item, Flush):
+                self._flush_mailbox(el._mailbox, seg.stash)
             return self._route_outs(seg, st, el.handle_event(pad, item) or ())
         except BaseException as e:  # noqa: BLE001 — the element's boundary
             return self._fail(el, e)
+
+    def _flush_mailbox(self, box, stash: deque) -> None:
+        """Drop the frames queued behind a ``Flush`` in a head's mailbox
+        (and in its batch-fill stash), keeping the events in order.  A
+        fused element holds nothing in flight, so only heads have any."""
+        if box is None:
+            return
+        kept = [e for e in stash if not isinstance(e[1], TensorFrame)]
+        stash.clear()
+        try:
+            while True:
+                entry = box.get_nowait()
+                if not isinstance(entry[1], TensorFrame):
+                    kept.append(entry)
+        except queue.Empty:
+            pass
+        stash.extend(kept)  # run next, before anything queued after the flush
 
     def _run_source(self, seg: _Seg) -> None:
         el = seg.chain[0]

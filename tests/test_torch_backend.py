@@ -102,3 +102,59 @@ def test_two_filters_on_two_placements_compute_with_their_own_weights(registered
     finally:
         cpu.stop()
     assert registered.training  # as registered
+
+
+# -- the output schema of a fused filter --------------------------------------------
+
+
+def _count_model_calls(monkeypatch):
+    calls = []
+    invoke = torch_cuda.TorchCuda.invoke_batch
+    monkeypatch.setattr(torch_cuda.TorchCuda, "invoke_batch",
+                        lambda self, xs: calls.append(int(xs[0].shape[0])) or invoke(self, xs))
+    return calls
+
+
+def test_declared_output_schema_is_derived_without_a_model_call(monkeypatch, tmp_path):
+    """A zoo model declares its output: the fused decoder's schema comes
+    from it through the postprocess on the host, so a source with a static
+    schema costs no model call beyond the micro-batches (the JAX backend
+    runs ``eval_shape``)."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    calls = _count_model_calls(monkeypatch)
+    labels = tmp_path / "labels.txt"
+    labels.write_text("\n".join(f"c{i}" for i in range(10)))
+    pipe = parse_pipeline(
+        "videotestsrc num-buffers=12 width=32 height=32 pattern=random seed=2 ! "
+        "tensor_converter ! tensor_filter name=f framework=torch-cuda model=zoo "
+        "custom=arch:mobilenet_v2,dtype:float32,size:32,width:0.35,classes:10 "
+        f"accelerator=cpu max-batch=4 ! tensor_decoder mode=image_labeling option1={labels} ! "
+        "tensor_sink name=out")
+    pipe.start()
+    try:
+        pipe.wait(timeout=60)
+        fused = pipe["f"].derive_spec()
+    finally:
+        pipe.stop()
+    assert [(t.shape, t.dtype) for t in fused.tensors] == [((2,), np.float32)]
+    assert len(pipe["out"].frames) == 12
+    assert sum(calls) == 12  # every model call is a micro-batch of the stream
+
+
+def test_probed_output_schema_is_cached_per_input_schema(registered, monkeypatch):
+    """Without a declared output, one zero frame runs through the model
+    once per input schema, however often negotiation asks."""
+    from nnstreamer_tpu_torch.core.types import FORMAT_STATIC, StreamSpec, TensorSpec
+
+    calls = _count_model_calls(monkeypatch)
+    f = _filter("f")
+    f.start()
+    try:
+        for shape in ((4,), (4,), (2, 4), (4,)):
+            f.sink_specs[0] = StreamSpec((TensorSpec(shape, np.float32),), FORMAT_STATIC)
+            want = shape[:-1] + (3,)
+            assert [(t.shape, t.dtype) for t in f.derive_spec().tensors] == [(want, np.float32)]
+    finally:
+        f.stop()
+    assert calls == [1, 1]

@@ -61,10 +61,11 @@ def _oneshot(ref, prompt):
     return np.asarray(ref["gen"](ref["params"], [prompt])[0])[:, prompt.shape[1]:]
 
 
-def _run(parse, extra, singles, block=None, max_new=N, accelerator="accelerator=cpu"):
+def _run(parse, extra, singles, block=None, max_new=N, accelerator="accelerator=cpu",
+         custom=CUSTOM):
     """Push `singles` one by one (pts 0..), then `block` as one BatchFrame;
     returns the sink's frames grouped by pts, in arrival order."""
-    pipe = parse(f"appsrc name=src ! tensor_generator name=g custom={CUSTOM} "
+    pipe = parse(f"appsrc name=src ! tensor_generator name=g custom={custom} "
                  f"max-new={max_new} chunk=4 {extra} {accelerator} ! tensor_sink name=out")
     pipe.start()
     try:
@@ -167,6 +168,26 @@ def test_single_slotted_occupant_equals_one_shot(ref, sampling):
         got.append(toks[2])
     np.testing.assert_array_equal(torch.cat(got).numpy(), want.numpy())
     assert gen.tolist() == [0, 0, N, 0] and cache.pos.tolist() == [0, 0, 7 + N - 1, 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_neighbours_do_not_change_a_stream(ref, dtype):
+    """ROADMAP C2: at a fixed width (slots=16), a greedy stream's tokens do
+    not depend on its neighbours: one prompt alone equals the same prompt
+    pushed sixth among 15 others of other lengths, in float32 and bf16."""
+    custom = CUSTOM.replace("dtype:float32", f"dtype:{dtype}")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 61, (1, int(n))).astype(np.int32) for n in rng.integers(3, 21, 16)]
+    extra = "slots=16 prefill-chunk=4"
+
+    def tokens(frames):
+        return np.concatenate([f.tensors[0] for f in frames], axis=1)[0]
+
+    alone = _run(parse_pipeline, extra, [prompts[5]], custom=custom)
+    among = _run(parse_pipeline, extra, prompts, custom=custom)
+    assert sorted(among) == [float(i) for i in range(16)]
+    np.testing.assert_array_equal(tokens(among[5.0]), tokens(alone[0.0]))
+    assert len(tokens(alone[0.0])) == N
 
 
 class _Gated:
