@@ -8,7 +8,7 @@ Phases (any failure exits non-zero before the result lines are printed):
 
 1. device: a CUDA device must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. build: compiles every CUDA kernel of the three paths from ``csrc/``
+2. build: compiles every CUDA kernel of the paths from ``csrc/``
    with nvcc (one process per source, all started together) and prints
    the seconds.
 3. kernels: calls each kernel's wrapper on the card at the paths' shapes
@@ -121,13 +121,43 @@ Phases (any failure exits non-zero before the result lines are printed):
          card and the CPU; with temperature 0.8, top_k 40, gen_seed 1, a
          single slotted occupant equal to one-shot B = 1 up to a top-2
          margin of logits/T + gumbel under 1e-3 (4 prompts).
+   f. the vision families with their decoders' device halves fused into
+      the filter (``normalize_u8`` bit-exact beforehand also at YOLOv5s's
+      scale 1/255 and bias 0 and at the 300 and 257 shapes, and timed at
+      (128, 640, 640, 3); ``batched_nms`` alone timed at (128, 128) and
+      (128, 300)): SSD-MobileNet-v2 300 (91 classes, ``mobilenet-ssd``
+      with ``write_box_priors``), YOLOv5s 640 (80 classes, ``yolov5``),
+      PoseNet 257 (17 keypoints, ``heatmap-offset``) and DeepLab 257 (21
+      classes, ``tflite-deeplab``), bf16, ``VISION_FRAMES`` (384) frames
+      each pushed one by one at ``max-batch=128``; the box decoders' score
+      threshold sits midway between two candidate scores, about 20 a
+      frame over it on the first 16 frames.  Each must be fused, leave the
+      filter as the small fused tensors on the card (bytes a frame
+      printed beside the raw head's), launch ``normalize_u8`` exactly once
+      per micro-batch and nothing else, reach the sink equal to the same
+      module called directly in the first micro-batch's size; that
+      micro-batch's device half on the card must equal the same half on
+      the CPU fed the raw head copied from the card (keep pattern,
+      classes, class grids and argmaxes exact, floats within a few float32
+      ulps) except where a near-tie (a score within 1e-6 of a threshold
+      or of its neighbour in the sort, an IoU within 1e-6 of ``iou_thr``,
+      top-2 values within 1e-6), which is counted, may change the result:
+      the tied pixel or keypoint, or the tied box candidates and those the
+      NMS lets a flipped keep reach; 4 frames through
+      ``device-fused=never`` must equal the fused run within the
+      tolerances of JAX ``tests/test_device_fusion.py:188-196`` under the
+      same rule; and a float32 build on the card (TF32 off) must equal the
+      same build on the CPU on 2 frames (rtol 1e-4, atol 1e-4 of the
+      output's largest magnitude, which is printed with the count of
+      elements outside a fixed 1e-4).
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
    beside the card line.
 5. summary: a ``{"feed_ab": {...}}`` JSON line (paths a and c in both
    modes), a ``{"generation": {...}}`` JSON line (path d's numbers), a
-   ``{"composed": {...}}`` JSON line (path e's numbers), one
+   ``{"composed": {...}}`` JSON line (path e's numbers), a
+   ``{"vision": {...}}`` JSON line (path f's numbers), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -250,27 +280,43 @@ def check_normalize(torch, pre) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             cases.append((flat[offset:offset + 999_999], dtype))
     cases.append((flat[5:5 + 7], torch.bfloat16))  # shorter than one vector
+    # path f's shapes: SSD 300, PoseNet and DeepLab 257 ([-1, 1]), YOLOv5s
+    # 640 at scale 1/255 and bias 0
+    yolo = torch.randint(0, 256, (128, 640, 640, 3), dtype=torch.uint8, device=dev, generator=g)
+    for shape in ((8, 300, 300, 3), (8, 257, 257, 3)):
+        cases.append((main.reshape(-1)[:torch.Size(shape).numel()].reshape(shape), torch.bfloat16))
+    scaled = [(yolo, torch.bfloat16), (yolo[:4], torch.float32)]
     err = 0.0
-    for x, dtype in cases:
-        got, want = pre.normalize_u8(x, dtype=dtype), pre.normalize_u8_plain(x, dtype=dtype)
+    for (x, dtype), scale, bias in ([(c, 2.0 / 255.0, -1.0) for c in cases]
+                                    + [(c, 1.0 / 255.0, 0.0) for c in scaled]):
+        got = pre.normalize_u8(x, scale, bias, dtype=dtype)
+        want = pre.normalize_u8_plain(x, scale, bias, dtype=dtype)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(bits(got), bits(want)):
             diff = (got.float() - want.float()).abs().max().item()
             raise AssertionError(
-                f"normalize_u8 {tuple(x.shape)}@{x.storage_offset()} -> {dtype}: "
-                f"not bit-equal to the plain version (max abs diff {diff})")
+                f"normalize_u8 {tuple(x.shape)}@{x.storage_offset()} -> {dtype} (scale {scale}, "
+                f"bias {bias}): not bit-equal to the plain version (max abs diff {diff})")
         err = max(err, (got.float() - want.float()).abs().max().item())
     n = main.numel()
     kernel = time_ms(lambda: pre.normalize_u8(main))
     plain = time_ms(lambda: pre.normalize_u8_plain(main))
     bound, by = bound_ms(n * (1 + 2), 2 * n)  # uint8 in, bf16 out; a multiply and an add
-    print(f"normalize_u8 {tuple(main.shape)} uint8->bf16: {len(cases)} cases bit-equal; "
-          f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
+    ny = yolo.numel()
+    yolo_ms = time_ms(lambda: pre.normalize_u8(yolo, 1.0 / 255.0, 0.0))
+    yolo_plain = time_ms(lambda: pre.normalize_u8_plain(yolo, 1.0 / 255.0, 0.0))
+    yolo_bound, yolo_by = bound_ms(ny * (1 + 2), 2 * ny)
+    print(f"normalize_u8 {tuple(main.shape)} uint8->bf16: {len(cases) + len(scaled)} cases "
+          f"bit-equal; kernel {kernel:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"{tuple(yolo.shape)} at scale 1/255, bias 0: kernel {yolo_ms:.4f} ms, plain "
+          f"{yolo_plain:.4f} ms, bound {yolo_bound:.4f} ms ({yolo_by})")
     return {"name": "normalize_u8", "route": "cuda",
             "source": "nnstreamer_tpu_torch/csrc/normalize_u8.cu",
             "replaces": "nnstreamer_tpu/ops/preprocess.py:36",
             "max_abs_err": err, "ms": kernel, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": by, "library_ms": None, "match": True}
+            "bound_by": by, "library_ms": None, "match": True,
+            "yolov5s_640": {"shape": list(yolo.shape), "ms": yolo_ms, "plain_ms": yolo_plain,
+                            "bound_ms": yolo_bound, "bound_by": yolo_by}}
 
 
 def same_values(a, b) -> bool:
@@ -517,21 +563,34 @@ class Counters:
 
 
 @contextmanager
-def recording_batches(pipe, name: str):
+def recording_io(pipe, name: str, keep: bool = False):
     """Record the size of every micro-batch the filter `name` hands its
-    backend, in order."""
+    backend, in order, and (shape, dtype, device type) of each output;
+    with `keep`, the outputs themselves, copied to the host."""
     backend = pipe[name].backend
-    inner, sizes = backend.invoke_batch, []
+    inner, sizes, outs, kept = backend.invoke_batch, [], [], []
 
     def invoke_batch(inputs):
         sizes.append(int(inputs[0].shape[0]))
-        return inner(inputs)
+        res = inner(inputs)
+        outs.append([(tuple(o.shape), o.dtype, o.device.type) for o in res])
+        if keep:
+            kept.append([o.cpu() for o in res])
+        return res
 
     backend.invoke_batch = invoke_batch
     try:
-        yield sizes
+        yield sizes, outs, kept
     finally:
         del backend.invoke_batch
+
+
+@contextmanager
+def recording_batches(pipe, name: str):
+    """Record the size of every micro-batch the filter `name` hands its
+    backend, in order."""
+    with recording_io(pipe, name) as (sizes, _, _):
+        yield sizes
 
 
 def feed_stats(filt) -> dict:
@@ -707,7 +766,8 @@ def direct_batches(torch, module, inputs, sizes):
             bucket = 1 << (n - 1).bit_length()
             if bucket != n:
                 x = torch.cat([x, x[-1:].expand((bucket - n,) + tuple(x.shape[1:]))])
-            out = module(x)[:n]
+            out = module(x)
+            out = [o[:n] for o in out] if isinstance(out, (list, tuple)) else out[:n]
             yield k, n, out, t
             k += n
 
@@ -1525,6 +1585,473 @@ def single_occupant(torch, model, x, n: int, slot: int):
     return torch.cat(out).cpu().numpy()
 
 
+# path f: the vision families at their published widths, bf16, with the
+# decoders' device halves fused into the filter: (key, name, zoo custom,
+# input size, decoder mode, decoder options; {labels}, {priors} and {thr}
+# are filled in by the path)
+VISION = (
+    ("ssd_mobilenet_v2", "SSD-MobileNet-v2", "arch:ssd_mobilenet_v2,classes:91,dtype:bfloat16", 300,
+     "bounding_boxes", {1: "mobilenet-ssd", 2: "{labels}", 3: "{priors}:{thr}", 5: "300:300"}),
+    ("yolov5s", "YOLOv5s", "arch:yolov5s,size:640,classes:80,dtype:bfloat16", 640,
+     "bounding_boxes", {1: "yolov5", 2: "{labels}", 3: "0:{thr}:0.45", 5: "640:640"}),
+    ("posenet", "PoseNet", "arch:posenet,size:257,keypoints:17,dtype:bfloat16", 257,
+     "pose_estimation", {1: "640:480", 2: "257:257", 4: "heatmap-offset"}),
+    ("deeplab", "DeepLab", "arch:deeplab,size:257,classes:21,dtype:bfloat16", 257,
+     "image_segment", {1: "tflite-deeplab"}),
+)
+#: frames through each family of path f: three micro-batches of 128
+VISION_FRAMES = 384
+#: a near-tie: a score within this of a threshold or of its neighbour in
+#: the sort, an IoU within it of ``iou_thr``, or top-2 values within it
+TIE = 1e-6
+
+
+def vision_decoder(mode: str, options: dict):
+    """A decoder subplugin of `mode` set to `options` ({n: optionN})."""
+    import nnstreamer_tpu_torch.decoders  # noqa: F401 — registers the decoder modes
+    from nnstreamer_tpu_torch.core import registry
+
+    dec = registry.get(registry.KIND_DECODER, mode)()
+    dec.set_options([options.get(i, "") for i in range(1, 10)])
+    return dec
+
+
+def box_ties(torch, dec, raw) -> tuple:
+    """Near-ties of the box decoders' device half on `raw`, as the CPU
+    computes it: a candidate score within TIE of the threshold, neighbours
+    within TIE in the top-k sort, or an IoU within TIE of ``iou_thr``
+    between two top-k candidates (class-offset boxes, as the NMS sees
+    them).  Returns (near-ties per frame (B,), loose (B, K): the top-k rows
+    a near-tie may change, and [boxes, scores, classes]: the loose
+    candidates as device-half rows, scores before the NMS, 0 elsewhere).
+    Loose are every row from the first tied score on when a score is tied
+    to the threshold (one candidate in or out shifts them), both rows of a
+    tied pair in the sort, the later row of a tied IoU, and, as a flipped
+    keep spreads through the NMS, every later row whose IoU with a loose
+    row exceeds ``iou_thr`` - TIE."""
+    from nnstreamer_tpu_torch.ops.nms import _iou_matrix
+
+    if dec.mode in ("mobilenet-ssd", "tflite-ssd"):
+        boxes, scores, classes = dec._device_ssd(raw)
+        thr, iou = dec.ssd_thr, dec.ssd_iou
+    else:
+        scaled, thr, iou = dec._yolo_options()
+        boxes, scores, classes = dec._device_yolo(raw, scaled)
+    at_thr = (scores - thr).abs() < TIE
+    ties = at_thr.sum(1)
+    s = torch.where(scores >= thr, scores, 0.0)
+    k = min(dec.FUSED_TOPK, s.shape[1])
+    top, idx = torch.sort(s, dim=1, descending=True, stable=True)
+    top, idx = top[:, :k + 1], idx[:, :k]
+    pair = ((top[:, :-1] - top[:, 1:]).abs() < TIE) & (top[:, 1:] > 0)
+    ties += pair.sum(1)
+    top = top[:, :k]
+    loose = torch.arange(k) >= (scores >= thr + TIE).sum(1, keepdim=True)
+    loose &= at_thr.any(1, keepdim=True)
+    loose[:, :pair.shape[1]] |= pair
+    loose[:, 1:] |= pair[:, :k - 1]
+    tb = boxes.gather(1, idx[..., None].expand(-1, -1, 4))
+    tc = classes.gather(1, idx)
+    island = float(4 * max(*dec.in_wh, *dec.out_wh))
+    m = _iou_matrix(tb + tc[..., None] * island)
+    pos = top > 0
+    pos = (pos[:, :, None] & pos[:, None, :]).triu(1)
+    near = ((m - iou).abs() < TIE) & pos
+    ties += near.sum((1, 2))
+    loose |= near.any(1)
+    over = (m > iou - TIE) & pos
+    while True:
+        spread = loose | (over & loose[:, :, None]).any(1)
+        if torch.equal(spread, loose):
+            break
+        loose = spread
+    rows = [torch.cat([tb, boxes], 1),
+            torch.cat([torch.where(loose, top, 0.0), torch.where(at_thr, scores, 0.0)], 1),
+            torch.cat([tc, classes], 1)]
+    return ties, loose, rows
+
+
+def top2_ties(torch, x, dim: int) -> "torch.Tensor":
+    """Positions whose two largest values along `dim` are within TIE."""
+    top = x.float().topk(2, dim=dim).values
+    return (top.select(dim, 0) - top.select(dim, 1)) < TIE
+
+
+def device_half_check(torch, dec, raw, scale: float) -> dict:
+    """The fused device half on the card against the same half on the CPU,
+    fed the raw head copied from the card: the keep pattern, classes,
+    class grids and argmax positions equal, floats within a few float32
+    ulps, except where a near-tie may change the result (the tied pixel or
+    keypoint; the loose rows of ``box_ties``).  Near-ties are counted.
+    Returns the counts."""
+    cpu_raw = [r.float().cpu() for r in raw]
+    card = [t.cpu() for t in dec.device_fn(raw, device=raw[0].device)]
+    host = dec.device_fn(cpu_raw, device=torch.device("cpu"))
+    B = raw[0].shape[0]
+    if dec.NAME == "bounding_boxes":  # per top-k row
+        ties, loose, _ = box_ties(torch, dec, cpu_raw)
+        eq = ((card[1] > 0) == (host[1] > 0)) & (card[2] == host[2])
+        eq &= torch.isclose(card[1], host[1], rtol=0, atol=TIE)
+        eq &= torch.isclose(card[0], host[0], rtol=0, atol=4e-6 * scale).all(2)
+        kept = int((card[1] > 0).sum())
+    elif dec.NAME == "pose_estimation":  # per keypoint
+        heat = cpu_raw[0]
+        loose = top2_ties(torch, heat.reshape(B, -1, heat.shape[-1]), 1)
+        ties = loose.sum(1)
+        eq = torch.isclose(card[0], host[0], rtol=TIE, atol=TIE).all(2)
+        kept = int(card[0].shape[1]) * B
+    else:  # per pixel
+        loose = top2_ties(torch, cpu_raw[0], -1)
+        ties = loose.flatten(1).sum(1)
+        eq = card[0] == host[0]
+        kept = int((card[0] > 0).sum())
+    bad = [b for b in range(B) if (~eq[b] & ~loose[b]).any()]
+    if bad:
+        raise AssertionError(f"{dec.NAME}: the device half on the card differs from the CPU's "
+                             f"on frames {bad[:8]} where no near-tie reaches")
+    return {"frames": B, "near_ties": int(ties.sum()),
+            "frames_with_near_ties": int((ties > 0).sum()),
+            "frames_differing": int((~eq).flatten(1).any(1).sum()), "loose": int(loose.sum()),
+            "kept": kept}
+
+
+def same_box(g, w) -> bool:
+    """Two boxes of a meta list are one detection: class and label equal,
+    coordinates within 0.1 px (JAX ``tests/test_device_fusion.py:188-196``)."""
+    return (g["class"] == w["class"] and g["label"] == w["label"]
+            and all(abs(g[k] - w[k]) <= 0.1 for k in "xywh"))
+
+
+def match_boxes(got, want, loose=()) -> bool:
+    """One frame's boxes meta, fused against host, whatever their order:
+    once the boxes that are one detection with a box of `loose` are
+    dropped from both sides, one-to-one by ``same_box`` with scores within
+    rel 1e-4 (JAX ``tests/test_device_fusion.py:188-196``)."""
+    got, left = ([b for b in side if not any(same_box(b, x) for x in loose)]
+                 for side in (got, want))
+    if len(got) != len(left):
+        return False
+    for g in got:
+        for j, w in enumerate(left):
+            if same_box(g, w) and abs(g["score"] - w["score"]) <= 1e-4 * abs(w["score"]):
+                del left[j]
+                break
+        else:
+            return False
+    return True
+
+
+def unfused_check(torch, np, text, images, dec) -> dict:
+    """`images` (a small micro-batch) through ``text(extra)`` fused
+    (`extra` empty) and with ``device-fused=never``: the host decode
+    against the fused result, with the tolerances of JAX
+    ``tests/test_device_fusion.py:188-196`` (boxes one-to-one; keypoints
+    within 0.1 px and scores rel 1e-4; class grids equal), except where a
+    near-tie in the raw head may change the result, as in
+    ``device_half_check`` (the loose box rows, rendered by the decoder's
+    host finish, are dropped from both sides)."""
+    from nnstreamer_tpu_torch.core.buffer import TensorFrame
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    runs, raws = {}, None
+    for extra in ("", "device-fused=never"):
+        pipe = parse_pipeline(text(extra))
+        pipe.start()
+        try:
+            if pipe["d"]._fused is not (extra == ""):
+                raise AssertionError(f"{dec.NAME}: device-fused={extra or 'auto'} gave fused "
+                                     f"{pipe['d']._fused}")
+            with recording_io(pipe, "f", keep=bool(extra)) as (_, _, kept):
+                for i, x in enumerate(images):
+                    pipe["src"].push(x, pts=float(i))
+                pipe["src"].end_of_stream()
+                pipe.wait(timeout=300)
+            runs[extra] = list(pipe["out"].frames)
+            raws = kept or raws
+        finally:
+            pipe.stop()
+    fused, host = runs[""], runs["device-fused=never"]
+    n = len(images)
+    if len(fused) != n or len(host) != n:
+        raise AssertionError(f"{dec.NAME}: {len(fused)} fused and {len(host)} host frames of {n}")
+    raw = [torch.cat([k[i] for k in raws]) for i in range(len(raws[0]))]
+    if dec.NAME == "bounding_boxes":
+        ties, _, rows = box_ties(torch, dec, raw)
+        loose = [dec.decode_fused(TensorFrame([r[i] for r in rows], pts=0.0), None).meta["boxes"]
+                 for i in range(n)]
+        same = [match_boxes(f.meta["boxes"], h.meta["boxes"]) for f, h in zip(fused, host)]
+        ok = [match_boxes(f.meta["boxes"], h.meta["boxes"], lo)
+              for f, h, lo in zip(fused, host, loose)]
+    else:
+        if dec.NAME == "pose_estimation":  # per keypoint
+            tied = top2_ties(torch, raw[0].reshape(n, -1, raw[0].shape[-1]), 1).numpy()
+            eq = [np.all(np.abs(np.array(f.meta["keypoints"]) - np.array(h.meta["keypoints"]))
+                         <= np.array([0.1, 0.1, 1e-4]), axis=-1) for f, h in zip(fused, host)]
+        else:  # per pixel of the class grid's overlay
+            tied = top2_ties(torch, raw[0], -1).numpy()
+            eq = [np.all(f.tensors[0] == h.tensors[0], axis=-1) for f, h in zip(fused, host)]
+        ties = tied.reshape(n, -1).sum(1)
+        same = [bool(e.all()) for e in eq]
+        ok = [bool((e | t).all()) for e, t in zip(eq, tied)]
+    bad = [i for i, good in enumerate(ok) if not good]
+    if bad:
+        raise AssertionError(f"{dec.NAME}: the unfused host decode differs from the fused one "
+                             f"on frames {bad} where no near-tie reaches")
+    if dec.NAME == "bounding_boxes" and not any(f.meta["boxes"] for f in fused):
+        raise AssertionError(f"{dec.NAME}: no box in the unfused-against-fused check")
+    return {"frames": n, "equal": int(sum(same)), "near_ties": int(ties.sum())}
+
+
+def float32_check(torch, custom: str, images) -> dict:
+    """The family built in float32 (same seed) on the card, TF32 off,
+    against the same build on the CPU: every output within rtol = 1e-4 and
+    atol = 1e-4 of its largest magnitude (the CPU tests' 1e-4 at their
+    outputs' scale of about 1: He-normal random weights drive these outputs
+    to 10-30, and float32 sums in another order differ in proportion).
+    Returns, over all outputs, the largest difference, the largest output
+    magnitude, and the elements outside a fixed rtol = atol = 1e-4 of how
+    many."""
+    from nnstreamer_tpu_torch.models import build
+
+    module, _, _ = build(custom_props(custom)["arch"], custom_props(custom) | {"dtype": "float32"})
+    module.eval()
+    x = torch.from_numpy(images)
+    with torch.inference_mode():
+        want = module(x)
+        want = list(want) if isinstance(want, (list, tuple)) else [want]
+        got = module.cuda()(x.cuda())
+        got = list(got) if isinstance(got, (list, tuple)) else [got]
+    out = {"max_abs_diff": 0.0, "max_abs_output": 0.0, "outside_1e-4": 0, "elements": 0}
+    for g, w in zip(got, want):
+        g = g.cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"float32 {custom}: card output {tuple(g.shape)} against "
+                                 f"{tuple(w.shape)}, or not finite")
+        d = (g - w).abs()
+        scale = max(1.0, w.abs().max().item())
+        out["max_abs_diff"] = max(out["max_abs_diff"], d.max().item())
+        out["max_abs_output"] = max(out["max_abs_output"], w.abs().max().item())
+        out["outside_1e-4"] += int((d > 1e-4 + 1e-4 * w.abs()).sum())
+        out["elements"] += w.numel()
+        if not torch.allclose(g, w, rtol=1e-4, atol=1e-4 * scale):
+            raise AssertionError(f"float32 {custom}: card against CPU off by {d.max().item()} "
+                                 f"at an output scale of {scale}")
+    return out
+
+
+def time_nms(torch, np) -> dict:
+    """``batched_nms`` alone on the card: host ms per synchronized call
+    (median of 10, after 3 warm-up calls) at (128, 128) candidates, as the
+    box decoders' device half runs it, and at (128, 300), YOLOv5's ``nms:1``."""
+    from nnstreamer_tpu_torch.ops.nms import batched_nms
+
+    out = {}
+    rng = np.random.default_rng(0)
+    for n in (128, 300):
+        xy = rng.uniform(0, 600, (128, n, 2)).astype(np.float32)
+        boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(5, 80, (128, n, 2))
+                                                 .astype(np.float32)], -1)).cuda()
+        scores = torch.from_numpy(rng.uniform(0, 1, (128, n)).astype(np.float32)).cuda()
+        times = []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            batched_nms(boxes, scores, 0.45)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[f"128x{n}"] = statistics.median(times[3:])
+    return out
+
+
+def vision_text(custom: str, mode: str, opts: dict, batch: int, extra: str = "") -> str:
+    """Path f's pipeline: `extra` goes to the decoder (``device-fused=``)
+    or, as ``max-stored=``, to the sink."""
+    sink = extra if extra.startswith("max-stored") else ""
+    dec = "" if sink else extra
+    return (f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
+            f"custom={custom} max-batch={batch} batch-timeout=20 ! tensor_decoder name=d "
+            f"mode={mode} " + " ".join(f"option{k}={v}" for k, v in opts.items())
+            + f" {dec} ! tensor_sink name=out {sink}")
+
+
+def run_vision_path(torch, np, counters, fam, seed: int, card: str, work) -> dict:
+    """One family of path f: VISION_FRAMES seeded uint8 frames pushed one
+    by one through ``appsrc ! tensor_filter (zoo, max-batch=128) !
+    tensor_decoder ! tensor_sink`` at the defaults of the filter's feed,
+    the decoder's device half fused.  Checks the fusion, the bytes per frame leaving the
+    filter (the fused tensors, on the card), one ``normalize_u8`` launch per
+    micro-batch, the sink against the same module called directly in the
+    first micro-batch's size, the device half on the card against the CPU,
+    the unfused host decode against the fused one (4 frames) and a float32
+    build on the card against the CPU (2 frames)."""
+    from nnstreamer_tpu_torch.core.buffer import TensorFrame
+    from nnstreamer_tpu_torch.core.types import FORMAT_STATIC, StreamSpec, TensorSpec
+    from nnstreamer_tpu_torch.models import build, ssd_mobilenet
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    _, name, custom, size, mode, options = fam
+    custom = f"{custom},seed:{seed}"
+    frames = VISION_FRAMES
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8)
+    module, _, out_spec = build(custom_props(custom)["arch"], custom_props(custom))
+    module = module.cuda().eval()
+    fill = {"labels": work / "labels.txt", "priors": work / "priors.txt", "thr": ""}
+    ssd_mobilenet.write_box_priors(str(fill["priors"]))
+    if mode == "bounding_boxes":
+        # random weights put most candidates over the decoders' default
+        # thresholds: set it midway between two candidate scores, about 20
+        # per frame over it on the first 16 frames (a trained detector's
+        # count), so the unfused check holds every candidate the fused
+        # top-128 holds
+        probe = vision_decoder(mode, {k: v.format(**fill) for k, v in options.items()})
+        with torch.inference_mode():
+            raw = module(torch.from_numpy(images[:16]).cuda())
+            raw = list(raw) if isinstance(raw, (list, tuple)) else [raw]
+            s = (probe._device_ssd(raw)[1] if probe.mode in ("mobilenet-ssd", "tflite-ssd")
+                 else probe._device_yolo(raw, 0.0)[1]).double().flatten().sort(descending=True)
+        fill["thr"] = repr(float((s.values[319] + s.values[320]) / 2))
+    opts = {k: v.format(**fill) for k, v in options.items()}
+    dec = vision_decoder(mode, opts)
+    text = vision_text(custom, mode, opts, 128, "max-stored=1")
+    pipe = parse_pipeline(text)
+    arrived, metas = {}, {}
+
+    def on_frame(f):
+        arrived[int(f.pts)] = time.perf_counter()
+        if f.pts < 128:  # the first micro-batch is held against the direct call
+            metas[int(f.pts)] = (f.meta, f.tensors[0])
+
+    pipe["out"].connect_new_data(on_frame)
+    counters.zero()
+    pipe.start()
+    try:
+        fused = pipe["d"]._fused
+        with recording_io(pipe, "f") as (sizes, outs, _):
+            pushed = []
+            t0 = time.perf_counter()
+            for i in range(frames):
+                pushed.append(time.perf_counter())
+                pipe["src"].push(images[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = counters.read()
+        feed = feed_stats(pipe["f"])
+        # the filter's output schema of one frame, fused device half included
+        schema = pipe["f"].backend.set_input_info(StreamSpec(
+            (TensorSpec((size, size, 3), np.uint8),), FORMAT_STATIC))
+    finally:
+        pipe.stop()
+    batches = len(sizes)
+    if not fused:
+        raise AssertionError(f"{name}: the decoder's device half was not fused into the filter")
+    if sorted(arrived) != list(range(frames)):
+        raise AssertionError(f"{name}: {len(arrived)} of {frames} frames reached the sink")
+    if launches["normalize_u8"] != batches or launches["top1"] or launches["flash_attention"]:
+        raise AssertionError(f"{name}: launches {launches} for {batches} micro-batches (want "
+                             "normalize_u8 exactly once per micro-batch, no other kernel)")
+    check_feed(name, feed, batches, window=False)
+    raw_bytes = sum(int(np.prod(t.shape)) * np.dtype(t.dtype).itemsize for t in out_spec.tensors)
+    fused_bytes = sum(int(np.prod(t.shape)) * np.dtype(t.dtype).itemsize for t in schema.tensors)
+    per_frame = {sum(int(np.prod(shape[1:])) * torch.empty((), dtype=dt).element_size()
+                     for shape, dt, _ in b) for b in outs}
+    devices = {d for b in outs for _, _, d in b}
+    if per_frame != {fused_bytes} or devices != {"cuda"} or fused_bytes >= raw_bytes:
+        raise AssertionError(f"{name}: the filter's outputs are {per_frame} bytes a frame on "
+                             f"{devices} (want the fused {fused_bytes} on cuda; raw head "
+                             f"{raw_bytes})")
+    # the same module called directly in the first micro-batch's size; its
+    # device half on the card, then against the CPU's on the same raw head
+    direct_ms = []
+    with torch.inference_mode():
+        for _ in range(3):  # the last two are timed: copy in, model, device half, copy out
+            _, n, raw, t = next(direct_batches(torch, module, images, sizes[:1]))
+            raw = list(raw) if isinstance(raw, (list, tuple)) else [raw]
+            direct = [o.cpu() for o in dec.device_fn(raw, device=raw[0].device)]
+            direct_ms.append((time.perf_counter() - t) * 1e3)
+        halves = device_half_check(torch, dec, raw, float(size))
+    del raw
+    t = time.perf_counter()
+    finished = [dec.decode_fused(TensorFrame([d[i] for d in direct], pts=float(i)), None)
+                for i in range(n)]
+    finish_ms = (time.perf_counter() - t) * 1e3 / n
+    for i, want in enumerate(finished):
+        meta, tensor = metas[i]
+        if meta != want.meta or not np.array_equal(tensor, want.tensors[0]):
+            raise AssertionError(f"{name}: sink frame {i} differs from the direct call's")
+    unfused = unfused_check(torch, np, lambda extra: vision_text(custom, mode, opts, 4, extra),
+                            images[:4], dec)
+    f32 = float32_check(torch, custom, images[:2])
+    lat = sorted(arrived[i] - pushed[i] for i in range(frames))
+    first = sizes[0] - 1
+    span = max(arrived.values()) - arrived[first]
+    steady = (frames - first - 1) / span if span > 0 else float("nan")
+    p50, p99 = lat[len(lat) // 2] * 1e3, lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
+    print(f"{name} path f: {frames} frames in {batches} micro-batches "
+          f"(sizes {sorted(set(sizes))}), "
+          f"decoder {mode} fused; launches {launches}; to the host {fused_bytes} bytes a frame "
+          f"(raw head {raw_bytes}); sink equal to the direct call; device half card vs CPU on "
+          f"{halves['frames']} frames: {halves['frames_differing']} differ, near-ties "
+          f"{halves['near_ties']} in {halves['frames_with_near_ties']} frames ({halves['loose']} "
+          f"items they may change); unfused vs fused "
+          f"{unfused['equal']} of {unfused['frames']} equal (near-ties {unfused['near_ties']}); "
+          f"float32 card vs CPU max abs diff {f32['max_abs_diff']:.3g} at outputs up to "
+          f"{f32['max_abs_output']:.3g}, {f32['outside_1e-4']} of {f32['elements']} outside a "
+          f"fixed rtol = atol = 1e-4"
+          + (f"; score threshold {fill['thr']}" if fill["thr"] else ""))
+    batch_ms = statistics.median(direct_ms[1:])
+    print(f"{name} path f: {frames / wall:.1f} frames/s overall, {steady:.1f} frames/s after the "
+          f"first micro-batch; frame latency (push to sink) p50 {p50:.2f} ms p99 {p99:.2f} ms; "
+          f"direct call per {n}-frame batch (copy in, model, device half, copy out) "
+          f"{batch_ms:.2f} ms (host clock, synchronized); the decoder's host finish "
+          f"{finish_ms:.3f} ms a frame; {feed_line(feed)}; on {card}")
+    return {"launches": launches, "batches": batches, "fps": frames / wall, "fps_steady": steady,
+            "latency_ms_p50": p50, "latency_ms_p99": p99, "direct_batch_ms": batch_ms,
+            "host_finish_ms_per_frame": finish_ms, "bytes_per_frame": fused_bytes,
+            "raw_bytes_per_frame": raw_bytes, "device_half": halves, "unfused": unfused,
+            "float32": f32, "threshold": fill["thr"] or None}
+
+
+def run_vision(torch, np, counters, seed: int, card: str, work) -> tuple:
+    """Path f: ``batched_nms`` timed alone, then every family of VISION.
+    Returns ({family: its launches and micro-batches}, {family: its
+    numbers, "nms_ms": ..., "card": card})."""
+    t0 = time.perf_counter()
+    vision = {"nms_ms": time_nms(torch, np)}
+    print("batched_nms alone, host ms per synchronized call: " + ", ".join(
+        f"({k.replace('x', ', ')}) {v:.3f}" for k, v in vision["nms_ms"].items()) + f"; on {card}")
+    paths = {}
+    for fam in VISION:
+        torch.cuda.empty_cache()
+        r = run_vision_path(torch, np, counters, fam, seed, card, work)
+        paths[fam[0]] = {k: r.pop(k) for k in ("launches", "batches")}
+        vision[fam[0]] = r
+    vision["seconds"] = time.perf_counter() - t0
+    print(f"path f: {vision['seconds']:.1f} s")
+    vision["card"] = card
+    return paths, vision
+
+
+def kernel_counters() -> Counters:
+    """Every kernel wrapper's launch counter."""
+    from nnstreamer_tpu_torch.ops import flash_attention as fa
+    from nnstreamer_tpu_torch.ops import labeling as lab
+    from nnstreamer_tpu_torch.ops import preprocess as pre
+
+    return Counters({"normalize_u8": (pre, "LAUNCHES"), "top1": (lab, "LAUNCHES"),
+                     "flash_attention": (fa, "LAUNCHES"),
+                     "flash_attention_tensor_cores": (fa, "LAUNCHES_TENSOR_CORES")})
+
+
+def work_dir() -> Path:
+    """``build/chip_smoke`` of the checkout, with a 1001-line labels file."""
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "labels.txt").write_text("\n".join(f"class{i}" for i in range(1001)))
+    return work
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=2048, help="frames through MobileNet-v2")
@@ -1557,13 +2084,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, three kernels in parallel)")
 
     kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa)]
-    counters = Counters({"normalize_u8": (pre, "LAUNCHES"), "top1": (lab, "LAUNCHES"),
-                         "flash_attention": (fa, "LAUNCHES"),
-                         "flash_attention_tensor_cores": (fa, "LAUNCHES_TENSOR_CORES")})
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
+    counters = kernel_counters()
+    work = work_dir()
     labels = work / "labels.txt"
-    labels.write_text("\n".join(f"class{i}" for i in range(1001)))
 
     paths = {}
     mobilenet = ("MobileNet-v2", "arch:mobilenet_v2,dtype:bfloat16",
@@ -1612,6 +2135,8 @@ def main() -> int:
     feed_ab["card"] = card
     torch.cuda.empty_cache()
     paths["gpt2_small_generation"] = run_generation_path(torch, np, counters, args.seed, card)
+    vision_paths, vision = run_vision(torch, np, counters, args.seed, card, work)
+    paths.update(vision_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -1620,6 +2145,7 @@ def main() -> int:
     composed = paths["composed_mobilenet_v2"]
     print(json.dumps({"composed": {k: composed.pop(k) for k in (
         "fps", "fps_steady", "latency_ms_p50", "latency_ms_p99", "e2")} | {"card": card}}))
+    print(json.dumps({"vision": vision}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -2,6 +2,10 @@
 
 from ..core import registry
 
-registry.register_lazy(
-    registry.KIND_DECODER, "image_labeling",
-    "nnstreamer_tpu_torch.decoders.image_label:ImageLabeling")
+for _mode, _target in (
+    ("image_labeling", "image_label:ImageLabeling"),
+    ("bounding_boxes", "bounding_box:BoundingBoxes"),
+    ("pose_estimation", "pose:PoseEstimation"),
+    ("image_segment", "segment:ImageSegment"),
+):
+    registry.register_lazy(registry.KIND_DECODER, _mode, f"nnstreamer_tpu_torch.decoders.{_target}")

@@ -1,0 +1,160 @@
+"""pose_estimation decoder: heatmap tensors -> keypoint skeleton overlay.
+
+Port of ``nnstreamer_tpu/decoders/pose.py``, with the same option contract:
+
+- option1: video output dimension ``WIDTH:HEIGHT``
+- option2: model input dimension ``WIDTH:HEIGHT``
+- option3: keypoint label file (optional)
+- option4: mode — ``heatmap-only`` (default) or ``heatmap-offset``
+  (PoseNet-style: tensors = [heatmap [h,w,K], offsets [h,w,2K]])
+
+Output: RGBA (H, W, 4) overlay with keypoint dots + skeleton edges, plus
+``meta["keypoints"]`` = [[x, y, score], ...] in output coordinates.  The
+device half (``device_fn``) takes the per-keypoint argmax and the offset
+gather where the model's outputs live, so one (B, K, 3) tensor leaves the
+card.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+from ..core.buffer import TensorFrame, materialize
+from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
+from . import util
+
+_DEFAULT_OUT = (640, 480)
+_DEFAULT_IN = (257, 257)
+
+# COCO-17 skeleton edges (keypoint index pairs); used when K == 17.
+_COCO_EDGES = (
+    (0, 1), (0, 2), (1, 3), (2, 4), (5, 6), (5, 7), (7, 9), (6, 8), (8, 10),
+    (5, 11), (6, 12), (11, 12), (11, 13), (13, 15), (12, 14), (14, 16),
+)
+# 14-keypoint (MPII-like) skeleton; used when K == 14.
+_MPII_EDGES = (
+    (0, 1), (1, 2), (2, 3), (3, 4), (1, 5), (5, 6), (6, 7), (1, 8),
+    (8, 9), (9, 10), (1, 11), (11, 12), (12, 13),
+)
+
+
+class PoseEstimation:
+    NAME = "pose_estimation"
+
+    def __init__(self):
+        self.out_wh = _DEFAULT_OUT
+        self.in_wh = _DEFAULT_IN
+        self.labels: Optional[List[str]] = None
+        self.mode = "heatmap-only"
+
+    def set_options(self, options: List[str]) -> None:
+        o = list(options) + [""] * 9
+        self.out_wh = util.parse_wh(o[0], _DEFAULT_OUT)
+        self.in_wh = util.parse_wh(o[1], _DEFAULT_IN)
+        if o[2]:
+            self.labels = util.load_labels(o[2])
+        if o[3]:
+            mode = o[3].strip()
+            if mode not in ("heatmap-only", "heatmap-offset"):
+                raise ValueError(f"pose_estimation: unknown option4 {mode!r}")
+            self.mode = mode
+
+    def get_out_spec(self, in_spec: StreamSpec) -> StreamSpec:
+        w, h = self.out_wh
+        return StreamSpec(
+            (TensorSpec((h, w, 4), np.uint8, "video_rgba"),),
+            FORMAT_STATIC,
+            in_spec.framerate if in_spec else None,
+        )
+
+    def decode(self, frame: TensorFrame, in_spec) -> TensorFrame:
+        tensors = materialize(frame.tensors[:2])
+        heat = tensors[0].astype(np.float64)
+        heat = heat.reshape(heat.shape[-3], heat.shape[-2], heat.shape[-1])
+        gh, gw, k = heat.shape
+        flat = heat.reshape(-1, k)
+        best = flat.argmax(axis=0)  # [K] flattened grid index per keypoint
+        gy, gx = best // gw, best % gw
+        score = util.sigmoid(flat[best, np.arange(k)])
+
+        # grid -> model-input pixel coords
+        x_in = (gx + 0.5) / gw * self.in_wh[0]
+        y_in = (gy + 0.5) / gh * self.in_wh[1]
+        if self.mode == "heatmap-offset" and len(tensors) > 1:
+            # PoseNet offsets: [gh, gw, 2K], first K rows = y, last K = x
+            off = tensors[1].astype(np.float64).reshape(gh, gw, 2 * k)
+            y_in = gy / max(1, gh - 1) * self.in_wh[1] + off[gy, gx, np.arange(k)]
+            x_in = gx / max(1, gw - 1) * self.in_wh[0] + off[gy, gx, np.arange(k) + k]
+
+        return self._render(frame, x_in, y_in, score)
+
+    def _render(self, frame: TensorFrame, x_in, y_in, score) -> TensorFrame:
+        """Keypoints in model-input px -> RGBA overlay + keypoints meta."""
+        k = len(score)
+        sx = self.out_wh[0] / max(1, self.in_wh[0])
+        sy = self.out_wh[1] / max(1, self.in_wh[1])
+        x_out, y_out = x_in * sx, y_in * sy
+
+        w, h = self.out_wh
+        canvas = util.blank_canvas(w, h)
+        edges = _COCO_EDGES if k == 17 else _MPII_EDGES if k == 14 else ()
+        bone = (0, 200, 0, 255)
+        for a, b in edges:
+            if score[a] >= 0.3 and score[b] >= 0.3:
+                util.draw_line(canvas, x_out[a], y_out[a], x_out[b], y_out[b], bone)
+        for i in range(k):
+            if score[i] >= 0.3:
+                util.draw_dot(canvas, x_out[i], y_out[i],
+                              util.class_color(i), radius=2)
+
+        out = frame.with_tensors([canvas])
+        out.meta["keypoints"] = [
+            [float(x_out[i]), float(y_out[i]), float(score[i])] for i in range(k)
+        ]
+        if self.labels:
+            out.meta["keypoint_labels"] = self.labels[:k]
+        return out
+
+    # -- device-fused half (pipeline fusion pass) ---------------------------
+    def supports_device_fn(self) -> bool:
+        return True  # both heatmap modes have static shapes
+
+    def device_fn(self, outs, device=None):
+        """Device half, run inside the upstream filter's backend call on its
+        device: per-keypoint argmax and offset gather, so one (B, K, 3)
+        float32 [x_in, y_in, score] tensor (204 bytes a frame at K = 17)
+        leaves the card instead of the heatmap and offset stack.  Mirrors
+        ``decode``."""
+        import torch
+
+        outs = [torch.as_tensor(o) if device is None else torch.as_tensor(o).to(device)
+                for o in outs]
+        heat = outs[0].float()
+        if heat.ndim == 3:  # single-frame invoke path: no batch axis
+            heat = heat[None]
+        heat = heat.reshape((heat.shape[0],) + tuple(heat.shape[-3:]))
+        B, gh, gw, k = heat.shape
+        top, best = heat.reshape(B, gh * gw, k).max(dim=1)   # (B, K): first maximum
+        score = torch.sigmoid(top)
+        gy, gx = best // gw, best % gw
+        x_in = (gx + 0.5) / gw * self.in_wh[0]
+        y_in = (gy + 0.5) / gh * self.in_wh[1]
+        if self.mode == "heatmap-offset" and len(outs) > 1:
+            off = outs[1].float()
+            if off.ndim == 3:
+                off = off[None]
+            off = off.reshape(B, gh * gw, 2 * k)
+            # per keypoint i: off[b, best[b, i], i] (y) and [..., i + k] (x)
+            ks = torch.arange(k, device=off.device)
+            off_y = off[torch.arange(B, device=off.device)[:, None], best, ks]
+            off_x = off[torch.arange(B, device=off.device)[:, None], best, ks + k]
+            y_in = gy / max(1, gh - 1) * self.in_wh[1] + off_y
+            x_in = gx / max(1, gw - 1) * self.in_wh[0] + off_x
+        return [torch.stack([x_in.float(), y_in.float(), score], dim=-1)]  # (B, K, 3)
+
+    def decode_fused(self, frame: TensorFrame, in_spec) -> TensorFrame:
+        """Host finish after ``device_fn``: the tensor is (K, 3) x/y/score."""
+        arr = materialize(frame.tensors[:1])[0].astype(np.float64).reshape(-1, 3)
+        return self._render(frame, arr[:, 0], arr[:, 1], arr[:, 2])

@@ -51,12 +51,16 @@ class TensorDecoder(TransformElement):
 
     @property
     def can_fuse_device(self) -> bool:
-        return (
-            self._dec is not None
-            and hasattr(self._dec, "device_fn")
-            and hasattr(self._dec, "decode_fused")
-            and self.props["device-fused"] != "never"
-        )
+        if (
+            self._dec is None
+            or not hasattr(self._dec, "device_fn")
+            or not hasattr(self._dec, "decode_fused")
+            or self.props["device-fused"] == "never"
+        ):
+            return False
+        # a subplugin may have a device half for some of its modes only
+        supports = getattr(self._dec, "supports_device_fn", None)
+        return supports() if callable(supports) else True
 
     def enable_fused(self) -> None:
         self._fused = True

@@ -18,7 +18,11 @@ import torch
 
 _ZOO = {
     "mobilenet_v2": "nnstreamer_tpu_torch.models.mobilenet_v2",
+    "ssd_mobilenet_v2": "nnstreamer_tpu_torch.models.ssd_mobilenet",
+    "yolov5s": "nnstreamer_tpu_torch.models.yolov5",
+    "posenet": "nnstreamer_tpu_torch.models.posenet",
     "transformer": "nnstreamer_tpu_torch.models.transformer",
+    "deeplab": "nnstreamer_tpu_torch.models.deeplab",
     "vit": "nnstreamer_tpu_torch.models.vit",
 }
 

@@ -16,11 +16,9 @@ Port of ``nnstreamer_tpu/pipeline/parser.py``::
   (a forward reference, resolved at the end).  A request-pad source
   (tee, demux, split, if) hands out its src pads in text order.
 * a bare schema string (``tensors,format=...``) becomes a capsfilter.
+* an element that directly follows another, with no ``!`` or ``x.``
+  between them, starts a new, unlinked chain (``appsrc tensor_sink``).
 * quotes protect spaces in values.
-
-One rule is stricter than the JAX parser's: an element that directly
-follows another element, with no ``!`` and no ``x.`` between them, is an
-error here (the JAX parser starts a new, unlinked chain; ROADMAP C8).
 """
 
 from __future__ import annotations
@@ -71,10 +69,8 @@ def parse_pipeline(text: str, name: str = "pipeline", fuse: Optional[bool] = Non
         branch_counts[id(src)] = idx + 1
         return idx
 
-    def new_node(el: Element, tok: str) -> None:
+    def new_node(el: Element) -> None:
         nonlocal current, pending_src, link_requested
-        if current is not None and not link_requested:
-            raise ParseError(f"element {tok!r} not linked: missing '!'")
         pipe.add(el)
         if link_requested:
             pending_src.link(el, src_pad=claim_pad(pending_src))
@@ -107,7 +103,7 @@ def parse_pipeline(text: str, name: str = "pipeline", fuse: Optional[bool] = Non
             continue
         if _is_caps(tok):
             caps_n += 1
-            new_node(make_element("capsfilter", name=f"capsfilter{caps_n}", caps=tok), tok)
+            new_node(make_element("capsfilter", name=f"capsfilter{caps_n}", caps=tok))
             continue
         if "=" in tok and tok.split("=", 1)[0] not in ELEMENT_TYPES:
             if current is None:
@@ -131,7 +127,7 @@ def parse_pipeline(text: str, name: str = "pipeline", fuse: Optional[bool] = Non
         while el.name in pipe.elements:  # unique auto-name within the pipeline
             el.name = f"{base}_{n}"
             n += 1
-        new_node(el, tok)
+        new_node(el)
 
     if link_requested:
         raise ParseError("pipeline text ends with dangling '!'")

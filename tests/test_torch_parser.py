@@ -68,6 +68,7 @@ TEXTS = {
                         "s. ! j.  s. ! j.  join name=j ! tensor_sink",
     "fanout-plain-pad": "appsrc name=s ! tensor_sink name=a  s. ! tensor_sink name=b",
     "unnamed-twins": "appsrc ! queue ! queue ! tensor_sink",
+    "juxtaposed": "appsrc name=a ! queue tensor_sink name=b  appsrc ! tensor_sink",
     "if": "appsrc name=src ! tensor_if name=i compared-value=a_value supplied-value=5 "
           "i. ! tensor_sink name=t  i. ! tensor_sink name=e",
 }
@@ -95,11 +96,11 @@ def test_same_parse_errors_as_jax(text):
 
 
 def test_juxtaposed_elements_are_an_error_here():
-    """The port's one stricter rule: no unlinked second chain without '!'
-    or a reference (the JAX parser accepts it)."""
-    assert len(jax_parse("appsrc tensor_sink").elements) == 2
-    with pytest.raises(ParseError, match="missing '!'"):
-        parse_pipeline("appsrc tensor_sink")
+    """An element that follows another with no '!' or reference starts a
+    second, unlinked chain, in both parsers: the same two elements and no
+    link (its name predates the repair, when the port raised here)."""
+    got, want = graph(parse_pipeline("appsrc tensor_sink")), graph(jax_parse("appsrc tensor_sink"))
+    assert got == want == [("appsrc", "<appsrc>", [[]]), ("tensor_sink", "<tensor_sink>", [])]
 
 
 def test_unknown_property():

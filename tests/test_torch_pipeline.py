@@ -270,7 +270,7 @@ def test_element_error_stops_pipeline_and_wait_reraises():
 def test_parser_rejects_malformed_text():
     from nnstreamer_tpu_torch.pipeline import ParseError
 
-    for text in ["", "appsrc !", "! tensor_sink", "appsrc tensor_sink", "no_such_element"]:
+    for text in ["", "appsrc !", "! tensor_sink", "no_such_element"]:
         with pytest.raises(ParseError):
             parse_pipeline(text)
 
