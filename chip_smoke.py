@@ -150,6 +150,46 @@ Phases (any failure exits non-zero before the result lines are printed):
       same build on the CPU on 2 frames (rtol 1e-4, atol 1e-4 of the
       output's largest magnitude, which is printed with the count of
       elements outside a fixed 1e-4).
+   g. media, audio and text in and out, every input written by the script
+      from ``--seed`` under ``build/chip_smoke``, each path's checks raising
+      on failure:
+      1. ``MEDIA_FRAMES`` (1024) 224x224 frames as an I420 ``.y4m`` through
+         ``videofilesrc ! tensor_converter`` into MobileNet-v2 (bf16) whose
+         weights, a zoo build of another seed saved with ``torch.save``, the
+         filter loads from a model repository (``model=model://mobilenet_v2``,
+         ``NNS_TPU_MODEL_REPO``): labels equal to the direct call on the
+         port reader's RGB frames in the same micro-batch sizes,
+         ``normalize_u8`` and ``top1`` exactly once per micro-batch;
+         frames/s and latency (emission to sink) beside path a's;
+      2. ``MEDIA_FRAMES`` seeded 1 s clips at 16 kHz mono int16 in one
+         ``.wav`` through ``audiofilesrc samples-per-buffer=16000 !
+         tensor_converter`` into the KWS CNN at Speech Commands' shape (40
+         mels, n_fft 400, hop 160, 12 classes, bf16): labels equal to the
+         direct call, ``top1`` exactly once per micro-batch and
+         ``normalize_u8`` never; a float32 build on the card (TF32 off)
+         against the CPU on 8 clips (rtol 1e-4, atol 1e-4 of the largest
+         logit's magnitude); a second run through ``tensor_decoder
+         mode=flexbuf device-fused=never ! tensor_converter
+         mode=custom:flexbuf`` whose logits must be bit-equal to the direct
+         call's, and one card tensor through the flexbuf decoder and
+         converter bit-equal;
+      3. eight 256-byte ASCII prompts (seeded cuts of ``PARAGRAPH``) through
+         ``tensor_converter mode=custom:tokenizer ! tensor_filter`` (GPT-2
+         small, ``generate:32``, ``max-batch=8``) ``! tensor_decoder
+         mode=detokenizer``: ids equal to the direct ``make_generate`` call,
+         ``meta["text"]`` equal to their bytes (ids >= 256 as '?'), host
+         bytes at the sink, no kernel launch;
+      4. ``REGION_FRAMES`` (256) 300x300 frames as a ``.y4m`` through
+         ``videofilesrc ! tensor_converter ! tee``, one branch into
+         ``tensor_crop``'s raw pad, the other through SSD-MobileNet-v2 300
+         (path f's configuration) and ``tensor_decoder mode=tensor_region
+         option1=3`` (threshold midway between two candidate scores, about
+         20 a frame over it) into its info pad: regions equal to the host
+         decode of the direct call's raw heads, every crop equal to a numpy
+         slice of the reader's frame, ``normalize_u8`` exactly once per
+         micro-batch.
+      g1, g2 and g4 also print the card's busy share over a second, whole
+      run of the same pipeline (``torch.profiler``, device activity).
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -157,7 +197,8 @@ Phases (any failure exits non-zero before the result lines are printed):
 5. summary: a ``{"feed_ab": {...}}`` JSON line (paths a and c in both
    modes), a ``{"generation": {...}}`` JSON line (path d's numbers), a
    ``{"composed": {...}}`` JSON line (path e's numbers), a
-   ``{"vision": {...}}`` JSON line (path f's numbers), one
+   ``{"vision": {...}}`` JSON line (path f's numbers), a ``{"media":
+   {...}}`` JSON line (path g's numbers), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -166,6 +207,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2033,6 +2075,432 @@ def run_vision(torch, np, counters, seed: int, card: str, work) -> tuple:
     return paths, vision
 
 
+#: frames of g1 (224x224 .y4m) and clips of g2 (1 s at 16 kHz in one .wav)
+MEDIA_FRAMES = 1024
+#: frames of g4 (300x300 .y4m), two micro-batches of 128
+REGION_FRAMES = 256
+#: the keyword-spotting task's published shape: Speech Commands (Warden
+#: 2018), 1 s clips at 16 kHz mono int16, 40 mels, n_fft 400, hop 160, 12
+#: classes
+KWS_CUSTOM = "arch:kws_cnn,samples:16000,channels:1,classes:12,dtype:bfloat16"
+KWS_LABELS = ("yes", "no", "up", "down", "left", "right", "on", "off", "stop", "go",
+              "_silence_", "_unknown_")
+#: g3's prompts are 256-byte cuts of this text (byte ids are GPT-2 ids)
+PARAGRAPH = (
+    "A stream of frames arrives from a camera, a microphone or an application, and each "
+    "one passes through a chain of elements: a source reads it, a converter turns the raw "
+    "bytes into tensors, a filter runs the model on a micro-batch of them, and a decoder "
+    "turns what the model returns into labels, boxes, regions or text that a sink hands "
+    "back to the application. The pipeline is written as one line of text, and the same "
+    "line runs on a laptop or on an accelerator; only the filter's framework changes. "
+    "What the user pays for is the time the card spends on each frame, and the delay "
+    "between the moment a frame enters and the moment its answer comes out.")
+
+
+def timed_source(pipe, name: str = "src") -> list:
+    """Record the host clock at which source `name` emits each frame (its
+    ``frames()`` wrapped before the pipeline starts)."""
+    src, emitted = pipe[name], []
+    inner = src.frames
+
+    def frames():
+        for f in inner():
+            emitted.append(time.perf_counter())
+            yield f
+
+    src.frames = frames
+    return emitted
+
+
+def stream_numbers(emitted: list, arrived: dict, first: int) -> tuple:
+    """Frames/s after the first micro-batch (ending at frame `first`) and
+    latency p50/p99 in ms, emission to sink."""
+    n = len(emitted)
+    lat = sorted(arrived[i] - emitted[i] for i in range(n))
+    span = max(arrived.values()) - arrived[first]
+    steady = (n - first - 1) / span if span > 0 else float("nan")
+    return steady, lat[n // 2] * 1e3, lat[min(n - 1, int(n * 0.99))] * 1e3
+
+
+def whole_run_busy(text: str):
+    """The card's busy share over a second, whole run of `text`'s pipeline
+    (a file source feeds it from start to end): the union of the kernels'
+    and copies' device intervals (``torch.profiler``) over the host wall
+    from ``start()`` to the end of the stream.  None when the profiler saw
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(text)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            pipe.start()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t
+    finally:
+        pipe.stop()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type.name == "CUDA"]
+    return union_us(spans) / (wall * 1e6) if spans else None
+
+
+def busy_text(share) -> str:
+    return ("card busy not measured" if share is None else
+            f"card busy {share:.1%} over a second whole run (torch.profiler)")
+
+
+def check_launches(name: str, launches: dict, want: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+
+
+def run_video_file_path(torch, np, lab, counters, seed: int, card: str, work, beside) -> dict:
+    """g1: MEDIA_FRAMES seeded 224x224 frames written as an I420 .y4m, read
+    by ``videofilesrc ! tensor_converter`` into MobileNet-v2 whose weights
+    (a seeded zoo build's state_dict) come from a model repository through
+    ``model://``; labels against the direct call on the port reader's RGB
+    frames in the same micro-batch sizes, ``normalize_u8`` and ``top1``
+    once per micro-batch."""
+    from nnstreamer_tpu_torch.media.y4m import Y4MReader, write_y4m
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    frames = MEDIA_FRAMES
+    rng = np.random.default_rng(seed + 9)
+    path = work / "g1.y4m"
+    write_y4m(str(path), (rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+                          for _ in range(frames)))
+    with Y4MReader(str(path)) as r:
+        rgb = np.stack(list(r.frames_rgb()))
+    custom = "arch:mobilenet_v2,dtype:bfloat16"
+    saved, _, _ = build("mobilenet_v2", custom_props(custom) | {"seed": str(seed + 1)})
+    version = work / "models" / "mobilenet_v2" / "1"
+    version.mkdir(parents=True, exist_ok=True)
+    torch.save(saved.state_dict(), version / "model.pt")
+    os.environ["NNS_TPU_MODEL_REPO"] = str(work / "models")
+    text = (f"videofilesrc name=src location={path} ! tensor_converter ! tensor_filter name=f "
+            f"framework=torch-cuda model=model://mobilenet_v2 custom={custom} max-batch=128 "
+            f"batch-timeout=20 ! tensor_decoder mode=image_labeling "
+            f"option1={work / 'labels.txt'} ! tensor_sink name=out")
+    pipe = parse_pipeline(text)
+    emitted, arrived = timed_source(pipe), {}
+    pipe["out"].connect_new_data(
+        lambda f: arrived.__setitem__(round(f.pts * 30), time.perf_counter()))
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            t0 = time.perf_counter()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = counters.read()
+        feed = feed_stats(pipe["f"])
+        module = pipe["f"].backend._module
+        out = pipe["out"].frames
+    finally:
+        pipe.stop()
+    batches = len(sizes)
+    if len(out) != frames or sorted(arrived) != list(range(frames)):
+        raise AssertionError(f"g1: {len(out)} of {frames} frames reached the sink")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(module.state_dict().values(),
+                                                       saved.state_dict().values())):
+        raise AssertionError("g1: the filter's weights are not the model repository's")
+    check_launches("g1", launches, {"normalize_u8": batches, "top1": batches,
+                                    "flash_attention": 0, "flash_attention_tensor_cores": 0})
+    got = np.array([f.meta["label_index"] for f in sorted(out, key=lambda f: f.pts)])
+    want = np.concatenate([lab.top1_plain(logits)[0].cpu().numpy()
+                           for _, _, logits, _ in direct_batches(torch, module, rgb, sizes)])
+    if not np.array_equal(got, want):
+        raise AssertionError(f"g1: {int((got != want).sum())} labels differ from the direct call")
+    steady, p50, p99 = stream_numbers(emitted, arrived, sizes[0] - 1)
+    busy = whole_run_busy(text)
+    path_a = "" if beside is None else (
+        f" (path a in this run: {beside['fps_steady']:.1f} frames/s after the first "
+        f"micro-batch, latency push to sink p50 {beside['latency_ms_p50']:.2f} ms p99 "
+        f"{beside['latency_ms_p99']:.2f} ms)")
+    print(f"g1 video file -> MobileNet-v2 (model://mobilenet_v2, state_dict from the repository): "
+          f"{frames} frames in {batches} micro-batches (sizes {sorted(set(sizes))}), labels equal "
+          f"to the direct call on the reader's RGB frames; launches {launches}; {frames / wall:.1f} "
+          f"frames/s overall, {steady:.1f} after the first micro-batch; latency (emission to "
+          f"sink) p50 {p50:.2f} ms p99 {p99:.2f} ms{path_a}; {feed_line(feed)}; "
+          f"{busy_text(busy)}; on {card}")
+    return {"launches": launches, "batches": batches, "fps": frames / wall, "fps_steady": steady,
+            "latency_ms_p50": p50, "latency_ms_p99": p99, "busy_share": busy}
+
+
+def speech_clips(np, n: int, seed: int):
+    """`n` seeded 1 s clips at 16 kHz, int16 (n, 16000, 1): two tones and
+    noise at a random level each."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(16000, dtype=np.float32) / 16000
+    freqs = rng.uniform(100, 3000, (n, 2, 1)).astype(np.float32)
+    tones = np.sin(2 * np.pi * freqs * t).sum(axis=1) * rng.uniform(0.05, 0.4, (n, 1))
+    noise = rng.normal(0, 1, (n, 16000)).astype(np.float32) * rng.uniform(0.01, 0.1, (n, 1))
+    return (np.clip(tones + noise, -1, 1) * 32767).astype(np.int16)[..., None]
+
+
+def run_audio_path(torch, np, lab, counters, seed: int, card: str, work) -> dict:
+    """g2: MEDIA_FRAMES seeded clips in one .wav through ``audiofilesrc
+    samples-per-buffer=16000 ! tensor_converter`` into the KWS CNN at
+    Speech Commands' shape, labels against the direct call, ``top1`` once
+    per micro-batch; float32 logits on the card against the CPU; and a
+    second run through ``tensor_decoder mode=flexbuf ! tensor_converter
+    mode=custom:flexbuf`` whose logits must be bit-equal to the direct
+    call's."""
+    from nnstreamer_tpu_torch.converters.serialize import FlexbufConverter
+    from nnstreamer_tpu_torch.core.buffer import TensorFrame
+    from nnstreamer_tpu_torch.decoders.serialize import FlexbufDecoder
+    from nnstreamer_tpu_torch.media.wav import write_wav
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    n = MEDIA_FRAMES
+    clips = speech_clips(np, n, seed + 11)
+    path = work / "g2.wav"
+    write_wav(str(path), clips.reshape(-1), 16000)
+    labels = work / "kws_labels.txt"
+    labels.write_text("\n".join(KWS_LABELS))
+    custom = f"{KWS_CUSTOM},seed:{seed}"
+    head = (f"audiofilesrc name=src location={path} samples-per-buffer=16000 ! tensor_converter "
+            f"! tensor_filter name=f framework=torch-cuda model=zoo custom={custom} "
+            "max-batch=128 batch-timeout=20 ! ")
+    runs = {}
+    for run, tail in (("labels", f"tensor_decoder mode=image_labeling option1={labels}"),
+                      ("flexbuf", "tensor_decoder mode=flexbuf device-fused=never ! "
+                                  "tensor_converter mode=custom:flexbuf")):
+        pipe = parse_pipeline(head + tail + " ! tensor_sink name=out")
+        emitted, arrived = timed_source(pipe), {}
+        pipe["out"].connect_new_data(lambda f: arrived.__setitem__(round(f.pts), time.perf_counter()))
+        counters.zero()
+        pipe.start()
+        try:
+            with recording_batches(pipe, "f") as sizes:
+                t0 = time.perf_counter()
+                pipe.wait(timeout=600)
+                wall = time.perf_counter() - t0
+            launches = counters.read()
+            module = pipe["f"].backend._module
+            out = sorted(pipe["out"].frames, key=lambda f: f.pts)
+        finally:
+            pipe.stop()
+        if len(out) != n or sorted(arrived) != list(range(n)):
+            raise AssertionError(f"g2 [{run}]: {len(out)} of {n} clips reached the sink")
+        direct = [logits for _, _, logits, _ in direct_batches(torch, module, clips, sizes)]
+        runs[run] = {"launches": launches, "sizes": list(sizes), "wall": wall, "out": out,
+                     "direct": direct, "numbers": stream_numbers(emitted, arrived, sizes[0] - 1)}
+    r = runs["labels"]
+    batches = len(r["sizes"])
+    check_launches("g2", r["launches"], {"normalize_u8": 0, "top1": batches,
+                                         "flash_attention": 0, "flash_attention_tensor_cores": 0})
+    got = np.array([f.meta["label_index"] for f in r["out"]])
+    want = np.concatenate([lab.top1_plain(d)[0].cpu().numpy() for d in r["direct"]])
+    if not np.array_equal(got, want) or got.max() >= len(KWS_LABELS):
+        raise AssertionError(f"g2: {int((got != want).sum())} labels differ from the direct call")
+    # the serialize decoder and converter: host bytes out of card logits
+    f = runs["flexbuf"]
+    got_logits = np.stack([fr.tensors[0] for fr in f["out"]])
+    want_logits = torch.cat(f["direct"]).cpu().numpy()
+    if got_logits.dtype != np.float32 or not np.array_equal(got_logits.view(np.int32),
+                                                            want_logits.view(np.int32)):
+        raise AssertionError("g2: logits through flexbuf are not bit-equal to the direct call's")
+    row = f["direct"][0][:1]  # a card tensor straight into the decoder (materialize)
+    back = FlexbufConverter().convert(FlexbufDecoder().decode(TensorFrame([row], pts=0.0), None))
+    if not np.array_equal(back.tensors[0].view(np.int32), row.cpu().numpy().view(np.int32)):
+        raise AssertionError("g2: the flexbuf decoder changed a card tensor's bits")
+    # float32, TF32 off: the card against the CPU on 8 clips
+    f32, _, _ = build("kws_cnn", custom_props(custom) | {"dtype": "float32"})
+    with torch.inference_mode():
+        cpu = f32.eval()(torch.from_numpy(clips[:8])).numpy()
+        card_out = f32.cuda()(torch.from_numpy(clips[:8]).cuda()).cpu().numpy()
+    diff = float(np.abs(card_out - cpu).max())
+    scale = max(1.0, float(np.abs(cpu).max()))
+    if not np.allclose(card_out, cpu, rtol=1e-4, atol=1e-4 * scale):
+        raise AssertionError(f"g2: float32 logits on the card differ from the CPU's by {diff:.3g}")
+    steady, p50, p99 = r["numbers"]
+    busy = whole_run_busy(head + f"tensor_decoder mode=image_labeling option1={labels} "
+                          "! tensor_sink name=out")
+    print(f"g2 wav -> KWS CNN (Speech Commands shape, bf16): {n} clips in {batches} micro-batches "
+          f"(sizes {sorted(set(r['sizes']))}), labels equal to the direct call; launches "
+          f"{r['launches']}; flexbuf run: {n} logits bit-equal to the direct call ("
+          f"{len(f['sizes'])} micro-batches, launches {f['launches']}); float32 card vs CPU max "
+          f"abs diff {diff:.3g} at logits up to {scale:.3g} (rtol 1e-4, atol 1e-4 x that); "
+          f"{n / r['wall']:.1f} clips/s overall, {steady:.1f} after the first micro-batch; "
+          f"latency (emission to sink) p50 {p50:.2f} ms p99 {p99:.2f} ms; {busy_text(busy)}; "
+          f"on {card}")
+    return {"launches": r["launches"], "batches": batches, "fps": n / r["wall"],
+            "fps_steady": steady, "latency_ms_p50": p50, "latency_ms_p99": p99,
+            "float32_max_abs_diff": diff, "busy_share": busy}
+
+
+def run_text_path(torch, np, counters, seed: int, card: str) -> dict:
+    """g3: eight 256-byte ASCII prompts through ``tensor_converter
+    mode=custom:tokenizer ! tensor_filter (GPT-2 small, generate:32) !
+    tensor_decoder mode=detokenizer``: ids against the direct make_generate
+    call, text against the ids' bytes, host bytes at the sink, and no
+    kernel launch (the KV-cache path's attention is dense)."""
+    from nnstreamer_tpu_torch.models import transformer as tr
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    rng = np.random.default_rng(seed + 13)
+    source = (PARAGRAPH * 2).encode("ascii")
+    prompts = [source[o:o + 256] for o in rng.integers(0, len(PARAGRAPH), 8)]
+    ids = np.stack([np.frombuffer(p, np.uint8).astype(np.int32) for p in prompts])
+    pipe = parse_pipeline(
+        f"appsrc name=src ! tensor_converter mode=custom:tokenizer ! tensor_filter name=f "
+        f"framework=torch-cuda model=zoo custom={LM_CUSTOM},seed:{seed},generate:32 max-batch=8 "
+        "batch-timeout=1000 ! tensor_decoder mode=detokenizer ! tensor_sink name=out")
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_io(pipe, "f", keep=True) as (sizes, _, kept):
+            t0 = time.perf_counter()
+            for i, p in enumerate(prompts):
+                pipe["src"].push(np.frombuffer(p, np.uint8), pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = counters.read()
+        module = pipe["f"].backend._module
+        out = sorted(pipe["out"].frames, key=lambda f: f.pts)
+    finally:
+        pipe.stop()
+    got = np.concatenate([k[0].numpy() for k in kept])
+    gen = tr.make_generate(module.lm, 32)
+    want = np.concatenate([o.cpu().numpy() for _, _, o, _ in direct_batches(torch, gen, ids, sizes)])
+    if got.shape != (8, 288) or not np.array_equal(got, want) or not np.array_equal(got[:, :256], ids):
+        raise AssertionError("g3: token ids are not the direct make_generate call's")
+    for f, row in zip(out, got):
+        text = np.where(row < 256, row, ord("?")).astype(np.uint8)
+        if type(f.tensors[0]) is not np.ndarray or not np.array_equal(f.tensors[0], text) or \
+                f.meta["text"] != text.tobytes().decode("utf-8", errors="replace"):
+            raise AssertionError("g3: the sink's text is not the ids' bytes")
+    check_launches("g3", launches, {"normalize_u8": 0, "top1": 0, "flash_attention": 0,
+                                    "flash_attention_tensor_cores": 0})
+    print(f"g3 text in, text out (GPT-2 small, generate:32): 8 prompts of 256 bytes in "
+          f"micro-batches {sizes}, ids equal to the direct make_generate call, text equal to "
+          f"their bytes ({int((got[:, 256:] >= 256).sum())} of 256 new ids print as '?'), host "
+          f"bytes at the sink; launches {launches}; {8 * 32 / wall:.1f} new tokens/s "
+          f"({wall:.2f} s); on {card}")
+    return {"launches": launches, "batches": len(sizes), "seconds": wall,
+            "tokens_per_s": 8 * 32 / wall}
+
+
+def run_region_path(torch, np, counters, seed: int, card: str, work) -> dict:
+    """g4: REGION_FRAMES seeded 300x300 frames as a .y4m, ``videofilesrc !
+    tensor_converter ! tee``: one branch into ``tensor_crop``'s raw pad,
+    the other through SSD-MobileNet-v2 and ``tensor_decoder
+    mode=tensor_region`` into its info pad.  Regions against the host
+    decode of the direct call's raw heads, every crop against a numpy slice
+    of the reader's frame, ``normalize_u8`` once per micro-batch."""
+    from nnstreamer_tpu_torch.core.buffer import TensorFrame
+    from nnstreamer_tpu_torch.decoders.tensor_region import TensorRegion
+    from nnstreamer_tpu_torch.media.y4m import Y4MReader, write_y4m
+    from nnstreamer_tpu_torch.models import build, ssd_mobilenet
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    frames = REGION_FRAMES
+    rng = np.random.default_rng(seed + 17)
+    path = work / "g4.y4m"
+    write_y4m(str(path), (rng.integers(0, 256, (300, 300, 3), dtype=np.uint8)
+                          for _ in range(frames)))
+    with Y4MReader(str(path)) as r:
+        rgb = np.stack(list(r.frames_rgb()))
+    custom = f"arch:ssd_mobilenet_v2,classes:91,dtype:bfloat16,seed:{seed}"
+    priors = ssd_mobilenet.write_box_priors(str(work / "priors.txt"))
+    probe, _, _ = build("ssd_mobilenet_v2", custom_props(custom))
+    with torch.inference_mode():  # the threshold midway between two candidate scores
+        scores = probe.cuda().eval()(torch.from_numpy(rgb[:16]).cuda())[1].double()
+    best = torch.sigmoid(scores).amax(-1).flatten().sort(descending=True).values
+    thr = repr(float((best[319] + best[320]) / 2))  # about 20 a frame over it
+    del probe, scores
+    options = ["3", "", f"{priors}:{thr}", "300:300"] + [""] * 5
+    text = (f"videofilesrc name=src location={path} ! tensor_converter ! tee name=t  "
+            "t. ! queue ! c.  "
+            f"t. ! queue ! tensor_filter name=f framework=torch-cuda model=zoo custom={custom} "
+            "max-batch=128 batch-timeout=20 ! tensor_decoder name=d mode=tensor_region "
+            + " ".join(f"option{i + 1}={v}" for i, v in enumerate(options) if v)
+            + " ! c.  tensor_crop name=c ! tensor_sink name=out")
+    pipe = parse_pipeline(text)
+    emitted, arrived = timed_source(pipe), {}
+    pipe["out"].connect_new_data(
+        lambda f: arrived.__setitem__(round(f.pts * 30), time.perf_counter()))
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            t0 = time.perf_counter()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = counters.read()
+        module = pipe["f"].backend._module
+        out = sorted(pipe["out"].frames, key=lambda f: f.pts)
+    finally:
+        pipe.stop()
+    batches = len(sizes)
+    check_launches("g4", launches, {"normalize_u8": batches, "top1": 0, "flash_attention": 0,
+                                    "flash_attention_tensor_cores": 0})
+    if len(out) != frames:
+        raise AssertionError(f"g4: {len(out)} of {frames} crops reached the sink")
+    dec = TensorRegion()
+    dec.set_options(options)
+    regions, crops = [], 0
+    for k, n, raw, _ in direct_batches(torch, module, rgb, sizes):
+        raw = [o.float().cpu().numpy() for o in raw]
+        for i in range(n):
+            want = dec.decode(TensorFrame([o[i] for o in raw]), None).tensors[0]
+            f = out[k + i]
+            if f.meta["crop_regions"] != want.tolist():
+                raise AssertionError(f"g4: frame {k + i}'s regions {f.meta['crop_regions']} are "
+                                     f"not the direct call's {want.tolist()}")
+            regions.append(len(want))
+            kept = [(x, y, w, h) for x, y, w, h in want.tolist() if w > 0 and h > 0]
+            if not kept:
+                kept_crops = [rgb[k + i][0:0, 0:0]]
+            else:
+                kept_crops = [rgb[k + i][y:y + h, x:x + w] for x, y, w, h in kept]
+            if len(f.tensors) != len(kept_crops) or not all(
+                    np.array_equal(a, b) for a, b in zip(f.tensors, kept_crops)):
+                raise AssertionError(f"g4: frame {k + i}'s crops are not slices of its frame")
+            crops += len(kept)
+    counts = Counter(regions)
+    steady, p50, p99 = stream_numbers(emitted, arrived, sizes[0] - 1)
+    busy = whole_run_busy(text)
+    print(f"g4 regions -> crop (SSD-MobileNet-v2 300, tensor_region option1=3, threshold {thr}): "
+          f"{frames} frames in {batches} micro-batches (sizes {sorted(set(sizes))}), regions "
+          f"equal to the host decode of the direct call's raw heads, {crops} crops equal to "
+          f"slices of the reader's frames; regions a frame {dict(sorted(counts.items()))}; "
+          f"launches {launches}; {frames / wall:.1f} frames/s overall, {steady:.1f} after the "
+          f"first micro-batch; latency (emission to sink) p50 {p50:.2f} ms p99 {p99:.2f} ms; "
+          f"{busy_text(busy)}; on {card}")
+    return {"launches": launches, "batches": batches, "fps": frames / wall, "fps_steady": steady,
+            "latency_ms_p50": p50, "latency_ms_p99": p99, "crops": crops, "threshold": thr,
+            "busy_share": busy}
+
+
+def run_media(torch, np, lab, counters, seed: int, card: str, work, beside=None) -> tuple:
+    """Path g: g1-g4 (`beside`: path a's numbers of this run, printed
+    beside g1's).  Returns ({path: its launches and micro-batches}, {path:
+    its numbers, "seconds": ..., "card": card})."""
+    t0 = time.perf_counter()
+    media, paths = {}, {}
+    for name, run in (
+            ("g1_video_file", lambda: run_video_file_path(torch, np, lab, counters, seed, card,
+                                                          work, beside)),
+            ("g2_wav_kws", lambda: run_audio_path(torch, np, lab, counters, seed, card, work)),
+            ("g3_text", lambda: run_text_path(torch, np, counters, seed, card)),
+            ("g4_regions_crop", lambda: run_region_path(torch, np, counters, seed, card, work))):
+        torch.cuda.empty_cache()
+        r = run()
+        paths[name] = {k: r.pop(k) for k in ("launches", "batches")}
+        media[name] = r
+    media["seconds"] = time.perf_counter() - t0
+    print(f"path g: {media['seconds']:.1f} s")
+    media["card"] = card
+    return paths, media
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -2137,6 +2605,9 @@ def main() -> int:
     paths["gpt2_small_generation"] = run_generation_path(torch, np, counters, args.seed, card)
     vision_paths, vision = run_vision(torch, np, counters, args.seed, card, work)
     paths.update(vision_paths)
+    media_paths, media = run_media(torch, np, lab, counters, args.seed, card, work,
+                                   beside=paths["mobilenet_v2"])
+    paths.update(media_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -2146,6 +2617,7 @@ def main() -> int:
     print(json.dumps({"composed": {k: composed.pop(k) for k in (
         "fps", "fps_steady", "latency_ms_p50", "latency_ms_p99", "e2")} | {"card": card}}))
     print(json.dumps({"vision": vision}))
+    print(json.dumps({"media": media}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

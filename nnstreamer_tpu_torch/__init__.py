@@ -7,11 +7,13 @@ every TPU kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``.  This package imports ``torch`` and numpy, never JAX and never
 ``nnstreamer_tpu``.
 
-Ported so far: image labeling (MobileNet-v2, ViT) and transformer-LM
-scoring through ``tensor_filter framework=torch-cuda``, and KV-cache
-generation (``generate:<N>`` through the filter, ``tensor_generator``
-streaming one request at a time or continuous batching with
-``slots=N``)::
+Ported so far: image labeling (MobileNet-v2, ViT), transformer-LM
+scoring, detection, pose and segmentation through ``tensor_filter
+framework=torch-cuda``; KV-cache generation (``generate:<N>`` through
+the filter, ``tensor_generator`` streaming one request at a time or
+continuous batching with ``slots=N``); the stream elements; and media,
+audio and text in and out (file sources, converter subplugins, host
+decoders, model files and ``model://`` repositories, the KWS CNN)::
 
     appsrc ! tensor_filter framework=torch-cuda model=zoo
         custom=arch:mobilenet_v2 max-batch=128 !

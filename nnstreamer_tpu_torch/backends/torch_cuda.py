@@ -1,12 +1,21 @@
 """torch-cuda: the filter backend that runs PyTorch models on the GPU.
 
 Port of ``nnstreamer_tpu/backends/jax_xla.py`` (unsharded path).  Model
-resolution (the ``model=`` property):
+resolution (the ``model=`` property, after the filter resolved
+``file://`` and ``model://`` URIs), in the JAX backend's order:
 
 * a name registered in-process via :func:`register_torch_model`;
-* any other name with custom prop ``arch:<zoo-name>`` builds a model
-  family from ``nnstreamer_tpu_torch.models`` (``model=zoo
-  custom=arch:mobilenet_v2,dtype:bfloat16``), initialized from ``seed``.
+* a ``.py`` file whose ``get_model()`` returns ``(module[, in_spec,
+  out_spec])``;
+* with custom prop ``arch:<zoo-name>``, a model family from
+  ``nnstreamer_tpu_torch.models`` (``model=zoo
+  custom=arch:mobilenet_v2,dtype:bfloat16``) initialized from ``seed``,
+  its weights then loaded from ``model`` when that is a file: a
+  ``torch.save``d ``state_dict`` (the counterpart of the JAX backend's
+  flax msgpack file).
+
+A ``jax.export`` artifact (ROADMAP A12) and an orbax checkpoint directory
+(ROADMAP A9) have no torch counterpart yet and raise.
 
 Placement: the model runs on ``cuda:0`` (``gpu.N`` picks another card)
 unless the accelerator wish list says ``cpu``; with no CUDA device and no
@@ -32,8 +41,10 @@ buffer (a ``torch.from_numpy`` view would alias the pooled buffer).
 from __future__ import annotations
 
 import copy
+import importlib.util
 import inspect
 import itertools
+import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -97,6 +108,9 @@ def _placed(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
     return copy.deepcopy(module).to(device).eval()
 
 
+#: the JAX package's serialized ``jax.export`` artifact extensions
+_EXPORTED_MODEL_EXTS = (".jaxexport", ".stablehlo")
+
 #: attribute that :meth:`TorchCuda.to_device` sets on each staged CUDA
 #: tensor: the copy stream's event the compute stream must wait on
 _COPY_EVENT = "_nns_copy_event"
@@ -140,14 +154,36 @@ class TorchCuda(FilterBackend):
             entry = _model_registry.get(model_path)
         if entry is not None:
             return entry + (True,)
+        if model_path.endswith(_EXPORTED_MODEL_EXTS):
+            raise NotImplementedError(
+                f"torch-cuda: {model_path}: a jax.export artifact has no torch counterpart yet "
+                "(ROADMAP A12)")
+        if model_path.endswith(".py") and os.path.isfile(model_path):
+            spec = importlib.util.spec_from_file_location(
+                f"_nns_torch_model_{abs(hash(model_path))}", model_path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            if not hasattr(mod, "get_model"):
+                raise ValueError(f"{model_path}: must define get_model()")
+            got = mod.get_model()
+            got = tuple(got) if isinstance(got, (list, tuple)) else (got,)
+            return got[:3] + (None,) * (3 - len(got[:3])) + (False,)
         arch = self.custom_props.get("arch")
         if arch:
             from .. import models as zoo
 
-            return zoo.build(arch, self.custom_props) + (False,)
+            module, in_spec, out_spec = zoo.build(arch, self.custom_props)
+            if os.path.isdir(model_path):
+                raise NotImplementedError(
+                    f"torch-cuda: {model_path}: an orbax checkpoint directory has no torch "
+                    "counterpart yet (ROADMAP A9)")
+            if os.path.isfile(model_path):  # a torch.save'd state_dict of the zoo build
+                state = torch.load(model_path, map_location="cpu", weights_only=True)
+                module.load_state_dict(state, strict=True)
+            return module, in_spec, out_spec, False
         raise FileNotFoundError(
-            f"torch-cuda cannot resolve model {model_path!r} "
-            "(not registered; for the zoo pass custom=arch:<zoo-name>)")
+            f"torch-cuda cannot resolve model {model_path!r} (not registered; for files pass "
+            "custom=arch:<zoo-name>)")
 
     def open(self, model_path, props):
         super().open(model_path, props)

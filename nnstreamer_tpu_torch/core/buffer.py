@@ -111,6 +111,14 @@ def materialize(tensors: Sequence[Any]) -> List[np.ndarray]:
     ]
 
 
+def host_bytes(t: Any) -> bytes:
+    """A payload's raw bytes: a bytes-like object as it is, an array or
+    tensor C-contiguous through :func:`materialize`."""
+    if isinstance(t, (bytes, bytearray, memoryview)):
+        return bytes(t)
+    return np.ascontiguousarray(materialize([t])[0]).tobytes()
+
+
 def _torch_pieces(tensors: Sequence[Any]) -> List[Any]:
     """Every piece as a torch tensor on the device of the first torch piece
     (a host array joins the device tensors, never the other way round)."""

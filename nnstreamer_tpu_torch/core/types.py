@@ -4,8 +4,8 @@ Port of ``nnstreamer_tpu/core/types.py``, reduced to what the pipeline
 and its elements need: per-tensor specs, stream specs, their
 compatibility check and intersection, the schema strings of the
 reference's dialect (``tensors,format=static,num=1,dimensions=3:224:224,
-types=uint8``; dimensions innermost first), the dtype names, and the
-sparse payload encoding.  Shapes are numpy order (outermost first);
+types=uint8``; dimensions innermost first), the dtype names, the
+flexible-tensor header and the sparse payload encoding.  Shapes are numpy order (outermost first);
 ``None`` marks a flexible dimension.  dtypes are numpy dtypes: schemas
 describe the host side of the stream, whatever device the tensors live on.
 """
@@ -13,6 +13,7 @@ describe the host side of the stream, whatever device the tensors live on.
 from __future__ import annotations
 
 import math
+import struct
 from dataclasses import dataclass, replace
 from fractions import Fraction
 from typing import Optional, Sequence, Tuple
@@ -269,6 +270,60 @@ class StreamSpec:
 
 # Wildcard schema: matches anything (reference: ANY caps).
 ANY = StreamSpec((), FORMAT_FLEXIBLE, None)
+
+
+# Flexible-tensor self-describing header (the reference's
+# GstTensorMetaInfo, one per memory of a format=flexible stream); the same
+# bytes as the JAX package's.
+_FLEX_MAGIC = 0x5450534E  # "NSPT"
+_FLEX_VERSION = 1
+# layout: magic u32 | version u32 | dtype-name-len u8 | rank u8 | pad u16 |
+#         dims i32 * rank | dtype-name bytes
+_FLEX_FIXED = struct.Struct("<IIBBH")
+
+
+def pack_flex_header(spec: TensorSpec) -> bytes:
+    """Serialize a per-tensor self-describing header (flexible streams)."""
+    if not spec.is_static:
+        raise ValueError("flex header requires concrete shape")
+    name = dtype_to_name(spec.dtype).encode()
+    head = _FLEX_FIXED.pack(_FLEX_MAGIC, _FLEX_VERSION, len(name), len(spec.shape), 0)
+    dims = struct.pack(f"<{len(spec.shape)}i", *spec.shape) if spec.shape else b""
+    return head + dims + name
+
+
+class FlexHeaderTruncated(ValueError):
+    """The header declares more bytes than the buffer holds (as against a
+    corrupt header: bad magic, unknown dtype, absurd rank)."""
+
+
+def unpack_flex_header(buf) -> Tuple[TensorSpec, int]:
+    """Parse a flex header; returns (spec, header size).  Every declared
+    size is checked against the limits and the buffer before use, so a
+    corrupt header raises :class:`ValueError` (or
+    :class:`FlexHeaderTruncated`), never ``struct.error``."""
+    try:
+        magic, version, nlen, rank, _ = _FLEX_FIXED.unpack_from(buf, 0)
+    except struct.error:
+        raise FlexHeaderTruncated(f"truncated flexible-tensor header: {len(buf)} byte(s), "
+                                  f"need {_FLEX_FIXED.size}") from None
+    if magic != _FLEX_MAGIC:
+        raise ValueError("bad flexible-tensor header magic")
+    if version != _FLEX_VERSION:
+        raise ValueError(f"unsupported flex header version {version}")
+    if rank > RANK_LIMIT:
+        raise ValueError(f"flex header rank {rank} exceeds limit {RANK_LIMIT}")
+    off = _FLEX_FIXED.size
+    try:
+        dims = struct.unpack_from(f"<{rank}i", buf, off) if rank else ()
+    except struct.error:
+        raise FlexHeaderTruncated("truncated flexible-tensor header: dims") from None
+    off += 4 * rank
+    name = bytes(buf[off:off + nlen])
+    if len(name) != nlen:
+        raise FlexHeaderTruncated("truncated flexible-tensor header: dtype name")
+    dtype = dtype_from_name(name.decode())  # UnicodeDecodeError is a ValueError
+    return TensorSpec(tuple(dims), dtype), off + nlen
 
 
 def sparse_encode(dense: np.ndarray) -> Tuple[np.ndarray, np.ndarray, TensorSpec]:

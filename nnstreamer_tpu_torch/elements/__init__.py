@@ -10,6 +10,7 @@ from . import (  # noqa: F401
     filter,
     flow,
     generator,
+    media_src,
     mux,
     repo,
     sparse,

@@ -9,11 +9,12 @@ bytes), octet reshaping per ``input-dim``/``input-type``.  Tensor
 payloads (appsrc, videotestsrc) pass through as they are, numpy arrays or
 torch tensors on any device, with ``frames-per-tensor`` grouping (3:W:H:1
 -> 3:W:H:N, numpy (N, H, W, C); ``torch.stack`` on the tensors' own
-device for torch payloads).
-
-Not ported yet (ROADMAP A4.2b): the external converter subplugins
-(``mode=custom:...``: tokenizer, serialize, python3) and flexible-header
-byte payloads; both raise.
+device for torch payloads).  Flexible-header byte payloads are decoded.
+Anything else goes to a converter subplugin (``converters/``, registry
+kind "converter") chosen by ``mode=``: ``custom:<name>`` (or
+``custom-code:<name>``), ``custom-script:<script.py>``, or
+``custom-script:python3`` with the script in
+``$NNS_TPU_CONVERTER_SCRIPT``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import converters as _converters  # noqa: F401 — registers the subplugins
+from ..core import registry
 from ..core.buffer import BatchFrame, TensorFrame, _is_torch, as_array, stack_tensors
 from ..core.types import (
     ANY,
@@ -31,6 +34,7 @@ from ..core.types import (
     TensorSpec,
     dtype_from_name,
     parse_dims_string,
+    unpack_flex_header,
 )
 from ..media.caps import MediaSpec
 from ..pipeline.element import Element, ElementError, Property, element
@@ -47,8 +51,8 @@ class TensorConverter(Element):
             "stacked, shape-changed tensor"),
         "input-dim": Property(str, "", "octet mode: target dims (reference dialect)"),
         "input-type": Property(str, "", "octet mode: target element type"),
-        "mode": Property(str, "", "external converter: 'custom:<subplugin-name>' "
-                         "(not ported yet: ROADMAP A4.2b)"),
+        "mode": Property(str, "", "external converter: 'custom:<subplugin-name>' or "
+                         "'custom-script:<script.py>'"),
         "max-buffers": Property(int, 0, "mailbox depth override"),
         "set-timestamp": Property(bool, True, "stamp arrival-relative pts on frames that "
                                   "carry none (≙ gsttensor_converter set-timestamp)"),
@@ -57,16 +61,34 @@ class TensorConverter(Element):
     def __init__(self, name=None):
         super().__init__(name)
         self._pending: List[TensorFrame] = []
+        self._sub = None  # the external converter subplugin instance
         self._ts_base = None  # set-timestamp: arrival-time origin
 
     def start(self):
         self._ts_base = None  # pts restarts with the stream
-        if self.props["mode"]:
-            raise ElementError(
-                f"{self.name}: converter subplugins (mode={self.props['mode']!r}) are not "
-                "ported yet (ROADMAP A4.2b)")
+        mode = self.props["mode"]
+        if not mode:
+            return
+        kind, _, sub = mode.partition(":")
+        if kind not in ("custom", "custom-code", "custom-script"):
+            raise ElementError(f"{self.name}: unknown converter mode {mode!r}")
+        if sub.endswith(".py"):  # the reference's mode=custom-script:<script.py>
+            from ..converters.python3 import Python3Converter
+
+            self._sub = Python3Converter(script=sub)
+        else:  # a registry name (custom-script:python3 takes the script from the env)
+            try:
+                cls = registry.get(registry.KIND_CONVERTER, sub)
+            except KeyError:
+                raise ElementError(f"{self.name}: unknown converter subplugin {sub!r}") from None
+            self._sub = cls() if isinstance(cls, type) else cls
+        if hasattr(self._sub, "open"):
+            self._sub.open()
 
     def stop(self):
+        if self._sub is not None and hasattr(self._sub, "close"):
+            self._sub.close()
+        self._sub = None
         self._pending.clear()
 
     # -- negotiation --------------------------------------------------------
@@ -99,6 +121,8 @@ class TensorConverter(Element):
 
     def derive_spec(self, pad=0):
         in_spec = self.sink_specs.get(0, ANY)
+        if self._sub is not None and hasattr(self._sub, "get_out_spec"):
+            return self._sub.get_out_spec(in_spec)
         fpt = self.props["frames-per-tensor"]
         if isinstance(in_spec, MediaSpec) and in_spec.media is not None:
             t = self._media_tensor_spec(in_spec.media)
@@ -163,6 +187,9 @@ class TensorConverter(Element):
         return frame.with_tensors([buf.view(octet.dtype).reshape(octet.shape)])
 
     def _convert_one(self, frame: TensorFrame) -> TensorFrame:
+        if self._sub is not None:
+            out = self._sub.convert(frame)
+            return out if isinstance(out, TensorFrame) else frame.with_tensors(out)
         media = frame.meta.get("media")
         if media is not None:
             out = self._convert_media(frame, media)
@@ -172,17 +199,26 @@ class TensorConverter(Element):
         if octet is not None:
             raw = self._host_bytes(frame.tensors[0])
             return frame.with_tensors([raw.view(octet.dtype).reshape(octet.shape)])
-        for t in frame.tensors:
-            if isinstance(t, (bytes, bytearray, memoryview)):
-                raise ElementError(f"{self.name}: flexible-header byte payloads are not "
-                                   "ported yet (ROADMAP A4.2b)")
-        return frame.with_tensors([as_array(t) for t in frame.tensors])
+        return frame.with_tensors([self._flex_or_array(t) for t in frame.tensors])
+
+    @staticmethod
+    def _flex_or_array(t):
+        """A flexible wire payload (self-describing header + data) as its
+        array; any other payload through ``as_array``."""
+        if not isinstance(t, (bytes, bytearray, memoryview)):
+            return as_array(t)
+        spec, off = unpack_flex_header(t)
+        return np.frombuffer(t, dtype=spec.dtype, offset=off).reshape(spec.shape)
 
     def handle_frame(self, pad, frame):
+        orig = frame
         frame = self._convert_one(frame)
         if self.props["set-timestamp"] and frame.pts is None:
-            # arrival-relative running time for sources that stamp none
-            # (the converted frame is a fresh object: never the input)
+            # arrival-relative running time for sources that stamp none;
+            # never stamped into the input (a subplugin may return it as
+            # it is, and tee siblings share it)
+            if frame is orig:
+                frame = frame.with_tensors(list(frame.tensors))
             if self._ts_base is None:
                 self._ts_base = time.monotonic()
             frame.pts = time.monotonic() - self._ts_base

@@ -41,6 +41,7 @@ from ..core.buffer import (
     start_host_copies,
 )
 from ..core.feed import CompletionWindow, HostStagingLane, StagedBatch
+from ..core.model_uri import resolve_model_uri
 from ..core.types import ANY, StreamSpec
 from ..pipeline.element import ElementError, Property, TransformElement, element
 
@@ -77,7 +78,8 @@ class TensorFilter(TransformElement):
 
     PROPERTIES = {
         "framework": Property(str, "torch-cuda", "backend name"),
-        "model": Property(str, "", "model registry key, or any name with custom=arch:<zoo-name>"),
+        "model": Property(str, "", "registry key, .py file, file://, model://<name>[/<version>], "
+                          "or with custom=arch:<zoo-name> a zoo name or state_dict file"),
         "custom": Property(str, "", "backend-specific options 'k1:v1,k2:v2'"),
         "accelerator": Property(
             str, "", "ordered wish list 'true:gpu.N,cpu' or 'cpu' (empty = cuda:0)"),
@@ -168,7 +170,8 @@ class TensorFilter(TransformElement):
         enabled, wishes = parse_accelerator(self.props["accelerator"])
         props["accelerators"] = wishes if enabled else ["cpu"]
         be = backend_cls()
-        be.open(self.props["model"] or None, props)
+        # model://name[/version] and file:// (plain paths and names pass)
+        be.open(resolve_model_uri(self.props["model"]) or None, props)
         self.backend = be
         self._model_in, self._model_out = be.get_model_info()
         self._derived = {}

@@ -1,8 +1,9 @@
 """Media capabilities: the ``video/x-raw,format=RGB,...`` caps analog.
 
 A copy of ``nnstreamer_tpu/media/caps.py`` (the subset that
-``tensor_converter`` and ``capsfilter`` parse); the media sources and file
-readers of ``nnstreamer_tpu/media/`` are not ported yet (ROADMAP A4.2b).
+``tensor_converter`` and ``capsfilter`` parse); the file readers beside it
+(``y4m``, ``wav``, ``image``) feed the media sources of
+``elements/media_src.py``.
 
 Reference media caps accepted by tensor_converter
 (``gsttensor_converter.c`` pad template + per-type framing :750-1005):

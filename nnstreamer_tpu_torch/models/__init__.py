@@ -23,6 +23,7 @@ _ZOO = {
     "posenet": "nnstreamer_tpu_torch.models.posenet",
     "transformer": "nnstreamer_tpu_torch.models.transformer",
     "deeplab": "nnstreamer_tpu_torch.models.deeplab",
+    "kws_cnn": "nnstreamer_tpu_torch.models.kws_cnn",
     "vit": "nnstreamer_tpu_torch.models.vit",
 }
 

@@ -6,8 +6,9 @@ The converter cases of ``tests/test_e2e_slice.py`` are covered here:
 removal (RGB, BGRx and GRAY8 at widths whose rows need 4-byte padding),
 audio and text framing, ``emit-blocks``, and the schemas each derives.
 Outputs must be byte-equal to the JAX element's.  Torch tensors pass
-through untouched, or are stacked on their own device.  A converter
-subplugin (``mode=``) raises, naming ROADMAP A4.2b.
+through untouched, or are stacked on their own device.  An unknown
+converter subplugin (``mode=``) raises, and a flexible-header byte payload
+converts (the subplugins themselves: ``tests/test_torch_subplugins.py``).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from nnstreamer_tpu.media.caps import MediaSpec as JaxMediaSpec
 from nnstreamer_tpu.media.caps import parse_media_caps as jax_parse_media
 from nnstreamer_tpu.pipeline import make_element as jax_make
 from nnstreamer_tpu_torch.core.buffer import BatchFrame, TensorFrame
+from nnstreamer_tpu_torch.core.types import TensorSpec, pack_flex_header
 from nnstreamer_tpu_torch.media.caps import MediaSpec, parse_media_caps, round_up_4
 from nnstreamer_tpu_torch.pipeline import ElementError, make_element, parse_pipeline
 from torch_parity import assert_frames_equal, both, host, run
@@ -137,9 +139,13 @@ def test_media_caps_parse_and_intersect():
 
 
 def test_subplugin_mode_raises_naming_the_roadmap():
-    with pytest.raises(ElementError, match="ROADMAP A4.2b"):
-        parse_pipeline("appsrc ! tensor_converter mode=custom:tokenizer ! tensor_sink").start()
+    # the subplugins are ported (ROADMAP A4.2b): a known one starts, an
+    # unknown one raises, and a flexible-header byte payload converts
+    parse_pipeline("appsrc ! tensor_converter mode=custom:tokenizer ! tensor_sink").start()
+    with pytest.raises(ElementError, match="unknown converter subplugin"):
+        parse_pipeline("appsrc ! tensor_converter mode=custom:nosuch ! tensor_sink").start()
     el = make_element("tensor_converter")
-    with pytest.raises(ElementError, match="ROADMAP A4.2b"):
-        el.handle_frame(0, TensorFrame([b"\x00" * 8]))
+    head = pack_flex_header(TensorSpec((2,), np.dtype(np.int32)))
+    out = el.handle_frame(0, TensorFrame([head + np.int32([7, 8]).tobytes()]))[0][1]
+    np.testing.assert_array_equal(out.tensors[0], [7, 8])
     assert host(el.handle_frame(0, TensorFrame([np.int8([1])]))[0][1].tensors[0]) == 1

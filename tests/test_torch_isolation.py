@@ -1,6 +1,8 @@
 """The port stands alone: nothing in ``nnstreamer_tpu_torch/`` or in
 ``chip_smoke.py`` imports JAX, flax or the JAX package, and importing the
-port (every module of it) loads none of them."""
+port (every module of it, and by name the subpackages and modules that
+resolve subplugins, media, wire codecs and model sources) and running its
+converter, codecs and decoders loads none of them."""
 
 import ast
 import os
@@ -51,6 +53,24 @@ def test_importing_the_port_loads_no_jax():
         "import nnstreamer_tpu_torch.pipeline as pl\n"
         "pl.parse_pipeline('appsrc ! tensor_filter model=x ! tensor_decoder "
         "mode=image_labeling ! tensor_sink')\n"
+        "import numpy as np\n"
+        "import nnstreamer_tpu_torch.converters, nnstreamer_tpu_torch.distributed\n"
+        "from nnstreamer_tpu_torch.core import config, model_uri, registry\n"
+        "from nnstreamer_tpu_torch.distributed import flatbuf_codec, protobuf_codec, wire\n"
+        "from nnstreamer_tpu_torch.media import image, wav, y4m\n"
+        "from nnstreamer_tpu_torch.models import kws_cnn\n"
+        "assert model_uri.resolve_model_uri('file:///m.pt') == '/m.pt'\n"
+        "for kind in (registry.KIND_CONVERTER, registry.KIND_DECODER):\n"
+        "    for name in registry.get_all(kind):\n"
+        "        registry.get(kind, name)\n"
+        "p = pl.parse_pipeline('appsrc name=src ! tensor_converter mode=custom:tokenizer ! "
+        "tensor_decoder mode=flexbuf ! tensor_converter mode=custom:flexbuf ! "
+        "tensor_decoder mode=protobuf ! tensor_converter mode=custom:protobuf ! "
+        "tensor_decoder mode=flatbuf ! tensor_converter mode=custom:flatbuf ! "
+        "tensor_decoder mode=detokenizer ! tensor_sink name=out')\n"
+        "p.start(); p['src'].push(np.frombuffer(b'hi', np.uint8)); p['src'].end_of_stream()\n"
+        "p.wait(timeout=30); p.stop()\n"
+        "assert p['out'].frames[0].meta['text'] == 'hi', p['out'].frames\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
