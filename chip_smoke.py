@@ -39,7 +39,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    (the launch floor); the host ms per ``device_fn`` call of both
    compositions (100 calls queued behind a device sleep, median of 7);
    and ``torch.profiler`` must see exactly one kernel in one
-   ``device_fn`` call.
+   ``device_fn`` call.  The three int8 kernels are held to their plain
+   versions in path h (h2), on the inputs the path gives them.
 4. paths, each driven through ``parse_pipeline`` with
    ``framework=torch-cuda`` at full width with random weights from
    ``--seed``, with the filter's asynchronous feed at its defaults
@@ -190,6 +191,34 @@ Phases (any failure exits non-zero before the result lines are printed):
          micro-batch.
       g1, g2 and g4 also print the card's busy share over a second, whole
       run of the same pipeline (``torch.profiler``, device activity).
+   h. int8 on the card (``quantize:int8``; the kernels ``quantize_i8``,
+      ``int8_conv`` and ``int8_dwconv``):
+      1. ``INT8_FRAMES`` (1024) frames through path a's pipeline with
+         ``custom=arch:mobilenet_v2,quantize:int8`` (224, width 1.0, 1001
+         classes, bf16, the decoder's device half fused): labels equal to
+         the direct call in the same micro-batch sizes; launches exactly
+         ``normalize_u8`` and ``top1`` once, ``int8_conv`` 35, ``int8_dwconv``
+         17 and ``quantize_i8`` 52 times per micro-batch, plus one
+         ``quantize_i8`` per layer for its weight; frames/s and latency
+         beside path a's bf16;
+      2. forward hooks on every int8 layer of one MobileNet-v2 micro-batch
+         (128 frames), one YOLOv5s 640 micro-batch (``H2_YOLO_FRAMES``) and
+         one GPT-2 small call (2 prompts of 1024 tokens): on each captured
+         input the activation's and the weight's int8 values and scales and
+         the product (in the layer's dtype and as the int32 accumulator)
+         bit-equal to the plain versions; the same at ``INT8_AWKWARD``'s
+         shapes (K = 27, M = 1, odd H and W, 6x6 stride 2, C not a multiple
+         of 16 or 4, float32/bf16/fp16 in); the kernels timed at path shapes
+         beside their plain versions, their bounds and ``torch._int_mm``;
+      3. frames alone give the int8 trunk output of their rows in a
+         micro-batch of 128, bit for bit;
+      4. SSD-MobileNet-v2 300, YOLOv5s 640 and ViT-B/16 224 (``attn:flash``)
+         int8 beside their bf16 builds of the same seed: output correlation
+         above 0.8 on 16 frames, time per 128-frame micro-batch of both,
+         int8 launches per call; GPT-2 small int8 scoring through the filter
+         (8 prompts of 1024 tokens, per-position argmax equal to the direct
+         call, 48 ``int8_conv`` per call) and ``generate:32`` through the
+         filter (tokens equal to the direct call, 48 ``int8_conv`` per step).
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -198,7 +227,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    modes), a ``{"generation": {...}}`` JSON line (path d's numbers), a
    ``{"composed": {...}}`` JSON line (path e's numbers), a
    ``{"vision": {...}}`` JSON line (path f's numbers), a ``{"media":
-   {...}}`` JSON line (path g's numbers), one
+   {...}}`` JSON line (path g's numbers), an ``{"int8": {...}}`` JSON line
+   (path h's numbers), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -1194,21 +1224,23 @@ def run_composed_e2(torch, np, counters, images, custom: str, seed: int) -> dict
     return {"frames": n, "sinks": len(card), "microbatches": sizes, "launches": launches}
 
 
-def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str, extra: str = "") -> dict:
+def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str, extra: str = "",
+                custom: str = LM_CUSTOM, name: str = "LM") -> dict:
     """GPT-2-small scoring: `prompts` seeded prompts of 1024 tokens through
     appsrc ! tensor_filter ! tensor_sink, the filter's feed set by `extra`
-    (the defaults when empty); checks every frame's per-position argmax
-    against the direct call and the flash launches; returns the argmaxes,
-    launches, invokes and feed statistics."""
+    (the defaults when empty), the model by `custom` (path c's; path h
+    adds ``quantize:int8``), printed under `name`; checks every frame's
+    per-position argmax against the direct call and the flash launches;
+    returns the argmaxes, launches, invokes and feed statistics."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
-    props = custom_props(LM_CUSTOM)
+    props = custom_props(custom)
     seq, vocab, layers = int(props["seq"]), int(props["vocab"]), int(props["layers"])
     tokens = np.random.default_rng(seed).integers(0, vocab, (prompts, seq), dtype=np.int32)
     # batch-timeout: every mode sees the same full micro-batches
     pipe = parse_pipeline(
         f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
-        f"custom={LM_CUSTOM},seed:{seed} max-batch=8 batch-timeout=1000 {extra} "
+        f"custom={custom},seed:{seed} max-batch=8 batch-timeout=1000 {extra} "
         "! tensor_sink name=out")
     arrived = {}
     pipe["out"].connect_new_data(lambda f: arrived.__setitem__(int(f.pts), time.perf_counter()))
@@ -1228,20 +1260,22 @@ def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str, extra: 
         feed = feed_stats(pipe["f"])
         out = pipe["out"].frames
         if len(out) != prompts or [f.pts for f in out] != list(range(prompts)):
-            raise AssertionError(f"LM: {len(out)} of {prompts} frames came back, or out of order")
+            raise AssertionError(f"{name}: {len(out)} of {prompts} frames came back, or out of "
+                                 "order")
         got = []
         for f in out:
             logits = f.tensors[0]
             if logits.shape != (seq, vocab) or logits.dtype != np.float32 or not np.isfinite(
                     logits).all():
-                raise AssertionError(f"LM: a frame of {logits.shape} {logits.dtype}, or not finite")
+                raise AssertionError(f"{name}: a frame of {logits.shape} {logits.dtype}, or not "
+                                     "finite")
             got.append(logits.argmax(-1))
         got = np.stack(got)
         del out, logits
         pipe["out"].frames.clear()
         for kernel in ("flash_attention", "flash_attention_tensor_cores"):
             if launches[kernel] < layers * len(sizes):
-                raise AssertionError(f"LM: {kernel} launched {launches[kernel]} times for "
+                raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times for "
                                      f"{len(sizes)} invokes of {layers} layers")
         module = pipe["f"].backend._module
         want, batch_s = [], []
@@ -1251,7 +1285,7 @@ def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str, extra: 
         want = np.concatenate(want)
         if not np.array_equal(got, want):
             bad = np.argwhere(got != want)
-            raise AssertionError(f"LM: {len(bad)} argmax positions differ from the direct call "
+            raise AssertionError(f"{name}: {len(bad)} argmax positions differ from the direct call "
                                  f"(first (prompt, position) {bad[:4].tolist()})")
     finally:
         pipe.stop()
@@ -1270,16 +1304,17 @@ def run_lm_path(torch, np, counters, prompts: int, seed: int, card: str, extra: 
     p50, p99 = lat[len(lat) // 2] * 1e3, lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
     outside = wall * 1e3 / len(sizes) - batch_ms
     mode = f" [{extra}]" if extra else " [defaults]"
-    print(f"LM path{mode}: {prompts} prompts of {seq} tokens in {len(sizes)} invokes (sizes "
+    print(f"{name} path{mode}: {prompts} prompts of {seq} tokens in {len(sizes)} invokes (sizes "
           f"{sizes}), per-position argmax equal to the direct call; launches {launches}")
-    print(f"LM path{mode}: {prompts / wall:.2f} sequences/s, {prompts * seq / wall:.1f} tokens/s "
-          f"(push to last logits frame at the sink, logits copied to the host), "
+    print(f"{name} path{mode}: {prompts / wall:.2f} sequences/s, "
+          f"{prompts * seq / wall:.1f} tokens/s (push to last logits frame at the sink, logits "
+          "copied to the host), "
           + ("not measured" if steady is None else f"{steady:.2f}")
           + " sequences/s after the first invoke; latency (push to sink) p50 "
           f"{p50:.1f} ms p99 {p99:.1f} ms; direct model call per {max(sizes)}-prompt batch "
           f"{batch_ms:.2f} ms (host clock, synchronized), time outside the model "
           f"{outside:.1f} ms per invoke (wall / invokes - direct call); on {card}")
-    print(f"LM path{mode}: {feed_line(feed)}; on {card}")
+    print(f"{name} path{mode}: {feed_line(feed)}; on {card}")
     return {"launches": launches, "batches": len(sizes), "argmax": got, "feed": feed,
             "sps": prompts / wall, "sps_steady": steady, "latency_ms_p50": p50,
             "latency_ms_p99": p99, "outside_ms_per_invoke": outside}
@@ -1431,6 +1466,42 @@ def decode_step_profile(torch, model, k: int = 16, scans: int = 4) -> dict:
             "syncs": dict(where)}
 
 
+def generate_through_filter(torch, np, counters, custom: str, prompts, name: str) -> tuple:
+    """``generate:32`` through ``tensor_filter`` (``max-batch=8``), the
+    prompts pushed one by one, staged by the lane and reaped by the window,
+    against the same module called directly in the pipeline's micro-batch
+    sizes.  Returns the sizes and the launch counts read before the direct
+    call."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    n, tp = prompts.shape
+    vocab = int(custom_props(custom)["vocab"])
+    pipe = parse_pipeline(
+        f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
+        f"custom={custom},generate:32 max-batch=8 batch-timeout=1000 ! tensor_sink name=out")
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            for i in range(n):
+                pipe["src"].push(prompts[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+        launches = counters.read()
+        check_feed(name, feed_stats(pipe["f"]), len(sizes), window=True)
+        module = pipe["f"].backend._module
+        got = np.stack([f.tensors[0] for f in pipe["out"].frames])
+        want = np.concatenate([out.cpu().numpy() for _, _, out, _ in
+                               direct_batches(torch, module, prompts, sizes)])
+    finally:
+        pipe.stop()
+    if got.shape != (n, tp + 32) or got.dtype != np.int32 or not np.array_equal(got, want):
+        raise AssertionError(f"{name} through the filter: {got.shape} {got.dtype}, "
+                             "or tokens not those of the direct call")
+    if not np.array_equal(got[:, :tp], prompts) or not ((got >= 0) & (got < vocab)).all():
+        raise AssertionError(f"{name}: the prompt is not echoed or a token is out of range")
+    return sizes, launches
+
+
 def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
     """GPT-2-small generation (path d): one-shot ``generate:<N>`` through the
     filter, cache against no cache, the slotted throughput run with the
@@ -1438,7 +1509,6 @@ def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
     sampling checks.  Flash attention must launch 0 times."""
     from nnstreamer_tpu_torch.models import transformer as tr
     from nnstreamer_tpu_torch.ops import threefry as tf
-    from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
     props = custom_props(LM_CUSTOM) | {"seed": str(seed)}
     props.pop("arch")
@@ -1455,29 +1525,7 @@ def run_generation_path(torch, np, counters, seed: int, card: str) -> dict:
 
     # 1. one-shot generate:<N> through the filter against the direct call
     prompts = rng.integers(0, vocab, (8, 128), dtype=np.int32)
-    pipe = parse_pipeline(
-        f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
-        f"custom={custom},generate:32 max-batch=8 batch-timeout=1000 ! tensor_sink name=out")
-    pipe.start()
-    try:
-        with recording_batches(pipe, "f") as sizes:
-            for i in range(8):
-                pipe["src"].push(prompts[i], pts=float(i))
-            pipe["src"].end_of_stream()
-            pipe.wait(timeout=600)
-        check_feed("generate:32", feed_stats(pipe["f"]), len(sizes), window=True)
-        module = pipe["f"].backend._module
-        got = np.stack([f.tensors[0] for f in pipe["out"].frames])
-        want = np.concatenate([out.cpu().numpy() for _, _, out, _ in
-                               direct_batches(torch, module, prompts, sizes)])
-    finally:
-        pipe.stop()
-    if got.shape != (8, 160) or got.dtype != np.int32 or not np.array_equal(got, want):
-        raise AssertionError(f"generate:32 through the filter: {got.shape} {got.dtype}, "
-                             "or tokens not those of the direct call")
-    if not np.array_equal(got[:, :128], prompts) or not ((got >= 0) & (got < vocab)).all():
-        raise AssertionError("generate:32: the prompt is not echoed or a token is out of range")
-    del module
+    sizes, _ = generate_through_filter(torch, np, counters, custom, prompts, "generate:32")
     lap("one-shot")
     print(f"generation path: generate:32 through tensor_filter, 8 prompts of 128 tokens in "
           f"micro-batches {sizes}, staged by the ingest lane and reaped by the dispatch "
@@ -2152,6 +2200,8 @@ def busy_text(share) -> str:
 
 
 def check_launches(name: str, launches: dict, want: dict) -> None:
+    """Every counter equal to `want`'s, and 0 where `want` names none."""
+    want = dict.fromkeys(launches, 0) | want
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
 
@@ -2501,15 +2551,382 @@ def run_media(torch, np, lab, counters, seed: int, card: str, work, beside=None)
     return paths, media
 
 
+# -- path h: int8 on the card ----------------------------------------------------
+
+#: path h's flagship: the reference's mobilenet_v2_1.0_224_quant.tflite
+#: analog, MobileNet-v2 (Sandler et al. 2018) at 224, width 1.0, 1001
+#: classes, bf16, every convolution int8
+INT8_CUSTOM = "arch:mobilenet_v2,dtype:bfloat16,quantize:int8"
+#: frames through h1
+INT8_FRAMES = 1024
+#: the dense int8 rate of the tensor cores (H100 SXM data sheet)
+INT8_OPS_PER_S = 1979e12
+#: int8 launches per MobileNet-v2 call, reckoned from its _CFG: 35
+#: convolutions with groups 1 (the stem, 16 expansions, 17 projections, the
+#: head), 17 depthwise, one activation quantization each
+MOBILENET_INT8 = {"int8_conv": 35, "int8_dwconv": 17, "quantize_i8": 52}
+#: h4's builds beside their bf16 builds: (name, custom, size, frames per
+#: micro-batch); the SSD heads, YOLOv5s's detect convolutions, ViT's patch
+#: embedding and head stay float, as in the JAX package
+INT8_DIRECT = (
+    ("SSD-MobileNet-v2", "arch:ssd_mobilenet_v2,classes:91,dtype:bfloat16", 300, 128),
+    ("YOLOv5s", "arch:yolov5s,size:640,classes:80,dtype:bfloat16", 640, 128),
+    ("ViT-B/16", VIT_CUSTOM, 224, 128),
+)
+
+
+def quant_layers(module) -> list:
+    from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d, QuantLinear
+
+    return [m for m in module.modules() if isinstance(m, (QuantConv2d, QuantLinear))]
+
+
+def int8_equal(torch, what: str, got, want) -> None:
+    """Bit-equal shapes and values (floats by their bits), or raise."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(
+            bits(got) if got.is_floating_point() else got,
+            bits(want) if want.is_floating_point() else want):
+        raise AssertionError(f"{what}: the kernel is not bit-equal to its plain version")
+
+
+def check_int8_layer(torch, q, layer, x, what: str) -> None:
+    """One int8 layer's kernels on its input `x` against their plain
+    versions: the activation's int8 values and scales, the weight's, then
+    the product in the layer's output dtype and as the int32 accumulator."""
+    from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
+
+    conv = isinstance(layer, QuantConv2d)
+    if conv:
+        rows = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    else:
+        rows = x.reshape(-1, x.shape[-1])
+    xq, sx = q.quantize_rows(rows)
+    xq2, sx2 = q.quantize_rows_plain(rows)
+    int8_equal(torch, f"{what} quantize_i8 {tuple(rows.shape)}", xq, xq2)
+    int8_equal(torch, f"{what} quantize_i8 scales", sx, sx2)
+    wq, sw = layer.qweight()
+    wq2, sw2 = q.quantize_weight_plain(layer.weight)
+    int8_equal(torch, f"{what} weight quantize_i8", wq, wq2)
+    int8_equal(torch, f"{what} weight scales", sw, sw2)
+    for out in (x.dtype, torch.int32):
+        if conv:
+            xq4 = xq.reshape(x.shape[0], x.shape[2], x.shape[3], x.shape[1])
+            args = (xq4, sx, wq, sw, layer.stride[0], layer.groups, out)
+            got, want = q.conv_i8(*args), q.conv_i8_plain(*args)
+            kernel = "int8_dwconv" if layer.groups > 1 else "int8_conv"
+        else:
+            got, want = q.dense_i8(xq, sx, wq, sw, out), q.dense_i8_plain(xq, sx, wq, sw, out)
+            kernel = "int8_conv"
+        int8_equal(torch, f"{what} {kernel} {tuple(x.shape)} -> {out}", got, want)
+
+
+def check_int8_model(torch, q, module, inputs, name: str) -> int:
+    """h2 on one model: every int8 layer's input captured by a forward
+    hook during one call on `inputs`, checked against the plain versions
+    as it passes; returns the layers checked."""
+    seen = []
+
+    def hook(layer, args, out):
+        check_int8_layer(torch, q, layer, args[0], f"{name} layer {len(seen)}")
+        seen.append(layer)
+
+    handles = [m.register_forward_hook(hook) for m in quant_layers(module)]
+    try:
+        with torch.inference_mode():
+            module(inputs)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return len(seen)
+
+
+#: frames of h2's YOLOv5s micro-batch (its plain float64 convolutions hold
+#: the im2col of the 6 x 6 stem: 0.9 GB at 640 and 16 frames)
+H2_YOLO_FRAMES = 16
+#: h2's awkward shapes: (n, h, w, c, o, kernel, stride, groups, input dtype)
+INT8_AWKWARD = [
+    (3, 9, 9, 3, 32, 3, 2, 1, "float32"),  # K = 27, odd size
+    (2, 64, 64, 3, 32, 6, 2, 1, "bfloat16"),  # YOLOv5s's 6x6 stride-2 stem, even size
+    (2, 65, 63, 3, 32, 6, 2, 1, "float16"),
+    (3, 17, 13, 24, 144, 1, 1, 1, "bfloat16"),  # C % 16 = 8
+    (2, 13, 11, 40, 70, 3, 1, 1, "float32"),  # C % 16 = 8, O not a multiple of 8
+    (2, 15, 15, 20, 36, 3, 2, 1, "bfloat16"),  # C % 8 = 4
+    (1, 1, 1, 768, 2304, 1, 1, 1, "bfloat16"),  # M = 1: one decode slot
+    (5, 1, 1, 3072, 768, 1, 1, 1, "float32"),
+    (2, 15, 15, 144, 144, 3, 1, 144, "bfloat16"),  # depthwise, odd
+    (2, 9, 9, 6, 6, 3, 2, 6, "float32"),  # depthwise, C % 4 != 0
+    (1, 10, 10, 32, 32, 3, 2, 32, "float16"),
+]
+
+
+def check_int8_awkward(torch, q) -> int:
+    """h2 at INT8_AWKWARD's shapes: a seeded int8 layer of each (and, at
+    H = W = 1, the dense layer of the same weight) through
+    :func:`check_int8_layer`."""
+    from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d, QuantLinear
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for n, h, w, c, o, k, s, groups, dt in INT8_AWKWARD:
+        x = torch.randn(n, c, h, w, device=dev, generator=g).to(getattr(torch, dt))
+        x = x.contiguous(memory_format=torch.channels_last)
+        conv = QuantConv2d(c, o, k, s, groups).to(dev)
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, device=dev, generator=g))
+        what = f"awkward {(n, h, w, c, o, k, s, groups, dt)}"
+        check_int8_layer(torch, q, conv, x, what)
+        if h == w == 1:  # the dense route
+            dense = QuantLinear(c, o).to(dev)
+            with torch.no_grad():
+                dense.weight.copy_(conv.weight.reshape(o, c))
+            check_int8_layer(torch, q, dense, x.reshape(n, c), what + " dense")
+    torch.cuda.synchronize()
+    return len(INT8_AWKWARD)
+
+
+def time_int8(torch, q) -> list:
+    """The three int8 kernels timed at path shapes beside their plain
+    versions, their bounds and, for the GEMM, ``torch._int_mm``: quantize_i8
+    on MobileNet-v2's largest activation (the first depthwise input, 112 x
+    112 x 96 a frame, bf16, 128 frames), int8_conv on a 1 x 1 convolution of
+    its 14 x 14 stage (96 -> 576) and on GPT-2 small's qkv projection over
+    8 prompts of 1024 tokens, int8_dwconv on that first depthwise layer."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def act(n, c, h, w):
+        x = torch.randn(n, c, h, w, device=dev, generator=g).to(torch.bfloat16)
+        return x.contiguous(memory_format=torch.channels_last)
+
+    # quantize_i8: x read once, int8 written once; abs, compare, divide, round, clamp
+    x = act(128, 96, 112, 112)
+    rows = x.permute(0, 2, 3, 1).reshape(128, -1)
+    n = rows.numel()
+    quant = {"ms": time_ms(lambda: q.quantize_rows(rows)),
+             "plain_ms": time_ms(lambda: q.quantize_rows_plain(rows)), "library_ms": None,
+             "shape": list(rows.shape)}
+    quant["bound_ms"], quant["bound_by"] = bound_ms(n * 3 + 128 * 4, 5 * n)
+    # int8_dwconv: that first depthwise layer, 3 x 3 stride 2
+    xq, sx = q.quantize_rows(rows)
+    xq = xq.reshape(128, 112, 112, 96)
+    wq, sw = q.quantize_weight(torch.randn(96, 1, 3, 3, device=dev, generator=g))
+    out = 128 * 56 * 56 * 96
+    dw = {"ms": time_ms(lambda: q.conv_i8(xq, sx, wq, sw, 2, 96)),
+          "plain_ms": time_ms(lambda: q.conv_i8_plain(xq, sx, wq, sw, 2, 96), reps=5),
+          "library_ms": None, "shape": [128, 112, 112, 96, "3x3/2"]}
+    dw["bound_ms"], dw["bound_by"] = bound_ms(n + 96 * 9 + out * 2, 2 * 9 * out, INT8_OPS_PER_S)
+    # int8_conv: a 1 x 1 convolution of the 14 x 14 stage, and GPT-2's qkv
+    gemm = {}
+    for key, (m, k, o) in (("mobilenet_1x1", (128 * 14 * 14, 96, 576)),
+                           ("gpt2_qkv", (8 * 1024, 768, 2304))):
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev, generator=g)
+        b = torch.randint(-127, 128, (o, k), dtype=torch.int8, device=dev, generator=g)
+        sa = torch.rand(m, device=dev, generator=g)
+        sb = torch.rand(o, device=dev, generator=g)
+        r = {"ms": time_ms(lambda: q.dense_i8(a, sa, b, sb, torch.bfloat16)),
+             "plain_ms": time_ms(lambda: q.dense_i8_plain(a, sa, b, sb, torch.bfloat16), reps=5),
+             "library_ms": time_ms(lambda: torch._int_mm(a, b.T)), "shape": [m, k, o]}
+        r["bound_ms"], r["bound_by"] = bound_ms(m * k + o * k + m * o * 2 + 4 * (m + o),
+                                                2 * m * o * k, INT8_OPS_PER_S)
+        gemm[key] = r
+    conv = dict(gemm["mobilenet_1x1"], gpt2_qkv=gemm["gpt2_qkv"])
+    print(f"quantize_i8 {tuple(rows.shape)} bf16: kernel {quant['ms']:.4f} ms, plain "
+          f"{quant['plain_ms']:.4f} ms, bound {quant['bound_ms']:.4f} ms ({quant['bound_by']}); "
+          f"int8_dwconv (128, 112, 112, 96) 3x3/2: kernel {dw['ms']:.4f} ms, plain "
+          f"{dw['plain_ms']:.4f} ms, bound {dw['bound_ms']:.4f} ms ({dw['bound_by']})")
+    for key, r in gemm.items():
+        print(f"int8_conv as a GEMM {key} (M, K, N) {tuple(r['shape'])} -> bf16: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch._int_mm (int32 out) "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    common = {"route": "cuda", "max_abs_err": 0.0, "match": True}
+    return [dict(common, name="quantize_i8", source="nnstreamer_tpu_torch/csrc/quantize_i8.cu",
+                 replaces="nnstreamer_tpu/ops/quantize.py:34", **quant),
+            dict(common, name="int8_conv", source="nnstreamer_tpu_torch/csrc/int8_conv.cu",
+                 replaces="nnstreamer_tpu/ops/quantize.py:52 (groups 1) and :82", **conv),
+            dict(common, name="int8_dwconv", source="nnstreamer_tpu_torch/csrc/int8_dwconv.cu",
+                 replaces="nnstreamer_tpu/ops/quantize.py:52 (groups == C)", **dw)]
+
+
+def check_batch_invariance(torch, module, images) -> list:
+    """h3: the int8 trunk's output (the head's activations, before the
+    pool) of a frame alone bit-equal to its row in a micro-batch of 128."""
+    outs = []
+    handle = module.head.register_forward_hook(lambda m, args, out: outs.append(out))
+    picks = [0, 61, 127]
+    try:
+        with torch.inference_mode():
+            module(torch.from_numpy(images[:128]).cuda())
+            whole = outs.pop()
+            for i in picks:
+                module(torch.from_numpy(images[i:i + 1]).cuda())
+                if not torch.equal(bits(outs.pop()[0]), bits(whole[i])):
+                    raise AssertionError(f"h3: frame {i} alone differs from its row in a "
+                                         "micro-batch of 128 (int8 trunk output)")
+    finally:
+        handle.remove()
+    return picks
+
+
+def launches_per_call(torch, counters, fn) -> dict:
+    """The int8 counters over one call of `fn` (its weights already cached)."""
+    counters.zero()
+    fn()
+    torch.cuda.synchronize()
+    got = counters.read()
+    return {k: got[k] for k in ("int8_conv", "int8_dwconv", "quantize_i8")}
+
+
+def correlation(np, a, b) -> float:
+    a, b = (t.float().cpu().numpy().ravel() for t in (a, b))
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def int8_beside_float(torch, np, counters, name: str, custom: str, size: int, batch: int,
+                      seed: int, card: str) -> dict:
+    """h4 for one image build: the int8 and bf16 builds of one seed on the
+    card, the correlation of their outputs on 16 frames (above 0.8, the JAX
+    suite's bar), each build's time per micro-batch (CUDA events), the int8
+    launches per call."""
+    from nnstreamer_tpu_torch.models import build
+
+    props = custom_props(f"{custom},seed:{seed}")
+    images = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (batch, size, size, 3), dtype=np.uint8)).cuda()
+    mods = [build(props["arch"], p)[0].cuda().eval() for p in (props, props | {"quantize": "int8"})]
+    with torch.inference_mode():
+        outs = [m(images[:16]) for m in mods]
+        outs = [list(o) if isinstance(o, (list, tuple)) else [o] for o in outs]
+        corr = [correlation(np, q, f) for f, q in zip(*outs)]
+        if min(corr) <= 0.8 or not all(torch.isfinite(q).all() for q in outs[1]):
+            raise AssertionError(f"h4 {name}: int8 against bf16 correlation {corr} (want > 0.8), "
+                                 "or not finite")
+        per_call = launches_per_call(torch, counters, lambda: mods[1](images[:1]))
+        ms = [time_ms(lambda m=m: m(images), reps=5, inner=1) for m in mods]
+    print(f"h4 {name} int8: outputs correlate {', '.join(f'{c:.4f}' for c in corr)} with the bf16 "
+          f"build's; {batch}-frame micro-batch {ms[1]:.2f} ms against bf16 {ms[0]:.2f} ms (CUDA "
+          f"events); int8 launches per call {per_call}; on {card}")
+    return {"correlation": corr, "int8_ms": ms[1], "bf16_ms": ms[0], "batch": batch,
+            "launches_per_call": per_call}
+
+
+def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None) -> tuple:
+    """Path h: int8 on the card.  h1 the flagship pipeline (INT8_CUSTOM,
+    INT8_FRAMES frames, labels against the direct call, launches against
+    the reckoned counts) beside path a's bf16 numbers `beside` when given; h2 every
+    int8 layer of one MobileNet-v2, YOLOv5s and GPT-2 micro-batch and the
+    awkward shapes against the plain versions, then the kernels' times; h3
+    the per-sample promise; h4 SSD-MobileNet-v2, YOLOv5s and ViT-B/16
+    beside their bf16 builds, GPT-2 small int8 scoring and ``generate:32``
+    through the filter.  Returns ({path: launches and micro-batches},
+    the summary, the kernel entries)."""
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.ops import quantize as q
+
+    t0 = time.perf_counter()
+    paths, summary = {}, {}
+    # h1
+    r = run_labeling_path(torch, np, lab, counters, "MobileNet-v2 int8", INT8_CUSTOM,
+                          {"normalize_u8": 1, "top1": 1, **MOBILENET_INT8}, INT8_FRAMES, seed,
+                          card, labels)
+    module, images, b = r.pop("module"), r.pop("images"), r["batches"]
+    layers = len(quant_layers(module))
+    # each layer quantizes its weight once, at its first call
+    check_launches("h1", r["launches"], {
+        "normalize_u8": b, "top1": b, "quantize_i8": MOBILENET_INT8["quantize_i8"] * b + layers,
+        "int8_conv": MOBILENET_INT8["int8_conv"] * b,
+        "int8_dwconv": MOBILENET_INT8["int8_dwconv"] * b})
+    paths["mobilenet_v2_int8"] = {"launches": r["launches"], "batches": b}
+    summary["h1"] = {k: r[k] for k in ("fps", "fps_steady", "latency_ms_p50", "latency_ms_p99")}
+    if beside is not None:
+        summary["h1"]["bf16_path_a"] = {k: beside[k] for k in summary["h1"]}
+    print(f"h1 MobileNet-v2 int8: {r['fps']:.1f} frames/s ({r['fps_steady']:.1f} after the first "
+          f"micro-batch), latency p50 {r['latency_ms_p50']:.2f} ms p99 {r['latency_ms_p99']:.2f} "
+          "ms" + ("" if beside is None else
+                  f", against path a's bf16 {beside['fps']:.1f} ({beside['fps_steady']:.1f}), p50 "
+                  f"{beside['latency_ms_p50']:.2f} ms p99 {beside['latency_ms_p99']:.2f} ms")
+          + f"; launches per micro-batch {MOBILENET_INT8} as reckoned, plus {layers} weight "
+          f"quantizations; on {card}")
+    # h2
+    checked = {"mobilenet_v2": check_int8_model(
+        torch, q, module, torch.from_numpy(images[:128]).cuda(), "MobileNet-v2")}
+    _, yolo_custom, yolo_size, _ = INT8_DIRECT[1]
+    yolo = build("yolov5s", custom_props(yolo_custom) | {"seed": str(seed), "quantize": "int8"})[0]
+    yolo_in = np.random.default_rng(seed).integers(
+        0, 256, (H2_YOLO_FRAMES, yolo_size, yolo_size, 3), dtype=np.uint8)
+    checked["yolov5s"] = check_int8_model(torch, q, yolo.cuda().eval(),
+                                          torch.from_numpy(yolo_in).cuda(), "YOLOv5s")
+    del yolo
+    lm_props = custom_props(LM_CUSTOM) | {"seed": str(seed), "quantize": "int8"}
+    lm = build("transformer", lm_props)[0].cuda().eval()
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, int(lm_props["vocab"]), (2, int(lm_props["seq"])), dtype=np.int32)).cuda()
+    checked["gpt2_small"] = check_int8_model(torch, q, lm, tokens, "GPT-2")
+    del lm
+    checked["awkward"] = check_int8_awkward(torch, q)
+    torch.cuda.empty_cache()
+    kernels = time_int8(torch, q)
+    summary["h2_layers_bit_equal"] = checked
+    print(f"h2: every int8 layer's quantize_i8, weight quantize_i8 and int8_conv/int8_dwconv "
+          f"(output dtype and int32 accumulator) bit-equal to the plain versions on the layer's "
+          f"captured input: {checked}")
+    # h3
+    picks = check_batch_invariance(torch, module, images)
+    summary["h3_frames_alone_equal"] = picks
+    print(f"h3: frames {picks} alone: int8 trunk output bit-equal to their rows in a micro-batch "
+          "of 128")
+    del module
+    torch.cuda.empty_cache()
+    # h4
+    summary["h4"] = {}
+    for name, custom, size, batch in INT8_DIRECT:
+        summary["h4"][name] = int8_beside_float(torch, np, counters, name, custom, size, batch,
+                                                seed, card)
+        torch.cuda.empty_cache()
+    layers_lm = int(custom_props(LM_CUSTOM)["layers"]) * 4
+    r = run_lm_path(torch, np, counters, 8, seed, card, custom=f"{LM_CUSTOM},quantize:int8",
+                    name="LM int8")
+    lb = r["batches"]
+    if (r["launches"]["int8_conv"], r["launches"]["quantize_i8"], r["launches"]["int8_dwconv"]) != (
+            layers_lm * lb, layers_lm * lb + layers_lm, 0):
+        raise AssertionError(f"LM int8: launches {r['launches']} for {lb} invokes")
+    paths["gpt2_small_int8"] = {"launches": r["launches"], "batches": lb}
+    summary["h4"]["gpt2_small_scoring"] = {"sps": r["sps"], "sps_steady": r["sps_steady"],
+                                           "dense_per_call": layers_lm}
+    torch.cuda.empty_cache()
+    prompts = np.random.default_rng(seed + 4).integers(
+        0, int(custom_props(LM_CUSTOM)["vocab"]), (8, 128), dtype=np.int32)
+    counters.zero()
+    t = time.perf_counter()
+    sizes, launches = generate_through_filter(
+        torch, np, counters, f"{LM_CUSTOM},seed:{seed},quantize:int8", prompts, "int8 generate:32")
+    gen_s = time.perf_counter() - t
+    if launches["int8_conv"] != 32 * layers_lm * len(sizes):
+        raise AssertionError(f"int8 generate:32: launches {launches} for {len(sizes)} invokes "
+                             f"(want {32 * layers_lm} int8_conv each: one prefill, 31 steps)")
+    paths["gpt2_small_int8_generation"] = {"launches": launches, "batches": len(sizes)}
+    summary["h4"]["gpt2_small_generate32"] = {"invokes": sizes, "seconds": gen_s}
+    print(f"h4 GPT-2 small int8 generate:32 through tensor_filter: 8 prompts of 128 tokens in "
+          f"micro-batches {sizes}, tokens equal to the direct call; {layers_lm} int8_conv "
+          f"launches per step; {gen_s:.1f} s with the direct call; on {card}")
+    summary["seconds"] = time.perf_counter() - t0
+    summary["card"] = card
+    print(f"path h: {summary['seconds']:.1f} s")
+    return paths, summary, kernels
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
     from nnstreamer_tpu_torch.ops import labeling as lab
     from nnstreamer_tpu_torch.ops import preprocess as pre
+    from nnstreamer_tpu_torch.ops import quantize as q
 
     return Counters({"normalize_u8": (pre, "LAUNCHES"), "top1": (lab, "LAUNCHES"),
                      "flash_attention": (fa, "LAUNCHES"),
-                     "flash_attention_tensor_cores": (fa, "LAUNCHES_TENSOR_CORES")})
+                     "flash_attention_tensor_cores": (fa, "LAUNCHES_TENSOR_CORES"),
+                     "quantize_i8": (q, "QUANTIZE_LAUNCHES"), "int8_conv": (q, "CONV_LAUNCHES"),
+                     "int8_dwconv": (q, "DWCONV_LAUNCHES")})
 
 
 def work_dir() -> Path:
@@ -2548,8 +2965,9 @@ def main() -> int:
     from nnstreamer_tpu_torch.ops import preprocess as pre
 
     t = time.perf_counter()
-    _build.build(["normalize_u8", "top1", "flash_attention"])
-    print(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, three kernels in parallel)")
+    _build.build(["normalize_u8", "top1", "flash_attention", "quantize_i8", "int8_conv",
+                  "int8_dwconv"])
+    print(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, six kernels in parallel)")
 
     kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa)]
     counters = kernel_counters()
@@ -2608,6 +3026,11 @@ def main() -> int:
     media_paths, media = run_media(torch, np, lab, counters, args.seed, card, work,
                                    beside=paths["mobilenet_v2"])
     paths.update(media_paths)
+    torch.cuda.empty_cache()
+    int8_paths, int8, int8_kernels = run_int8(torch, np, lab, counters, args.seed, card, labels,
+                                              beside=paths["mobilenet_v2"])
+    paths.update(int8_paths)
+    kernels += int8_kernels
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -2618,6 +3041,7 @@ def main() -> int:
         "fps", "fps_steady", "latency_ms_p50", "latency_ms_p99", "e2")} | {"card": card}}))
     print(json.dumps({"vision": vision}))
     print(json.dumps({"media": media}))
+    print(json.dumps({"int8": int8}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -20,7 +20,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
-from ._quant_flax import refuse_int8
 from .mobilenet_v2 import (
     _DTYPES,
     ConvBN,
@@ -76,9 +75,9 @@ def build(custom_props=None):
 
     module(images_u8 (N, size, size, 3)) -> scores (N, size, size, classes).
     Custom props: ``dtype`` (bfloat16 | float32 | float16), ``size``,
-    ``classes``, ``seed``."""
+    ``classes``, ``seed``.  ``quantize`` is not read: ``quantize:int8``
+    builds the float model, as the JAX build does."""
     props = custom_props or {}
-    refuse_int8(props)
     dtype = _DTYPES[props.get("dtype", "bfloat16")]
     size = int(props.get("size", "257"))
     classes = int(props.get("classes", "21"))

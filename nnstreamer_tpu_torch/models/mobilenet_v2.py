@@ -12,6 +12,11 @@ Port of ``nnstreamer_tpu/models/mobilenet_v2.py`` (Sandler et al. 2018):
 * BatchNorm runs in inference mode (running statistics, eps 1e-5).
 * the classifier runs in float32; output: 1001 float32 logits (class 0 =
   background, TFLite-compatible labeling).
+* ``quantize:int8`` makes every convolution of the trunk and the head a
+  :class:`._quant_flax.QuantConv2d` (int8 x int8 -> int32, per-channel
+  weight and per-sample activation scales), as the JAX build's
+  ``ConvBN(quant=True)`` does (the reference's flagship model is
+  ``mobilenet_v2_1.0_224_quant.tflite``); the classifier stays float32.
 
 :func:`state_dict_from_flax` converts the JAX package's ``{"params",
 "batch_stats"}`` tree into this module's ``state_dict``.
@@ -29,6 +34,8 @@ from torch import nn
 
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
 from ..ops.preprocess import normalize_u8
+from ..ops.quantize import same_pads as _same_pads
+from ._quant_flax import QuantConv2d, to_compute
 
 # (expansion t, channels c, repeats n, stride s) — standard v2 table
 _CFG: Sequence[Tuple[int, int, int, int]] = (
@@ -51,13 +58,6 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
     return new_v
 
 
-def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """TensorFlow SAME padding (before, after) of one spatial dim."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
 def same_conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
               bias: bool = False, dilation: int = 1) -> nn.Conv2d:
     """A Conv2d for SAME padding: stride 1 with an odd kernel pads
@@ -78,29 +78,44 @@ def pad_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (left, right, top, bottom))  # keeps channels_last
 
 
+def conv_or_quant(quant: bool, cin: int, cout: int, kernel: int, stride: int = 1,
+                  groups: int = 1) -> nn.Conv2d:
+    """The bias-free SAME convolution of a conv-BN block: :func:`same_conv`,
+    or a :class:`QuantConv2d` under int8 (it pads itself)."""
+    if quant:
+        return QuantConv2d(cin, cout, kernel, stride, groups)
+    return same_conv(cin, cout, kernel, stride, groups)
+
+
+def conv_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` applied with SAME padding: a strided float conv on the input
+    :func:`pad_same` pads, an int8 one on the input as it is."""
+    return conv(x if isinstance(conv, QuantConv2d) else pad_same(conv, x))
+
+
 class ConvBN(nn.Module):
     """Conv (no bias, SAME padding) + BatchNorm + optional relu6."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 groups: int = 1, act: bool = True):
+                 groups: int = 1, act: bool = True, quant: bool = False):
         super().__init__()
-        self.conv = same_conv(cin, cout, kernel, stride, groups)
+        self.conv = conv_or_quant(quant, cin, cout, kernel, stride, groups)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(pad_same(self.conv, x)))
+        x = self.bn(conv_same(self.conv, x))
         return F.relu6(x) if self.act else x
 
 
 class InvertedResidual(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int, expand: int):
+    def __init__(self, cin: int, cout: int, stride: int, expand: int, quant: bool = False):
         super().__init__()
         hidden = cin * expand
-        layers: List[nn.Module] = [ConvBN(cin, hidden, 1)] if expand != 1 else []
+        layers: List[nn.Module] = [ConvBN(cin, hidden, 1, quant=quant)] if expand != 1 else []
         layers += [
-            ConvBN(hidden, hidden, 3, stride, groups=hidden),  # depthwise
-            ConvBN(hidden, cout, 1, act=False),  # linear projection
+            ConvBN(hidden, hidden, 3, stride, groups=hidden, quant=quant),  # depthwise
+            ConvBN(hidden, cout, 1, act=False, quant=quant),  # linear projection
         ]
         self.layers = nn.Sequential(*layers)
         self.residual = stride == 1 and cin == cout
@@ -111,14 +126,14 @@ class InvertedResidual(nn.Module):
 
 
 def trunk(width_mult: float = 1.0, last_channels: int = 1 << 30,
-          stride_cap: int = 1 << 30) -> Tuple[ConvBN, nn.ModuleList, int]:
+          stride_cap: int = 1 << 30, quant: bool = False) -> Tuple[ConvBN, nn.ModuleList, int]:
     """The stride-2 stem and the inverted-residual stack of ``_CFG`` (the
     JAX build's ``ConvBN_0`` and ``InvertedResidual_<i>``), stopping before
     the first stage wider than `last_channels`; once the stride reaches
-    `stride_cap`, later stride-2 blocks keep stride 1.  Returns the stem,
-    the blocks and the output channels."""
+    `stride_cap`, later stride-2 blocks keep stride 1; `quant`: int8
+    convolutions.  Returns the stem, the blocks and the output channels."""
     c = _make_divisible(32 * width_mult)
-    stem, blocks, stride = ConvBN(3, c, 3, 2), [], 2
+    stem, blocks, stride = ConvBN(3, c, 3, 2, quant=quant), [], 2
     for t, ch, n, s in _CFG:
         if ch > last_channels:
             break
@@ -128,7 +143,7 @@ def trunk(width_mult: float = 1.0, last_channels: int = 1 << 30,
             if stride >= stride_cap and s_i == 2:
                 s_i = 1
             stride *= s_i
-            blocks.append(InvertedResidual(c, out_c, s_i, t))
+            blocks.append(InvertedResidual(c, out_c, s_i, t, quant))
             c = out_c
     return stem, nn.ModuleList(blocks), c
 
@@ -172,12 +187,12 @@ class MobileNetV2(nn.Module):
     """NHWC uint8 (N, H, W, 3) -> float32 logits (N, num_classes)."""
 
     def __init__(self, num_classes: int = 1001, width_mult: float = 1.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, quant: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.stem, self.blocks, c = trunk(width_mult)
+        self.stem, self.blocks, c = trunk(width_mult, quant=quant)
         last = _make_divisible(1280 * max(width_mult, 1.0))
-        self.head = ConvBN(c, last, 1)
+        self.head = ConvBN(c, last, 1, quant=quant)
         self.classifier = nn.Linear(last, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -194,7 +209,8 @@ def build(custom_props=None):
 
     module(images_u8 (N, size, size, 3)) -> logits (N, classes).  Custom
     props: ``dtype`` (bfloat16 | float32 | float16), ``size``, ``classes``,
-    ``width``, ``seed`` — the JAX build's.  ``dtype`` defaults to bfloat16
+    ``width``, ``seed``, ``quantize`` (``int8``: :class:`QuantConv2d`
+    convolutions) — the JAX build's.  ``dtype`` defaults to bfloat16
     here; the zoo's ``build`` sets it from the device first (bfloat16 with a
     CUDA device, float32 without), as the JAX zoo does.
     """
@@ -202,10 +218,11 @@ def build(custom_props=None):
     dtype = _DTYPES[props.get("dtype", "bfloat16")]
     size = int(props.get("size", "224"))
     num_classes = int(props.get("classes", "1001"))
-    model = MobileNetV2(num_classes, float(props.get("width", "1.0")), dtype)
+    model = MobileNetV2(num_classes, float(props.get("width", "1.0")), dtype,
+                        quant=props.get("quantize", "") == "int8")
     init_he(model, int(props.get("seed", "0")))
     for part in (model.stem, model.blocks, model.head):  # the classifier stays float32
-        part.to(dtype=dtype, memory_format=torch.channels_last)
+        to_compute(part, dtype)
     in_spec = StreamSpec((TensorSpec((size, size, 3), np.uint8, "image"),), FORMAT_STATIC)
     out_spec = StreamSpec((TensorSpec((num_classes,), np.float32, "logits"),), FORMAT_STATIC)
     return model, in_spec, out_spec

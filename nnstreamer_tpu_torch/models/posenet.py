@@ -17,7 +17,6 @@ import torch
 from torch import nn
 
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
-from ._quant_flax import refuse_int8
 from .mobilenet_v2 import _DTYPES, conv_state, ingest, init_he, trunk, trunk_state
 
 
@@ -47,9 +46,10 @@ def build(custom_props=None):
 
     module(images_u8 (N, size, size, 3)) -> [heatmap (N, gh, gw, K)[,
     offsets (N, gh, gw, 2K)]], gh = gw = ceil(size / 16).  Custom props:
-    ``dtype``, ``size``, ``keypoints``, ``offsets``, ``seed``."""
+    ``dtype``, ``size``, ``keypoints``, ``offsets``, ``seed``.  ``quantize``
+    is not read: ``quantize:int8`` builds the float model, as the JAX build
+    does."""
     props = custom_props or {}
-    refuse_int8(props)
     dtype = _DTYPES[props.get("dtype", "bfloat16")]
     size = int(props.get("size", "257"))
     kpts = int(props.get("keypoints", "17"))

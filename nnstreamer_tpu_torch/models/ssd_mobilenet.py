@@ -10,7 +10,10 @@ Outputs match the ``mobilenet-ssd`` decoder contract:
   * loc    (P, 4)  raw (yc, xc, h, w) offsets
   * scores (P, C)  logits
 with P = 2000 priors in the order of :func:`anchors` (rows are taken from
-the heads' NHWC layout, cell by cell).  :func:`write_box_priors` writes the
+the heads' NHWC layout, cell by cell).  ``quantize:int8`` makes the trunk,
+the head and the extra feature layers int8 (as the JAX build's, the
+reference's flagship SSD is a quantized tflite); the box and class heads
+stay float32.  :func:`write_box_priors` writes the
 decoder's option3 file.
 """
 
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
-from ._quant_flax import refuse_int8
+from ._quant_flax import to_compute
 from .mobilenet_v2 import (
     _CFG,
     _DTYPES,
@@ -77,17 +80,18 @@ def write_box_priors(path: str) -> str:
 class SSDMobileNetV2(nn.Module):
     """NHWC uint8 (N, 300, 300, 3) -> float32 (loc (N, P, 4), scores (N, P, C))."""
 
-    def __init__(self, num_classes: int = 91, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, num_classes: int = 91, dtype: torch.dtype = torch.bfloat16,
+                 quant: bool = False):
         super().__init__()
         self.dtype, self.num_classes = dtype, num_classes
-        self.stem, self.blocks, c = trunk()
+        self.stem, self.blocks, c = trunk(quant=quant)
         # the 19x19 map: after the last 96-wide block (stride 16)
         self.tap = sum(n for _, ch, n, _ in _CFG if ch <= 96) - 1
         last = _make_divisible(1280)
-        self.head = ConvBN(c, last, 1)
+        self.head = ConvBN(c, last, 1, quant=quant)
         extras, c = [], last
         for ch in _EXTRAS:
-            extras += [ConvBN(c, ch // 2, 1), ConvBN(ch // 2, ch, 3, 2)]
+            extras += [ConvBN(c, ch // 2, 1, quant=quant), ConvBN(ch // 2, ch, 3, 2, quant=quant)]
             c = ch
         self.extras = nn.ModuleList(extras)
         widths = (_make_divisible(96), last) + _EXTRAS
@@ -123,16 +127,16 @@ def build(custom_props=None):
 
     module(images_u8 (N, 300, 300, 3)) -> [loc (N, P, 4), scores (N, P, C)].
     Custom props: ``dtype``, ``size`` (300 only: the priors encode the
-    300x300 feature-map layout), ``classes``, ``seed``."""
+    300x300 feature-map layout), ``classes``, ``seed``, ``quantize``
+    (``int8``)."""
     props = custom_props or {}
-    refuse_int8(props)
     dtype = _DTYPES[props.get("dtype", "bfloat16")]
     size = int(props.get("size", "300"))
     if size != 300:
         raise ValueError("ssd_mobilenet_v2 supports size=300 only")
     classes = int(props.get("classes", "91"))
     seed = int(props.get("seed", "0"))
-    model = init_he(SSDMobileNetV2(classes, dtype), seed)
+    model = init_he(SSDMobileNetV2(classes, dtype, props.get("quantize", "") == "int8"), seed)
     # the box and class heads as RetinaNet initializes them (Lin et al. 2017):
     # normal(0, 0.01) weights and a class prior of 0.01 in the class bias, so
     # random weights give spread scores, not He-normal logits that saturate
@@ -144,7 +148,7 @@ def build(custom_props=None):
         for head in model.conf:
             head.bias.fill_(-math.log((1 - 0.01) / 0.01))
     for part in (model.stem, model.blocks, model.head, model.extras):  # the heads stay float32
-        part.to(dtype=dtype, memory_format=torch.channels_last)
+        to_compute(part, dtype)
     P = num_priors()
     in_spec = StreamSpec((TensorSpec((size, size, 3), np.uint8, "image"),), FORMAT_STATIC)
     out_spec = StreamSpec(

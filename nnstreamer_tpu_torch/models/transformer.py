@@ -19,6 +19,10 @@ bias-free in the compute dtype, GELU the tanh approximation
   each query masked to -1e30, softmax, the value product in float32 and
   a cast back to the compute dtype.  Sampling (:func:`make_pick`) draws
   the JAX package's threefry bits (``ops/threefry.py``).
+* ``quantize:int8``: each block's ``attn_qkv``, ``attn_out``, ``mlp_up``
+  and ``mlp_down`` run int8 (:class:`._quant_flax.QuantLinear`, one
+  activation scale per token, so a slot's neighbours never change its
+  result); ``lm_head`` stays float32, as in the JAX build.
 
 The sharded mesh path waits for the parallel slice (ROADMAP A11).
 :func:`state_dict_from_flax` converts the JAX package's params.
@@ -56,7 +60,7 @@ class TransformerConfig:
     max_seq: int = 256
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "xla"  # xla (plain reference) | flash (the CUDA kernel)
-    quant: bool = False  # int8 dense layers (not ported: ROADMAP A6)
+    quant: bool = False  # int8 dense layers (_quant_flax.QuantLinear)
 
 
 class LayerNorm(nn.Module):

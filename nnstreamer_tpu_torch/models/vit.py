@@ -8,7 +8,9 @@ convolution with bias, prefixed with a ``cls`` token and added to
 ``pos_embed``; pre-norm encoder blocks (the transformer's, not causal),
 a final LayerNorm, and a float32 ``head`` with bias on token 0.
 ``attn:flash`` runs the flash kernel, ``attn:xla`` (the default) the plain
-reference.
+reference.  ``quantize:int8`` makes each block's four dense layers int8
+(:class:`._quant_flax.QuantLinear`); the patch embedding and the head stay
+float, as in the JAX build.
 
 :func:`state_dict_from_flax` converts the JAX package's params.
 """

@@ -16,6 +16,9 @@ objectness and class scores (N = 25200 at 640).
 * ``nms:1`` (with ``iou``, ``nms_topk``) runs ``ops.nms.batched_nms`` on the
   top-k candidates inside the model and zeroes the objectness of the
   suppressed ones.
+* ``quantize:int8``: every ``ConvBnSiLU`` of the backbone and the neck
+  convolves int8 (:class:`._quant_flax.QuantConv2d`), as the JAX build's;
+  the detect convolutions stay float32.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
-from ._quant_flax import refuse_int8
-from .mobilenet_v2 import _DTYPES, conv_bn_state, conv_state, ingest, init_he, pad_same, same_conv
+from ._quant_flax import to_compute
+from .mobilenet_v2 import (
+    _DTYPES, conv_bn_state, conv_or_quant, conv_same, conv_state, ingest, init_he)
 
 # (stride, anchors (w,h) in px @ 640) — standard yolov5 anchor table
 _ANCHORS: Sequence[Tuple[int, Tuple[Tuple[float, float], ...]]] = (
@@ -40,19 +44,20 @@ _ANCHORS: Sequence[Tuple[int, Tuple[Tuple[float, float], ...]]] = (
 
 
 class ConvBnSiLU(nn.Module):
-    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
+                 quant: bool = False):
         super().__init__()
-        self.conv = same_conv(cin, cout, kernel, stride)
+        self.conv = conv_or_quant(quant, cin, cout, kernel, stride)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.bn(self.conv(pad_same(self.conv, x))))
+        return F.silu(self.bn(conv_same(self.conv, x)))
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, c: int, shortcut: bool = True):
+    def __init__(self, c: int, shortcut: bool = True, quant: bool = False):
         super().__init__()
-        self.cv1, self.cv2 = ConvBnSiLU(c, c, 1), ConvBnSiLU(c, c, 3)
+        self.cv1, self.cv2 = ConvBnSiLU(c, c, 1, quant=quant), ConvBnSiLU(c, c, 3, quant=quant)
         self.shortcut = shortcut
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,21 +66,23 @@ class Bottleneck(nn.Module):
 
 
 class C3(nn.Module):
-    def __init__(self, cin: int, cout: int, n: int = 1, shortcut: bool = True):
+    def __init__(self, cin: int, cout: int, n: int = 1, shortcut: bool = True,
+                 quant: bool = False):
         super().__init__()
         c = cout // 2
-        self.a, self.b = ConvBnSiLU(cin, c, 1), ConvBnSiLU(cin, c, 1)
-        self.m = nn.Sequential(*(Bottleneck(c, shortcut) for _ in range(n)))
-        self.out = ConvBnSiLU(2 * c, cout, 1)
+        self.a, self.b = ConvBnSiLU(cin, c, 1, quant=quant), ConvBnSiLU(cin, c, 1, quant=quant)
+        self.m = nn.Sequential(*(Bottleneck(c, shortcut, quant) for _ in range(n)))
+        self.out = ConvBnSiLU(2 * c, cout, 1, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(torch.cat([self.m(self.a(x)), self.b(x)], 1))
 
 
 class SPPF(nn.Module):
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, quant: bool = False):
         super().__init__()
-        self.cv1, self.cv2 = ConvBnSiLU(cin, cout // 2, 1), ConvBnSiLU(4 * (cout // 2), cout, 1)
+        self.cv1 = ConvBnSiLU(cin, cout // 2, 1, quant=quant)
+        self.cv2 = ConvBnSiLU(4 * (cout // 2), cout, 1, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cv1(x)
@@ -102,13 +109,13 @@ class YOLOv5s(nn.Module):
 
     def __init__(self, num_classes: int = 80, size: int = 640,
                  dtype: torch.dtype = torch.bfloat16, nms: bool = False,
-                 iou_thr: float = 0.45, nms_topk: int = 300):
+                 iou_thr: float = 0.45, nms_topk: int = 300, quant: bool = False):
         super().__init__()
         self.dtype, self.num_classes, self.size = dtype, num_classes, size
         self.nms, self.iou_thr, self.nms_topk = nms, iou_thr, nms_topk
-        self.convs = nn.ModuleList(ConvBnSiLU(*c) for c in _CONVS)
-        self.c3s = nn.ModuleList(C3(*c) for c in _C3S)
-        self.sppf = SPPF(512, 512)
+        self.convs = nn.ModuleList(ConvBnSiLU(*c, quant=quant) for c in _CONVS)
+        self.c3s = nn.ModuleList(C3(*c, quant=quant) for c in _C3S)
+        self.sppf = SPPF(512, 512, quant)
         no = 5 + num_classes
         self.detect = nn.ModuleList(
             nn.Conv2d(c, len(a) * no, 1) for c, (_, a) in zip((128, 256, 512), _ANCHORS))
@@ -176,9 +183,8 @@ def build(custom_props=None):
     module(images_u8 (N, size, size, 3)) -> pred (N, candidates, 5 + C), for
     ``tensor_decoder mode=bounding_boxes option1=yolov5``.  Custom props:
     ``dtype``, ``size`` (a multiple of 32), ``classes``, ``seed``, ``nms``,
-    ``iou``, ``nms_topk``."""
+    ``iou``, ``nms_topk``, ``quantize`` (``int8``)."""
     props = custom_props or {}
-    refuse_int8(props)
     dtype = _DTYPES[props.get("dtype", "bfloat16")]
     size = int(props.get("size", "640"))
     if size % 32:
@@ -186,10 +192,11 @@ def build(custom_props=None):
     classes = int(props.get("classes", "80"))
     model = YOLOv5s(classes, size, dtype, nms=props.get("nms", "0") in ("1", "true"),
                     iou_thr=float(props.get("iou", "0.45")),
-                    nms_topk=int(props.get("nms_topk", "300")))
+                    nms_topk=int(props.get("nms_topk", "300")),
+                    quant=props.get("quantize", "") == "int8")
     init_he(model, int(props.get("seed", "0")))
     for part in (model.convs, model.c3s, model.sppf):  # the detect convs stay float32
-        part.to(dtype=dtype, memory_format=torch.channels_last)
+        to_compute(part, dtype)
     in_spec = StreamSpec((TensorSpec((size, size, 3), np.uint8, "image"),), FORMAT_STATIC)
     out_spec = StreamSpec(
         (TensorSpec((num_candidates(size), 5 + classes), np.float32, "pred"),), FORMAT_STATIC)

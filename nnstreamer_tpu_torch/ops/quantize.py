@@ -1,0 +1,356 @@
+"""Int8 inference: symmetric quantization, int8 convolution, int8 dense.
+
+Port of ``nnstreamer_tpu/ops/quantize.py`` (post-training, calibration-free,
+the ``quantize:int8`` zoo prop).  The scheme, step for step as the
+reference computes it, so that on equal inputs the int8 values, scales,
+int32 accumulators and outputs are bit-equal:
+
+* :func:`quantize_symmetric`: ``x`` cast to float32, ``amax`` = max |x|
+  over ``axes``, ``scale = max(amax, 1e-8) / 127`` (a true float32
+  division), ``q = clip(round(x / scale), -127, 127)`` with round half to
+  even, as int8.
+* :func:`int8_conv`: one activation scale per SAMPLE (over H, W and C: a
+  frame's result never depends on its micro-batch neighbours), one weight
+  scale per output channel; TensorFlow SAME padding; int32 accumulation;
+  the epilogue ``rescale = s_x * s_w`` in float32, then ``(float32(acc) *
+  rescale)`` cast to the output dtype.
+* :func:`int8_dense`: one activation scale per row (last axis), one weight
+  scale per output column, the same accumulation and epilogue.
+
+Layouts are PyTorch's at the public functions: NCHW activations (held
+``channels_last``, so each sample is one contiguous HWC row), OIHW conv
+weights, ``(out, in)`` dense weights.  Quantized weights are kept as rows
+of the OHWI (or ``(out, in)``) weight: one row per output channel.
+
+On a CUDA tensor the work goes to three hand-written kernels:
+``csrc/quantize_i8.cu`` (row abs-max then quantize, for activations and
+weights alike), ``csrc/int8_conv.cu`` (implicit-GEMM int8 convolution for
+``groups == 1``; a dense layer is the same kernel with H = W = 1) and
+``csrc/int8_dwconv.cu`` (direct depthwise convolution, ``groups == C ==
+out``).  Other groups, dtypes or layouts raise there.  On a CPU tensor the
+plain versions run: the integer products in float64 (``F.conv2d`` with
+``groups``, ``torch.matmul``), exact since every partial sum stays below
+2^53.
+
+Weight quantization is deterministic, so callers may quantize a weight
+once per version and pass it as ``qweight`` (``models/_quant_flax.py``
+caches it per ``weight._version`` and ``data_ptr``) where the JAX graph
+re-quantizes its float params on every call.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+#: launches of ``csrc/quantize_i8.cu`` (one per quantized tensor: its
+#: abs-max and quantize passes together) in this process
+QUANTIZE_LAUNCHES = 0
+#: launches of ``csrc/int8_conv.cu`` (convolutions with groups 1 and dense layers)
+CONV_LAUNCHES = 0
+#: launches of ``csrc/int8_dwconv.cu`` (depthwise convolutions)
+DWCONV_LAUNCHES = 0
+
+EPS = 1e-8
+
+#: the kernels' code of each input and output dtype (int32: the raw accumulator)
+_IN_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_OUT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int32: 3}
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_QUANTIZE_SIGNATURES = {
+    # x, in code, rows, cols, row stride, q, scale, scratch, eps, stream
+    "nns_quantize_i8": (_P, _I, _I64, _I64, _I64, _P, _P, _P, _F, _P),
+}
+# xq, s_x, wq, s_w, out, out code, N, H, W, C, O, kh, kw, stride, Ho, Wo,
+# pad top, pad left, stream
+_CONV_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_CONV_SIGNATURES = {"nns_int8_conv": _CONV_ARGS}
+_DWCONV_SIGNATURES = {"nns_int8_dwconv": _CONV_ARGS}
+
+Quantized = Tuple[torch.Tensor, torch.Tensor]
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """TensorFlow SAME padding (before, after) of one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+# -- quantization -------------------------------------------------------------
+
+def quantize_symmetric_plain(
+    x: torch.Tensor, axes: Optional[Sequence[int]] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: (int8 values, float32 scale), the scale reduced
+    over ``axes`` with the dims kept (a 0-d scale for ``axes=None``).  The
+    divisors are tensors on ``x``'s device: PyTorch's CUDA division by a
+    host scalar multiplies by its reciprocal, which rounds differently."""
+    x = x.to(torch.float32)
+    a = x.abs()
+    amax = a.amax() if axes is None else a.amax(dim=tuple(axes), keepdim=True)
+    d127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)
+    scale = torch.clamp_min(amax, EPS) / d127
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_rows_plain(x: torch.Tensor) -> Quantized:
+    """The plain version of :func:`quantize_rows`."""
+    q, scale = quantize_symmetric_plain(x, axes=(1,))
+    return q, scale.reshape(-1)
+
+
+def quantize_rows(x: torch.Tensor) -> Quantized:
+    """(rows, cols) float32, float16 or bfloat16 -> (int8 (rows, cols)
+    contiguous, float32 scale (rows,)): one scale per row.  On a CUDA
+    tensor each row must be contiguous (rows may sit at any stride)."""
+    global QUANTIZE_LAUNCHES
+    if x.dim() != 2:
+        raise ValueError(f"quantize_rows takes a 2-D tensor, got {tuple(x.shape)}")
+    if x.dtype not in _IN_CODES:
+        raise TypeError(f"quantize_rows takes float32/float16/bfloat16, not {x.dtype}")
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    rows, cols = x.shape
+    if cols == 0:
+        raise ValueError("quantize_rows: rows of no element have no scale")
+    if cols > 1 and x.stride(1) != 1:
+        raise ValueError("quantize_rows: the CUDA kernel needs each row contiguous")
+    _check_cuda(x, "quantize_rows")
+    q = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
+    scale = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return q, scale
+    scratch = torch.empty(rows, dtype=torch.int32, device=x.device)
+    lib = _build.load("quantize_i8", _QUANTIZE_SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.nns_quantize_i8(x.data_ptr(), _IN_CODES[x.dtype], rows, cols,
+                                  x.stride(0) if rows > 1 else cols, q.data_ptr(),
+                                  scale.data_ptr(), scratch.data_ptr(), EPS, _stream(x))
+    _build.check(lib, err, "quantize_i8")
+    QUANTIZE_LAUNCHES += 1
+    return q, scale
+
+
+def quantize_symmetric(
+    x: torch.Tensor, axes: Optional[Sequence[int]] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 values, float32 scale) with ``x ~ values * scale``, the scale
+    reduced over ``axes`` with the dims kept (``None``: one per-tensor
+    scale, 0-d).  On a CUDA tensor the reduced axes must be the trailing
+    ones of a contiguous tensor (one row each); others raise."""
+    if x.device.type == "cpu":
+        return quantize_symmetric_plain(x, axes)
+    nd = x.dim()
+    lead = 0 if axes is None else nd - len(axes)
+    if axes is not None and sorted(a % nd for a in axes) != list(range(lead, nd)):
+        raise ValueError(f"quantize_symmetric: the CUDA kernel reduces trailing axes, not {axes}")
+    if not x.is_contiguous():
+        raise ValueError("quantize_symmetric: the CUDA kernel needs a contiguous tensor")
+    q, scale = quantize_rows(x.reshape(math.prod(x.shape[:lead]), -1))
+    if axes is None:
+        return q.reshape(x.shape), scale.reshape(())
+    return q.reshape(x.shape), scale.reshape(tuple(x.shape[:lead]) + (1,) * (nd - lead))
+
+
+def _weight_rows(w: torch.Tensor) -> torch.Tensor:
+    """An OIHW conv weight as its OHWI rows, or a dense ``(out, in)`` weight."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1) if w.dim() == 4 else w
+
+
+def quantize_weight(w: torch.Tensor) -> Quantized:
+    """A float weight's int8 rows and per-output-channel scales: an OIHW
+    conv weight -> (int8 (O, kh, kw, I) OHWI, float32 (O,)); a dense
+    ``(out, in)`` weight -> (int8 (out, in), float32 (out,))."""
+    q, scale = quantize_rows(_weight_rows(w).contiguous())
+    return (q.reshape(w.shape[0], *w.shape[2:], w.shape[1]) if w.dim() == 4 else q), scale
+
+
+def quantize_weight_plain(w: torch.Tensor) -> Quantized:
+    """The plain version of :func:`quantize_weight`."""
+    q, scale = quantize_rows_plain(_weight_rows(w))
+    return (q.reshape(w.shape[0], *w.shape[2:], w.shape[1]) if w.dim() == 4 else q), scale
+
+
+# -- the integer products ------------------------------------------------------
+
+def _epilogue(acc: torch.Tensor, rescale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    if out_dtype == torch.int32:
+        return acc
+    return (acc.to(torch.float32) * rescale).to(out_dtype)
+
+
+def _exact_conv():
+    """cuDNN may pick an FFT or Winograd algorithm even in float64; the
+    native convolution is im2col and GEMM (or a direct depthwise loop)."""
+    return torch.backends.cudnn.flags(enabled=False)
+
+
+def conv_i8_plain(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
+                  stride: int = 1, groups: int = 1,
+                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The plain version of :func:`conv_i8`: the int8 convolution in
+    float64 (exact), the int32 accumulator, the epilogue."""
+    n, h, w, _ = xq.shape
+    o, kh, kw, _ = wq.shape
+    top, bottom = same_pads(h, kh, stride)
+    left, right = same_pads(w, kw, stride)
+    x = F.pad(xq.permute(0, 3, 1, 2).to(torch.float64), (left, right, top, bottom))
+    with _exact_conv() if xq.device.type == "cuda" else contextlib.nullcontext():
+        acc = F.conv2d(x, wq.permute(0, 3, 1, 2).to(torch.float64), stride=stride, groups=groups)
+    acc = acc.to(torch.int32)
+    rescale = s_x.reshape(n, 1, 1, 1) * s_w.reshape(1, o, 1, 1)
+    return _epilogue(acc, rescale, out_dtype).contiguous(memory_format=torch.channels_last)
+
+
+def check_kernel_args(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor,
+                      s_w: torch.Tensor, groups: int) -> bool:
+    """Raise for what the CUDA kernels do not take (checked before any
+    launch): groups other than 1 or C == O, operands not int8 with float32
+    scales, non-contiguous operands.  Returns whether it is depthwise."""
+    c, o = xq.shape[-1], wq.shape[0]
+    if groups != 1 and not groups == c == o:
+        raise ValueError(f"conv_i8: the CUDA kernels take groups 1 or groups == C == O, "
+                         f"not {groups} groups of {c} -> {o}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"conv_i8: int8 operands expected, not {xq.dtype} and {wq.dtype}")
+    if s_x.dtype != torch.float32 or s_w.dtype != torch.float32:
+        raise TypeError("conv_i8: float32 scales expected")
+    if not all(t.is_contiguous() for t in (xq, wq, s_x, s_w)):
+        raise ValueError("conv_i8: the CUDA kernels need contiguous operands")
+    return groups > 1
+
+
+def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
+            stride: int = 1, groups: int = 1,
+            out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The int8 convolution of quantized operands with SAME padding: ``xq``
+    (N, H, W, C) int8 with per-sample scales ``s_x`` (N,), ``wq`` (O, kh, kw,
+    C / groups) OHWI int8 with per-channel scales ``s_w`` (O,).  Returns
+    (N, O, Ho, Wo) ``channels_last`` in ``out_dtype`` (``torch.int32``: the
+    raw accumulator, no epilogue).  CUDA: ``groups`` 1 through
+    ``int8_conv.cu``, ``groups == C == O`` through ``int8_dwconv.cu``."""
+    global CONV_LAUNCHES, DWCONV_LAUNCHES
+    if out_dtype not in _OUT_CODES:
+        raise TypeError(f"conv_i8 outputs float32/float16/bfloat16/int32, not {out_dtype}")
+    n, h, w, c = xq.shape
+    o, kh, kw, cg = wq.shape
+    if cg * groups != c or o % groups:
+        raise ValueError(f"conv_i8: weight {tuple(wq.shape)} does not fit {c} channels "
+                         f"in {groups} groups")
+    if xq.device.type == "cpu":
+        return conv_i8_plain(xq, s_x, wq, s_w, stride, groups, out_dtype)
+    depthwise = check_kernel_args(xq, s_x, wq, s_w, groups)
+    _check_cuda(xq, "conv_i8")
+    ho, wo = -(-h // stride), -(-w // stride)
+    out = torch.empty((n, o, ho, wo), dtype=out_dtype, device=xq.device,
+                      memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    name = "int8_dwconv" if depthwise else "int8_conv"
+    lib = _build.load(name, _DWCONV_SIGNATURES if depthwise else _CONV_SIGNATURES)
+    entry = getattr(lib, f"nns_{name}")
+    with torch.cuda.device(xq.device):
+        err = entry(xq.data_ptr(), s_x.data_ptr(), wq.data_ptr(), s_w.data_ptr(), out.data_ptr(),
+                    _OUT_CODES[out_dtype], n, h, w, c, o, kh, kw, stride, ho, wo,
+                    same_pads(h, kh, stride)[0], same_pads(w, kw, stride)[0], _stream(xq))
+    _build.check(lib, err, name)
+    if depthwise:
+        DWCONV_LAUNCHES += 1
+    else:
+        CONV_LAUNCHES += 1
+    return out
+
+
+def dense_i8_plain(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version of :func:`dense_i8`: the product in float64 (exact)."""
+    acc = torch.matmul(xq.to(torch.float64), wq.to(torch.float64).T).to(torch.int32)
+    return _epilogue(acc, s_x[:, None] * s_w[None, :], out_dtype)
+
+
+def dense_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``xq`` (M, K) int8 with row scales (M,) times ``wq`` (N, K) int8 with
+    row scales (N,), transposed: (M, N) in ``out_dtype`` (``torch.int32``:
+    the raw accumulator).  On CUDA, ``int8_conv.cu`` with H = W = 1."""
+    m, k = xq.shape
+    if xq.device.type == "cpu":
+        if out_dtype not in _OUT_CODES:
+            raise TypeError(f"dense_i8 outputs float32/float16/bfloat16/int32, not {out_dtype}")
+        return dense_i8_plain(xq, s_x, wq, s_w, out_dtype)
+    out = conv_i8(xq.reshape(m, 1, 1, k), s_x, wq.reshape(wq.shape[0], 1, 1, k), s_w,
+                  out_dtype=out_dtype)
+    return out.reshape(m, wq.shape[0])
+
+
+# -- the reference's entry points ---------------------------------------------
+
+def _quantize_samples(x: torch.Tensor, plain: bool) -> Quantized:
+    """Per-sample int8 of NCHW ``x`` held channels_last: (int8 (N, H, W, C), (N,))."""
+    nhwc = x.permute(0, 2, 3, 1)
+    if not plain and not nhwc.is_contiguous():
+        raise ValueError("int8_conv: the CUDA kernels need a channels_last activation")
+    q, scale = (quantize_rows_plain if plain else quantize_rows)(nhwc.reshape(x.shape[0], -1))
+    return q.reshape(nhwc.shape), scale
+
+
+def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, groups: int = 1,
+              out_dtype: torch.dtype = torch.bfloat16,
+              qweight: Optional[Quantized] = None) -> torch.Tensor:
+    """NCHW ``x`` (channels_last on CUDA) convolved with the OIHW float
+    ``weight``, int8 x int8 -> int32, SAME padding, rescaled to
+    ``out_dtype``; ``qweight`` is :func:`quantize_weight` of ``weight``
+    where the caller holds it.  Output (N, O, Ho, Wo) channels_last."""
+    if x.device.type == "cpu":
+        return int8_conv_plain(x, weight, stride, groups, out_dtype, qweight)
+    xq, s_x = _quantize_samples(x, plain=False)
+    wq, s_w = qweight if qweight is not None else quantize_weight(weight)
+    return conv_i8(xq, s_x, wq, s_w, stride, groups, out_dtype)
+
+
+def int8_conv_plain(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, groups: int = 1,
+                    out_dtype: torch.dtype = torch.bfloat16,
+                    qweight: Optional[Quantized] = None) -> torch.Tensor:
+    """The plain version of :func:`int8_conv`."""
+    xq, s_x = _quantize_samples(x, plain=True)
+    wq, s_w = qweight if qweight is not None else quantize_weight_plain(weight)
+    return conv_i8_plain(xq, s_x, wq, s_w, stride, groups, out_dtype)
+
+
+def int8_dense(x: torch.Tensor, weight: torch.Tensor, out_dtype: torch.dtype = torch.float32,
+               qweight: Optional[Quantized] = None) -> torch.Tensor:
+    """``x (..., in) @ weight.T`` for an ``(out, in)`` float weight, int8 x
+    int8 -> int32, one scale per row of ``x``; (..., out) in ``out_dtype``."""
+    if x.device.type == "cpu":
+        return int8_dense_plain(x, weight, out_dtype, qweight)
+    xq, s_x = quantize_rows(x.reshape(-1, x.shape[-1]))
+    wq, s_w = qweight if qweight is not None else quantize_weight(weight)
+    return dense_i8(xq, s_x, wq, s_w, out_dtype).reshape(*x.shape[:-1], weight.shape[0])
+
+
+def int8_dense_plain(x: torch.Tensor, weight: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32,
+                     qweight: Optional[Quantized] = None) -> torch.Tensor:
+    """The plain version of :func:`int8_dense`."""
+    xq, s_x = quantize_rows_plain(x.reshape(-1, x.shape[-1]))
+    wq, s_w = qweight if qweight is not None else quantize_weight_plain(weight)
+    return dense_i8_plain(xq, s_x, wq, s_w, out_dtype).reshape(*x.shape[:-1], weight.shape[0])

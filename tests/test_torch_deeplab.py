@@ -35,6 +35,7 @@ from nnstreamer_tpu_torch.core.types import FORMAT_STATIC, StreamSpec, TensorSpe
 from nnstreamer_tpu_torch.decoders.segment import ImageSegment
 from nnstreamer_tpu_torch.models import build as torch_build
 from nnstreamer_tpu_torch.models import deeplab
+from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
 from nnstreamer_tpu_torch.pipeline import parse_pipeline
 from torch_parity import assert_decoded_equal, decoder_pipeline, model_pair, run_both, spec_tuple
 
@@ -80,8 +81,9 @@ def test_specs_state_dict_and_refusals(pair):
     # the atrous branches pad 2 and 4 symmetrically, and the trunk stops at stride 16
     assert module.aspp.b2.padding == (2, 2) and module.aspp.b3.padding == (4, 4)
     assert module.aspp.b2.bias is None and module.classifier.bias is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        torch_build("deeplab", {"quantize": "int8"})
+    # the JAX build never reads quantize: int8 builds the float model (C10)
+    int8, _, _ = torch_build("deeplab", {"quantize": "int8", "size": "33"})
+    assert not any(isinstance(m, QuantConv2d) for m in int8.modules())
 
 
 @pytest.mark.parametrize("src,dst", [(17, 257), (5, 13), (4, 64), (9, 9), (3, 10)])

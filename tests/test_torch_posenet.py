@@ -32,6 +32,7 @@ from nnstreamer_tpu_torch.core.buffer import TensorFrame
 from nnstreamer_tpu_torch.decoders.pose import PoseEstimation
 from nnstreamer_tpu_torch.models import build as torch_build
 from nnstreamer_tpu_torch.models import posenet
+from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
 from nnstreamer_tpu_torch.pipeline import parse_pipeline
 from torch_parity import (
     assert_decoded_equal,
@@ -99,8 +100,9 @@ def test_heatmap_only_build_and_refusals():
     with torch.inference_mode():
         heat, off = a.eval()(torch.from_numpy(x))
     assert heat.dtype == off.dtype == torch.float32 and heat.shape == (2, 3, 3, 17)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        torch_build("posenet", {"quantize": "int8"})
+    # the JAX build never reads quantize: int8 builds the float model (C10)
+    int8, _, _ = torch_build("posenet", {"quantize": "int8", "size": "33"})
+    assert not any(isinstance(m, QuantConv2d) for m in int8.modules())
 
 
 # -- pose_estimation decoder -----------------------------------------------------

@@ -14,6 +14,7 @@ in both packages on the same frames.
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from nnstreamer_tpu.backends.jax_xla import register_jax_model, unregister_jax_model
 from nnstreamer_tpu.models import ssd_mobilenet as jax_ssd
@@ -26,6 +27,7 @@ from nnstreamer_tpu_torch.backends.torch_cuda import (
 from nnstreamer_tpu_torch.decoders.bounding_box import BoundingBoxes
 from nnstreamer_tpu_torch.models import build as torch_build
 from nnstreamer_tpu_torch.models import ssd_mobilenet
+from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
 from nnstreamer_tpu_torch.pipeline import parse_pipeline
 from torch_parity import (
     assert_meta_close,
@@ -104,8 +106,9 @@ def test_build_bf16_seeded_heads_float32_and_refusals():
     assert torch.isfinite(loc).all() and torch.isfinite(conf).all()
     with pytest.raises(ValueError, match="size=300"):
         torch_build("ssd_mobilenet_v2", {"size": "320"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        torch_build("ssd_mobilenet_v2", {"quantize": "int8"})
+    int8, _, _ = torch_build("ssd_mobilenet_v2", dict(props, quantize="int8"))
+    assert isinstance(int8.stem.conv, QuantConv2d) and isinstance(int8.extras[7].conv, QuantConv2d)
+    assert type(int8.loc[0]) is nn.Conv2d and int8.stem.conv.weight.dtype == torch.float32
 
 
 def _boxes_close(got, want):

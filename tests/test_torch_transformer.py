@@ -9,10 +9,12 @@ Float32 on both sides, the flax params converted by
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from nnstreamer_tpu.models import build as jax_build
 from nnstreamer_tpu_torch.backends.torch_cuda import register_torch_model, unregister_torch_model
 from nnstreamer_tpu_torch.models import build as torch_build
+from nnstreamer_tpu_torch.models._quant_flax import QuantLinear
 from nnstreamer_tpu_torch.models.transformer import GenerateLM, TransformerLM, state_dict_from_flax
 from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
@@ -119,8 +121,8 @@ def test_generation_paths_raise(prop):
 
 
 def test_int8_raises_and_long_sequences_are_refused():
-    with pytest.raises(NotImplementedError, match="A6"):
-        torch_build("transformer", dict(_PROPS, quantize="int8"))
+    int8, _, _ = torch_build("transformer", dict(_PROPS, quantize="int8"))  # ported: A6
+    assert isinstance(int8.blocks[0].attn_qkv, QuantLinear) and type(int8.lm_head) is nn.Linear
     module, _, _ = torch_build("transformer", _PROPS)
     with pytest.raises(ValueError, match="exceed"):
         module(torch.zeros(1, 65, dtype=torch.int32))

@@ -12,12 +12,14 @@ version: both the same function in float32.  Logits within
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from nnstreamer_tpu.backends.jax_xla import register_jax_model, unregister_jax_model
 from nnstreamer_tpu.models import build as jax_build
 from nnstreamer_tpu.pipeline import parse_pipeline as jax_parse_pipeline
 from nnstreamer_tpu_torch.backends.torch_cuda import register_torch_model, unregister_torch_model
 from nnstreamer_tpu_torch.models import build as torch_build
+from nnstreamer_tpu_torch.models._quant_flax import QuantLinear
 from nnstreamer_tpu_torch.models.vit import state_dict_from_flax
 from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
@@ -127,7 +129,7 @@ def test_build_is_seeded_and_keeps_head_float32():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A6"):
-        torch_build("vit", dict(_PROPS, quantize="int8"))
+    int8, _, _ = torch_build("vit", dict(_PROPS, quantize="int8"))  # ported: A6
+    assert isinstance(int8.blocks[0].mlp_down, QuantLinear) and type(int8.head) is nn.Linear
     with pytest.raises(ValueError, match="not divisible"):
         torch_build("vit", dict(_PROPS, size="30"))

@@ -18,6 +18,7 @@ the boxes meta, rendered byte-equal on identical detections in
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from nnstreamer_tpu.backends.jax_xla import register_jax_model, unregister_jax_model
 from nnstreamer_tpu.models import yolov5 as jax_yolo
@@ -30,6 +31,7 @@ from nnstreamer_tpu_torch.backends.torch_cuda import (
 from nnstreamer_tpu_torch.decoders.bounding_box import BoundingBoxes
 from nnstreamer_tpu_torch.models import build as torch_build
 from nnstreamer_tpu_torch.models import yolov5
+from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
 from nnstreamer_tpu_torch.pipeline import parse_pipeline
 from torch_parity import (
     assert_meta_close,
@@ -116,8 +118,10 @@ def test_build_bf16_seeded_and_refusals():
     assert out.dtype == torch.float32 and out.shape == (2, 252, 8) and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="multiple of 32"):
         torch_build("yolov5s", {"size": "65"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        torch_build("yolov5s", {"quantize": "int8"})
+    int8, _, _ = torch_build("yolov5s", dict(props, quantize="int8"))
+    assert isinstance(int8.convs[0].conv, QuantConv2d)
+    assert isinstance(int8.sppf.cv2.conv, QuantConv2d)
+    assert type(int8.detect[0]) is nn.Conv2d
 
 
 @pytest.mark.parametrize("pair", [64], indirect=True, ids=["64"])
