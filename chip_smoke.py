@@ -197,19 +197,24 @@ Phases (any failure exits non-zero before the result lines are printed):
          ``custom=arch:mobilenet_v2,quantize:int8`` (224, width 1.0, 1001
          classes, bf16, the decoder's device half fused): labels equal to
          the direct call in the same micro-batch sizes; launches exactly
-         ``normalize_u8`` and ``top1`` once, ``int8_conv`` 35, ``int8_dwconv``
-         17 and ``quantize_i8`` 52 times per micro-batch, plus one
-         ``quantize_i8`` per layer for its weight; frames/s and latency
-         beside path a's bf16;
+         ``normalize_u8`` and ``top1`` once, ``int8_conv`` 35 (32 by the
+         GEMM route, 3 by the gather route), ``int8_dwconv`` 17 and
+         ``quantize_i8`` 52 (all one-pass) times per micro-batch, plus one
+         ``quantize_i8`` per layer for its weight (by the route its shape
+         takes); frames/s and latency beside path a's bf16;
       2. forward hooks on every int8 layer of one MobileNet-v2 micro-batch
          (128 frames), one YOLOv5s 640 micro-batch (``H2_YOLO_FRAMES``) and
          one GPT-2 small call (2 prompts of 1024 tokens): on each captured
          input the activation's and the weight's int8 values and scales and
          the product (in the layer's dtype and as the int32 accumulator)
-         bit-equal to the plain versions; the same at ``INT8_AWKWARD``'s
-         shapes (K = 27, M = 1, odd H and W, 6x6 stride 2, C not a multiple
-         of 16 or 4, float32/bf16/fp16 in); the kernels timed at path shapes
-         beside their plain versions, their bounds and ``torch._int_mm``;
+         bit-equal to the plain versions, by the layer's own routes and by
+         the general ones (two-pass, gather); the same at ``INT8_AWKWARD``'s
+         shapes (K = 27, 16 and 3072, M = 1 and 65, N = 24 and 1001, odd H
+         and W, 6x6 stride 2, C not a multiple of 16 or 4, float32/bf16/fp16
+         in), an activation 8 bytes off alignment (the gather route) and a
+         row longer than a wave (the two-pass route); the kernels timed on
+         both routes at path shapes beside their plain versions, their
+         bounds and ``torch._int_mm``;
       3. frames alone give the int8 trunk output of their rows in a
          micro-batch of 128, bit for bit;
       4. SSD-MobileNet-v2 300, YOLOv5s 640 and ViT-B/16 224 (``attn:flash``)
@@ -217,8 +222,9 @@ Phases (any failure exits non-zero before the result lines are printed):
          above 0.8 on 16 frames, time per 128-frame micro-batch of both,
          int8 launches per call; GPT-2 small int8 scoring through the filter
          (8 prompts of 1024 tokens, per-position argmax equal to the direct
-         call, 48 ``int8_conv`` per call) and ``generate:32`` through the
-         filter (tokens equal to the direct call, 48 ``int8_conv`` per step).
+         call, 48 ``int8_conv`` per call, all by the GEMM route; ViT-B/16
+         the same) and ``generate:32`` through the filter (tokens equal to
+         the direct call, 48 ``int8_conv`` per step).
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -2563,8 +2569,15 @@ INT8_FRAMES = 1024
 INT8_OPS_PER_S = 1979e12
 #: int8 launches per MobileNet-v2 call, reckoned from its _CFG: 35
 #: convolutions with groups 1 (the stem, 16 expansions, 17 projections, the
-#: head), 17 depthwise, one activation quantization each
-MOBILENET_INT8 = {"int8_conv": 35, "int8_dwconv": 17, "quantize_i8": 52}
+#: head), 17 depthwise, one activation quantization each; by route: the stem
+#: (K = 27) and the two expansions of 24 channels gather, the other 32 are
+#: 1 x 1 with K a multiple of 16 (GEMM); every activation row is 16-byte
+#: aligned and fits a wave (one pass)
+MOBILENET_INT8 = {"int8_conv": 35, "int8_conv_gemm": 32, "int8_conv_gather": 3,
+                  "int8_dwconv": 17, "quantize_i8": 52, "quantize_i8_onepass": 52}
+#: the int8 counters, and the route split of each kernel with routes
+INT8_COUNTERS = ("int8_conv", "int8_conv_gemm", "int8_conv_gather", "int8_dwconv", "quantize_i8",
+                 "quantize_i8_onepass", "quantize_i8_twopass")
 #: h4's builds beside their bf16 builds: (name, custom, size, frames per
 #: micro-batch); the SSD heads, YOLOv5s's detect convolutions, ViT's patch
 #: embedding and head stay float, as in the JAX package
@@ -2589,10 +2602,29 @@ def int8_equal(torch, what: str, got, want) -> None:
         raise AssertionError(f"{what}: the kernel is not bit-equal to its plain version")
 
 
+@contextmanager
+def forced_routes(q, two_pass: bool = False, gather: bool = False):
+    """``ops/quantize.py``'s route functions forced to the general routes
+    (the two-pass quantize, the gather product; the wrappers look the
+    functions up at each call), to hold and time both routes of a kernel
+    on the same inputs."""
+    plan, conv = q.quantize_plan, q.int8_conv_route
+    if two_pass:
+        q.quantize_plan = lambda *args: q.QuantizePlan("two-pass", 0, 0)
+    if gather:
+        q.int8_conv_route = lambda *args: "gather"
+    try:
+        yield
+    finally:
+        q.quantize_plan, q.int8_conv_route = plan, conv
+
+
 def check_int8_layer(torch, q, layer, x, what: str) -> None:
     """One int8 layer's kernels on its input `x` against their plain
-    versions: the activation's int8 values and scales, the weight's, then
-    the product in the layer's output dtype and as the int32 accumulator."""
+    versions: the activation's int8 values and scales (by the route its
+    shape takes and by the two-pass route), the weight's, then the product
+    in the layer's output dtype and as the int32 accumulator (by its route
+    and, for groups 1, by the gather route)."""
     from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
 
     conv = isinstance(layer, QuantConv2d)
@@ -2600,24 +2632,38 @@ def check_int8_layer(torch, q, layer, x, what: str) -> None:
         rows = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
     else:
         rows = x.reshape(-1, x.shape[-1])
-    xq, sx = q.quantize_rows(rows)
     xq2, sx2 = q.quantize_rows_plain(rows)
-    int8_equal(torch, f"{what} quantize_i8 {tuple(rows.shape)}", xq, xq2)
-    int8_equal(torch, f"{what} quantize_i8 scales", sx, sx2)
+    for two_pass in (False, True):
+        with forced_routes(q, two_pass=two_pass):
+            xq, sx = q.quantize_rows(rows)
+        route = "two-pass" if two_pass else "its route"
+        int8_equal(torch, f"{what} quantize_i8 {tuple(rows.shape)} ({route})", xq, xq2)
+        int8_equal(torch, f"{what} quantize_i8 scales ({route})", sx, sx2)
     wq, sw = layer.qweight()
     wq2, sw2 = q.quantize_weight_plain(layer.weight)
     int8_equal(torch, f"{what} weight quantize_i8", wq, wq2)
     int8_equal(torch, f"{what} weight scales", sw, sw2)
+    routes = (False,) if conv and layer.groups > 1 else (False, True)
     for out in (x.dtype, torch.int32):
         if conv:
             xq4 = xq.reshape(x.shape[0], x.shape[2], x.shape[3], x.shape[1])
             args = (xq4, sx, wq, sw, layer.stride[0], layer.groups, out)
-            got, want = q.conv_i8(*args), q.conv_i8_plain(*args)
+            want = q.conv_i8_plain(*args)
+            got = []
+            for gather in routes:
+                with forced_routes(q, gather=gather):
+                    got.append(q.conv_i8(*args))
             kernel = "int8_dwconv" if layer.groups > 1 else "int8_conv"
         else:
-            got, want = q.dense_i8(xq, sx, wq, sw, out), q.dense_i8_plain(xq, sx, wq, sw, out)
+            want = q.dense_i8_plain(xq, sx, wq, sw, out)
+            got = []
+            for gather in routes:
+                with forced_routes(q, gather=gather):
+                    got.append(q.dense_i8(xq, sx, wq, sw, out))
             kernel = "int8_conv"
-        int8_equal(torch, f"{what} {kernel} {tuple(x.shape)} -> {out}", got, want)
+        for g, gather in zip(got, routes):
+            route = " (gather)" if gather else ""
+            int8_equal(torch, f"{what} {kernel}{route} {tuple(x.shape)} -> {out}", g, want)
 
 
 def check_int8_model(torch, q, module, inputs, name: str) -> int:
@@ -2653,7 +2699,11 @@ INT8_AWKWARD = [
     (2, 13, 11, 40, 70, 3, 1, 1, "float32"),  # C % 16 = 8, O not a multiple of 8
     (2, 15, 15, 20, 36, 3, 2, 1, "bfloat16"),  # C % 8 = 4
     (1, 1, 1, 768, 2304, 1, 1, 1, "bfloat16"),  # M = 1: one decode slot
-    (5, 1, 1, 3072, 768, 1, 1, 1, "float32"),
+    (5, 1, 1, 3072, 768, 1, 1, 1, "float32"),  # K = 3072
+    (65, 1, 1, 64, 96, 1, 1, 1, "bfloat16"),  # M = 65 on the GEMM route
+    (2, 9, 7, 32, 24, 1, 1, 1, "float32"),  # N = 24
+    (3, 1, 1, 1280, 1001, 1, 1, 1, "bfloat16"),  # N = 1001
+    (2, 11, 11, 16, 96, 1, 1, 1, "float16"),  # K = 16
     (2, 15, 15, 144, 144, 3, 1, 144, "bfloat16"),  # depthwise, odd
     (2, 9, 9, 6, 6, 3, 2, 6, "float32"),  # depthwise, C % 4 != 0
     (1, 10, 10, 32, 32, 3, 2, 32, "float16"),
@@ -2682,18 +2732,73 @@ def check_int8_awkward(torch, q) -> int:
                 dense.weight.copy_(conv.weight.reshape(o, c))
             check_int8_layer(torch, q, dense, x.reshape(n, c), what + " dense")
     torch.cuda.synchronize()
-    return len(INT8_AWKWARD)
+    check_route_edges(torch, q)
+    return len(INT8_AWKWARD) + 2
+
+
+def check_route_edges(torch, q) -> None:
+    """h2's two route edges, each bit-equal to its plain version and
+    counted on the route it must take: a GEMM-shaped 1 x 1 convolution
+    whose activation starts 8 bytes off 16-byte alignment (gather), and one
+    row longer than a wave of the one-pass quantize kernel (two-pass); then
+    rows of exact .5 ties through both quantize routes."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, h, w, c, o = 2, 7, 7, 64, 96
+    flat = torch.randint(-127, 128, (n * h * w * c + 8,), dtype=torch.int8, device=dev,
+                         generator=g)
+    xq = flat[8:].view(n, h, w, c)
+    wq = torch.randint(-127, 128, (o, 1, 1, c), dtype=torch.int8, device=dev, generator=g)
+    sx, sw = torch.rand(n, device=dev, generator=g), torch.rand(o, device=dev, generator=g)
+    if q.int8_conv_route(c, 1, 1, 1, xq.data_ptr(), wq.data_ptr()) != "gather":
+        raise AssertionError("h2: an activation 8 bytes off alignment is not routed to gather")
+    before = (q.CONV_GEMM_LAUNCHES, q.CONV_GATHER_LAUNCHES)
+    for out in (torch.bfloat16, torch.int32):
+        int8_equal(torch, f"h2 int8_conv 8 bytes off alignment -> {out}",
+                   q.conv_i8(xq, sx, wq, sw, out_dtype=out),
+                   q.conv_i8_plain(xq, sx, wq, sw, out_dtype=out))
+    if (q.CONV_GEMM_LAUNCHES, q.CONV_GATHER_LAUNCHES) != (before[0], before[1] + 2):
+        raise AssertionError("h2: the unaligned activation did not launch the gather route")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cols = sms * q.QUANTIZE_BUF_BYTES // 2 + 8  # bf16: one vector more than a wave holds
+    x = torch.randn(1, cols, device=dev, generator=g).to(torch.bfloat16)
+    if q.quantize_plan(1, cols, 2, cols, x.data_ptr(), sms).route != "two-pass":
+        raise AssertionError(f"h2: a row of {cols} bf16 is not routed to the two-pass kernel")
+    before = (q.QUANTIZE_ONEPASS_LAUNCHES, q.QUANTIZE_TWOPASS_LAUNCHES)
+    for got, want in zip(q.quantize_rows(x), q.quantize_rows_plain(x)):
+        int8_equal(torch, f"h2 quantize_i8 one row of {cols} bf16", got, want)
+    if (q.QUANTIZE_ONEPASS_LAUNCHES, q.QUANTIZE_TWOPASS_LAUNCHES) != (before[0], before[1] + 1):
+        raise AssertionError("h2: the row longer than a wave did not launch the two-pass route")
+    # exact .5 ties (amax 127: scale 1) round half to even on both routes
+    ties = torch.tensor([[127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 126.5, -3.5] * 2] * 3, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        for two_pass in (False, True):
+            with forced_routes(q, two_pass=two_pass):
+                got_q = q.quantize_rows(ties.to(dt))
+            for got, want in zip(got_q, q.quantize_rows_plain(ties.to(dt))):
+                int8_equal(torch, f"h2 quantize_i8 .5 ties {dt} two_pass={two_pass}", got, want)
+    torch.cuda.synchronize()
+
+
+def forced_ms(q, fn, **routes) -> float:
+    """:func:`time_ms` of `fn` under :func:`forced_routes`."""
+    with forced_routes(q, **routes):
+        return time_ms(fn)
 
 
 def time_int8(torch, q) -> list:
-    """The three int8 kernels timed at path shapes beside their plain
-    versions, their bounds and, for the GEMM, ``torch._int_mm``: quantize_i8
-    on MobileNet-v2's largest activation (the first depthwise input, 112 x
-    112 x 96 a frame, bf16, 128 frames), int8_conv on a 1 x 1 convolution of
-    its 14 x 14 stage (96 -> 576) and on GPT-2 small's qkv projection over
-    8 prompts of 1024 tokens, int8_dwconv on that first depthwise layer."""
+    """The three int8 kernels timed at path shapes on each of their routes
+    beside their plain versions, their bounds and, for the GEMM,
+    ``torch._int_mm``: quantize_i8 on MobileNet-v2's largest activation
+    (the first depthwise input, 112 x 112 x 96 a frame, bf16, 128 frames)
+    one-pass and two-pass, int8_conv on a 1 x 1 convolution of its 14 x 14
+    stage (96 -> 576) and on GPT-2 small's qkv projection over 8 prompts of
+    1024 tokens by the GEMM and the gather routes, int8_dwconv on that
+    first depthwise layer.  Each entry's ``ms`` is the route the path takes
+    there."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def act(n, c, h, w):
         x = torch.randn(n, c, h, w, device=dev, generator=g).to(torch.bfloat16)
@@ -2703,9 +2808,13 @@ def time_int8(torch, q) -> list:
     x = act(128, 96, 112, 112)
     rows = x.permute(0, 2, 3, 1).reshape(128, -1)
     n = rows.numel()
+    plan = q.quantize_plan(*rows.shape, 2, rows.stride(0), rows.data_ptr(), sms)
+    if plan.route != "one-pass":
+        raise AssertionError(f"quantize_i8 at {tuple(rows.shape)}: {plan} (want one pass)")
     quant = {"ms": time_ms(lambda: q.quantize_rows(rows)),
+             "two_pass_ms": forced_ms(q, lambda: q.quantize_rows(rows), two_pass=True),
              "plain_ms": time_ms(lambda: q.quantize_rows_plain(rows)), "library_ms": None,
-             "shape": list(rows.shape)}
+             "shape": list(rows.shape), "plan": plan._asdict()}
     quant["bound_ms"], quant["bound_by"] = bound_ms(n * 3 + 128 * 4, 5 * n)
     # int8_dwconv: that first depthwise layer, 3 x 3 stride 2
     xq, sx = q.quantize_rows(rows)
@@ -2724,21 +2833,27 @@ def time_int8(torch, q) -> list:
         b = torch.randint(-127, 128, (o, k), dtype=torch.int8, device=dev, generator=g)
         sa = torch.rand(m, device=dev, generator=g)
         sb = torch.rand(o, device=dev, generator=g)
+        if q.int8_conv_route(k, 1, 1, 1, a.data_ptr(), b.data_ptr()) != "gemm":
+            raise AssertionError(f"int8_conv {key}: not on the GEMM route")
         r = {"ms": time_ms(lambda: q.dense_i8(a, sa, b, sb, torch.bfloat16)),
+             "gather_ms": forced_ms(q, lambda: q.dense_i8(a, sa, b, sb, torch.bfloat16),
+                                    gather=True),
              "plain_ms": time_ms(lambda: q.dense_i8_plain(a, sa, b, sb, torch.bfloat16), reps=5),
              "library_ms": time_ms(lambda: torch._int_mm(a, b.T)), "shape": [m, k, o]}
         r["bound_ms"], r["bound_by"] = bound_ms(m * k + o * k + m * o * 2 + 4 * (m + o),
                                                 2 * m * o * k, INT8_OPS_PER_S)
         gemm[key] = r
     conv = dict(gemm["mobilenet_1x1"], gpt2_qkv=gemm["gpt2_qkv"])
-    print(f"quantize_i8 {tuple(rows.shape)} bf16: kernel {quant['ms']:.4f} ms, plain "
-          f"{quant['plain_ms']:.4f} ms, bound {quant['bound_ms']:.4f} ms ({quant['bound_by']}); "
-          f"int8_dwconv (128, 112, 112, 96) 3x3/2: kernel {dw['ms']:.4f} ms, plain "
-          f"{dw['plain_ms']:.4f} ms, bound {dw['bound_ms']:.4f} ms ({dw['bound_by']})")
+    print(f"quantize_i8 {tuple(rows.shape)} bf16: one pass {quant['ms']:.4f} ms ({plan.grid} "
+          f"blocks, {plan.rows_per_wave} rows a wave), two passes {quant['two_pass_ms']:.4f} ms, "
+          f"plain {quant['plain_ms']:.4f} ms, bound {quant['bound_ms']:.4f} ms "
+          f"({quant['bound_by']}); int8_dwconv (128, 112, 112, 96) 3x3/2: kernel {dw['ms']:.4f} "
+          f"ms, plain {dw['plain_ms']:.4f} ms, bound {dw['bound_ms']:.4f} ms ({dw['bound_by']})")
     for key, r in gemm.items():
-        print(f"int8_conv as a GEMM {key} (M, K, N) {tuple(r['shape'])} -> bf16: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch._int_mm (int32 out) "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"int8_conv as a GEMM {key} (M, K, N) {tuple(r['shape'])} -> bf16: GEMM route "
+              f"{r['ms']:.4f} ms, gather route {r['gather_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, torch._int_mm (int32 out) {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     common = {"route": "cuda", "max_abs_err": 0.0, "match": True}
     return [dict(common, name="quantize_i8", source="nnstreamer_tpu_torch/csrc/quantize_i8.cu",
                  replaces="nnstreamer_tpu/ops/quantize.py:34", **quant),
@@ -2774,7 +2889,22 @@ def launches_per_call(torch, counters, fn) -> dict:
     fn()
     torch.cuda.synchronize()
     got = counters.read()
-    return {k: got[k] for k in ("int8_conv", "int8_dwconv", "quantize_i8")}
+    return {k: got[k] for k in INT8_COUNTERS}
+
+
+def reckoned_routes(q, module) -> dict:
+    """int8_conv launches per call of `module` by route, reckoned from each
+    groups-1 int8 layer's shape by ``int8_conv_route`` (fresh activations
+    and weights are 16-byte aligned)."""
+    from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
+
+    routes = Counter()
+    for m in quant_layers(module):
+        if not isinstance(m, QuantConv2d):
+            routes[q.int8_conv_route(m.in_features, 1, 1, 1, 0, 0)] += 1
+        elif m.groups == 1:
+            routes[q.int8_conv_route(m.in_channels, *m.kernel_size, m.stride[0], 0, 0)] += 1
+    return {"int8_conv_gemm": routes["gemm"], "int8_conv_gather": routes["gather"]}
 
 
 def correlation(np, a, b) -> float:
@@ -2787,8 +2917,9 @@ def int8_beside_float(torch, np, counters, name: str, custom: str, size: int, ba
     """h4 for one image build: the int8 and bf16 builds of one seed on the
     card, the correlation of their outputs on 16 frames (above 0.8, the JAX
     suite's bar), each build's time per micro-batch (CUDA events), the int8
-    launches per call."""
+    launches per call, split by route as reckoned."""
     from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.ops import quantize as q
 
     props = custom_props(f"{custom},seed:{seed}")
     images = torch.from_numpy(np.random.default_rng(seed).integers(
@@ -2802,6 +2933,9 @@ def int8_beside_float(torch, np, counters, name: str, custom: str, size: int, ba
             raise AssertionError(f"h4 {name}: int8 against bf16 correlation {corr} (want > 0.8), "
                                  "or not finite")
         per_call = launches_per_call(torch, counters, lambda: mods[1](images[:1]))
+        reckoned = reckoned_routes(q, mods[1])
+        if {k: per_call[k] for k in reckoned} != reckoned:
+            raise AssertionError(f"h4 {name}: int8 launches per call {per_call}, want {reckoned}")
         ms = [time_ms(lambda m=m: m(images), reps=5, inner=1) for m in mods]
     print(f"h4 {name} int8: outputs correlate {', '.join(f'{c:.4f}' for c in corr)} with the bf16 "
           f"build's; {batch}-frame micro-batch {ms[1]:.2f} ms against bf16 {ms[0]:.2f} ms (CUDA "
@@ -2830,12 +2964,18 @@ def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None
                           {"normalize_u8": 1, "top1": 1, **MOBILENET_INT8}, INT8_FRAMES, seed,
                           card, labels)
     module, images, b = r.pop("module"), r.pop("images"), r["batches"]
-    layers = len(quant_layers(module))
-    # each layer quantizes its weight once, at its first call
-    check_launches("h1", r["launches"], {
-        "normalize_u8": b, "top1": b, "quantize_i8": MOBILENET_INT8["quantize_i8"] * b + layers,
-        "int8_conv": MOBILENET_INT8["int8_conv"] * b,
-        "int8_dwconv": MOBILENET_INT8["int8_dwconv"] * b})
+    layers = quant_layers(module)
+    # each layer quantizes its weight once, at its first call, by the route
+    # of its (O, kh kw C/groups) float32 rows
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    weights = Counter(q.quantize_plan(m.weight.shape[0], m.weight[0].numel(), 4,
+                                      m.weight[0].numel(), 0, sms).route for m in layers)
+    want = {k: v * b for k, v in MOBILENET_INT8.items()}
+    want["quantize_i8"] += len(layers)
+    want["quantize_i8_onepass"] += weights["one-pass"]
+    want["quantize_i8_twopass"] = weights["two-pass"]
+    check_launches("h1", r["launches"], {"normalize_u8": b, "top1": b, **want})
+    layers = len(layers)
     paths["mobilenet_v2_int8"] = {"launches": r["launches"], "batches": b}
     summary["h1"] = {k: r[k] for k in ("fps", "fps_steady", "latency_ms_p50", "latency_ms_p99")}
     if beside is not None:
@@ -2887,9 +3027,10 @@ def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None
     r = run_lm_path(torch, np, counters, 8, seed, card, custom=f"{LM_CUSTOM},quantize:int8",
                     name="LM int8")
     lb = r["batches"]
-    if (r["launches"]["int8_conv"], r["launches"]["quantize_i8"], r["launches"]["int8_dwconv"]) != (
-            layers_lm * lb, layers_lm * lb + layers_lm, 0):
-        raise AssertionError(f"LM int8: launches {r['launches']} for {lb} invokes")
+    got = [r["launches"][k] for k in ("int8_conv", "int8_conv_gemm", "quantize_i8", "int8_dwconv")]
+    if got != [layers_lm * lb, layers_lm * lb, layers_lm * lb + layers_lm, 0]:
+        raise AssertionError(f"LM int8: launches {r['launches']} for {lb} invokes (want every "
+                             "int8_conv on the GEMM route)")
     paths["gpt2_small_int8"] = {"launches": r["launches"], "batches": lb}
     summary["h4"]["gpt2_small_scoring"] = {"sps": r["sps"], "sps_steady": r["sps_steady"],
                                            "dense_per_call": layers_lm}
@@ -2901,9 +3042,11 @@ def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None
     sizes, launches = generate_through_filter(
         torch, np, counters, f"{LM_CUSTOM},seed:{seed},quantize:int8", prompts, "int8 generate:32")
     gen_s = time.perf_counter() - t
-    if launches["int8_conv"] != 32 * layers_lm * len(sizes):
+    if launches["int8_conv"] != 32 * layers_lm * len(sizes) or (
+            launches["int8_conv_gemm"] != launches["int8_conv"]):
         raise AssertionError(f"int8 generate:32: launches {launches} for {len(sizes)} invokes "
-                             f"(want {32 * layers_lm} int8_conv each: one prefill, 31 steps)")
+                             f"(want {32 * layers_lm} int8_conv each, one prefill and 31 steps, "
+                             "all on the GEMM route)")
     paths["gpt2_small_int8_generation"] = {"launches": launches, "batches": len(sizes)}
     summary["h4"]["gpt2_small_generate32"] = {"invokes": sizes, "seconds": gen_s}
     print(f"h4 GPT-2 small int8 generate:32 through tensor_filter: 8 prompts of 128 tokens in "
@@ -2925,7 +3068,11 @@ def kernel_counters() -> Counters:
     return Counters({"normalize_u8": (pre, "LAUNCHES"), "top1": (lab, "LAUNCHES"),
                      "flash_attention": (fa, "LAUNCHES"),
                      "flash_attention_tensor_cores": (fa, "LAUNCHES_TENSOR_CORES"),
-                     "quantize_i8": (q, "QUANTIZE_LAUNCHES"), "int8_conv": (q, "CONV_LAUNCHES"),
+                     "quantize_i8": (q, "QUANTIZE_LAUNCHES"),
+                     "quantize_i8_onepass": (q, "QUANTIZE_ONEPASS_LAUNCHES"),
+                     "quantize_i8_twopass": (q, "QUANTIZE_TWOPASS_LAUNCHES"),
+                     "int8_conv": (q, "CONV_LAUNCHES"), "int8_conv_gemm": (q, "CONV_GEMM_LAUNCHES"),
+                     "int8_conv_gather": (q, "CONV_GATHER_LAUNCHES"),
                      "int8_dwconv": (q, "DWCONV_LAUNCHES")})
 
 
@@ -3050,6 +3197,11 @@ def main() -> int:
         k["microbatches_by_path"] = {name: p["batches"] for name, p in paths.items()
                                      if by_path[name]}
         k["kernel_ms"] = k["ms"]
+    for k in kernels:
+        routes = {"quantize_i8": ("onepass", "twopass"), "int8_conv": ("gemm", "gather")}
+        for route in routes.get(k["name"], ()):
+            k.setdefault("launches_by_route", {})[route] = sum(
+                p["launches"][f"{k['name']}_{route}"] for p in paths.values())
     kernels[2]["launches_tensor_cores_by_path"] = {
         name: p["launches"]["flash_attention_tensor_cores"] for name, p in paths.items()}
     flash = kernels[2]["launches_by_path"]

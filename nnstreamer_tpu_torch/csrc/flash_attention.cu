@@ -61,6 +61,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -273,10 +274,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 __device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op; -> 0 far below
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -309,27 +306,6 @@ struct WgCfg {
                                     2 * kStages * kTileBytes + 128 /* barriers */;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
 // one box of the 4-D (D, H, T, B) tensor map into shared memory, completing on bar
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d0,
                                          int h, int t0, int b) {
@@ -340,21 +316,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle; 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
@@ -452,7 +413,7 @@ __device__ __forceinline__ void wg_tile(const Params& p, float (&o)[kD / 64][32]
     }
   }
   wg_commit();
-  wg_wait0();
+  wg_wait<0>();
 #pragma unroll
   for (int e = 0; e < kN; ++e) asm volatile("" : "+f"(s[e])::"memory");
 
@@ -511,7 +472,7 @@ __device__ __forceinline__ void wg_tile(const Params& p, float (&o)[kD / 64][32]
     for (int c = 0; c < kC; ++c)
       wgmma_rs_t(o[c], pa[kk], sw128_desc(va + c * Cfg::kTileChunk + kk * 16 * 128));
   wg_commit();
-  wg_wait0();
+  wg_wait<0>();
 #pragma unroll
   for (int c = 0; c < kC; ++c) fence_regs(o[c]);
 }
@@ -648,25 +609,6 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<kD>::kMinBlocks)
             lsum > 0.f ? m[r] * p.scale + logf(den) : kMasked;
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found through the runtime: no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
 }
 
 // (D, H, T, B) view of a (B, T, H, D) tensor; boxes of 64 columns x `rows` tokens

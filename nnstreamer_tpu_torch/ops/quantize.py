@@ -22,15 +22,19 @@ Layouts are PyTorch's at the public functions: NCHW activations (held
 weights, ``(out, in)`` dense weights.  Quantized weights are kept as rows
 of the OHWI (or ``(out, in)``) weight: one row per output channel.
 
-On a CUDA tensor the work goes to three hand-written kernels:
-``csrc/quantize_i8.cu`` (row abs-max then quantize, for activations and
-weights alike), ``csrc/int8_conv.cu`` (implicit-GEMM int8 convolution for
-``groups == 1``; a dense layer is the same kernel with H = W = 1) and
-``csrc/int8_dwconv.cu`` (direct depthwise convolution, ``groups == C ==
-out``).  Other groups, dtypes or layouts raise there.  On a CPU tensor the
-plain versions run: the integer products in float64 (``F.conv2d`` with
-``groups``, ``torch.matmul``), exact since every partial sum stays below
-2^53.
+On a CUDA tensor the work goes to three hand-written kernels, two of them
+by two routes chosen from the shape before any launch (neither falls back
+to the other): ``csrc/quantize_i8.cu`` for activations and weights alike
+(:func:`quantize_plan`: one cooperative launch that reads the input once,
+in waves of whole rows, or the two-pass kernel for a row longer than a
+wave or an unaligned one), ``csrc/int8_conv.cu`` for ``groups == 1`` and
+dense layers (:func:`int8_conv_route`: s8 wgmma fed by TMA where the
+activation is a plain row-major ``[M, K]`` matrix, else the implicit-GEMM
+gather kernel) and ``csrc/int8_dwconv.cu`` (direct depthwise convolution,
+``groups == C == out``).  Other groups, dtypes or layouts raise there.  On
+a CPU tensor the plain versions run: the integer products in float64
+(``F.conv2d`` with ``groups``, ``torch.matmul``), exact since every partial
+sum stays below 2^53.
 
 Weight quantization is deterministic, so callers may quantize a weight
 once per version and pass it as ``qweight`` (``models/_quant_flax.py``
@@ -42,19 +46,25 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-#: launches of ``csrc/quantize_i8.cu`` (one per quantized tensor: its
-#: abs-max and quantize passes together) in this process
+#: launches of ``csrc/quantize_i8.cu`` (one per quantized tensor, either
+#: route) in this process, and of each route
 QUANTIZE_LAUNCHES = 0
-#: launches of ``csrc/int8_conv.cu`` (convolutions with groups 1 and dense layers)
+QUANTIZE_ONEPASS_LAUNCHES = 0
+QUANTIZE_TWOPASS_LAUNCHES = 0
+#: launches of ``csrc/int8_conv.cu`` (convolutions with groups 1 and dense
+#: layers, either route), and of each route
 CONV_LAUNCHES = 0
+CONV_GEMM_LAUNCHES = 0
+CONV_GATHER_LAUNCHES = 0
 #: launches of ``csrc/int8_dwconv.cu`` (depthwise convolutions)
 DWCONV_LAUNCHES = 0
 
@@ -68,12 +78,25 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _QUANTIZE_SIGNATURES = {
     # x, in code, rows, cols, row stride, q, scale, scratch, eps, stream
     "nns_quantize_i8": (_P, _I, _I64, _I64, _I64, _P, _P, _P, _F, _P),
+    # x, in code, rows, cols, row stride, rows per wave, grid, q, scale,
+    # scratch, eps, stream
+    "nns_quantize_i8_onepass": (_P, _I, _I64, _I64, _I64, _I64, _I, _P, _P, _P, _F, _P),
 }
 # xq, s_x, wq, s_w, out, out code, N, H, W, C, O, kh, kw, stride, Ho, Wo,
 # pad top, pad left, stream
 _CONV_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
-_CONV_SIGNATURES = {"nns_int8_conv": _CONV_ARGS}
+_CONV_SIGNATURES = {
+    "nns_int8_conv": _CONV_ARGS,
+    # a, s_a, b, s_b, out, out code, M, N, K, rows per scale, stream
+    "nns_int8_gemm": (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I64, _P),
+}
 _DWCONV_SIGNATURES = {"nns_int8_dwconv": _CONV_ARGS}
+
+#: bytes of each of the three wave buffers of a block of the one-pass
+#: quantize kernel (``kBufBytes`` in ``csrc/quantize_i8.cu``)
+QUANTIZE_BUF_BYTES = 72 * 1024
+#: input bytes below which the one-pass kernel takes fewer blocks than SMs
+QUANTIZE_BLOCK_BYTES = 16 * 1024
 
 Quantized = Tuple[torch.Tensor, torch.Tensor]
 
@@ -92,6 +115,11 @@ def _stream(t: torch.Tensor) -> int:
 def _check_cuda(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # -- quantization -------------------------------------------------------------
@@ -118,11 +146,45 @@ def quantize_rows_plain(x: torch.Tensor) -> Quantized:
     return q, scale.reshape(-1)
 
 
+class QuantizePlan(NamedTuple):
+    """How ``csrc/quantize_i8.cu`` runs one (rows, cols) input."""
+
+    route: str  #: "one-pass" or "two-pass"
+    grid: int  #: blocks of the one-pass launch (0 for two-pass)
+    rows_per_wave: int  #: whole rows each one-pass wave holds (0 for two-pass)
+
+
+def quantize_plan(rows: int, cols: int, itemsize: int, row_stride: int, x_ptr: int,
+                  sms: int) -> QuantizePlan:
+    """The route of one quantization, from the shape and the base alone.
+    One pass: a cooperative launch of ``grid`` blocks (one per SM, fewer
+    for a small input: about ``QUANTIZE_BLOCK_BYTES`` each) walks waves of
+    ``rows_per_wave`` whole rows, each block's equal slice of a wave held
+    in one of its three ``QUANTIZE_BUF_BYTES`` buffers, so the input is
+    read once.  It needs 16-byte aligned rows (base, row bytes, row
+    stride) for its bulk copies, and one row in a wave; anything else
+    takes the two passes."""
+    vec = 16 // itemsize
+    row_bytes = cols * itemsize
+    aligned = (x_ptr % 16 == 0 and row_bytes % 16 == 0
+               and (rows == 1 or row_stride * itemsize % 16 == 0))
+    grid = max(1, min(sms, -(-rows * row_bytes // QUANTIZE_BLOCK_BYTES)))
+
+    def slice_bytes(n: int) -> int:  # a block's share of a wave of n rows
+        return -(-(-(-n * cols // grid)) // vec) * vec * itemsize
+
+    n = min(rows, grid * (QUANTIZE_BUF_BYTES // itemsize) // cols) if aligned else 0
+    while n and slice_bytes(n) > QUANTIZE_BUF_BYTES:
+        n -= 1
+    return QuantizePlan("one-pass", grid, n) if n else QuantizePlan("two-pass", 0, 0)
+
+
 def quantize_rows(x: torch.Tensor) -> Quantized:
     """(rows, cols) float32, float16 or bfloat16 -> (int8 (rows, cols)
     contiguous, float32 scale (rows,)): one scale per row.  On a CUDA
-    tensor each row must be contiguous (rows may sit at any stride)."""
-    global QUANTIZE_LAUNCHES
+    tensor each row must be contiguous (rows may sit at any stride); the
+    route is :func:`quantize_plan`'s."""
+    global QUANTIZE_LAUNCHES, QUANTIZE_ONEPASS_LAUNCHES, QUANTIZE_TWOPASS_LAUNCHES
     if x.dim() != 2:
         raise ValueError(f"quantize_rows takes a 2-D tensor, got {tuple(x.shape)}")
     if x.dtype not in _IN_CODES:
@@ -139,14 +201,26 @@ def quantize_rows(x: torch.Tensor) -> Quantized:
     scale = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return q, scale
-    scratch = torch.empty(rows, dtype=torch.int32, device=x.device)
+    row_stride = x.stride(0) if rows > 1 else cols
+    plan = quantize_plan(rows, cols, x.element_size(), row_stride, x.data_ptr(), _sms(x.device))
+    # the rows' abs-max slots, then (one pass) a grid counter a wave
+    waves = -(-rows // plan.rows_per_wave) if plan.rows_per_wave else 0
+    scratch = torch.empty(rows + waves, dtype=torch.int32, device=x.device)
     lib = _build.load("quantize_i8", _QUANTIZE_SIGNATURES)
+    args = (q.data_ptr(), scale.data_ptr(), scratch.data_ptr(), EPS, _stream(x))
     with torch.cuda.device(x.device):
-        err = lib.nns_quantize_i8(x.data_ptr(), _IN_CODES[x.dtype], rows, cols,
-                                  x.stride(0) if rows > 1 else cols, q.data_ptr(),
-                                  scale.data_ptr(), scratch.data_ptr(), EPS, _stream(x))
-    _build.check(lib, err, "quantize_i8")
+        if plan.route == "one-pass":
+            err = lib.nns_quantize_i8_onepass(x.data_ptr(), _IN_CODES[x.dtype], rows, cols,
+                                              row_stride, plan.rows_per_wave, plan.grid, *args)
+        else:
+            err = lib.nns_quantize_i8(x.data_ptr(), _IN_CODES[x.dtype], rows, cols, row_stride,
+                                      *args)
+    _build.check(lib, err, f"quantize_i8 ({plan.route})")
     QUANTIZE_LAUNCHES += 1
+    if plan.route == "one-pass":
+        QUANTIZE_ONEPASS_LAUNCHES += 1
+    else:
+        QUANTIZE_TWOPASS_LAUNCHES += 1
     return q, scale
 
 
@@ -239,6 +313,17 @@ def check_kernel_args(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor,
     return groups > 1
 
 
+def int8_conv_route(c: int, kh: int, kw: int, stride: int, x_ptr: int, w_ptr: int) -> str:
+    """The route of ``csrc/int8_conv.cu`` for a groups-1 convolution of C
+    input channels (a dense layer: C inputs, 1 x 1, stride 1), from the
+    shape and the operands' bases alone: "gemm" where the activation is a
+    plain row-major [M, K = C] int8 matrix that a TMA tensor map can
+    describe (1 x 1, stride 1, K a multiple of 16, both bases 16-byte
+    aligned), else "gather"."""
+    plain = kh == kw == 1 and stride == 1
+    return "gemm" if plain and c % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0 else "gather"
+
+
 def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
             stride: int = 1, groups: int = 1,
             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -247,8 +332,9 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
     C / groups) OHWI int8 with per-channel scales ``s_w`` (O,).  Returns
     (N, O, Ho, Wo) ``channels_last`` in ``out_dtype`` (``torch.int32``: the
     raw accumulator, no epilogue).  CUDA: ``groups`` 1 through
-    ``int8_conv.cu``, ``groups == C == O`` through ``int8_dwconv.cu``."""
-    global CONV_LAUNCHES, DWCONV_LAUNCHES
+    ``int8_conv.cu`` by :func:`int8_conv_route`'s route, ``groups == C ==
+    O`` through ``int8_dwconv.cu``."""
+    global CONV_LAUNCHES, CONV_GEMM_LAUNCHES, CONV_GATHER_LAUNCHES, DWCONV_LAUNCHES
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"conv_i8 outputs float32/float16/bfloat16/int32, not {out_dtype}")
     n, h, w, c = xq.shape
@@ -265,18 +351,28 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
+    route = "depthwise" if depthwise else int8_conv_route(c, kh, kw, stride, xq.data_ptr(),
+                                                           wq.data_ptr())
     name = "int8_dwconv" if depthwise else "int8_conv"
     lib = _build.load(name, _DWCONV_SIGNATURES if depthwise else _CONV_SIGNATURES)
-    entry = getattr(lib, f"nns_{name}")
+    operands = (xq.data_ptr(), s_x.data_ptr(), wq.data_ptr(), s_w.data_ptr(), out.data_ptr(),
+                _OUT_CODES[out_dtype])
     with torch.cuda.device(xq.device):
-        err = entry(xq.data_ptr(), s_x.data_ptr(), wq.data_ptr(), s_w.data_ptr(), out.data_ptr(),
-                    _OUT_CODES[out_dtype], n, h, w, c, o, kh, kw, stride, ho, wo,
-                    same_pads(h, kh, stride)[0], same_pads(w, kw, stride)[0], _stream(xq))
-    _build.check(lib, err, name)
+        if route == "gemm":
+            err = lib.nns_int8_gemm(*operands, n * h * w, o, c, h * w, _stream(xq))
+        else:
+            err = getattr(lib, f"nns_{name}")(
+                *operands, n, h, w, c, o, kh, kw, stride, ho, wo, same_pads(h, kh, stride)[0],
+                same_pads(w, kw, stride)[0], _stream(xq))
+    _build.check(lib, err, f"{name} ({route})")
     if depthwise:
         DWCONV_LAUNCHES += 1
     else:
         CONV_LAUNCHES += 1
+        if route == "gemm":
+            CONV_GEMM_LAUNCHES += 1
+        else:
+            CONV_GATHER_LAUNCHES += 1
     return out
 
 
@@ -291,7 +387,8 @@ def dense_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.T
              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``xq`` (M, K) int8 with row scales (M,) times ``wq`` (N, K) int8 with
     row scales (N,), transposed: (M, N) in ``out_dtype`` (``torch.int32``:
-    the raw accumulator).  On CUDA, ``int8_conv.cu`` with H = W = 1."""
+    the raw accumulator).  On CUDA, ``int8_conv.cu`` with H = W = 1 (a
+    1 x 1 convolution: the GEMM route where :func:`int8_conv_route` allows)."""
     m, k = xq.shape
     if xq.device.type == "cpu":
         if out_dtype not in _OUT_CODES:

@@ -208,3 +208,151 @@ def test_quantize_rows_checks_before_any_launch():
         tq.quantize_rows(torch.zeros(2, 3, dtype=torch.int32))
     with pytest.raises(ValueError, match="trailing axes"):
         tq.quantize_symmetric(torch.empty(3, 3, 4, 6, device="meta"), (0, 1, 2))
+
+
+# -- the kernels' routes (chosen by shape before any launch) ------------------
+
+_FULL_WIDTH = {  # family: (props, reckoned int8_conv launches per call by route)
+    "mobilenet_v2": ({}, {"gemm": 32, "gather": 3, "depthwise": 17}),
+    "ssd_mobilenet_v2": ({"classes": "91"}, {"gemm": 36, "gather": 7, "depthwise": 17}),
+    "yolov5s": ({"size": "640", "classes": "80"}, {"gemm": 39, "gather": 18}),
+    "vit": ({"size": "224", "patch": "16", "d_model": "768", "heads": "12", "layers": "12",
+             "d_ff": "3072", "classes": "1001"}, {"gemm": 48}),
+    "transformer": ({"vocab": "50257", "d_model": "768", "heads": "12", "layers": "12",
+                     "d_ff": "3072", "seq": "1024"}, {"gemm": 48}),
+}
+
+
+@pytest.mark.parametrize("family", list(_FULL_WIDTH))
+def test_int8_conv_route_at_every_layer_of_the_int8_families(family):
+    """Every int8 layer of the five int8 builds at full width (built on the
+    meta device: shapes only), routed by ``int8_conv_route`` with aligned
+    operands as the fresh activations and weights are: MobileNet-v2 runs 32
+    of its 35 groups-1 layers on the GEMM route (the stem, K = 27, and the
+    two expansions of 24 channels gather), ViT-B/16 and GPT-2 small all 48."""
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d, QuantLinear
+
+    props, want = _FULL_WIDTH[family]
+    with torch.device("meta"):
+        module, _, _ = build(family, dict(props, dtype="float32", quantize="int8"))
+    routes = {}
+    for m in module.modules():
+        if isinstance(m, QuantLinear):
+            route = tq.int8_conv_route(m.in_features, 1, 1, 1, 0, 0)
+        elif isinstance(m, QuantConv2d):
+            route = "depthwise" if m.groups > 1 else tq.int8_conv_route(
+                m.in_channels, *m.kernel_size, m.stride[0], 0, 0)
+        else:
+            continue
+        routes[route] = routes.get(route, 0) + 1
+    assert routes == want
+
+
+@pytest.mark.parametrize("case,route", [
+    ((16, 1, 1, 1, 0, 0), "gemm"),  # K = 16
+    ((3072, 1, 1, 1, 4096, 512), "gemm"),  # K = 3072, aligned bases
+    ((24, 1, 1, 1, 0, 0), "gather"),  # K % 16 = 8: no 16-byte global stride
+    ((27, 1, 1, 1, 0, 0), "gather"),
+    ((64, 3, 3, 1, 0, 0), "gather"),  # k x k: the activation is no [M, K] matrix
+    ((64, 1, 1, 2, 0, 0), "gather"),  # 1 x 1 stride 2: neither
+    ((64, 1, 1, 1, 8, 0), "gather"),  # activation 8 bytes off alignment
+    ((64, 1, 1, 1, 0, 4), "gather"),  # weight 4 bytes off
+], ids=["K16", "K3072", "K24", "K27", "3x3", "stride2", "x_off8", "w_off4"])
+def test_int8_conv_route_edges(case, route):
+    assert tq.int8_conv_route(*case) == route
+
+
+def _waves(plan, rows, cols, itemsize):
+    """The one-pass kernel's partition (``wave_slice`` in
+    ``csrc/quantize_i8.cu``): per wave, each block's flat [c0, c1)."""
+    vec = 16 // itemsize
+    for r0 in range(0, rows, plan.rows_per_wave):
+        e = min(plan.rows_per_wave, rows - r0) * cols
+        chunk = -(-(-(-e // plan.grid)) // vec) * vec
+        yield r0, [(min(e, b * chunk), min(e, b * chunk + chunk)) for b in range(plan.grid)], e
+
+
+@pytest.mark.parametrize("rows,cols,itemsize", [
+    (128, 112 * 112 * 96, 2),  # MobileNet-v2's largest activation, 128 frames
+    (16, 320 * 320 * 32, 2),  # the largest on any path: YOLOv5s 640 after its stem
+    (8192, 768, 2),  # GPT-2 small's tokens
+    (1, 768, 4), (3, 16, 2), (1001, 1280, 4),  # one decode slot, tiny rows, weight rows
+    (7, 48, 4),
+], ids=["mobilenet", "yolov5s640", "gpt2", "slot", "tiny", "head_weight", "odd"])
+def test_quantize_plan_waves_hold_whole_rows_once(rows, cols, itemsize):
+    plan = tq.quantize_plan(rows, cols, itemsize, cols, 0, sms=132)
+    assert plan.route == "one-pass" and 1 <= plan.grid <= 132 and plan.rows_per_wave >= 1
+    covered = []
+    for r0, slices, e in _waves(plan, rows, cols, itemsize):
+        assert slices[0][0] == 0 and slices[-1][1] == e  # the wave's rows, whole
+        assert all(a == b for (_, a), (b, _) in zip(slices, slices[1:]))  # in order, no overlap
+        assert all((c1 - c0) * itemsize <= tq.QUANTIZE_BUF_BYTES for c0, c1 in slices)
+        assert all(c0 * itemsize % 16 == 0 for c0, _ in slices)  # bulk copies 16-byte aligned
+        covered += range(r0, r0 + e // cols)
+    assert covered == list(range(rows))  # every row once
+    if rows * cols * itemsize < 132 * tq.QUANTIZE_BLOCK_BYTES:
+        assert plan.grid < 132  # a small input takes few blocks
+
+
+def test_quantize_plan_takes_two_passes_where_one_cannot():
+    wave = 132 * tq.QUANTIZE_BUF_BYTES
+    assert tq.quantize_plan(1, wave // 2 + 8, 2, 0, 0, 132).route == "two-pass"  # longer than a wave
+    assert tq.quantize_plan(1, wave // 2 - 8 * 132, 2, 0, 0, 132).route == "one-pass"
+    # YOLOv5s 640's largest row fits in bf16, not in float32
+    assert tq.quantize_plan(16, 320 * 320 * 32, 4, 320 * 320 * 32, 0, 132).route == "two-pass"
+    for args in ((4, 40, 4, 40, 8), (4, 36, 2, 36, 0), (4, 40, 4, 41, 0), (1, 9, 4, 9, 0)):
+        assert tq.quantize_plan(*args, 132).route == "two-pass", args  # unaligned
+
+
+def test_new_routes_check_before_any_launch(monkeypatch):
+    """Meta tensors and views the kernels cannot take raise before any
+    library is built or loaded, on both routes of both kernels."""
+    from nnstreamer_tpu_torch.ops import _build
+
+    def no_load(*args):
+        raise AssertionError("a kernel library was loaded")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    meta = dict(device="meta")
+    xq = torch.empty(65, 1, 1, 64, dtype=torch.int8, **meta)  # a GEMM-route shape
+    wq = torch.empty(96, 1, 1, 64, dtype=torch.int8, **meta)
+    sx, sw = torch.empty(65, **meta), torch.empty(96, **meta)
+    strided = torch.empty(5, 64, 13, 1, dtype=torch.int8, **meta).permute(0, 3, 2, 1)
+    for route, plan in (("gemm", "one-pass"), ("gather", "two-pass")):
+        monkeypatch.setattr(tq, "int8_conv_route", lambda *args, r=route: r)
+        monkeypatch.setattr(tq, "quantize_plan", lambda *args, r=plan: tq.QuantizePlan(r, 1, 1))
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            tq.conv_i8(xq, sx, wq, sw)
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            tq.dense_i8(xq.reshape(65, 64), sx, wq.reshape(96, 64), sw)
+        with pytest.raises(ValueError, match="contiguous"):
+            tq.conv_i8(strided, sx[:5], wq, sw)
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            tq.quantize_rows(torch.empty(4, 64, **meta))
+        with pytest.raises(ValueError, match="each row contiguous"):
+            tq.quantize_rows(torch.empty(64, 4, **meta).T)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 16, 24), (65, 64, 96), (3, 1280, 1001)],
+                         ids=["M1_K16_N24", "M65", "N1001"])
+def test_plain_versions_bit_equal_to_jax_at_gemm_route_edges(m, k, n):
+    """``dense_i8_plain`` and ``conv_i8_plain`` (a 1 x 1 convolution) at the
+    GEMM route's edge shapes against the JAX ops, bf16 out and the int32
+    accumulator."""
+    rng = np.random.default_rng(m + k + n)
+    x, w = _normal(rng, (m, k), torch.bfloat16), _normal(rng, (k, n))
+    want = jq.int8_dense(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.bfloat16)
+    got = tq.int8_dense(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w.T.copy()),
+                        torch.bfloat16)
+    np.testing.assert_array_equal(_bits(got), _jax_bits(want, torch.bfloat16))
+    conv = tq.int8_conv(_nchw(x.reshape(m, 1, 1, k), torch.bfloat16),
+                        torch.from_numpy(w.T.copy()).reshape(n, k, 1, 1), 1, 1, torch.bfloat16)
+    np.testing.assert_array_equal(_bits(conv.reshape(m, n)), _jax_bits(want, torch.bfloat16))
+    xq, sx = tq.quantize_rows_plain(torch.from_numpy(x))
+    wq, sw = tq.quantize_weight_plain(torch.from_numpy(w.T.copy()))
+    acc = tq.dense_i8_plain(xq, sx, wq, sw, torch.int32)
+    jx, _ = jq.quantize_symmetric(jnp.asarray(x), (1,))
+    jw, _ = jq.quantize_symmetric(jnp.asarray(w), (0,))
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jax.lax.dot_general(
+        jx, jw, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)))
