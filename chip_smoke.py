@@ -209,12 +209,21 @@ Phases (any failure exits non-zero before the result lines are printed):
          the product (in the layer's dtype and as the int32 accumulator)
          bit-equal to the plain versions, by the layer's own routes and by
          the general ones (two-pass, gather); the same at ``INT8_AWKWARD``'s
-         shapes (K = 27, 16 and 3072, M = 1 and 65, N = 24 and 1001, odd H
-         and W, 6x6 stride 2, C not a multiple of 16 or 4, float32/bf16/fp16
-         in), an activation 8 bytes off alignment (the gather route) and a
-         row longer than a wave (the two-pass route); the kernels timed on
-         both routes at path shapes beside their plain versions, their
-         bounds and ``torch._int_mm``;
+         shapes (K = 27, 16 and 3072, M = 1, 65 and 129, N = 24 and 1001,
+         odd H and W, 6x6 and 3x3 stride 2 at even and odd sizes, C of 32
+         and 64 at 3x3, C not a multiple of 16 or 4, O of 32 and 64,
+         depthwise at C = 6, 144, 576 and 960, float32/bf16/fp16 in), each
+         also counted once on the route its plan names; an activation 8
+         bytes off alignment (1 x 1 on the gather route, 3x3 and depthwise
+         in 8-byte copies), the 6x6 stem's 1, 2 and 3 bytes off, a row
+         longer than a wave (the two-pass route); ``INT8_STRESS``'s layers
+         run ``INT8_STRESS_RUNS`` times back to back, every run bit-equal
+         to the plain int32 accumulator; the kernels timed on both routes
+         at path shapes beside their plain versions, their bounds and
+         ``torch._int_mm``, and (``time_int8_layers``) every gather-route
+         and depthwise layer of one MobileNet-v2, SSD-MobileNet-v2 and
+         YOLOv5s call at 128 frames beside its bound and cuDNN's bf16
+         convolution, with the sums (an ``{"int8_layers": ...}`` line);
       3. frames alone give the int8 trunk output of their rows in a
          micro-batch of 128, bit for bit;
       4. SSD-MobileNet-v2 300, YOLOv5s 640 and ViT-B/16 224 (``attn:flash``)
@@ -2707,13 +2716,27 @@ INT8_AWKWARD = [
     (2, 15, 15, 144, 144, 3, 1, 144, "bfloat16"),  # depthwise, odd
     (2, 9, 9, 6, 6, 3, 2, 6, "float32"),  # depthwise, C % 4 != 0
     (1, 10, 10, 32, 32, 3, 2, 32, "float16"),
+    (2, 12, 12, 32, 32, 3, 1, 1, "bfloat16"),  # a 128-byte stage spans 4 taps; O = 32
+    (2, 11, 11, 64, 64, 3, 1, 1, "float16"),  # 2 taps a stage; O = 64
+    (2, 16, 16, 32, 64, 3, 2, 1, "bfloat16"),  # 3x3/2 even (pads 0 and 1)
+    (2, 17, 15, 32, 64, 3, 2, 1, "float32"),  # 3x3/2 odd
+    (1, 3, 43, 32, 32, 3, 1, 1, "bfloat16"),  # M = 129: one row past a tile
+    (2, 32, 32, 3, 32, 3, 2, 1, "bfloat16"),  # MobileNet-v2's stem, even
+    (2, 40, 40, 128, 128, 3, 1, 1, "bfloat16"),  # YOLOv5s's bottleneck, K = 1152
+    (2, 7, 7, 960, 960, 3, 1, 960, "bfloat16"),  # depthwise C = 960
+    (2, 14, 14, 576, 576, 3, 2, 576, "float32"),  # depthwise 3x3/2, C = 576
 ]
+
+
+def route_counts(q) -> tuple:
+    return q.CONV_GEMM_LAUNCHES, q.CONV_GATHER_LAUNCHES, q.DWCONV_LAUNCHES
 
 
 def check_int8_awkward(torch, q) -> int:
     """h2 at INT8_AWKWARD's shapes: a seeded int8 layer of each (and, at
     H = W = 1, the dense layer of the same weight) through
-    :func:`check_int8_layer`."""
+    :func:`check_int8_layer`, then one call by its own plan, counted on the
+    route the plan names; the route edges; the stress case."""
     from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d, QuantLinear
 
     dev = torch.device("cuda", 0)
@@ -2726,6 +2749,15 @@ def check_int8_awkward(torch, q) -> int:
             conv.weight.copy_(torch.randn(conv.weight.shape, device=dev, generator=g))
         what = f"awkward {(n, h, w, c, o, k, s, groups, dt)}"
         check_int8_layer(torch, q, conv, x, what)
+        before = route_counts(q)
+        conv(x)
+        wq = conv.qweight()[0]
+        route = "depthwise" if groups > 1 else q.int8_conv_plan(
+            c, o, k, k, s, 0, wq.data_ptr()).route  # fresh activations are aligned
+        want = tuple(b + (r == route) for b, r in zip(before, ("gemm", "gather", "depthwise")))
+        if route_counts(q) != want:
+            raise AssertionError(f"{what}: launches {route_counts(q)} from {before}, want the "
+                                 f"{route} route once")
         if h == w == 1:  # the dense route
             dense = QuantLinear(c, o).to(dev)
             with torch.no_grad():
@@ -2733,15 +2765,49 @@ def check_int8_awkward(torch, q) -> int:
             check_int8_layer(torch, q, dense, x.reshape(n, c), what + " dense")
     torch.cuda.synchronize()
     check_route_edges(torch, q)
-    return len(INT8_AWKWARD) + 2
+    check_int8_stress(torch, q)
+    return len(INT8_AWKWARD) + 2 + len(INT8_STRESS)
+
+
+#: the stress case: (n, h, w, c, o, kernel, stride, groups) layers each run
+#: INT8_STRESS_RUNS times back to back, every run compared bit for bit (a
+#: missing fence between the gather producers' copies and wgmma, or between
+#: a depthwise box and its readers, shows only as rare wrong values)
+INT8_STRESS = [
+    (8, 320, 320, 32, 64, 3, 2, 1),  # YOLOv5s's second convolution (16-byte copies)
+    (8, 640, 640, 3, 32, 6, 2, 1),  # its stem (byte copies)
+    (16, 40, 40, 128, 128, 3, 1, 1),  # its bottleneck: 9 stages a tile
+    (16, 112, 112, 96, 96, 3, 2, 96),  # MobileNet-v2's first strided depthwise layer
+]
+INT8_STRESS_RUNS = 40
+
+
+def check_int8_stress(torch, q) -> None:
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(9)
+    for n, h, w, c, o, k, s, groups in INT8_STRESS:
+        xq = torch.randint(-127, 128, (n, h, w, c), dtype=torch.int8, device=dev, generator=g)
+        wq = torch.randint(-127, 128, (o, k, k, c // groups), dtype=torch.int8, device=dev,
+                           generator=g)
+        sx, sw = torch.rand(n, device=dev, generator=g), torch.rand(o, device=dev, generator=g)
+        want = q.conv_i8_plain(xq, sx, wq, sw, s, groups, torch.int32)
+        runs = [q.conv_i8(xq, sx, wq, sw, s, groups, torch.int32)
+                for _ in range(INT8_STRESS_RUNS)]
+        torch.cuda.synchronize()
+        bad = [i for i, r in enumerate(runs) if not torch.equal(r, want)]
+        if bad:
+            raise AssertionError(f"stress {(n, h, w, c, o, k, s, groups)}: runs {bad} of "
+                                 f"{INT8_STRESS_RUNS} differ from the plain int32 accumulator")
+        del runs, want
 
 
 def check_route_edges(torch, q) -> None:
-    """h2's two route edges, each bit-equal to its plain version and
-    counted on the route it must take: a GEMM-shaped 1 x 1 convolution
-    whose activation starts 8 bytes off 16-byte alignment (gather), and one
-    row longer than a wave of the one-pass quantize kernel (two-pass); then
-    rows of exact .5 ties through both quantize routes."""
+    """h2's route edges, each bit-equal to its plain version and counted on
+    the route it must take: a GEMM-shaped 1 x 1 convolution whose
+    activation starts 8 bytes off 16-byte alignment (gather), a 3 x 3 and a
+    depthwise layer on it (8-byte copies), and one row longer than a wave
+    of the one-pass quantize kernel (two-pass); then rows of exact .5 ties
+    through both quantize routes."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(7)
     n, h, w, c, o = 2, 7, 7, 64, 96
@@ -2759,6 +2825,30 @@ def check_route_edges(torch, q) -> None:
                    q.conv_i8_plain(xq, sx, wq, sw, out_dtype=out))
     if (q.CONV_GEMM_LAUNCHES, q.CONV_GATHER_LAUNCHES) != (before[0], before[1] + 2):
         raise AssertionError("h2: the unaligned activation did not launch the gather route")
+    # the 6 x 6 stem (C = 3: staged words) with its activation 1, 2 and 3 bytes off
+    for off in (1, 2, 3):
+        x3 = torch.randint(-127, 128, (2 * 20 * 18 * 3 + off,), dtype=torch.int8, device=dev,
+                           generator=g)[off:].view(2, 20, 18, 3)
+        w3 = torch.randint(-127, 128, (32, 6, 6, 3), dtype=torch.int8, device=dev, generator=g)
+        s3 = torch.rand(32, device=dev, generator=g)
+        for out in (torch.bfloat16, torch.int32):
+            int8_equal(torch, f"h2 stem {off} bytes off alignment -> {out}",
+                       q.conv_i8(x3, sx, w3, s3, 2, 1, out),
+                       q.conv_i8_plain(x3, sx, w3, s3, 2, 1, out))
+    # 3 x 3 and depthwise with the activation 8 bytes off: 8-byte copies
+    for o, groups in ((96, 1), (c, c)):
+        wq = torch.randint(-127, 128, (o, 3, 3, c // groups), dtype=torch.int8, device=dev,
+                           generator=g)
+        sw = torch.rand(o, device=dev, generator=g)
+        plan = (q.int8_conv_plan(c, o, 3, 3, 2, xq.data_ptr(), wq.data_ptr()).chunk
+                if groups == 1 else q.int8_dwconv_plan(n, h, w, c, 3, 3, 2, xq.data_ptr() % 16,
+                                                       132).chunk)
+        if plan != 8:
+            raise AssertionError(f"h2: groups {groups} 8 bytes off alignment copies {plan} bytes")
+        for out in (torch.bfloat16, torch.int32):
+            int8_equal(torch, f"h2 groups {groups} 3x3/2 8 bytes off alignment -> {out}",
+                       q.conv_i8(xq, sx, wq, sw, 2, groups, out),
+                       q.conv_i8_plain(xq, sx, wq, sw, 2, groups, out))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cols = sms * q.QUANTIZE_BUF_BYTES // 2 + 8  # bf16: one vector more than a wave holds
     x = torch.randn(1, cols, device=dev, generator=g).to(torch.bfloat16)
@@ -2861,6 +2951,101 @@ def time_int8(torch, q) -> list:
                  replaces="nnstreamer_tpu/ops/quantize.py:52 (groups 1) and :82", **conv),
             dict(common, name="int8_dwconv", source="nnstreamer_tpu_torch/csrc/int8_dwconv.cu",
                  replaces="nnstreamer_tpu/ops/quantize.py:52 (groups == C)", **dw)]
+
+
+#: the model calls whose gather-route and depthwise int8 layers
+#: time_int8_layers times one by one: (name, custom, size)
+INT8_LAYER_MODELS = (
+    ("MobileNet-v2", INT8_CUSTOM, 224),
+    ("SSD-MobileNet-v2", f"{INT8_DIRECT[0][1]},quantize:int8", 300),
+    ("YOLOv5s", f"{INT8_DIRECT[1][1]},quantize:int8", 640),
+)
+#: frames of each timed layer's input (a micro-batch of the paths)
+INT8_LAYER_FRAMES = 128
+
+
+def int8_layer_inputs(torch, module, inputs) -> list:
+    """(layer, input shape) of every int8 layer of `module` in call order,
+    from forward hooks during one call on `inputs`."""
+    seen = []
+    handles = [m.register_forward_hook(lambda m, args, out: seen.append((m, tuple(args[0].shape))))
+               for m in quant_layers(module)]
+    try:
+        with torch.inference_mode():
+            module(inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def time_int8_layers(torch, np, q, seed: int, card: str) -> dict:
+    """Each gather-route ``int8_conv`` and each ``int8_dwconv`` layer of one
+    call of INT8_LAYER_MODELS, at its own shape over INT8_LAYER_FRAMES
+    frames (random int8 input, the layer's int8 weight), bf16 out: the
+    kernel's time (CUDA events), its bound, and cuDNN's bf16 convolution
+    at the same shape as the bf16 build runs it (channels_last; a strided
+    layer on its SAME-padded input, the pad not timed).  Returns, per model
+    and kernel, the layers and the sums."""
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(8)
+    n = INT8_LAYER_FRAMES
+    result = {}
+    for name, custom, size in INT8_LAYER_MODELS:
+        props = custom_props(f"{custom},seed:{seed}")
+        module = build(props["arch"], props)[0].cuda().eval()
+        frame = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 256, (1, size, size, 3), dtype=np.uint8)).cuda()
+        per_kernel = {"int8_conv_gather": [], "int8_dwconv": []}
+        for layer, (_, c, h, w) in int8_layer_inputs(torch, module, frame):
+            if not isinstance(layer, QuantConv2d):
+                continue
+            (kh, kw), s, groups, o = layer.kernel_size, layer.stride[0], layer.groups, \
+                layer.out_channels
+            if groups == 1 and q.int8_conv_route(c, kh, kw, s, 0, 0) != "gather":
+                continue
+            xq = torch.randint(-127, 128, (n, h, w, c), dtype=torch.int8, device=dev, generator=g)
+            sx = torch.rand(n, device=dev, generator=g)
+            wq, sw = layer.qweight()
+            ms = time_ms(lambda: q.conv_i8(xq, sx, wq, sw, s, groups), reps=7, inner=5)
+            ho, wo = -(-h // s), -(-w // s)
+            outs = n * ho * wo * o
+            bound, by = bound_ms(xq.numel() + wq.numel() + 2 * outs + 4 * (n + o),
+                                 2 * outs * kh * kw * (c // groups), INT8_OPS_PER_S)
+            del xq
+            xb = torch.randn(n, c, h, w, device=dev, generator=g).to(torch.bfloat16)
+            xb = xb.contiguous(memory_format=torch.channels_last)
+            pad = (kh - 1) // 2
+            if s > 1:
+                top, bottom = q.same_pads(h, kh, s)
+                left, right = q.same_pads(w, kw, s)
+                xb, pad = F.pad(xb, (left, right, top, bottom)), 0
+            wb = torch.randn(o, c // groups, kh, kw, device=dev, generator=g).to(torch.bfloat16)
+            wb = wb.contiguous(memory_format=torch.channels_last)
+            cudnn = time_ms(lambda: F.conv2d(xb, wb, stride=s, padding=pad, groups=groups),
+                            reps=7, inner=5)
+            del xb
+            per_kernel["int8_dwconv" if groups > 1 else "int8_conv_gather"].append(
+                {"shape": [n, h, w, c, o, kh, s, groups], "ms": ms, "bound_ms": bound,
+                 "bound_by": by, "cudnn_bf16_ms": cudnn})
+        del module
+        torch.cuda.empty_cache()
+        result[name] = {}
+        for kernel, rows in per_kernel.items():
+            if not rows:
+                continue
+            sums = {k: sum(r[k] for r in rows) for k in ("ms", "bound_ms", "cudnn_bf16_ms")}
+            result[name][kernel] = dict(layers=len(rows), **sums, rows=rows)
+            print(f"{name} {kernel}: {len(rows)} layers of one call over {n} frames (bf16 out): "
+                  f"kernel {sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+                  f"({sums['bound_ms'] / sums['ms']:.0%}), cuDNN bf16 {sums['cudnn_bf16_ms']:.4f} "
+                  f"ms (CUDA events, sums of per-layer medians); on {card}", flush=True)
+    return result
 
 
 def check_batch_invariance(torch, module, images) -> list:
@@ -3006,6 +3191,12 @@ def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None
     checked["awkward"] = check_int8_awkward(torch, q)
     torch.cuda.empty_cache()
     kernels = time_int8(torch, q)
+    layer_times = time_int8_layers(torch, np, q, seed, card)
+    print(json.dumps({"int8_layers": layer_times | {"card": card}}))
+    for k, key in ((kernels[1], "int8_conv_gather"), (kernels[2], "int8_dwconv")):
+        k["model_layers"] = {model: {f: t[key][f] for f in (
+            "layers", "ms", "bound_ms", "cudnn_bf16_ms")} for model, t in layer_times.items()
+            if key in t}
     summary["h2_layers_bit_equal"] = checked
     print(f"h2: every int8 layer's quantize_i8, weight quantize_i8 and int8_conv/int8_dwconv "
           f"(output dtype and int32 accumulator) bit-equal to the plain versions on the layer's "

@@ -28,6 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    # a source's kernels optimised in parallel, one thread a core
+    # (int8_conv.cu instantiates 48)
+    "--split-compile=0",
 )
 
 _lock = threading.Lock()

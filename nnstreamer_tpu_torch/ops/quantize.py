@@ -28,10 +28,12 @@ to the other): ``csrc/quantize_i8.cu`` for activations and weights alike
 (:func:`quantize_plan`: one cooperative launch that reads the input once,
 in waves of whole rows, or the two-pass kernel for a row longer than a
 wave or an unaligned one), ``csrc/int8_conv.cu`` for ``groups == 1`` and
-dense layers (:func:`int8_conv_route`: s8 wgmma fed by TMA where the
-activation is a plain row-major ``[M, K]`` matrix, else the implicit-GEMM
-gather kernel) and ``csrc/int8_dwconv.cu`` (direct depthwise convolution,
-``groups == C == out``).  Other groups, dtypes or layouts raise there.  On
+dense layers (:func:`int8_conv_plan`: one s8 wgmma kernel whose A tile
+comes by TMA where the activation is a plain row-major ``[M, K]`` matrix,
+else gathered as an implicit GEMM by a producer warpgroup; the tile width
+from O and the copy width from C and the bases) and ``csrc/int8_dwconv.cu``
+(direct depthwise convolution, ``groups == C == out``, by
+:func:`int8_dwconv_plan`'s bands of shared memory).  Other groups, dtypes or layouts raise there.  On
 a CPU tensor the plain versions run: the integer products in float64
 (``F.conv2d`` with ``groups``, ``torch.matmul``), exact since every partial
 sum stays below 2^53.
@@ -86,17 +88,28 @@ _QUANTIZE_SIGNATURES = {
 # pad top, pad left, stream
 _CONV_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _CONV_SIGNATURES = {
-    "nns_int8_conv": _CONV_ARGS,
-    # a, s_a, b, s_b, out, out code, M, N, K, rows per scale, stream
-    "nns_int8_gemm": (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I64, _P),
+    # ..., tile n, chunk, stream
+    "nns_int8_conv": _CONV_ARGS[:-1] + (_I, _I, _P),
+    # a, s_a, b, s_b, out, out code, M, N, K, rows per scale, tile n, stream
+    "nns_int8_gemm": (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I64, _I, _P),
 }
-_DWCONV_SIGNATURES = {"nns_int8_dwconv": _CONV_ARGS}
+# ..., chunk, tile c, rows, tile w, stream
+_DWCONV_SIGNATURES = {"nns_int8_dwconv": _CONV_ARGS[:-1] + (_I, _I, _I, _I, _P)}
 
 #: bytes of each of the three wave buffers of a block of the one-pass
 #: quantize kernel (``kBufBytes`` in ``csrc/quantize_i8.cu``)
 QUANTIZE_BUF_BYTES = 72 * 1024
 #: input bytes below which the one-pass kernel takes fewer blocks than SMs
 QUANTIZE_BLOCK_BYTES = 16 * 1024
+#: output pixels along W one thread of ``csrc/int8_dwconv.cu`` computes
+#: (``kPix``), and the largest box side a TMA load takes
+DWCONV_PIX = 4
+DWCONV_BOX_MAX = 256
+#: shared memory of a depthwise block (two input boxes, every channel's
+#: weights and scales): two blocks fit an SM
+DWCONV_SMEM_BYTES = 110 * 1024
+#: threads of a depthwise block (``kThreads``)
+DWCONV_THREADS = 256
 
 Quantized = Tuple[torch.Tensor, torch.Tensor]
 
@@ -324,6 +337,112 @@ def int8_conv_route(c: int, kh: int, kw: int, stride: int, x_ptr: int, w_ptr: in
     return "gemm" if plain and c % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0 else "gather"
 
 
+class ConvPlan(NamedTuple):
+    """How ``csrc/int8_conv.cu`` runs one groups-1 convolution or dense layer."""
+
+    route: str  #: "gemm" (A by TMA) or "gather" (A gathered by a producer warpgroup)
+    tile_n: int  #: output channels a tile: wgmma's n, 32, 64 or 128
+    #: gather: bytes a copy, 16 (and B by TMA), 8, 4 or 1 (C = 3 stems:
+    #: each kernel row's run staged as aligned words where K <= 128)
+    chunk: int
+
+
+def int8_conv_plan(c: int, o: int, kh: int, kw: int, stride: int, x_ptr: int,
+                   w_ptr: int) -> ConvPlan:
+    """The plan of one groups-1 convolution of C -> O channels (a dense
+    layer: 1 x 1, stride 1), from the shape and the operands' bases alone:
+    :func:`int8_conv_route`'s route; the narrowest of 32, 64 and 128 output
+    channels that holds O (128 above it), so a narrow layer fills its
+    tiles; and the widest copy of 16, 8, 4 or 1 bytes that divides C and
+    both bases' alignment (each copy then stays inside one tap)."""
+    route = int8_conv_route(c, kh, kw, stride, x_ptr, w_ptr)
+    tile_n = next((t for t in (32, 64) if o <= t), 128)
+    chunk = next(v for v in (16, 8, 4, 1) if c % v == 0 and x_ptr % v == 0 and w_ptr % v == 0)
+    return ConvPlan(route, tile_n, chunk)
+
+
+class DwconvPlan(NamedTuple):
+    """How ``csrc/int8_dwconv.cu`` runs one depthwise convolution: a
+    block's item is ``tile_c`` channels of ``rows`` x ``tile_w`` output
+    pixels of one image, whose input box of ``in_rows`` x ``in_cols``
+    pixels (halo included) it stages in shared memory."""
+
+    chunk: int  #: 16: the box by TMA; 8, 4 or 1: copies of that many bytes
+    tile_c: int
+    rows: int
+    tile_w: int
+    in_rows: int
+    in_cols: int
+
+
+def dwconv_weight_bytes(c: int, kh: int, kw: int, tile_c: int) -> int:
+    """Shared memory of a depthwise block's weights (words of 4 taps) and
+    scales, every channel tile's, and of the weights as they come."""
+    return (kh * -(-kw // 4) + 1) * -(-c // tile_c) * tile_c * 4 + -(-c * kh * kw // 16) * 16
+
+
+def int8_dwconv_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int,
+                     x_align: int, sms: int) -> DwconvPlan:
+    """The plan of one depthwise convolution from its shape, the activation
+    base's alignment (``x_ptr % 16``) and the card's SM count alone; the
+    batch ``n`` counts rounded up to a power of two, so a shape is searched
+    at most eight times over micro-batches of up to 128 frames.  The
+    box comes by TMA where C % 16 == 0 and the base is 16-byte aligned,
+    else by the widest copy of 8, 4 or 1 bytes dividing C and the
+    alignment.  Channels (a multiple of 16 up to 128), output rows and
+    output columns (a multiple of DWCONV_PIX, or the whole row) of an item:
+    the triple that costs least, within DWCONV_SMEM_BYTES a block and
+    DWCONV_BOX_MAX a box side.  The cost multiplies the halo (input pixels
+    a box stages over those its outputs need alone, square-rooted: the
+    neighbours' reads of a halo mostly hit L2), the threads idle in an
+    item's last pass (square-rooted), the rows and columns of a last band
+    past the image, the channels of a last tile past C, the blocks idle in
+    the last wave (two blocks an SM), and, where a tile holds fewer than
+    all C channels, 64 / tile_c for tiles under 64 (short strided runs
+    waste DRAM sectors and TMA requests)."""
+    return _dwconv_plan(1 << max(n - 1, 0).bit_length(), h, w, c, kh, kw, stride, x_align, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _dwconv_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int, x_align: int,
+                 sms: int) -> DwconvPlan:
+    ho, wo = -(-h // stride), -(-w // stride)
+    chunk = 16 if c % 16 == 0 and x_align == 0 else next(
+        v for v in (8, 4, 1) if c % v == 0 and x_align % v == 0)
+    pix = DWCONV_PIX
+    widths = sorted({wo} | set(range(pix, wo, pix)), reverse=True)
+    best = None
+    for tile_c in range(16, min(128, -(-c // 16) * 16) + 1, 16):  # wider only adds waste
+        strided = max(1.0, 64 / tile_c) if tile_c < c else 1.0
+        c_tiles = -(-c // tile_c)
+        chans = c_tiles * tile_c / c * strided
+        boxes = DWCONV_SMEM_BYTES - 256 - dwconv_weight_bytes(c, kh, kw, tile_c)
+        for tile_w in widths:
+            pws = -(-tile_w // pix)
+            in_cols = (pws * pix - 1) * stride + kw
+            if in_cols > DWCONV_BOX_MAX:
+                continue
+            w_tiles = -(-wo // tile_w)
+            cols = w_tiles * tile_w / wo * (in_cols / (tile_w * stride)) ** 0.5
+            for rows in range(1, ho + 1):
+                in_rows = (rows - 1) * stride + kh
+                if in_rows > DWCONV_BOX_MAX or 2 * in_rows * in_cols * tile_c > boxes:
+                    break
+                units = rows * pws * tile_c // 16
+                waves = c_tiles * n * -(-ho // rows) * w_tiles / (2 * sms)
+                cost = (chans * cols * -(-ho // rows) * rows / ho
+                        * (in_rows / (rows * stride)) ** 0.5
+                        * (-(-units // DWCONV_THREADS) * DWCONV_THREADS / units) ** 0.5
+                        * math.ceil(waves) / waves)
+                key = (round(cost, 9), -rows * tile_w * tile_c)
+                if best is None or key < best[0]:
+                    best = (key, DwconvPlan(chunk, tile_c, rows, tile_w, in_rows, in_cols))
+    if best is None:
+        raise ValueError(f"int8_dwconv: no box of a {kh}x{kw} kernel at stride {stride} over "
+                         f"{c} channels fits {DWCONV_SMEM_BYTES} bytes of shared memory")
+    return best[1]
+
+
 def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
             stride: int = 1, groups: int = 1,
             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -332,8 +451,8 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
     C / groups) OHWI int8 with per-channel scales ``s_w`` (O,).  Returns
     (N, O, Ho, Wo) ``channels_last`` in ``out_dtype`` (``torch.int32``: the
     raw accumulator, no epilogue).  CUDA: ``groups`` 1 through
-    ``int8_conv.cu`` by :func:`int8_conv_route`'s route, ``groups == C ==
-    O`` through ``int8_dwconv.cu``."""
+    ``int8_conv.cu`` by :func:`int8_conv_plan`, ``groups == C == O``
+    through ``int8_dwconv.cu`` by :func:`int8_dwconv_plan`."""
     global CONV_LAUNCHES, CONV_GEMM_LAUNCHES, CONV_GATHER_LAUNCHES, DWCONV_LAUNCHES
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"conv_i8 outputs float32/float16/bfloat16/int32, not {out_dtype}")
@@ -351,20 +470,24 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    route = "depthwise" if depthwise else int8_conv_route(c, kh, kw, stride, xq.data_ptr(),
-                                                           wq.data_ptr())
-    name = "int8_dwconv" if depthwise else "int8_conv"
+    if depthwise:
+        plan = int8_dwconv_plan(n, h, w, c, kh, kw, stride, xq.data_ptr() % 16,
+                                _sms(xq.device))
+        route, name, extra = "depthwise", "int8_dwconv", plan[:4]
+    else:
+        plan = int8_conv_plan(c, o, kh, kw, stride, xq.data_ptr(), wq.data_ptr())
+        route, name, extra = plan.route, "int8_conv", (plan.tile_n, plan.chunk)
     lib = _build.load(name, _DWCONV_SIGNATURES if depthwise else _CONV_SIGNATURES)
     operands = (xq.data_ptr(), s_x.data_ptr(), wq.data_ptr(), s_w.data_ptr(), out.data_ptr(),
                 _OUT_CODES[out_dtype])
     with torch.cuda.device(xq.device):
         if route == "gemm":
-            err = lib.nns_int8_gemm(*operands, n * h * w, o, c, h * w, _stream(xq))
+            err = lib.nns_int8_gemm(*operands, n * h * w, o, c, h * w, plan.tile_n, _stream(xq))
         else:
             err = getattr(lib, f"nns_{name}")(
                 *operands, n, h, w, c, o, kh, kw, stride, ho, wo, same_pads(h, kh, stride)[0],
-                same_pads(w, kw, stride)[0], _stream(xq))
-    _build.check(lib, err, f"{name} ({route})")
+                same_pads(w, kw, stride)[0], *extra, _stream(xq))
+    _build.check(lib, err, f"{name} ({route}, {plan})")
     if depthwise:
         DWCONV_LAUNCHES += 1
     else:

@@ -101,7 +101,8 @@ def test_quantize_rows_and_weights_match_the_reference_layouts():
 
 # (n, h, w, c, o, kernel, stride, groups): kernels 1, 3 and 6, strides 1 and
 # 2, odd and even sizes, K = 27 (MobileNet-v2's stem), YOLOv5s's 6x6 stem,
-# depthwise at both strides
+# depthwise at both strides; 3x3/2 at C = 32 (a stage of the gather route
+# spans taps) even and odd, depthwise 3x3/2 at C = 96 and at C = 6
 CONVS = [
     (2, 9, 9, 3, 8, 3, 2, 1),
     (2, 8, 8, 3, 8, 3, 2, 1),
@@ -110,6 +111,10 @@ CONVS = [
     (1, 5, 5, 8, 12, 3, 1, 1),
     (2, 9, 8, 16, 16, 3, 2, 16),
     (2, 7, 7, 24, 24, 3, 1, 24),
+    (2, 10, 10, 32, 16, 3, 2, 1),
+    (2, 9, 11, 32, 16, 3, 2, 1),
+    (2, 8, 8, 96, 96, 3, 2, 96),
+    (2, 9, 9, 6, 6, 3, 2, 6),
 ]
 
 
@@ -223,13 +228,65 @@ _FULL_WIDTH = {  # family: (props, reckoned int8_conv launches per call by route
 }
 
 
+_INPUT_SIZES = {"mobilenet_v2": 224, "ssd_mobilenet_v2": 300, "yolov5s": 640}
+
+
+def _conv_layer_inputs(family, props, monkeypatch):
+    """(layer, NCHW input shape) of every int8 convolution of one call of
+    the family's int8 build on one CPU frame, the int8 products replaced
+    by zeros of their shape (the shapes are what is wanted)."""
+    from nnstreamer_tpu_torch.models import _quant_flax, build
+    from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
+
+    def zeros(x, weight, stride=1, groups=1, out_dtype=torch.float32, qweight=None):
+        return torch.zeros(x.shape[0], weight.shape[0], -(-x.shape[2] // stride),
+                           -(-x.shape[3] // stride), dtype=out_dtype)
+
+    monkeypatch.setattr(_quant_flax, "int8_conv", zeros)
+    module, _, _ = build(family, dict(props, dtype="float32", quantize="int8"))
+    seen = []
+    for m in module.modules():
+        if isinstance(m, QuantConv2d):
+            m.register_forward_hook(lambda m, args, out: seen.append((m, tuple(args[0].shape))))
+    size = _INPUT_SIZES[family]
+    with torch.inference_mode():
+        module.eval()(torch.zeros(1, size, size, 3, dtype=torch.uint8))
+    return seen
+
+
+def _check_dwconv_plan(plan, h, w, c, kh, kw, stride, x_align=0):
+    """What ``csrc/int8_dwconv.cu`` assumes of a plan."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    assert plan.chunk == (16 if c % 16 == 0 and x_align == 0 else max(
+        v for v in (8, 4, 1) if c % v == 0 and x_align % v == 0))
+    assert plan.tile_c % 16 == 0 and 16 <= plan.tile_c <= 128
+    assert 1 <= plan.rows <= ho and 1 <= plan.tile_w <= wo
+    assert plan.tile_w == wo or plan.tile_w % tq.DWCONV_PIX == 0
+    assert plan.in_rows == (plan.rows - 1) * stride + kh <= tq.DWCONV_BOX_MAX
+    pix = tq.DWCONV_PIX
+    assert plan.in_cols == (-(-plan.tile_w // pix) * pix - 1) * stride + kw <= tq.DWCONV_BOX_MAX
+    assert (2 * plan.in_rows * plan.in_cols * plan.tile_c
+            + tq.dwconv_weight_bytes(c, kh, kw, plan.tile_c) + 256 <= tq.DWCONV_SMEM_BYTES)
+
+
+def _check_conv_plan(plan, c, o, x_ptr=0, w_ptr=0):
+    """What ``csrc/int8_conv.cu`` assumes of a plan: the narrowest tile
+    holding O, the widest copy dividing C and both bases."""
+    assert plan.tile_n == (32 if o <= 32 else 64 if o <= 64 else 128)
+    assert plan.chunk == max(v for v in (16, 8, 4, 1)
+                             if c % v == 0 and x_ptr % v == 0 and w_ptr % v == 0)
+
+
 @pytest.mark.parametrize("family", list(_FULL_WIDTH))
-def test_int8_conv_route_at_every_layer_of_the_int8_families(family):
+def test_int8_conv_route_at_every_layer_of_the_int8_families(family, monkeypatch):
     """Every int8 layer of the five int8 builds at full width (built on the
     meta device: shapes only), routed by ``int8_conv_route`` with aligned
     operands as the fresh activations and weights are: MobileNet-v2 runs 32
     of its 35 groups-1 layers on the GEMM route (the stem, K = 27, and the
-    two expansions of 24 channels gather), ViT-B/16 and GPT-2 small all 48."""
+    two expansions of 24 channels gather), ViT-B/16 and GPT-2 small all 48.
+    Each layer's plan (tile width from O, copy width from C) is what the
+    kernels assume; the vision families' depthwise band plans too, at each
+    layer's input size (captured on the CPU at batch 1)."""
     from nnstreamer_tpu_torch.models import build
     from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d, QuantLinear
 
@@ -240,13 +297,30 @@ def test_int8_conv_route_at_every_layer_of_the_int8_families(family):
     for m in module.modules():
         if isinstance(m, QuantLinear):
             route = tq.int8_conv_route(m.in_features, 1, 1, 1, 0, 0)
+            plan = tq.int8_conv_plan(m.in_features, m.out_features, 1, 1, 1, 0, 0)
+            _check_conv_plan(plan, m.in_features, m.out_features)
+            assert plan.route == route
         elif isinstance(m, QuantConv2d):
             route = "depthwise" if m.groups > 1 else tq.int8_conv_route(
                 m.in_channels, *m.kernel_size, m.stride[0], 0, 0)
+            if m.groups == 1:
+                plan = tq.int8_conv_plan(m.in_channels, m.out_channels, *m.kernel_size,
+                                         m.stride[0], 0, 0)
+                _check_conv_plan(plan, m.in_channels, m.out_channels)
+                assert plan.route == route
         else:
             continue
         routes[route] = routes.get(route, 0) + 1
     assert routes == want
+    if family in _INPUT_SIZES:
+        depthwise = 0
+        for m, (_, c, h, w) in _conv_layer_inputs(family, props, monkeypatch):
+            if m.groups > 1:
+                plan = tq.int8_dwconv_plan(128, h, w, c, *m.kernel_size, m.stride[0], 0, 132)
+                _check_dwconv_plan(plan, h, w, c, *m.kernel_size, m.stride[0])
+                assert plan.chunk == 16  # every depthwise layer's C % 16 == 0: TMA
+                depthwise += 1
+        assert depthwise == want.get("depthwise", 0)
 
 
 @pytest.mark.parametrize("case,route", [
@@ -261,6 +335,241 @@ def test_int8_conv_route_at_every_layer_of_the_int8_families(family):
 ], ids=["K16", "K3072", "K24", "K27", "3x3", "stride2", "x_off8", "w_off4"])
 def test_int8_conv_route_edges(case, route):
     assert tq.int8_conv_route(*case) == route
+
+
+def _awkward():
+    import chip_smoke
+
+    return chip_smoke.INT8_AWKWARD
+
+
+@pytest.mark.parametrize("case", _awkward(), ids=lambda c: "x".join(map(str, c[:-1])))
+def test_plans_at_the_awkward_shapes(case):
+    """``chip_smoke.INT8_AWKWARD``'s shapes: each plan is what its kernel
+    assumes, with aligned bases and with an activation 8 bytes off (the
+    gather route's copies narrow to 8 bytes; a depthwise box leaves TMA)."""
+    n, h, w, c, o, k, s, groups, _ = case
+    for x_ptr in (0, 8):
+        if groups > 1:
+            plan = tq.int8_dwconv_plan(n, h, w, c, k, k, s, x_ptr % 16, 132)
+            _check_dwconv_plan(plan, h, w, c, k, k, s, x_ptr % 16)
+        else:
+            plan = tq.int8_conv_plan(c, o, k, k, s, x_ptr, 0)
+            _check_conv_plan(plan, c, o, x_ptr)
+            assert plan.route == tq.int8_conv_route(c, k, k, s, x_ptr, 0)
+
+
+def _im2col(x, kh, kw, stride):
+    """(M, K) of NHWC int8 ``x`` under TensorFlow SAME padding, k = (i * kw
+    + j) * C + c: the implicit GEMM's A."""
+    n, h, w, c = x.shape
+    (top, bottom), (left, right) = tq.same_pads(h, kh, stride), tq.same_pads(w, kw, stride)
+    xp = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)))
+    ho, wo = -(-h // stride), -(-w // stride)
+    cols = [xp[:, i:i + (ho - 1) * stride + 1:stride, j:j + (wo - 1) * stride + 1:stride]
+            for i in range(kh) for j in range(kw)]
+    return np.concatenate(cols, axis=-1).reshape(n * ho * wo, kh * kw * c)
+
+
+def _gathered_a(x, kh, kw, stride, chunk):
+    """The A tiles as ``int8_mma_kernel``'s gather producers fill them (its
+    index arithmetic, step for step): thread p of the producer warpgroup
+    owns chunk p % 8 of rows p // 8 + 16u; each row's output pixel decoded
+    once a tile and stepped by 16 pixels; k walked by (kernel row, byte of
+    the row's run of kw * C) without division, a copy valid where its
+    kernel row is inside the image and its byte between the first and last
+    tap inside it.  Returns (M rounded up to 128, K rounded up to 128)."""
+    n, h, w, c = x.shape
+    ho, wo = -(-h // stride), -(-w // stride)
+    top, left = tq.same_pads(h, kh, stride)[0], tq.same_pads(w, kw, stride)[0]
+    m_total, run = n * ho * wo, kw * c
+    k_tiles = -(-kh * kw * c // 128)
+    flat = x.reshape(-1)
+    a = np.full((-(-m_total // 128) * 128, k_tiles * 128), 99, np.int8)
+    for tile in range(-(-m_total // 128)):
+        for p in range(128):
+            q, r0 = p % 8, p // 8
+            m = tile * 128 + r0
+            img, rem = divmod(m, ho * wo)
+            oh, ow = divmod(rem, wo)
+            rows = []
+            for u in range(8):
+                hi0, wi0 = oh * stride - top, ow * stride - left
+                ok = m + 16 * u < m_total
+                rows.append((hi0 if ok else -(1 << 28), max(0, -wi0) * c, min(kw, w - wi0) * c,
+                             ((img * h + hi0) * w + wi0) * c if ok else 0))
+                ow += 16
+                while ow >= wo:
+                    ow -= wo
+                    oh += 1
+                    if oh == ho:
+                        oh, img = 0, img + 1
+            ki, kp = divmod(16 * q, run)
+            for kt in range(k_tiles):
+                for u, (hi0, lo, hi, off) in enumerate(rows):
+                    pi, pp = ki, kp
+                    for e in range(0, 16, chunk):
+                        ok = pi < kh and 0 <= hi0 + pi < h and lo <= pp < hi
+                        src = off + pi * w * c + pp
+                        dst = kt * 128 + 16 * q + e
+                        a[tile * 128 + r0 + 16 * u, dst:dst + chunk] = (
+                            flat[src:src + chunk] if ok else 0)
+                        pp += chunk
+                        if pp >= run:
+                            pp, pi = pp - run, pi + 1
+                kp += 128
+                while kp >= run:
+                    kp, ki = kp - run, ki + 1
+    return a
+
+
+@pytest.mark.parametrize("case", [
+    (2, 9, 9, 3, 3, 2), (1, 10, 10, 3, 6, 2),  # the stems: 1-byte copies
+    (2, 12, 12, 32, 3, 1), (1, 16, 16, 32, 3, 2), (1, 9, 7, 64, 3, 2),  # a stage spans taps
+    (1, 6, 6, 24, 3, 1), (1, 3, 43, 16, 3, 1),  # 8-byte copies; M = 129, one row past a tile
+    (2, 5, 5, 48, 1, 2), (1, 2, 3, 160, 3, 1),  # 1 x 1 stride 2; a run longer than a stage
+], ids=lambda c: "x".join(map(str, c)))
+def test_gather_producers_fill_the_implicit_gemm(case):
+    """The gather producers' index arithmetic (emulated in numpy) builds the
+    im2col matrix under SAME padding, zeros past the M and K edges."""
+    n, h, w, c, k, s = case
+    x = np.random.default_rng(sum(case)).integers(-127, 128, (n, h, w, c), dtype=np.int8)
+    chunk = tq.int8_conv_plan(c, 32, k, k, s, 0, 0).chunk
+    got = _gathered_a(x, k, k, s, chunk)
+    want = _im2col(x, k, k, s)
+    m, kk = want.shape
+    np.testing.assert_array_equal(got[:m, :kk], want)
+    assert not got[m:].any() and not got[:, kk:].any()
+
+
+def _staged_rows(x, wq, stride, base):
+    """The A and B tiles as ``int8_mma_kernel``'s kGatherRows producers
+    build them (C = 3 stems: copies of 1 byte), its arithmetic step for
+    step: kernel row i's run of kw * C bytes laid at k = i * S (S the run
+    rounded up to 4 bytes) in both; in A, each run's in-image bytes staged
+    as the aligned 4-byte words around them (``x`` at byte address `base`),
+    slot i at i * wpr words, then repacked 4 bytes a step by a funnel shift;
+    A's bytes between runs left as they were (random here), B's zero.
+    Returns (A (M rounded up to 128, 128), B (O, 128)) as int64."""
+    n, h, w, c = x.shape
+    o_ch, kh, kw, _ = wq.shape
+    ho, wo = -(-h // stride), -(-w // stride)
+    top, left = tq.same_pads(h, kh, stride)[0], tq.same_pads(w, kw, stride)[0]
+    run, m_total = kw * c, n * ho * wo
+    s_k, wpr, words = -(-run // 4) * 4, (run + 6) // 4, -(-run // 4)
+    assert kh * s_k <= 128 and kh * wpr * 4 <= 164
+    rng = np.random.default_rng(base)
+    space = rng.integers(-127, 128, base + x.size + 8, dtype=np.int8)  # memory around x
+    space[base:base + x.size] = x.reshape(-1)
+    a = rng.integers(-127, 128, (-(-m_total // 128) * 128, 128)).astype(np.int64)
+    b = np.zeros((o_ch, 128), np.int64)
+    for i in range(kh):
+        b[:, i * s_k:i * s_k + run] = wq[:, i].reshape(o_ch, run)
+    for m in range(m_total):
+        img, rem = divmod(m, ho * wo)
+        oh, ow = divmod(rem, wo)
+        hi0, wi0 = oh * stride - top, ow * stride - left
+        lo, hi = max(0, -wi0) * c, min(kw, w - wi0) * c
+        off = ((img * h + hi0) * w + wi0) * c
+        # the row's slot at byte 8, stale bytes around it (a read at a left
+        # edge may start two words before it)
+        slot = rng.integers(0, 256, 8 + 164 + 8, dtype=np.uint8)
+        for i in range(kh):
+            if lo < hi and 0 <= hi0 + i < h:
+                first = base + off + i * w * c + lo
+                w0 = first & ~3
+                nw = ((first + hi - lo - 1) >> 2) - (w0 >> 2) + 1
+                assert nw <= wpr
+                slot[8 + i * wpr * 4:8 + (i * wpr + nw) * 4] = space[w0:w0 + 4 * nw].view(np.uint8)
+        for i in range(kh):
+            ok = lo < hi and 0 <= hi0 + i < h
+            e = (base + off + i * w * c + lo) & 3
+            for wd in range(words):
+                v = np.zeros(4, np.uint8)
+                if ok:
+                    o = e + 4 * wd - lo
+                    at = 8 + i * wpr * 4 + (o >> 2) * 4
+                    v = slot[at + (o & 3):at + (o & 3) + 4].copy()
+                    for bb in range(4):
+                        if not lo <= 4 * wd + bb < hi:
+                            v[bb] = 0
+                a[m, i * s_k + 4 * wd:i * s_k + 4 * wd + 4] = v.view(np.int8)
+    return a, b
+
+
+@pytest.mark.parametrize("case", [
+    (2, 9, 9, 3, 3, 2, 0), (1, 8, 8, 3, 3, 2, 1), (1, 10, 10, 3, 6, 2, 2), (1, 11, 9, 3, 6, 2, 3),
+    (1, 7, 7, 5, 3, 1, 1), (2, 12, 10, 3, 6, 2, 0),
+], ids=lambda c: "x".join(map(str, c)))
+def test_staged_rows_fill_the_implicit_gemm(case):
+    """The stems' path (emulated in numpy), at every alignment of the
+    activation's base: its A and B tiles multiply to the im2col product
+    under SAME padding, A holding each in-image run where B holds its
+    weights."""
+    n, h, w, c, k, s, base = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.integers(-127, 128, (n, h, w, c), dtype=np.int8)
+    wq = rng.integers(-127, 128, (8, k, k, c), dtype=np.int8)
+    assert tq.int8_conv_plan(c, 32, k, k, s, base, 0).chunk == 1
+    a, b = _staged_rows(x, wq, s, base)
+    want = _im2col(x, k, k, s).astype(np.int64) @ wq.reshape(8, -1).T.astype(np.int64)
+    np.testing.assert_array_equal((a @ b.T)[:len(want)], want)
+
+
+def _dwconv_by_plan(xq, wq, stride, plan):
+    """The int32 accumulator of a depthwise convolution as
+    ``csrc/int8_dwconv.cu`` tiles it by `plan`: each item's box staged with
+    zeros outside the image and past C, each output from its box."""
+    n, h, w, c = xq.shape
+    _, kh, kw, _ = wq.shape
+    ho, wo = -(-h // stride), -(-w // stride)
+    top, left = tq.same_pads(h, kh, stride)[0], tq.same_pads(w, kw, stride)[0]
+    pix = tq.DWCONV_PIX
+    cols = -(-plan.tile_w // pix) * pix
+    out = np.full((n, ho, wo, c), -1, np.int64)
+    for ct in range(-(-c // plan.tile_c)):
+        c0 = ct * plan.tile_c
+        wt = np.zeros((kh, kw, plan.tile_c), np.int64)
+        wt[..., :min(c, c0 + plan.tile_c) - c0] = wq[c0:c0 + plan.tile_c, :, :, 0].transpose(1, 2, 0)
+        for img in range(n):
+            for band in range(-(-ho // plan.rows)):
+                for t in range(-(-wo // plan.tile_w)):
+                    hi0 = band * plan.rows * stride - top
+                    wi0 = t * plan.tile_w * stride - left
+                    box = np.zeros((plan.in_rows, plan.in_cols, plan.tile_c), np.int64)
+                    for r in range(plan.in_rows):
+                        for q in range(plan.in_cols):
+                            if 0 <= hi0 + r < h and 0 <= wi0 + q < w:
+                                got = xq[img, hi0 + r, wi0 + q, c0:c0 + plan.tile_c]
+                                box[r, q, :len(got)] = got
+                    acc = sum(box[i:i + (plan.rows - 1) * stride + 1:stride,
+                                  j:j + (cols - 1) * stride + 1:stride] * wt[i, j]
+                              for i in range(kh) for j in range(kw))
+                    oh0, ow0 = band * plan.rows, t * plan.tile_w
+                    nr, nc = min(plan.rows, ho - oh0), min(plan.tile_w, wo - ow0)
+                    nch = min(plan.tile_c, c - c0)
+                    out[img, oh0:oh0 + nr, ow0:ow0 + nc, c0:c0 + nch] = acc[:nr, :nc, :nch]
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    (2, 9, 9, 6, 3, 2, 0), (1, 15, 15, 144, 3, 1, 0), (1, 10, 10, 32, 3, 2, 8),
+    (2, 14, 14, 96, 3, 2, 0), (1, 7, 7, 960, 3, 1, 0), (1, 12, 300, 32, 3, 1, 0),
+], ids=lambda c: "x".join(map(str, c)))
+def test_dwconv_plan_tiles_cover_every_output_once(case):
+    """A depthwise plan's items, each computed from its staged box alone,
+    give the plain version's int32 accumulator at every output (a W band
+    narrower than the row at 300 columns)."""
+    n, h, w, c, k, s, x_align = case
+    rng = np.random.default_rng(sum(case))
+    xq = rng.integers(-127, 128, (n, h, w, c), dtype=np.int8)
+    wq = rng.integers(-127, 128, (c, k, k, 1), dtype=np.int8)
+    plan = tq.int8_dwconv_plan(n, h, w, c, k, k, s, x_align, 132)
+    _check_dwconv_plan(plan, h, w, c, k, k, s, x_align)
+    want = tq.conv_i8_plain(torch.from_numpy(xq), torch.ones(n), torch.from_numpy(wq),
+                            torch.ones(c), s, c, torch.int32)
+    np.testing.assert_array_equal(_dwconv_by_plan(xq, wq, s, plan),
+                                  want.permute(0, 2, 3, 1).numpy())
 
 
 def _waves(plan, rows, cols, itemsize):
