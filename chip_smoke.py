@@ -2725,6 +2725,8 @@ INT8_AWKWARD = [
     (2, 40, 40, 128, 128, 3, 1, 1, "bfloat16"),  # YOLOv5s's bottleneck, K = 1152
     (2, 7, 7, 960, 960, 3, 1, 960, "bfloat16"),  # depthwise C = 960
     (2, 14, 14, 576, 576, 3, 2, 576, "float32"),  # depthwise 3x3/2, C = 576
+    (2, 9, 9, 3, 160, 3, 2, 1, "bfloat16"),  # C = 3, O past one tile: byte loads
+    (2, 11, 11, 20, 20, 3, 1, 20, "float32"),  # depthwise C % 8 = 4: 4-byte copies
 ]
 
 
@@ -2766,7 +2768,7 @@ def check_int8_awkward(torch, q) -> int:
     torch.cuda.synchronize()
     check_route_edges(torch, q)
     check_int8_stress(torch, q)
-    return len(INT8_AWKWARD) + 2 + len(INT8_STRESS)
+    return len(INT8_AWKWARD) + 1 + len(ROUTE_EDGES) + len(INT8_STRESS)
 
 
 #: the stress case: (n, h, w, c, o, kernel, stride, groups) layers each run
@@ -2778,6 +2780,8 @@ INT8_STRESS = [
     (8, 640, 640, 3, 32, 6, 2, 1),  # its stem (byte copies)
     (16, 40, 40, 128, 128, 3, 1, 1),  # its bottleneck: 9 stages a tile
     (16, 112, 112, 96, 96, 3, 2, 96),  # MobileNet-v2's first strided depthwise layer
+    (8, 160, 160, 3, 160, 3, 2, 1),  # C = 3, O past one tile: byte loads, not staged
+    (16, 56, 56, 20, 20, 3, 1, 20),  # depthwise by 4-byte copies
 ]
 INT8_STRESS_RUNS = 40
 
@@ -2801,11 +2805,28 @@ def check_int8_stress(torch, q) -> None:
         del runs, want
 
 
+#: h2's narrow copies: ((n, h, w, c, o, kernel, stride, groups), bytes the
+#: activation starts off 16-byte alignment, the plan it must take: (route,
+#: copy bytes, staged runs) or ("depthwise", copy bytes))
+ROUTE_EDGES = [
+    ((2, 7, 7, 64, 96, 3, 2, 1), 8, ("gather", 8, False)),
+    ((2, 7, 7, 64, 64, 3, 2, 64), 8, ("depthwise", 8)),
+    ((2, 7, 7, 64, 96, 3, 2, 1), 1, ("gather", 1, False)),  # byte loads, 1 byte off
+    ((2, 9, 9, 3, 160, 3, 2, 1), 0, ("gather", 1, False)),  # C = 3, O past one tile
+    ((2, 20, 18, 3, 32, 6, 2, 1), 1, ("gather", 1, True)),  # YOLOv5s's stem, runs staged
+    ((2, 20, 18, 3, 32, 6, 2, 1), 2, ("gather", 1, True)),
+    ((2, 20, 18, 3, 32, 6, 2, 1), 3, ("gather", 1, True)),
+    ((2, 7, 7, 64, 64, 3, 2, 64), 4, ("depthwise", 4)),
+    ((2, 11, 11, 20, 20, 3, 1, 20), 0, ("depthwise", 4)),  # C % 8 = 4
+    ((2, 9, 9, 6, 6, 3, 2, 6), 0, ("depthwise", 1)),
+]
+
+
 def check_route_edges(torch, q) -> None:
     """h2's route edges, each bit-equal to its plain version and counted on
     the route it must take: a GEMM-shaped 1 x 1 convolution whose
-    activation starts 8 bytes off 16-byte alignment (gather), a 3 x 3 and a
-    depthwise layer on it (8-byte copies), and one row longer than a wave
+    activation starts 8 bytes off 16-byte alignment (gather), ROUTE_EDGES
+    (each also on the plan it must take), and one row longer than a wave
     of the one-pass quantize kernel (two-pass); then rows of exact .5 ties
     through both quantize routes."""
     dev = torch.device("cuda", 0)
@@ -2825,30 +2846,32 @@ def check_route_edges(torch, q) -> None:
                    q.conv_i8_plain(xq, sx, wq, sw, out_dtype=out))
     if (q.CONV_GEMM_LAUNCHES, q.CONV_GATHER_LAUNCHES) != (before[0], before[1] + 2):
         raise AssertionError("h2: the unaligned activation did not launch the gather route")
-    # the 6 x 6 stem (C = 3: staged words) with its activation 1, 2 and 3 bytes off
-    for off in (1, 2, 3):
-        x3 = torch.randint(-127, 128, (2 * 20 * 18 * 3 + off,), dtype=torch.int8, device=dev,
-                           generator=g)[off:].view(2, 20, 18, 3)
-        w3 = torch.randint(-127, 128, (32, 6, 6, 3), dtype=torch.int8, device=dev, generator=g)
-        s3 = torch.rand(32, device=dev, generator=g)
-        for out in (torch.bfloat16, torch.int32):
-            int8_equal(torch, f"h2 stem {off} bytes off alignment -> {out}",
-                       q.conv_i8(x3, sx, w3, s3, 2, 1, out),
-                       q.conv_i8_plain(x3, sx, w3, s3, 2, 1, out))
-    # 3 x 3 and depthwise with the activation 8 bytes off: 8-byte copies
-    for o, groups in ((96, 1), (c, c)):
-        wq = torch.randint(-127, 128, (o, 3, 3, c // groups), dtype=torch.int8, device=dev,
+    # the narrow copies, each on the plan (copy bytes, staged runs) it must take
+    for (n, h, w, c, o, k, s, groups), off, want in ROUTE_EDGES:
+        flat = torch.randint(-127, 128, (n * h * w * c + off,), dtype=torch.int8, device=dev,
+                             generator=g)
+        xe = flat[off:].view(n, h, w, c)
+        we = torch.randint(-127, 128, (o, k, k, c // groups), dtype=torch.int8, device=dev,
                            generator=g)
-        sw = torch.rand(o, device=dev, generator=g)
-        plan = (q.int8_conv_plan(c, o, 3, 3, 2, xq.data_ptr(), wq.data_ptr()).chunk
-                if groups == 1 else q.int8_dwconv_plan(n, h, w, c, 3, 3, 2, xq.data_ptr() % 16,
-                                                       132).chunk)
-        if plan != 8:
-            raise AssertionError(f"h2: groups {groups} 8 bytes off alignment copies {plan} bytes")
+        se, sxe = torch.rand(o, device=dev, generator=g), torch.rand(n, device=dev, generator=g)
+        if groups == 1:
+            plan = q.int8_conv_plan(c, o, k, k, s, xe.data_ptr(), we.data_ptr())
+            got = ("gather", plan.chunk, plan.staged) if plan.route == "gather" else ("gemm",)
+        else:
+            plan = q.int8_dwconv_plan(n, h, w, c, k, k, s, xe.data_ptr() % 16, 132)
+            got = ("depthwise", plan.chunk)
+        what = f"h2 route edge {(n, h, w, c, o, k, s, groups)} {off} bytes off"
+        if got != want:
+            raise AssertionError(f"{what}: plan {got}, want {want}")
+        before = route_counts(q)
         for out in (torch.bfloat16, torch.int32):
-            int8_equal(torch, f"h2 groups {groups} 3x3/2 8 bytes off alignment -> {out}",
-                       q.conv_i8(xq, sx, wq, sw, 2, groups, out),
-                       q.conv_i8_plain(xq, sx, wq, sw, 2, groups, out))
+            int8_equal(torch, f"{what} -> {out}", q.conv_i8(xe, sxe, we, se, s, groups, out),
+                       q.conv_i8_plain(xe, sxe, we, se, s, groups, out))
+        counted = tuple(b + 2 * (r == want[0])
+                        for b, r in zip(before, ("gemm", "gather", "depthwise")))
+        if route_counts(q) != counted:
+            raise AssertionError(f"{what}: launches {route_counts(q)} from {before}, want the "
+                                 f"{want[0]} route twice")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cols = sms * q.QUANTIZE_BUF_BYTES // 2 + 8  # bf16: one vector more than a wave holds
     x = torch.randn(1, cols, device=dev, generator=g).to(torch.bfloat16)
@@ -3133,8 +3156,9 @@ def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None
     """Path h: int8 on the card.  h1 the flagship pipeline (INT8_CUSTOM,
     INT8_FRAMES frames, labels against the direct call, launches against
     the reckoned counts) beside path a's bf16 numbers `beside` when given; h2 every
-    int8 layer of one MobileNet-v2, YOLOv5s and GPT-2 micro-batch and the
-    awkward shapes against the plain versions, then the kernels' times; h3
+    int8 layer of one MobileNet-v2, YOLOv5s, SSD-MobileNet-v2, ViT-B/16 and
+    GPT-2 micro-batch (SSD's and ViT's of h4's size) and the awkward
+    shapes against the plain versions, then the kernels' times; h3
     the per-sample promise; h4 SSD-MobileNet-v2, YOLOv5s and ViT-B/16
     beside their bf16 builds, GPT-2 small int8 scoring and ``generate:32``
     through the filter.  Returns ({path: launches and micro-batches},
@@ -3182,6 +3206,15 @@ def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None
     checked["yolov5s"] = check_int8_model(torch, q, yolo.cuda().eval(),
                                           torch.from_numpy(yolo_in).cuda(), "YOLOv5s")
     del yolo
+    for key, (name, custom, size, frames) in (("ssd_mobilenet_v2", INT8_DIRECT[0]),
+                                              ("vit_b16", INT8_DIRECT[2])):
+        props = custom_props(f"{custom},seed:{seed},quantize:int8")
+        model = build(props["arch"], props)[0].cuda().eval()
+        frames_in = np.random.default_rng(seed).integers(0, 256, (frames, size, size, 3),
+                                                         dtype=np.uint8)
+        checked[key] = check_int8_model(torch, q, model, torch.from_numpy(frames_in).cuda(), name)
+        del model
+        torch.cuda.empty_cache()
     lm_props = custom_props(LM_CUSTOM) | {"seed": str(seed), "quantize": "int8"}
     lm = build("transformer", lm_props)[0].cuda().eval()
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(

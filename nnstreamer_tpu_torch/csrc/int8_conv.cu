@@ -707,13 +707,16 @@ bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) %
 // 1 = float16, 2 = bfloat16, 3 = int32 (the accumulator, no epilogue).
 // tile_n: output channels a tile (32, 64 or 128); chunk: bytes a copy (16:
 // A by 16-byte cp.async and B by TMA; 8, 4 or 1), which must divide c and
-// both bases' alignment.  Returns the CUDA error of the launch (0 = launched).
+// both bases' alignment; staged (chunk 1 only, where rows_fit): kGatherRows
+// instead of byte loads.  The plan is ops/quantize.py int8_conv_plan's.
+// Returns the CUDA error of the launch (0 = launched).
 NNS_EXPORT int nns_int8_conv(const void* x, const void* sx, const void* w, const void* sw,
                              void* out, int out_dtype, int n, int h, int wd, int c, int o,
                              int kh, int kw, int stride, int ho, int wo, int pad_top,
-                             int pad_left, int tile_n, int chunk, void* stream) {
+                             int pad_left, int tile_n, int chunk, int staged, void* stream) {
   if ((tile_n != 32 && tile_n != 64 && tile_n != 128) ||
-      (chunk != 16 && chunk != 8 && chunk != 4 && chunk != 1) || c % chunk != 0)
+      (chunk != 16 && chunk != 8 && chunk != 4 && chunk != 1) || c % chunk != 0 ||
+      (staged && (chunk != 1 || !rows_fit(kh, kw, c, o, tile_n))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned(x, chunk) || !aligned(w, chunk)) return static_cast<int>(cudaErrorMisalignedAddress);
   MmaShape s{};
@@ -731,7 +734,7 @@ NNS_EXPORT int nns_int8_conv(const void* x, const void* sx, const void* w, const
     if (!make_map_2d(&bm, w, o, s.k, tile_n)) return static_cast<int>(cudaErrorInvalidValue);
     return by_out<kGather16>(out_dtype, tile_n, am, bm, x, w, sx, sw, out, s, st);
   }
-  if (chunk == 1 && rows_fit(kh, kw, c, o, tile_n))
+  if (staged)
     return by_out<kGatherRows>(out_dtype, tile_n, am, bm, x, w, sx, sw, out, s, st);
   return by_out<kGatherN>(out_dtype, tile_n, am, bm, x, w, sx, sw, out, s, st);
 }

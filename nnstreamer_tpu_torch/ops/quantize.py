@@ -88,8 +88,8 @@ _QUANTIZE_SIGNATURES = {
 # pad top, pad left, stream
 _CONV_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _CONV_SIGNATURES = {
-    # ..., tile n, chunk, stream
-    "nns_int8_conv": _CONV_ARGS[:-1] + (_I, _I, _P),
+    # ..., tile n, chunk, staged, stream
+    "nns_int8_conv": _CONV_ARGS[:-1] + (_I, _I, _I, _P),
     # a, s_a, b, s_b, out, out code, M, N, K, rows per scale, tile n, stream
     "nns_int8_gemm": (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I64, _I, _P),
 }
@@ -342,9 +342,17 @@ class ConvPlan(NamedTuple):
 
     route: str  #: "gemm" (A by TMA) or "gather" (A gathered by a producer warpgroup)
     tile_n: int  #: output channels a tile: wgmma's n, 32, 64 or 128
-    #: gather: bytes a copy, 16 (and B by TMA), 8, 4 or 1 (C = 3 stems:
-    #: each kernel row's run staged as aligned words where K <= 128)
+    #: gather: bytes a copy, 16 (and B by TMA), 8, 4 or 1 (byte loads)
     chunk: int
+    #: gather at chunk 1: each kernel row's run staged as aligned words and
+    #: repacked (``kGatherRows``, the C = 3 stems) instead of byte loads
+    staged: bool
+
+
+#: the gather route's k-stage and a staged tile row's slot, in bytes
+#: (``kBK`` and ``kRowSlot`` in ``csrc/int8_conv.cu``)
+GATHER_STAGE_BYTES = 128
+GATHER_ROW_SLOT = 164
 
 
 def int8_conv_plan(c: int, o: int, kh: int, kw: int, stride: int, x_ptr: int,
@@ -353,12 +361,17 @@ def int8_conv_plan(c: int, o: int, kh: int, kw: int, stride: int, x_ptr: int,
     layer: 1 x 1, stride 1), from the shape and the operands' bases alone:
     :func:`int8_conv_route`'s route; the narrowest of 32, 64 and 128 output
     channels that holds O (128 above it), so a narrow layer fills its
-    tiles; and the widest copy of 16, 8, 4 or 1 bytes that divides C and
-    both bases' alignment (each copy then stays inside one tap)."""
+    tiles; the widest copy of 16, 8, 4 or 1 bytes that divides C and both
+    bases' alignment (each copy then stays inside one tap); and, at 1 byte,
+    staged runs where the kh runs of kw * C bytes, each rounded up to 4,
+    fit one stage, their aligned words fit a row's slot and O fits one
+    tile (``rows_fit`` in the kernel)."""
     route = int8_conv_route(c, kh, kw, stride, x_ptr, w_ptr)
     tile_n = next((t for t in (32, 64) if o <= t), 128)
     chunk = next(v for v in (16, 8, 4, 1) if c % v == 0 and x_ptr % v == 0 and w_ptr % v == 0)
-    return ConvPlan(route, tile_n, chunk)
+    staged = (chunk == 1 and kh * -(-kw * c // 4) * 4 <= GATHER_STAGE_BYTES and o <= tile_n
+              and kh * ((kw * c + 6) // 4) * 4 <= GATHER_ROW_SLOT)
+    return ConvPlan(route, tile_n, chunk, staged)
 
 
 class DwconvPlan(NamedTuple):
@@ -399,7 +412,9 @@ def int8_dwconv_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: i
     past the image, the channels of a last tile past C, the blocks idle in
     the last wave (two blocks an SM), and, where a tile holds fewer than
     all C channels, 64 / tile_c for tiles under 64 (short strided runs
-    waste DRAM sectors and TMA requests)."""
+    waste DRAM sectors and TMA requests).  ``tools/torch_dwconv_plan_ab.py``
+    times it against a fixed rule and against the search without the
+    last-wave term."""
     return _dwconv_plan(1 << max(n - 1, 0).bit_length(), h, w, c, kh, kw, stride, x_align, sms)
 
 
@@ -476,7 +491,7 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
         route, name, extra = "depthwise", "int8_dwconv", plan[:4]
     else:
         plan = int8_conv_plan(c, o, kh, kw, stride, xq.data_ptr(), wq.data_ptr())
-        route, name, extra = plan.route, "int8_conv", (plan.tile_n, plan.chunk)
+        route, name, extra = plan.route, "int8_conv", (plan.tile_n, plan.chunk, plan.staged)
     lib = _build.load(name, _DWCONV_SIGNATURES if depthwise else _CONV_SIGNATURES)
     operands = (xq.data_ptr(), s_x.data_ptr(), wq.data_ptr(), s_w.data_ptr(), out.data_ptr(),
                 _OUT_CODES[out_dtype])

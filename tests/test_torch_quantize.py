@@ -228,29 +228,30 @@ _FULL_WIDTH = {  # family: (props, reckoned int8_conv launches per call by route
 }
 
 
-_INPUT_SIZES = {"mobilenet_v2": 224, "ssd_mobilenet_v2": 300, "yolov5s": 640}
+_INPUT_SIZES = {"mobilenet_v2": 224, "ssd_mobilenet_v2": 300}  # the families with depthwise
 
 
-def _conv_layer_inputs(family, props, monkeypatch):
-    """(layer, NCHW input shape) of every int8 convolution of one call of
-    the family's int8 build on one CPU frame, the int8 products replaced
-    by zeros of their shape (the shapes are what is wanted)."""
-    from nnstreamer_tpu_torch.models import _quant_flax, build
+def _depthwise_inputs(family, props, monkeypatch):
+    """(layer, NCHW input shape) of every depthwise layer of one call of
+    the family's int8 build on one frame, on the meta device (shapes only:
+    each int8 convolution gives zeros of its output's shape)."""
+    from nnstreamer_tpu_torch.models import build
     from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d
 
-    def zeros(x, weight, stride=1, groups=1, out_dtype=torch.float32, qweight=None):
-        return torch.zeros(x.shape[0], weight.shape[0], -(-x.shape[2] // stride),
-                           -(-x.shape[3] // stride), dtype=out_dtype)
+    def zeros(m, x):
+        s = m.stride[0]
+        return x.new_zeros(x.shape[0], m.out_channels, -(-x.shape[2] // s), -(-x.shape[3] // s))
 
-    monkeypatch.setattr(_quant_flax, "int8_conv", zeros)
-    module, _, _ = build(family, dict(props, dtype="float32", quantize="int8"))
+    monkeypatch.setattr(QuantConv2d, "forward", zeros)
+    with torch.device("meta"):
+        module, _, _ = build(family, dict(props, dtype="float32", quantize="int8"))
     seen = []
     for m in module.modules():
-        if isinstance(m, QuantConv2d):
+        if isinstance(m, QuantConv2d) and m.groups > 1:
             m.register_forward_hook(lambda m, args, out: seen.append((m, tuple(args[0].shape))))
     size = _INPUT_SIZES[family]
     with torch.inference_mode():
-        module.eval()(torch.zeros(1, size, size, 3, dtype=torch.uint8))
+        module.eval()(torch.zeros(1, size, size, 3, device="meta"))
     return seen
 
 
@@ -269,12 +270,19 @@ def _check_dwconv_plan(plan, h, w, c, kh, kw, stride, x_align=0):
             + tq.dwconv_weight_bytes(c, kh, kw, plan.tile_c) + 256 <= tq.DWCONV_SMEM_BYTES)
 
 
-def _check_conv_plan(plan, c, o, x_ptr=0, w_ptr=0):
+def _check_conv_plan(plan, c, o, kh=1, kw=1, x_ptr=0, w_ptr=0):
     """What ``csrc/int8_conv.cu`` assumes of a plan: the narrowest tile
-    holding O, the widest copy dividing C and both bases."""
+    holding O, the widest copy dividing C and both bases, and staged runs
+    only at 1 byte where ``rows_fit`` holds: the kh runs of kw * C bytes,
+    each rounded up to 4, in one 128-byte stage, their aligned words (one
+    more where a run starts off a word) in a 164-byte row slot, O in one
+    tile."""
     assert plan.tile_n == (32 if o <= 32 else 64 if o <= 64 else 128)
     assert plan.chunk == max(v for v in (16, 8, 4, 1)
                              if c % v == 0 and x_ptr % v == 0 and w_ptr % v == 0)
+    run = kw * c
+    fits = kh * -(-run // 4) * 4 <= 128 and kh * ((run + 6) // 4) * 4 <= 164 and o <= plan.tile_n
+    assert plan.staged == (plan.chunk == 1 and fits)
 
 
 @pytest.mark.parametrize("family", list(_FULL_WIDTH))
@@ -286,7 +294,7 @@ def test_int8_conv_route_at_every_layer_of_the_int8_families(family, monkeypatch
     two expansions of 24 channels gather), ViT-B/16 and GPT-2 small all 48.
     Each layer's plan (tile width from O, copy width from C) is what the
     kernels assume; the vision families' depthwise band plans too, at each
-    layer's input size (captured on the CPU at batch 1)."""
+    layer's input size (from a forward on the meta device)."""
     from nnstreamer_tpu_torch.models import build
     from nnstreamer_tpu_torch.models._quant_flax import QuantConv2d, QuantLinear
 
@@ -306,21 +314,19 @@ def test_int8_conv_route_at_every_layer_of_the_int8_families(family, monkeypatch
             if m.groups == 1:
                 plan = tq.int8_conv_plan(m.in_channels, m.out_channels, *m.kernel_size,
                                          m.stride[0], 0, 0)
-                _check_conv_plan(plan, m.in_channels, m.out_channels)
+                _check_conv_plan(plan, m.in_channels, m.out_channels, *m.kernel_size)
                 assert plan.route == route
         else:
             continue
         routes[route] = routes.get(route, 0) + 1
     assert routes == want
     if family in _INPUT_SIZES:
-        depthwise = 0
-        for m, (_, c, h, w) in _conv_layer_inputs(family, props, monkeypatch):
-            if m.groups > 1:
-                plan = tq.int8_dwconv_plan(128, h, w, c, *m.kernel_size, m.stride[0], 0, 132)
-                _check_dwconv_plan(plan, h, w, c, *m.kernel_size, m.stride[0])
-                assert plan.chunk == 16  # every depthwise layer's C % 16 == 0: TMA
-                depthwise += 1
-        assert depthwise == want.get("depthwise", 0)
+        seen = _depthwise_inputs(family, props, monkeypatch)
+        for m, (_, c, h, w) in seen:
+            plan = tq.int8_dwconv_plan(128, h, w, c, *m.kernel_size, m.stride[0], 0, 132)
+            _check_dwconv_plan(plan, h, w, c, *m.kernel_size, m.stride[0])
+            assert plan.chunk == 16  # every depthwise layer's C % 16 == 0: TMA
+        assert len(seen) == want["depthwise"]
 
 
 @pytest.mark.parametrize("case,route", [
@@ -355,7 +361,7 @@ def test_plans_at_the_awkward_shapes(case):
             _check_dwconv_plan(plan, h, w, c, k, k, s, x_ptr % 16)
         else:
             plan = tq.int8_conv_plan(c, o, k, k, s, x_ptr, 0)
-            _check_conv_plan(plan, c, o, x_ptr)
+            _check_conv_plan(plan, c, o, k, k, x_ptr)
             assert plan.route == tq.int8_conv_route(c, k, k, s, x_ptr, 0)
 
 
@@ -510,7 +516,7 @@ def test_staged_rows_fill_the_implicit_gemm(case):
     rng = np.random.default_rng(sum(case))
     x = rng.integers(-127, 128, (n, h, w, c), dtype=np.int8)
     wq = rng.integers(-127, 128, (8, k, k, c), dtype=np.int8)
-    assert tq.int8_conv_plan(c, 32, k, k, s, base, 0).chunk == 1
+    assert tq.int8_conv_plan(c, 32, k, k, s, base, 0)[2:] == (1, True)
     a, b = _staged_rows(x, wq, s, base)
     want = _im2col(x, k, k, s).astype(np.int64) @ wq.reshape(8, -1).T.astype(np.int64)
     np.testing.assert_array_equal((a @ b.T)[:len(want)], want)
