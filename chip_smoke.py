@@ -3,6 +3,7 @@
 one NVIDIA GPU.  Run from the root of a checkout::
 
     python3 chip_smoke.py [--frames 2048] [--vit-frames 1024] [--prompts 16] [--seed 0]
+                          [--only i,j]
 
 Phases (any failure exits non-zero before the result lines are printed):
 
@@ -234,6 +235,45 @@ Phases (any failure exits non-zero before the result lines are printed):
          call, 48 ``int8_conv`` per call, all by the GEMM route; ViT-B/16
          the same) and ``generate:32`` through the filter (tokens equal to
          the direct call, 48 ``int8_conv`` per step).
+      h2 also holds ``PAD_EDGES`` (explicit pads as the ``.tflite`` int8 route
+      passes them: VALID and asymmetric on the GEMM, gather and depthwise
+      routes, j1's stem and first 3x3/2 depthwise layer, the patch-sum
+      products on weights of ones) bit-equal to the plain versions.
+   i. the shared-prefix KV cache: GPT-2 small (path d's custom and seed),
+      ``PREFIX_PROMPTS`` (32) prompts of a shared seeded 256-token prefix and
+      a distinct 64-192-token tail through ``tensor_generator slots=16
+      chunk=16 max-new=64 prefix-cache=on prefix-grain=64``, and the same run
+      with the cache off: every prompt's greedy tokens equal, prefix hits
+      above 0; hits, hit tokens, entry bytes and time to first chunk p50 and
+      p99 of both runs printed as information.
+   j. model files written by ``tests/torch_model_files.py`` (struct and
+      numpy) from the zoo MobileNet-v2 (224, width 1.0, 1001 classes,
+      float32, ``--seed``, BatchNorm folded; activation ranges from a float
+      forward over 32 seeded frames), under ``build/chip_smoke/models``:
+      1. a uint8 per-tensor ``.tflite`` with the hosted quantized file's op
+         set (``CONV_2D`` and ``DEPTHWISE_CONV_2D`` with fused RELU6,
+         ``ADD``, ``AVERAGE_POOL_2D``, ``RESHAPE``): ``FILE_FRAMES`` (1024)
+         frames through ``tensor_filter framework=tflite custom=int8:true
+         max-batch=128 ! tensor_decoder mode=image_labeling``: labels equal
+         to the direct call in the same micro-batch sizes, 128 frames
+         bit-equal to the same lowering on the kernels' plain versions,
+         ``int8_conv`` (by route) and ``int8_dwconv`` launches per
+         micro-batch as the file reckons them (patch sums included), no
+         graph call frame by frame; the agreement with ``int8:false`` in
+         output quanta, ms per 128 frames beside the zoo's ``quantize:int8``
+         build, and every int8 layer timed beside its bound;
+      2. the same model to TFLite's int8 spec (int8 per-channel symmetric
+         weights, int8 activations), ``FILE_INT8_FRAMES`` (256) int8
+         frames, the same checks;
+      3. a float32 ``.onnx`` (opset 13: ``Cast``, ``Mul``, ``Add``,
+         ``Transpose``, ``Conv`` with ``group``, ``Clip``,
+         ``GlobalAveragePool``, ``Flatten``, ``Gemm``), 1024 frames through
+         ``framework=onnx`` and the fused labeling decoder: labels equal to
+         the zoo's float32 call on the card except at counted near-ties
+         (top-2 logits within 1e-4 of the largest magnitude), ``top1`` once
+         per micro-batch.
+   ``--only i,j`` runs paths i and j alone after the kernel build (j with
+   ``PAD_EDGES`` first), each summary a JSON line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -243,7 +283,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``{"composed": {...}}`` JSON line (path e's numbers), a
    ``{"vision": {...}}`` JSON line (path f's numbers), a ``{"media":
    {...}}`` JSON line (path g's numbers), an ``{"int8": {...}}`` JSON line
-   (path h's numbers), one
+   (path h's numbers), a ``{"prefix_cache": {...}}`` line (path i's), a
+   ``{"model_files": {...}}`` line (path j's), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -1380,16 +1421,18 @@ def stream_tokens(frames, n_tokens: int):
 
 
 def run_generator(np, custom: str, prompts, max_new: int, chunk: int, slots: int,
-                  prefill_chunk: int = 128, keep=None):
+                  prefill_chunk: int = 128, keep=None, extra: str = ""):
     """`prompts` pushed at once through appsrc ! tensor_generator !
-    tensor_sink; returns the tokens per prompt, the push clock per prompt,
-    the arrival clock of every chunk by prompt, the wall seconds and
-    whatever `keep(pipe)` returned before the pipeline stopped."""
+    tensor_sink (the generator's properties `extra` added); returns the
+    tokens per prompt, the push clock per prompt, the arrival clock of every
+    chunk by prompt, the wall seconds and whatever `keep(pipe)` returned
+    before the pipeline stopped."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
     pipe = parse_pipeline(
         f"appsrc name=src ! tensor_generator name=g custom={custom} max-new={max_new} "
-        f"chunk={chunk} slots={slots} prefill-chunk={prefill_chunk} ! tensor_sink name=out")
+        f"chunk={chunk} slots={slots} prefill-chunk={prefill_chunk} {extra} ! "
+        "tensor_sink name=out")
     arrived = {}
     pipe["out"].connect_new_data(
         lambda f: arrived.setdefault(int(f.pts), []).append(time.perf_counter()))
@@ -2727,6 +2770,8 @@ INT8_AWKWARD = [
     (2, 14, 14, 576, 576, 3, 2, 576, "float32"),  # depthwise 3x3/2, C = 576
     (2, 9, 9, 3, 160, 3, 2, 1, "bfloat16"),  # C = 3, O past one tile: byte loads
     (2, 11, 11, 20, 20, 3, 1, 20, "float32"),  # depthwise C % 8 = 4: 4-byte copies
+    (2, 224, 224, 3, 32, 3, 2, 1, "bfloat16"),  # path j1's stem at full size
+    (2, 112, 112, 96, 96, 3, 2, 96, "bfloat16"),  # j1's first 3x3/2 depthwise layer
 ]
 
 
@@ -2767,8 +2812,9 @@ def check_int8_awkward(torch, q) -> int:
             check_int8_layer(torch, q, dense, x.reshape(n, c), what + " dense")
     torch.cuda.synchronize()
     check_route_edges(torch, q)
+    check_pad_edges(torch, q)
     check_int8_stress(torch, q)
-    return len(INT8_AWKWARD) + 1 + len(ROUTE_EDGES) + len(INT8_STRESS)
+    return len(INT8_AWKWARD) + 1 + len(ROUTE_EDGES) + len(PAD_EDGES) + len(INT8_STRESS)
 
 
 #: the stress case: (n, h, w, c, o, kernel, stride, groups) layers each run
@@ -2891,6 +2937,59 @@ def check_route_edges(torch, q) -> None:
             for got, want in zip(got_q, q.quantize_rows_plain(ties.to(dt))):
                 int8_equal(torch, f"h2 quantize_i8 .5 ties {dt} two_pass={two_pass}", got, want)
     torch.cuda.synchronize()
+
+
+#: explicit pads, as the ``.tflite`` int8 route passes them: ((n, h, w, c, o,
+#: kernel, stride, groups), (top, bottom, left, right), the route it must
+#: take, and "ones" for a patch-sum product (weights of ones)
+PAD_EDGES = [
+    ((2, 7, 7, 64, 96, 1, 1, 1), (0, 0, 0, 0), "gemm"),  # explicit 0s keep the GEMM route
+    ((2, 9, 9, 64, 96, 3, 1, 1), (0, 0, 0, 0), "gather"),  # VALID
+    ((2, 10, 9, 32, 64, 3, 2, 1), (0, 0, 0, 0), "gather"),  # VALID 3x3/2
+    ((2, 9, 11, 32, 64, 3, 1, 1), (2, 0, 1, 2), "gather"),  # asymmetric
+    ((2, 9, 9, 3, 32, 3, 2, 1), (0, 1, 1, 0), "gather"),  # C = 3, asymmetric
+    ((2, 5, 5, 16, 8, 1, 2, 1), (0, 0, 0, 0), "gather"),  # 1x1 stride 2
+    ((2, 9, 9, 64, 64, 3, 1, 64), (0, 0, 0, 0), "depthwise"),  # VALID
+    ((2, 10, 10, 64, 64, 3, 2, 64), (1, 0, 0, 1), "depthwise"),  # asymmetric 3x3/2
+    ((2, 9, 9, 20, 20, 3, 1, 20), (2, 1, 0, 2), "depthwise"),  # C % 8 = 4, asymmetric
+    # j1's shapes: the stem and the first 3x3/2 depthwise layer, SAME (0, 1, 0, 1)
+    ((4, 224, 224, 3, 32, 3, 2, 1), (0, 1, 0, 1), "gather"),
+    ((4, 112, 112, 96, 96, 3, 2, 96), (0, 1, 0, 1), "depthwise"),
+    # the patch sums: weights of ones, O = 1 by the gather route, C depthwise
+    ((4, 224, 224, 3, 1, 3, 2, 1), (0, 1, 0, 1), "gather", "ones"),
+    ((2, 9, 9, 32, 1, 3, 1, 1), (0, 0, 0, 0), "gather", "ones"),
+    ((4, 56, 56, 144, 144, 3, 1, 144), (1, 1, 1, 1), "depthwise", "ones"),
+]
+
+
+def check_pad_edges(torch, q) -> None:
+    """PAD_EDGES, each bit-equal to the plain version (int32 accumulator and
+    bf16), of the output size its pads give, and counted on its route."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(13)
+    for (n, h, w, c, o, k, s, groups), pads, route, *ones in PAD_EDGES:
+        xq = torch.randint(-127, 128, (n, h, w, c), dtype=torch.int8, device=dev, generator=g)
+        wq = (torch.ones((o, k, k, c // groups), dtype=torch.int8, device=dev) if ones else
+              torch.randint(-127, 128, (o, k, k, c // groups), dtype=torch.int8, device=dev,
+                            generator=g))
+        sx, sw = torch.rand(n, device=dev, generator=g), torch.rand(o, device=dev, generator=g)
+        what = f"pad edge {(n, h, w, c, o, k, s, groups)} pads {pads}" + (" ones" if ones else "")
+        before = route_counts(q)
+        for out in (torch.int32, torch.bfloat16):
+            got = q.conv_i8(xq, sx, wq, sw, s, groups, out, pads)
+            if tuple(got.shape[2:]) != q.conv_out(h, w, k, k, s, pads):
+                raise AssertionError(f"{what}: output {tuple(got.shape)}")
+            int8_equal(torch, f"{what} -> {out}", got,
+                       q.conv_i8_plain(xq, sx, wq, sw, s, groups, out, pads))
+        counted = tuple(b + 2 * (r == route)
+                        for b, r in zip(before, ("gemm", "gather", "depthwise")))
+        if route_counts(q) != counted:
+            raise AssertionError(f"{what}: launches {route_counts(q)} from {before}, want the "
+                                 f"{route} route twice")
+    torch.cuda.synchronize()
+    print(f"int8 explicit pads: {len(PAD_EDGES)} cases (VALID, asymmetric, j1's 3x3/2 "
+          "layers, patch sums on weights of ones) bit-equal to the plain versions on their "
+          "routes", flush=True)
 
 
 def forced_ms(q, fn, **routes) -> float:
@@ -3282,6 +3381,372 @@ def run_int8(torch, np, lab, counters, seed: int, card: str, labels, beside=None
     return paths, summary, kernels
 
 
+# -- path i: the shared-prefix KV cache ------------------------------------------------
+
+#: path i: prompts, each a shared seeded prefix of PREFIX_TOKENS tokens and a
+#: distinct tail of 64-192 tokens, through slots=16 with the cache on and off
+PREFIX_PROMPTS = 32
+PREFIX_TOKENS = 256
+PREFIX_GRAIN = 64
+PREFIX_NEW = 64
+
+
+def run_prefix_path(torch, np, counters, seed: int, card: str) -> dict:
+    """Path i: GPT-2 small (path d's custom and seed) through ``tensor_generator
+    slots=16 chunk=16 prefix-cache=on prefix-grain=64`` and the same run with
+    the cache off: every prompt's greedy tokens equal, prefix hits > 0;
+    hits, hit tokens, entry bytes and time to first chunk of both runs are
+    printed as information."""
+    custom = f"{LM_CUSTOM},seed:{seed}"
+    vocab = int(custom_props(LM_CUSTOM)["vocab"])
+    rng = np.random.default_rng(seed + 11)
+    prefix = rng.integers(0, vocab, PREFIX_TOKENS, dtype=np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, vocab, int(n), dtype=np.int32)])
+               for n in rng.integers(64, 193, PREFIX_PROMPTS)]
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in ("on", "off"):
+        counters.zero()
+        extra = f"prefix-cache={mode} prefix-grain={PREFIX_GRAIN}"
+        toks, pushed, arrived, wall, snap = run_generator(
+            np, custom, prompts, PREFIX_NEW, 16, 16, prefill_chunk=32, extra=extra,
+            keep=lambda pipe: pipe["g"]._engine.snapshot())
+        ttfc = [(min(arrived[i]) - pushed[i]) * 1e3 for i in range(len(prompts))]
+        runs[mode] = {"tokens": toks, "launches": counters.read(), "snapshot": snap,
+                      "wall_s": wall, "ttfc_ms_p50": pct(ttfc, 0.5), "ttfc_ms_p99": pct(ttfc, 0.99)}
+    bad = [i for i in range(len(prompts))
+           if not np.array_equal(runs["on"]["tokens"][i], runs["off"]["tokens"][i])]
+    if bad:
+        raise AssertionError(f"path i: prompts {bad} give other tokens with prefix-cache=on "
+                             "than with it off")
+    snap = runs["on"]["snapshot"]
+    if snap["prefix_hits"] <= 0 or any(k.startswith("prefix_") for k in runs["off"]["snapshot"]):
+        raise AssertionError(f"path i: prefix cache snapshot {snap} (want hits > 0, and no "
+                             "prefix keys with the cache off)")
+    entry = snap["prefix_bytes"] / max(1, snap["prefix_entries"])
+    summary = {"prompts": len(prompts), "prefix_tokens": PREFIX_TOKENS, "grain": PREFIX_GRAIN,
+               "prefix_hits": snap["prefix_hits"], "prefix_misses": snap["prefix_misses"],
+               "prefix_hit_tokens": snap["prefix_hit_tokens"],
+               "prefix_publishes": snap["prefix_publishes"],
+               "prefix_entries": snap["prefix_entries"], "entry_bytes": entry,
+               "card": card, "seconds": time.perf_counter() - t0}
+    for mode in ("on", "off"):
+        summary[mode] = {k: runs[mode][k] for k in ("wall_s", "ttfc_ms_p50", "ttfc_ms_p99")}
+    print(f"path i: {len(prompts)} prompts of a shared {PREFIX_TOKENS}-token prefix and 64-192 "
+          f"tail tokens, {PREFIX_NEW} greedy tokens each through slots=16 chunk=16: tokens equal "
+          f"with prefix-cache=on and off; hits {snap['prefix_hits']} misses "
+          f"{snap['prefix_misses']}, hit tokens {snap['prefix_hit_tokens']}, "
+          f"{snap['prefix_entries']} entries of {entry / 2**20:.2f} MiB; time to first chunk p50 "
+          f"{summary['on']['ttfc_ms_p50']:.1f} ms p99 {summary['on']['ttfc_ms_p99']:.1f} ms on, "
+          f"{summary['off']['ttfc_ms_p50']:.1f} / {summary['off']['ttfc_ms_p99']:.1f} ms off "
+          f"(information only); {summary['seconds']:.1f} s; on {card}")
+    return {"launches": runs["on"]["launches"], "batches": snap["gen_decode_steps"],
+            "summary": summary}
+
+
+# -- path j: model files ---------------------------------------------------------------
+
+#: frames of j1 and j3, of j2, and of the calibration forward of the files
+FILE_FRAMES = 1024
+FILE_INT8_FRAMES = 256
+CALIBRATION_FRAMES = 32
+
+
+def model_files():
+    """``tests/torch_model_files.py`` (struct and numpy; the checkout's)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_model_files
+
+    return torch_model_files
+
+
+def reckon_file_int8(q, lowering) -> dict:
+    """int8 kernel launches one call of a lowered ``.tflite`` makes with
+    ``int8:true``, from the file: each conv on its route (fresh activations
+    and weights are 16-byte aligned) and its patch sums where the weights'
+    zero point is not 0 (ones weights on the gather route for kernels over
+    1 x 1, a second depthwise launch)."""
+    want = {"int8_conv_gemm": 0, "int8_conv_gather": 0, "int8_dwconv": 0}
+    for i, layer in lowering.int8_layers.items():
+        op = lowering.m.ops[i]
+        c = lowering.m.tensors[op.inputs[0]].shape[-1]
+        if layer.kind == "DEPTHWISE_CONV_2D":
+            want["int8_dwconv"] += 1 + bool(layer.zp_w_p)
+            continue
+        if layer.kind == "FULLY_CONNECTED":
+            kh = kw = stride = 1
+        else:
+            kh, kw, stride = layer.kh, layer.kw, layer.stride[0]
+        pads = None if op.opcode == "FULLY_CONNECTED" or op.options["padding"] == "SAME" else (
+            0, 0, 0, 0)
+        want[f"int8_conv_{q.int8_conv_route(c, kh, kw, stride, 0, 0, pads)}"] += 1
+        if layer.zp_w_p and (kh > 1 or kw > 1 or stride > 1):
+            want[f"int8_conv_{q.int8_conv_route(c, kh, kw, stride, 0, 0, pads)}"] += 1
+    want["int8_conv"] = want["int8_conv_gemm"] + want["int8_conv_gather"]
+    return want
+
+
+def file_pipeline(np, counters, name: str, text: str, frames, card: str) -> dict:
+    """`frames` pushed one by one through the pipeline `text` (its filter
+    ``f``, its sink ``out``); the labels, micro-batch sizes, launches,
+    module and rates."""
+    from nnstreamer_tpu_torch.backends import _importer_common as ic
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(text)
+    arrived = {}
+    pipe["out"].connect_new_data(lambda f: arrived.__setitem__(int(f.pts), time.perf_counter()))
+    counters.zero()
+    calls = ic.FRAME_CALLS
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            pushed, t0 = [], time.perf_counter()
+            for i, x in enumerate(frames):
+                pushed.append(time.perf_counter())
+                pipe["src"].push(x, pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = counters.read()
+        module = pipe["f"].backend._module
+        out = pipe["out"].frames
+    finally:
+        pipe.stop()
+    if [f.pts for f in out] != list(range(len(frames))):
+        raise AssertionError(f"{name}: {len(out)} of {len(frames)} frames came back, or out of "
+                             "order")
+    if ic.FRAME_CALLS != calls:
+        raise AssertionError(f"{name}: {ic.FRAME_CALLS - calls} graph calls ran frame by frame "
+                             "(want 0: every micro-batch folded)")
+    lat = sorted(arrived[i] - pushed[i] for i in range(len(frames)))
+    return {"labels": np.array([f.meta["label_index"] for f in out]), "sizes": sizes,
+            "launches": launches, "module": module, "fps": len(frames) / wall,
+            "latency_ms_p50": lat[len(lat) // 2] * 1e3, "frame_calls": ic.FRAME_CALLS - calls,
+            "latency_ms_p99": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3}
+
+
+def direct_labels(torch, np, lab, module, frames, sizes):
+    """The module called directly in the pipeline's micro-batch sizes, each
+    frame's scores flattened and taken as float32 (the decoder's device
+    half), labelled by ``top1_plain``; and the logits."""
+    got, logits = [], []
+    for _, n, out, _ in direct_batches(torch, module, frames, sizes):
+        scores = (out[0] if isinstance(out, (list, tuple)) else out).reshape(n, -1).float()
+        got.append(lab.top1_plain(scores)[0].cpu().numpy())
+        logits.append(scores)
+    return np.concatenate(got), torch.cat(logits)
+
+
+def time_file_layers(torch, np, q, lowering, n: int, card: str, name: str) -> dict:
+    """Every int8 convolution one call of the lowered file makes, with its
+    patch sums, at its shape over `n` frames (random int8 input, the layer's
+    int8 weights, int32 out): the kernel's time (CUDA events) beside its
+    bound, summed by route.  Returns the sums."""
+    from nnstreamer_tpu_torch.importers.tflite_lower import _conv_padding
+
+    dev = lowering.device  # where the lowering last ran: the card
+    g = torch.Generator(device=dev).manual_seed(12)
+    sums = {}
+
+    def add(key, fn, nbytes, ops):
+        ms = time_ms(fn, reps=5, inner=3)
+        bound, _ = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+        row = sums.setdefault(key, {"layers": 0, "ms": 0.0, "bound_ms": 0.0})
+        row["layers"] += 1
+        row["ms"] += ms
+        row["bound_ms"] += bound
+
+    for i, layer in lowering.int8_layers.items():
+        op = lowering.m.ops[i]
+        shape = lowering.m.tensors[op.inputs[0]].shape
+        if layer.kind == "FULLY_CONNECTED":
+            continue
+        _, h, w, c = shape
+        k, s = layer.kh, layer.stride[0]
+        (t, b), (left, r) = _conv_padding(op.options, shape, k, k)
+        pads = (t, b, left, r)
+        ho, wo = q.conv_out(h, w, k, k, s, pads)
+        xq = torch.randint(-127, 128, (n, h, w, c), dtype=torch.int8, device=dev, generator=g)
+        wq = torch.from_numpy(layer.w_i8).to(dev)
+        o = wq.shape[0]
+        groups = c if layer.kind == "DEPTHWISE_CONV_2D" else 1
+        ones = torch.ones((c, k, k, 1) if groups > 1 else (1, k, k, c), dtype=torch.int8,
+                          device=dev)
+        s_x, s_w = torch.ones(n, device=dev), torch.ones(o, device=dev)
+        route = "depthwise" if groups > 1 else q.int8_conv_plan(
+            c, o, k, k, s, xq.data_ptr(), wq.data_ptr(), pads).route
+        outs = n * ho * wo * o
+        add(route, lambda: q.conv_i8(xq, s_x, wq, s_w, s, groups, torch.int32, pads),
+            xq.numel() + wq.numel() + 4 * outs, 2 * outs * k * k * (c // groups))
+        if layer.zp_w_p and (groups > 1 or k > 1 or s > 1):
+            po = c if groups > 1 else 1
+            add(f"patch_sums_{route}", lambda: q.conv_i8(xq, s_x, ones, s_w[:po], s, groups,
+                                                         torch.int32, pads),
+                xq.numel() + 4 * n * ho * wo * po, 2 * n * ho * wo * po * k * k * (c // groups))
+        del xq
+    for key, row in sums.items():
+        print(f"{name} int8 layers {key}: {row['layers']} of one call over {n} frames (int32 "
+              f"out): {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.0%}; CUDA events, sums of per-layer medians); on "
+              f"{card}", flush=True)
+    return sums
+
+
+def run_tflite_path(torch, np, lab, q, counters, name: str, path, frames, card: str, labels,
+                    zoo=None) -> dict:
+    """j1 or j2: `frames` through ``framework=tflite custom=int8:true``: labels
+    equal to the direct call in the same micro-batch sizes, one micro-batch
+    bit-equal to the kernels' plain versions on the card, the int8 kernels'
+    launches per micro-batch as the file reckons them (patch sums included),
+    none frame by frame; the agreement with ``int8:false`` in output quanta;
+    ms per 128 frames beside the zoo's ``quantize:int8`` build `zoo`."""
+    from nnstreamer_tpu_torch.backends._importer_common import ImportedGraph
+    from nnstreamer_tpu_torch.importers.tflite_lower import _Lowering
+    from nnstreamer_tpu_torch.importers.tflite_reader import read_tflite
+
+    text = (f"appsrc name=src ! tensor_filter name=f framework=tflite model={path} "
+            f"custom=int8:true max-batch=128 batch-timeout=20 ! tensor_decoder "
+            f"mode=image_labeling option1={labels} ! tensor_sink name=out")
+    r = file_pipeline(np, counters, name, text, frames, card)
+    module, sizes, b = r["module"], r["sizes"], len(r["sizes"])
+    want_labels, _ = direct_labels(torch, np, lab, module, frames, sizes)
+    if not np.array_equal(r["labels"], want_labels):
+        bad = np.flatnonzero(r["labels"] != want_labels)
+        raise AssertionError(f"{name}: {len(bad)} labels differ from the direct call "
+                             f"(first frames {bad[:8]})")
+    per_batch = reckon_file_int8(q, module.lowering)
+    want = {k: v * b for k, v in per_batch.items()} | {"top1": b, "normalize_u8": 0,
+                                                       "quantize_i8": 0}
+    got = {k: r["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got} for {b} micro-batches (want {want}: "
+                             f"{per_batch} a micro-batch, as the file reckons them)")
+    x = torch.from_numpy(frames[:128]).cuda()
+    with torch.inference_mode():
+        kernel = module(x)[0]
+        module.lowering.plain = True
+        try:
+            plain = module(x)[0]
+        finally:
+            module.lowering.plain = False
+        if not torch.equal(kernel, plain):
+            raise AssertionError(f"{name}: a micro-batch of 128 on the int8 kernels is not "
+                                 "bit-equal to the same lowering on their plain versions")
+        model = read_tflite(path)
+        fq_low = _Lowering(model, int8_compute=False)
+        fq = ImportedGraph(fq_low, fq_low.params(), [4]).cuda().eval()
+        fake = fq(x)[0]
+        diff = (kernel.int() - fake.int()).abs()
+        quanta = {"max": int(diff.max()), "mean": float(diff.float().mean()),
+                  "share_off": float((diff > 0).float().mean())}
+        ms = {"int8": time_ms(lambda: module(x), reps=7, inner=3),
+              "fake_quant": time_ms(lambda: fq(x), reps=5, inner=2)}
+        if zoo is not None:
+            zx = x.reshape(-1, *x.shape[2:])
+            ms["zoo_quantize_int8"] = time_ms(lambda: zoo(zx), reps=7, inner=3)
+    del fq
+    layers = time_file_layers(torch, np, q, module.lowering, 128, card, name)
+    summary = {"frames": len(frames), "micro_batches": b, "launches_per_micro_batch": per_batch,
+               "fps": r["fps"], "latency_ms_p50": r["latency_ms_p50"],
+               "latency_ms_p99": r["latency_ms_p99"], "fake_quant_quanta": quanta,
+               "ms_per_128": ms, "layers": layers, "frame_calls": r["frame_calls"],
+               "card": card}
+    print(f"{name}: {len(frames)} frames in {b} micro-batches, labels equal to the direct call; "
+          f"128 frames bit-equal to the kernels' plain versions; launches per micro-batch "
+          f"{per_batch} as the file reckons them, 0 frame by frame; against int8:false: "
+          f"{quanta['max']} output quanta at most, {quanta['share_off']:.2%} of outputs off; "
+          f"{r['fps']:.1f} frames/s, latency p50 {r['latency_ms_p50']:.2f} ms p99 "
+          f"{r['latency_ms_p99']:.2f} ms; ms per 128 frames (direct, CUDA events) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"; on {card}", flush=True)
+    return {"launches": r["launches"], "batches": b, "summary": summary}
+
+
+def run_onnx_path(torch, np, lab, counters, path, frames, zoo, card: str, labels) -> dict:
+    """j3: `frames` through ``framework=onnx`` and the fused labeling decoder:
+    labels equal to the zoo model's float32 call on the card except at
+    counted near-ties (the zoo's top-2 logits within 1e-4 of the largest
+    magnitude), ``top1`` once per micro-batch, none frame by frame."""
+    text = (f"appsrc name=src ! tensor_filter name=f framework=onnx model={path} "
+            f"max-batch=128 batch-timeout=20 ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ! tensor_sink name=out")
+    r = file_pipeline(np, counters, "j3", text, frames, card)
+    b = len(r["sizes"])
+    if r["launches"]["top1"] != b or r["launches"]["normalize_u8"] != 0:
+        raise AssertionError(f"j3: launches {r['launches']} for {b} micro-batches (want top1 "
+                             "exactly once each and nothing else)")
+    want, logits = direct_labels(torch, np, lab, zoo, frames.reshape(-1, *frames.shape[2:]),
+                                 r["sizes"])
+    top = logits.topk(2, dim=1).values
+    ties = ((top[:, 0] - top[:, 1]) < 1e-4 * logits.abs().amax(dim=1)).cpu().numpy()
+    bad = np.flatnonzero(r["labels"] != want)
+    if not ties[bad].all():
+        raise AssertionError(f"j3: {len(bad)} labels differ from the zoo's float32 call, "
+                             f"{int((~ties[bad]).sum())} of them away from a near-tie")
+    summary = {"frames": len(frames), "micro_batches": b, "fps": r["fps"],
+               "latency_ms_p50": r["latency_ms_p50"], "latency_ms_p99": r["latency_ms_p99"],
+               "near_ties": int(ties.sum()), "labels_off_at_near_ties": len(bad),
+               "frame_calls": r["frame_calls"], "card": card}
+    print(f"j3 MobileNet-v2 .onnx float32: {len(frames)} frames in {b} micro-batches, labels "
+          f"equal to the zoo's float32 call but {len(bad)} at {int(ties.sum())} counted "
+          f"near-ties; top1 once per micro-batch, 0 frame by frame; {r['fps']:.1f} frames/s, "
+          f"latency p50 {r['latency_ms_p50']:.2f} ms p99 {r['latency_ms_p99']:.2f} ms; on {card}",
+          flush=True)
+    return {"launches": r["launches"], "batches": b, "summary": summary}
+
+
+def run_files(torch, np, lab, counters, seed: int, card: str, work, labels) -> tuple:
+    """Path j: the zoo MobileNet-v2 (224, width 1.0, 1001 classes, seed `seed`,
+    float32, BatchNorm folded) written by ``tests/torch_model_files.py`` as
+    j1 a uint8 per-tensor ``.tflite`` (the hosted quantized file's op set
+    and scheme), j2 the same to TFLite's int8 spec, j3 a float32 ``.onnx``,
+    the activation ranges from a float forward over CALIBRATION_FRAMES
+    seeded frames; each file served on the card.  Returns ({path: launches
+    and micro-batches}, the summary)."""
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.ops import quantize as q
+
+    t0 = time.perf_counter()
+    mf = model_files()
+    props = {"dtype": "float32", "seed": str(seed)}
+    float32 = build("mobilenet_v2", props)[0].cuda().eval()
+    rng = np.random.default_rng(seed + 21)
+    calib = rng.integers(0, 256, (CALIBRATION_FRAMES, 224, 224, 3), dtype=np.uint8)
+    files = work / "models"
+    files.mkdir(parents=True, exist_ok=True)
+    paths = {"uint8": files / "mobilenet_v2_quant_uint8.tflite",
+             "int8": files / "mobilenet_v2_quant_int8.tflite",
+             "onnx": files / "mobilenet_v2_float32.onnx"}
+    with torch.inference_mode():
+        for spec in ("uint8", "int8"):
+            paths[spec].write_bytes(mf.mobilenet_v2_tflite(
+                float32, calib, spec, device=next(float32.parameters()).device))
+    paths["onnx"].write_bytes(mf.mobilenet_v2_onnx(float32))
+    print(f"path j: wrote {', '.join(f'{p.name} ({p.stat().st_size / 2**20:.1f} MiB)' for p in paths.values())} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    zoo_int8 = build("mobilenet_v2", {"quantize": "int8", "seed": str(seed)})[0].cuda().eval()
+    frames = rng.integers(0, 256, (FILE_FRAMES, 1, 224, 224, 3), dtype=np.uint8)
+    out, summary = {}, {}
+    r = run_tflite_path(torch, np, lab, q, counters, "j1 MobileNet-v2 .tflite uint8", paths["uint8"],
+                        frames, card, labels, zoo=zoo_int8)
+    out["tflite_uint8"], summary["j1"] = r, r.pop("summary")
+    del zoo_int8
+    torch.cuda.empty_cache()
+    frames8 = (frames[:FILE_INT8_FRAMES].astype(np.int16) - 128).astype(np.int8)
+    r = run_tflite_path(torch, np, lab, q, counters, "j2 MobileNet-v2 .tflite int8 spec",
+                        paths["int8"], frames8, card, labels)
+    out["tflite_int8"], summary["j2"] = r, r.pop("summary")
+    torch.cuda.empty_cache()
+    r = run_onnx_path(torch, np, lab, counters, paths["onnx"], frames, float32, card, labels)
+    out["onnx_float32"], summary["j3"] = r, r.pop("summary")
+    del float32
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t0
+    summary["card"] = card
+    print(f"path j: {summary['seconds']:.1f} s", flush=True)
+    return out, summary
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -3308,12 +3773,34 @@ def work_dir() -> Path:
     return work
 
 
+def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
+    """``--only``: the int8 kernels' explicit-pad edges when path j runs, then
+    the named paths, each summary a JSON line."""
+    from nnstreamer_tpu_torch.ops import quantize as q
+
+    only = {p.strip() for p in args.only.split(",") if p.strip()}
+    if not only <= {"i", "j"}:
+        raise SystemExit(f"chip_smoke.py: --only takes i and j, not {sorted(only - {'i', 'j'})}")
+    if "j" in only:
+        check_pad_edges(torch, q)
+        _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
+        print(json.dumps({"model_files": files}))
+    if "i" in only:
+        print(json.dumps({"prefix_cache": run_prefix_path(torch, np, counters, args.seed,
+                                                          card)["summary"]}))
+    print(card)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=2048, help="frames through MobileNet-v2")
     ap.add_argument("--vit-frames", type=int, default=1024, help="frames through ViT-B/16")
     ap.add_argument("--prompts", type=int, default=16, help="1024-token prompts through GPT-2 small")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
+    ap.add_argument("--only", default="",
+                    help="comma-separated paths to run alone after the kernel build: i, j "
+                         "(prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
     if not (ROOT / "nnstreamer_tpu_torch" / "csrc").is_dir():
@@ -3340,10 +3827,12 @@ def main() -> int:
                   "int8_dwconv"])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, six kernels in parallel)")
 
-    kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa)]
     counters = kernel_counters()
     work = work_dir()
     labels = work / "labels.txt"
+    if args.only:
+        return run_only(torch, np, lab, counters, args, card, work, labels)
+    kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa)]
 
     paths = {}
     mobilenet = ("MobileNet-v2", "arch:mobilenet_v2,dtype:bfloat16",
@@ -3402,6 +3891,11 @@ def main() -> int:
                                               beside=paths["mobilenet_v2"])
     paths.update(int8_paths)
     kernels += int8_kernels
+    torch.cuda.empty_cache()
+    prefix = run_prefix_path(torch, np, counters, args.seed, card)
+    paths["gpt2_small_prefix_cache"] = prefix
+    file_paths, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
+    paths.update(file_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -3413,6 +3907,8 @@ def main() -> int:
     print(json.dumps({"vision": vision}))
     print(json.dumps({"media": media}))
     print(json.dumps({"int8": int8}))
+    print(json.dumps({"prefix_cache": prefix.pop("summary")}))
+    print(json.dumps({"model_files": files}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -29,9 +29,20 @@ thread through :meth:`SlotEngine.pop_ready`, which re-raises a pump error
 there.  Tokens stay on the device between calls: one host copy per decode
 call brings its ``(S, k)`` tokens back.
 
-Not ported (ROADMAP A7): the prefix cache, the simulated model, GOAWAY
-hand-off, resume and ledger adoption, OOM and device-loss recovery (A4),
-SLO tracking.
+* **shared-prefix KV cache** (:class:`PrefixCache`, optional): a joining
+  prompt attaches the published KV pages of its longest cached run of
+  grain chunks and prefills from the first uncached token; as its own
+  prefill crosses grain boundaries it publishes copies of the pages it
+  wrote.  The grain is a multiple of ``prefill_chunk``, so a warm stream's
+  remaining chunks fall on the grid a cold prefill uses and its tokens are
+  a cold run's.
+
+:class:`SimSlotModel` is a host-only model with the slot model's interface
+and a token oracle, for driving the scheduler without a transformer.
+
+Not ported (ROADMAP A7.3, A4.3): GOAWAY hand-off, resume and ledger
+adoption, OOM and device-loss recovery and the simulated model's chaos
+twins, SLO tracking.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .continuity import PREFIX_GRAIN, prefix_digests
 from .liveness import ThreadBeat
 
 log = logging.getLogger("nnstreamer_tpu_torch.slots")
@@ -68,6 +80,172 @@ def lru_bucket(lru: "OrderedDict", key, build, cap: int):
     return fn
 
 
+class PrefixEntry:
+    """One published grain chunk of a shared prefix: the page blob (a copy,
+    never a view into a live slot) of prompt positions ``[index * grain,
+    (index + 1) * grain)``, keyed by its chain digest, with the refcount
+    that fences its reclamation."""
+
+    __slots__ = ("digest", "index", "pages", "tokens", "nbytes", "refs", "last_used")
+
+    def __init__(self, digest: str, index: int, pages, tokens: int, nbytes: int, now: float):
+        self.digest = digest
+        self.index = int(index)
+        self.pages = pages          # model-opaque blob (attach interprets it)
+        self.tokens = int(tokens)
+        self.nbytes = int(nbytes)
+        self.refs = 0
+        self.last_used = now
+
+
+class PrefixCache:
+    """Refcounted pool of shared-prefix KV pages.
+
+    * keyed by chain digests (:func:`~.continuity.prefix_digests`): entry
+      *i* is valid only under the prefix that produced chunks ``0..i-1``;
+    * :meth:`publish` stores copies exported at a grain boundary (the
+      publishing slot keeps its own pages);
+    * :meth:`acquire` pins (``refs += 1``) the longest run of consecutive
+      cached chunks from index 0; the engine holds the pins for the
+      stream's slot occupancy, so eviction (LRU past ``cap_entries`` or
+      ``cap_bytes``) and :meth:`trim` only take entries with ``refs == 0``.
+
+    Accounting is exact: one hit (and its ``hit_tokens``) or one miss per
+    eligible lookup, one publish per entry stored, one eviction per entry
+    reclaimed.  Bytes are the pages' tensors' ``nbytes``."""
+
+    def __init__(self, grain: int = PREFIX_GRAIN, cap_entries: int = 256, cap_bytes: int = 0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.grain = max(1, int(grain))
+        self.cap_entries = max(1, int(cap_entries))
+        self.cap_bytes = max(0, int(cap_bytes))
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[str, PrefixEntry]" = OrderedDict()
+        self.bytes = 0
+        # exact counters (lock-held writes, GIL-atomic reads)
+        self.hits = 0
+        self.misses = 0
+        self.publishes = 0
+        self.evictions = 0
+        self.hit_tokens = 0   # prefill tokens skipped by attaching
+
+    @staticmethod
+    def _nbytes(pages) -> int:
+        """Bytes of a page blob (dicts and lists of tensors or arrays;
+        anything else counts a nominal 8)."""
+        n = 0
+        stack = [pages]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, dict):
+                stack.extend(x.values())
+            elif isinstance(x, (list, tuple)):
+                stack.extend(x)
+            else:
+                n += int(getattr(x, "nbytes", 8))
+        return n
+
+    def acquire(self, digests: List[str]) -> List[PrefixEntry]:
+        """Pin the longest run of consecutive cached chunks from index 0.
+        Counts one hit (and its tokens) for a non-empty run, else one miss.
+        Balance with :meth:`release` exactly once."""
+        with self._lock:
+            run: List[PrefixEntry] = []
+            for i, d in enumerate(digests):
+                e = self._entries.get(d)
+                if e is None or e.index != i:
+                    break
+                run.append(e)
+            if run:
+                now = self.clock()
+                for e in run:
+                    e.refs += 1
+                    e.last_used = now
+                    self._entries.move_to_end(e.digest)
+                self.hits += 1
+                self.hit_tokens += sum(e.tokens for e in run)
+            else:
+                self.misses += 1
+            return run
+
+    def release(self, entries: List[PrefixEntry]) -> None:
+        with self._lock:
+            for e in entries:
+                e.refs = max(0, e.refs - 1)
+
+    def contains(self, digest: str) -> bool:
+        with self._lock:
+            return digest in self._entries
+
+    def publish(self, digest: str, index: int, pages, tokens: int) -> bool:
+        """Store one exported grain chunk.  False (not stored) when the
+        digest is present, or every evictable entry is pinned and the caps
+        leave no room."""
+        nbytes = self._nbytes(pages)
+        with self._lock:
+            if digest in self._entries or not self._make_room_locked(nbytes):
+                return False
+            self._entries[digest] = PrefixEntry(digest, index, pages, tokens, nbytes,
+                                                self.clock())
+            self.bytes += nbytes
+            self.publishes += 1
+            return True
+
+    def _make_room_locked(self, incoming: int) -> bool:
+        def over() -> bool:
+            return (len(self._entries) + 1 > self.cap_entries
+                    or (self.cap_bytes > 0 and self.bytes + incoming > self.cap_bytes))
+
+        while over():
+            victim = next((e for e in self._entries.values() if e.refs == 0), None)
+            if victim is None:
+                return False  # everything pinned: refuse, never reclaim
+            self._evict_locked(victim)
+        return True
+
+    def _evict_locked(self, e: PrefixEntry) -> None:
+        del self._entries[e.digest]
+        self.bytes -= e.nbytes
+        self.evictions += 1
+
+    def trim(self) -> int:
+        """Reclaim every entry with ``refs == 0``; returns how many."""
+        with self._lock:
+            cold = [e for e in self._entries.values() if e.refs == 0]
+            for e in cold:
+                self._evict_locked(e)
+            return len(cold)
+
+    def clear(self) -> int:
+        """Drop every entry, pinned ones too."""
+        with self._lock:
+            n = len(self._entries)
+            self.evictions += n
+            self._entries.clear()
+            self.bytes = 0
+            return n
+
+    def hot_digests(self, k: int = 8) -> List[str]:
+        """The ``k`` most recently used digests, cut to 12 characters."""
+        with self._lock:
+            es = sorted(self._entries.values(), key=lambda e: -e.last_used)[:k]
+            return [e.digest[:12] for e in es]
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "prefix_hits": self.hits,
+                "prefix_misses": self.misses,
+                "prefix_publishes": self.publishes,
+                "prefix_evictions": self.evictions,
+                "prefix_entries": len(self._entries),
+                "prefix_refs": sum(e.refs for e in self._entries.values()),
+                "prefix_bytes": self.bytes,
+                "prefix_hit_tokens": self.hit_tokens,
+            }
+
+
 class GenStream:
     """One generation stream: a prompt waiting for or occupying a slot.
 
@@ -80,6 +258,10 @@ class GenStream:
         "priority", "deadline_ts", "token_budget_s", "state", "slot",
         "prefill_pos", "gen", "pending", "pending_n", "chunk_index",
         "tokens_out", "last_token_ts",
+        # shared-prefix cache: the chain digests of the prompt's eligible
+        # chunks, the pinned entries it attached (released with the slot),
+        # and the next chunk index to publish as prefill crosses a boundary
+        "prefix_digests", "prefix_entries", "prefix_pub_i",
     )
 
     def __init__(self, sid: int, frame, prompt, max_new: int, chunk: int,
@@ -105,10 +287,107 @@ class GenStream:
         self.chunk_index = 0
         self.tokens_out = 0               # tokens actually emitted
         self.last_token_ts = now
+        self.prefix_digests: List[str] = []
+        self.prefix_entries: List[PrefixEntry] = []
+        self.prefix_pub_i = 0
 
     @property
     def finished(self) -> bool:
         return self.state in DONE_STATES
+
+
+class SimSlotModel:
+    """A host-only simulated slot model: :class:`SlotEngine`'s model
+    interface over a token recurrence with modelled step costs (each
+    decode call pays a base that does not depend on the batch plus a small
+    increment per active slot), so the scheduler runs without a
+    transformer or a card.
+
+    Token oracle: token 1 = ``sum(prompt) % vocab``, token j+1 = ``(31 *
+    t_j + 17) % vocab``.  A slot's "pages" are its position and the
+    running prompt sum of its chunked prefill.
+
+    Not ported (ROADMAP A4.3): the chaos twins ``fail_next``,
+    ``oom_at_step`` and ``lost_at_step``, which raise the device error
+    types that come with A4.3."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, slots: int, vocab: int = 997, step_base_ms: float = 1.0,
+                 step_per_slot_ms: float = 0.05, prefill_ms_per_token: float = 0.02,
+                 sleep=time.sleep):
+        self.slots = int(slots)
+        self.vocab = int(vocab)
+        self.step_base_s = step_base_ms * 1e-3
+        self.step_per_slot_s = step_per_slot_ms * 1e-3
+        self.prefill_s_per_token = prefill_ms_per_token * 1e-3
+        self._sleep = sleep
+        # running prompt sum per slot: token 1 covers the whole prompt
+        # across chunk boundaries
+        self._prefill_carry: Dict[int, int] = {}
+
+    def init_cache(self):
+        return {"pos": np.zeros((self.slots,), np.int64)}
+
+    def reset_slot(self, cache, slot):
+        cache = {"pos": cache["pos"].copy()}
+        cache["pos"][int(slot)] = 0
+        self._prefill_carry[int(slot)] = 0
+        return cache
+
+    def export_prefix(self, cache, slot, start: int, stop: int):
+        """The pages of ``[start, stop)``: the carry at ``stop`` (the engine
+        exports when ``prefill_pos == stop``, where the carry covers
+        ``[0, stop)``)."""
+        del cache, start
+        return {"carry": int(self._prefill_carry.get(int(slot), 0)), "n": int(stop)}
+
+    def attach_prefix(self, cache, slot, pages_list, n: int):
+        """Restore the last chunk's carry and set the slot's position to
+        ``n``: a cold prefill paused at ``prefill_pos == n``."""
+        cache = {"pos": cache["pos"].copy()}
+        cache["pos"][int(slot)] = n
+        self._prefill_carry[int(slot)] = int(pages_list[-1]["carry"])
+        return cache
+
+    def prefill_fn(self, n: int):
+        def fn(cache, toks, slot):
+            toks = np.asarray(toks)
+            self._sleep(self.prefill_s_per_token * toks.shape[1])
+            cache = {"pos": cache["pos"].copy()}
+            cache["pos"][int(slot)] += toks.shape[1]
+            tot = (self._prefill_carry.get(int(slot), 0) + int(toks.sum())) % self.vocab
+            self._prefill_carry[int(slot)] = tot
+            logits = torch.zeros((1, self.vocab))  # one-hot at token 1
+            logits[0, tot] = 1.0
+            return cache, logits
+
+        return fn
+
+    def pick_first(self, logits: torch.Tensor) -> torch.Tensor:
+        return logits.argmax(dim=-1).to(torch.int32)
+
+    def step_token(self, t: int) -> int:
+        return (31 * int(t) + 17) % self.vocab
+
+    def decode_fn(self, k: int):
+        def fn(cache, tok, gen, active):
+            act = np.asarray(active)
+            self._sleep(k * (self.step_base_s + self.step_per_slot_s * int(act.sum())))
+            tok = np.array(tok)
+            gen = np.array(gen)
+            toks = np.zeros((self.slots, k), np.int32)
+            for step in range(k):
+                for slot in range(self.slots):
+                    if act[slot]:
+                        tok[slot] = self.step_token(tok[slot])
+                        toks[slot, step] = tok[slot]
+                gen = gen + act
+            cache = {"pos": cache["pos"] + k * act.astype(np.int64)}
+            return (cache, torch.from_numpy(tok), torch.from_numpy(gen.astype(np.int32)),
+                    torch.from_numpy(toks))
+
+        return fn
 
 
 class SlotEngine:
@@ -132,7 +411,8 @@ class SlotEngine:
                  prefill_chunk: int = 32, prefill_priority: int = 1,
                  token_budget_s: float = 0.0,
                  clock: Callable[[], float] = time.monotonic,
-                 name: str = "slots"):
+                 name: str = "slots",
+                 prefix_cache: Optional[PrefixCache] = None):
         self.model = model
         self.slots = int(model.slots)
         self.device = torch.device(model.device)
@@ -143,6 +423,14 @@ class SlotEngine:
         self.token_budget_s = float(token_budget_s)
         self.clock = clock
         self.name = name
+        # shared-prefix page pool (None: off, no digests, attach, publish or
+        # snapshot keys).  The grain must land on the prefill chunk grid,
+        # or a warm stream's chunks would differ from a cold run's
+        self.prefix = prefix_cache
+        if prefix_cache is not None and prefix_cache.grain % self.prefill_chunk != 0:
+            raise ValueError(
+                f"prefix grain {prefix_cache.grain} must be a multiple of prefill_chunk "
+                f"{self.prefill_chunk} (a warm stream must prefill on a cold run's chunks)")
         # the pump beats once per loop: pending work with a stale beat
         # means a wedged pump (stuck in a device call)
         self.heartbeat = ThreadBeat(f"{name}-slots", clock=clock)
@@ -208,6 +496,8 @@ class SlotEngine:
             if abandoned:
                 log.warning("%s: engine stopped with %d stream(s) abandoned",
                             self.name, abandoned)
+            for s in self._streams.values():
+                self._release_prefix(s)
             self._waiting.clear()
             self._streams.clear()
             self._occupants = [None] * self.slots
@@ -284,7 +574,7 @@ class SlotEngine:
     # -- accounting ---------------------------------------------------------
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
-            return {
+            snap = {
                 "gen_slots": self.slots,
                 "gen_occupied": sum(1 for s in self._occupants if s is not None),
                 "gen_waiting": len(self._waiting),
@@ -297,6 +587,9 @@ class SlotEngine:
                 "gen_prefill_chunks": self.prefill_chunks,
                 "gen_tokens_per_step": round(self.tokens_per_step, 3),
             }
+        if self.prefix is not None:
+            snap.update(self.prefix.snapshot())
+        return snap
 
     # -- pump internals -----------------------------------------------------
     def _prefill_fn(self, n: int):
@@ -359,11 +652,58 @@ class SlotEngine:
             s, self._take(s, s.pending_n) if s.pending_n else None,
             final=True, extra_meta=extra_meta)
 
+    def _release_prefix(self, s: GenStream) -> None:
+        """Unpin the stream's attached prefix entries, exactly once (lock
+        held)."""
+        if self.prefix is not None and s.prefix_entries:
+            self.prefix.release(s.prefix_entries)
+            s.prefix_entries = []
+
+    def _attach_prefix(self, s: GenStream) -> None:
+        """First-touch lookup (pump thread, after the slot reset): digest
+        the prompt at grain boundaries, pin the longest cached run and
+        write its pages into the slot, so prefill starts at the first
+        uncached token.  At most ``(tp - 1) // grain`` chunks: the last
+        prompt token always prefills (its logits pick token 1).  A prompt
+        with no such chunk is neither a hit nor a miss."""
+        pc = self.prefix
+        max_chunks = (int(s.prompt.shape[1]) - 1) // pc.grain
+        if max_chunks <= 0:
+            return
+        s.prefix_digests = prefix_digests(s.prompt, pc.grain)[:max_chunks]
+        entries = pc.acquire(s.prefix_digests)
+        s.prefix_pub_i = len(entries)
+        if not entries:
+            return
+        n = sum(e.tokens for e in entries)
+        self._cache = self.model.attach_prefix(self._cache, s.slot, [e.pages for e in entries], n)
+        with self._lock:
+            s.prefix_entries = entries
+        s.prefill_pos = n
+
+    def _publish_prefix(self, s: GenStream) -> None:
+        """After a prefill piece: when ``prefill_pos`` lands on the next
+        unpublished grain boundary, export that chunk's pages (a copy) and
+        publish them under its chain digest.  Every boundary is reached,
+        since the grain is a ``prefill_chunk`` multiple."""
+        pc = self.prefix
+        g = pc.grain
+        while s.prefix_pub_i < len(s.prefix_digests):
+            i = s.prefix_pub_i
+            if (i + 1) * g != s.prefill_pos:
+                return  # boundary not (yet) reached
+            d = s.prefix_digests[i]
+            if not pc.contains(d):
+                pc.publish(d, i, self.model.export_prefix(self._cache, s.slot, i * g, (i + 1) * g),
+                           g)
+            s.prefix_pub_i += 1
+
     def _free_slot(self, s: GenStream) -> None:
         """Release the stream's slot (lock held); the idle mask clears at
         the next decode call."""
         if s.slot is not None:
             self._occupants[s.slot] = None
+        self._release_prefix(s)
         s.prompt_dev = None
         self._streams.pop(s.sid, None)
 
@@ -532,17 +872,22 @@ class SlotEngine:
                         self._emit_boundary(s)
 
     def _prefill_one(self, s: GenStream) -> None:
-        """One chunked-prefill step for a joining stream: reset its slot on
-        first touch, run one piece, pick token 1 when the prompt is done.
+        """One chunked-prefill step for a joining stream: reset its slot and
+        attach its cached prefix on first touch, run one piece, publish the
+        grain chunks it completed, pick token 1 when the prompt is done.
         Device work runs OUTSIDE the lock."""
-        if s.prefill_pos == 0:
+        if s.prompt_dev is None:
             self._cache = self.model.reset_slot(self._cache, s.slot)
             s.prompt_dev = self._upload(s.prompt)
+            if self.prefix is not None:
+                self._attach_prefix(s)
         tp = s.prompt.shape[1]
         n = min(self.prefill_chunk, tp - s.prefill_pos)
         toks = s.prompt_dev[:, s.prefill_pos:s.prefill_pos + n]
         self._cache, logits = self._prefill_fn(n)(self._cache, toks, s.slot)
         s.prefill_pos += n
+        if self.prefix is not None:
+            self._publish_prefix(s)
         with self._lock:
             self.prefill_chunks += 1
         if s.prefill_pos < tp:

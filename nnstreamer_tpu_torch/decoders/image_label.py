@@ -55,10 +55,23 @@ class ImageLabeling:
         The pair is packed into ONE float32 (B, 2) tensor, a single copy per
         micro-batch; float32 holds the index exactly (class counts are
         << 2^24).  On CUDA the ``top1`` kernel writes the packed tensor
-        itself: one launch per micro-batch."""
+        itself: one launch per micro-batch.
+
+        A frame's scores are all of its elements, as :meth:`decode` reads
+        them: a (B, 1, C) output (an imported ``.tflite``'s (1, C) per
+        frame) is taken as (B, C), and integer scores (a quantized model's
+        uint8 or int8) as float32, which holds them exactly.  The JAX
+        package's device half takes the argmax over axis 1 of such an
+        output and labels every frame 0 (ROADMAP C12)."""
+        import torch
+
         from ..ops.labeling import top1_packed
 
         logits = outs[0] if device is None else outs[0].to(device)
+        if logits.dim() > 2:
+            logits = logits.reshape(logits.shape[0], -1)
+        if not logits.dtype.is_floating_point:
+            logits = logits.to(torch.float32)
         return [top1_packed(logits)]  # (B, 2)
 
     def decode_fused(self, frame: TensorFrame, in_spec) -> TensorFrame:

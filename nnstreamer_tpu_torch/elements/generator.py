@@ -16,7 +16,12 @@ wish ``start()`` raises, it never falls back).
   cancelled or blow their deadline.  The engine decodes on its own pump
   thread; chunks are emitted on the element's dispatch thread
   (``handle_frame``/``handle_idle`` drain ``pop_ready``), and EOS waits
-  for every live stream.
+  for every live stream.  ``prefix-cache=on`` arms the engine's
+  shared-prefix KV cache (``prefix-grain``, rounded up to a
+  ``prefill-chunk`` multiple, and ``prefix-cap`` entries); a fresh pool
+  per ``start()``.  ``custom=sim:1[,vocab:N,sim_step_ms:F,sim_per_slot_ms:F,
+  sim_prefill_ms:F,seq:N]`` drives the engine with the host-only
+  ``SimSlotModel`` instead of a transformer (no card needed).
 
 Sampling (greedy, temperature, top-k, per-step key folding) is the
 one-shot ``generate:<N>`` path's, so a stream's tokens are that path's.
@@ -24,9 +29,10 @@ Each chunk frame carries tokens (1, n) int32 and meta ``stream_seq``
 (source frame seq), ``chunk_index``, ``tokens_done`` and ``final``;
 evicted streams add ``evicted``/``deadline_expired`` (the typed expiry).
 
-Not ported (ROADMAP A7): ``mesh=`` (A11), ``prefix-cache=on``, the ``sim``
-model, resume (a RESUME request is answered with the typed reject),
-resize, SLO tracking and device-loss recovery.
+Not ported: ``mesh=`` (ROADMAP A11), resume (A7.3: a RESUME request is
+answered with the typed reject), resize, SLO tracking, device-loss
+recovery and the simulated model's chaos knobs ``sim_oom_step`` and
+``sim_lost_step`` (A4.3).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from ..backends.base import parse_accelerator
 from ..backends.torch_cuda import pick_device
 from ..core.buffer import BatchFrame
+from ..core.continuity import PREFIX_GRAIN
 from ..core.liveness import (
     DEADLINE_META,
     PRIORITY_MAX,
@@ -98,9 +105,20 @@ class TensorGenerator(Element):
             "own deadline is always honored)"),
         "accelerator": Property(
             str, "", "ordered wish list 'true:gpu.N,cpu' or 'cpu' (empty = cuda:0)"),
-        # not ported: set, they raise at start() naming the ROADMAP item
+        "prefix-cache": Property(
+            str, "off",
+            "shared-prefix KV page pool: 'on' publishes each prompt's prefix pages at "
+            "grain boundaries and attaches them to later prompts sharing the prefix "
+            "(slots >= 1; warm streams give a cold run's tokens)"),
+        "prefix-grain": Property(
+            int, 0,
+            "prefix chunk grain in tokens (0 = 64); rounded up to a prefill-chunk "
+            "multiple so warm and cold runs prefill on the same chunk grid"),
+        "prefix-cap": Property(
+            int, 256,
+            "max cached prefix entries (LRU among unpinned entries past the cap)"),
+        # not ported: set, it raises at start() naming the ROADMAP item
         "mesh": Property(str, "", "tensor-parallel decode mesh (not ported: ROADMAP A11)"),
-        "prefix-cache": Property(str, "off", "shared-prefix KV cache (not ported: ROADMAP A7)"),
     }
 
     def __init__(self, name=None):
@@ -110,6 +128,7 @@ class TensorGenerator(Element):
         self._max_seq = 0
         self._device = None
         self._engine = None
+        self._prefix_pool = None
 
     def start(self):
         props = _custom_props(self.props["custom"])
@@ -119,24 +138,32 @@ class TensorGenerator(Element):
         if self.props["mesh"]:
             raise ElementError(
                 f"{self.name}: mesh= is not ported to nnstreamer_tpu_torch yet (ROADMAP A11)")
-        if self.props["prefix-cache"] != "off":
-            raise ElementError(
-                f"{self.name}: prefix-cache={self.props['prefix-cache']} is not ported to "
-                "nnstreamer_tpu_torch yet (ROADMAP A7)")
-        if props.get("sim", "") not in ("", "0", "false"):
-            raise ElementError(
-                f"{self.name}: custom sim: (the simulated slot model) is not ported to "
-                "nnstreamer_tpu_torch yet (ROADMAP A7)")
-        enabled, wishes = parse_accelerator(self.props["accelerator"])
-        self._device = pick_device(wishes if enabled else ["cpu"])
+        sim = props.get("sim", "") not in ("", "0", "false")
+        for knob in ("sim_oom_step", "sim_lost_step"):
+            if knob in props:
+                raise ElementError(
+                    f"{self.name}: custom {knob}: the simulated device errors are not ported "
+                    "to nnstreamer_tpu_torch yet (ROADMAP A4.3)")
         # slotted mode needs its OWN mailbox and thread: the scheduler's
         # idle hook and pending_frames poll, which release the engine's
         # chunks between input frames, run for chain heads only
         self.THREAD_BOUNDARY = slots > 0
         if slots > 0:
-            from ..core.slots import SlotEngine
+            from ..core.slots import SimSlotModel, SlotEngine
 
-            model, self._max_seq = transformer.build_slot_stream(props, slots, self._device)
+            if sim:  # host-only: no card, no transformer
+                model = SimSlotModel(
+                    slots, vocab=int(props.get("vocab", "997")),
+                    step_base_ms=float(props.get("sim_step_ms", "1.0")),
+                    step_per_slot_ms=float(props.get("sim_per_slot_ms", "0.05")),
+                    prefill_ms_per_token=float(props.get("sim_prefill_ms", "0.02")))
+                self._device = model.device
+                self._max_seq = int(props.get("seq", str(1 << 30)))
+            else:
+                enabled, wishes = parse_accelerator(self.props["accelerator"])
+                self._device = pick_device(wishes if enabled else ["cpu"])
+                model, self._max_seq = transformer.build_slot_stream(props, slots, self._device)
+            self._prefix_pool = self._build_prefix_pool()
             self._engine = SlotEngine(
                 model,
                 max_seq=self._max_seq,
@@ -145,16 +172,47 @@ class TensorGenerator(Element):
                 prefill_priority=int(self.props["prefill-priority"]),
                 token_budget_s=float(self.props["token-budget-s"]),
                 name=self.name,
+                prefix_cache=self._prefix_pool,
             )
             self._engine.start()
             return
+        if self.props["prefix-cache"] == "on":
+            raise ElementError(
+                f"{self.name}: prefix-cache=on needs slots >= 1 (the pool lives in the slot "
+                "engine)")
+        if sim:
+            raise ElementError(
+                f"{self.name}: custom sim: needs slots >= 1 (the simulated model drives the "
+                "slot engine; slots=1 is the request-serial baseline)")
+        enabled, wishes = parse_accelerator(self.props["accelerator"])
+        self._device = pick_device(wishes if enabled else ["cpu"])
         self._prefill, self._decode, self._max_seq = transformer.build_stream(
             props, self._device)
+
+    def _build_prefix_pool(self):
+        """The PrefixCache of the prefix-* properties (None: off).  The
+        grain rounds up to a prefill-chunk multiple; a fresh pool per
+        ``start()``, so a restart is cache-cold."""
+        from ..core.slots import PrefixCache
+
+        mode = self.props["prefix-cache"]
+        if mode not in ("off", "on"):
+            raise ElementError(f"{self.name}: prefix-cache={mode!r}: want off|on")
+        if mode != "on":
+            return None
+        pchunk = max(1, int(self.props["prefill-chunk"]))
+        grain = int(self.props["prefix-grain"]) or PREFIX_GRAIN
+        grain = -(-max(1, grain) // pchunk) * pchunk
+        cap = int(self.props["prefix-cap"])
+        if cap < 1:
+            raise ElementError(f"{self.name}: prefix-cap must be >= 1, got {cap}")
+        return PrefixCache(grain=grain, cap_entries=cap)
 
     def stop(self):
         if self._engine is not None:
             self._engine.stop()
             self._engine = None
+        self._prefix_pool = None  # a restart is cache-cold
         self._prefill = self._decode = None
 
     # -- negotiation --------------------------------------------------------

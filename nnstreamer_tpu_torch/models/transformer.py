@@ -383,6 +383,34 @@ class SlotModel:
         cache.reset_row(slot)
         return cache
 
+    # -- shared-prefix pages (core/slots.py PrefixCache): a slot's pages
+    # below its write position never change again (prefill and decode only
+    # write forward of it), so they can be published for later streams
+    @torch.inference_mode()
+    def export_prefix(self, cache: KVCache, slot: int, start: int, stop: int):
+        """A COPY of one slot's K and V pages for positions ``[start,
+        stop)``, each (layers, stop - start, H, D/H).  The cache is written
+        in place, so a view would change under the entry with the slot's
+        next stream."""
+        return {"k": cache.k[:, slot, start:stop].clone(),
+                "v": cache.v[:, slot, start:stop].clone()}
+
+    @torch.inference_mode()
+    def attach_prefix(self, cache: KVCache, slot: int, pages_list, n: int) -> KVCache:
+        """Copy published pages (per-grain chunks in order, covering ``[0,
+        n)``) into a freshly reset slot and set its write position to
+        ``n``: the state of a cold prefill paused at ``n``."""
+        at = 0
+        for pages in pages_list:
+            m = pages["k"].shape[1]
+            cache.k[:, slot, at:at + m] = pages["k"]
+            cache.v[:, slot, at:at + m] = pages["v"]
+            at += m
+        if at != n:
+            raise ValueError(f"attach_prefix: pages cover {at} positions, not {n}")
+        cache.pos[slot] = n
+        return cache
+
     def prefill_fn(self, n: int):
         """The prefill of an n-token chunk (one function for every n:
         eager PyTorch compiles nothing per shape)."""

@@ -121,6 +121,28 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+Pads = Tuple[int, int, int, int]
+
+
+def conv_pads(h: int, w: int, kh: int, kw: int, stride: int,
+              pads: Optional[Sequence[int]] = None) -> Pads:
+    """(top, bottom, left, right): ``pads`` as given, or SAME where None."""
+    if pads is None:
+        return same_pads(h, kh, stride) + same_pads(w, kw, stride)
+    top, bottom, left, right = (int(p) for p in pads)
+    if min(top, bottom, left, right) < 0:
+        raise ValueError(f"conv_i8: negative pads {tuple(pads)}")
+    return top, bottom, left, right
+
+
+def conv_out(h: int, w: int, kh: int, kw: int, stride: int, pads: Pads) -> Tuple[int, int]:
+    """Output rows and columns of a convolution with explicit pads (VALID:
+    pads of 0)."""
+    top, bottom, left, right = pads
+    return (max(0, (h + top + bottom - kh) // stride + 1),
+            max(0, (w + left + right - kw) // stride + 1))
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -293,13 +315,13 @@ def _exact_conv():
 
 def conv_i8_plain(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                   stride: int = 1, groups: int = 1,
-                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  out_dtype: torch.dtype = torch.bfloat16,
+                  pads: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The plain version of :func:`conv_i8`: the int8 convolution in
     float64 (exact), the int32 accumulator, the epilogue."""
     n, h, w, _ = xq.shape
     o, kh, kw, _ = wq.shape
-    top, bottom = same_pads(h, kh, stride)
-    left, right = same_pads(w, kw, stride)
+    top, bottom, left, right = conv_pads(h, w, kh, kw, stride, pads)
     x = F.pad(xq.permute(0, 3, 1, 2).to(torch.float64), (left, right, top, bottom))
     with _exact_conv() if xq.device.type == "cuda" else contextlib.nullcontext():
         acc = F.conv2d(x, wq.permute(0, 3, 1, 2).to(torch.float64), stride=stride, groups=groups)
@@ -326,14 +348,15 @@ def check_kernel_args(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor,
     return groups > 1
 
 
-def int8_conv_route(c: int, kh: int, kw: int, stride: int, x_ptr: int, w_ptr: int) -> str:
+def int8_conv_route(c: int, kh: int, kw: int, stride: int, x_ptr: int, w_ptr: int,
+                    pads: Optional[Sequence[int]] = None) -> str:
     """The route of ``csrc/int8_conv.cu`` for a groups-1 convolution of C
     input channels (a dense layer: C inputs, 1 x 1, stride 1), from the
-    shape and the operands' bases alone: "gemm" where the activation is a
-    plain row-major [M, K = C] int8 matrix that a TMA tensor map can
-    describe (1 x 1, stride 1, K a multiple of 16, both bases 16-byte
-    aligned), else "gather"."""
-    plain = kh == kw == 1 and stride == 1
+    shape, the pads and the operands' bases alone: "gemm" where the
+    activation is a plain row-major [M, K = C] int8 matrix that a TMA
+    tensor map can describe (1 x 1, stride 1, no pads, K a multiple of 16,
+    both bases 16-byte aligned), else "gather"."""
+    plain = kh == kw == 1 and stride == 1 and not any(pads or ())
     return "gemm" if plain and c % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0 else "gather"
 
 
@@ -356,7 +379,7 @@ GATHER_ROW_SLOT = 164
 
 
 def int8_conv_plan(c: int, o: int, kh: int, kw: int, stride: int, x_ptr: int,
-                   w_ptr: int) -> ConvPlan:
+                   w_ptr: int, pads: Optional[Sequence[int]] = None) -> ConvPlan:
     """The plan of one groups-1 convolution of C -> O channels (a dense
     layer: 1 x 1, stride 1), from the shape and the operands' bases alone:
     :func:`int8_conv_route`'s route; the narrowest of 32, 64 and 128 output
@@ -365,8 +388,9 @@ def int8_conv_plan(c: int, o: int, kh: int, kw: int, stride: int, x_ptr: int,
     bases' alignment (each copy then stays inside one tap); and, at 1 byte,
     staged runs where the kh runs of kw * C bytes, each rounded up to 4,
     fit one stage, their aligned words fit a row's slot and O fits one
-    tile (``rows_fit`` in the kernel)."""
-    route = int8_conv_route(c, kh, kw, stride, x_ptr, w_ptr)
+    tile (``rows_fit`` in the kernel).  ``pads`` (top, bottom, left,
+    right; None: SAME) only bar the GEMM route."""
+    route = int8_conv_route(c, kh, kw, stride, x_ptr, w_ptr, pads)
     tile_n = next((t for t in (32, 64) if o <= t), 128)
     chunk = next(v for v in (16, 8, 4, 1) if c % v == 0 and x_ptr % v == 0 and w_ptr % v == 0)
     staged = (chunk == 1 and kh * -(-kw * c // 4) * 4 <= GATHER_STAGE_BYTES and o <= tile_n
@@ -395,7 +419,7 @@ def dwconv_weight_bytes(c: int, kh: int, kw: int, tile_c: int) -> int:
 
 
 def int8_dwconv_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int,
-                     x_align: int, sms: int) -> DwconvPlan:
+                     x_align: int, sms: int, pads: Optional[Sequence[int]] = None) -> DwconvPlan:
     """The plan of one depthwise convolution from its shape, the activation
     base's alignment (``x_ptr % 16``) and the card's SM count alone; the
     batch ``n`` counts rounded up to a power of two, so a shape is searched
@@ -414,14 +438,16 @@ def int8_dwconv_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: i
     all C channels, 64 / tile_c for tiles under 64 (short strided runs
     waste DRAM sectors and TMA requests).  ``tools/torch_dwconv_plan_ab.py``
     times it against a fixed rule and against the search without the
-    last-wave term."""
-    return _dwconv_plan(1 << max(n - 1, 0).bit_length(), h, w, c, kh, kw, stride, x_align, sms)
+    last-wave term.  ``pads`` (top, bottom, left, right; None: SAME) set
+    the output size."""
+    return _dwconv_plan(1 << max(n - 1, 0).bit_length(), h, w, c, kh, kw, stride, x_align, sms,
+                        conv_pads(h, w, kh, kw, stride, pads))
 
 
 @functools.lru_cache(maxsize=4096)
 def _dwconv_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int, x_align: int,
-                 sms: int) -> DwconvPlan:
-    ho, wo = -(-h // stride), -(-w // stride)
+                 sms: int, pads: Pads) -> DwconvPlan:
+    ho, wo = conv_out(h, w, kh, kw, stride, pads)
     chunk = 16 if c % 16 == 0 and x_align == 0 else next(
         v for v in (8, 4, 1) if c % v == 0 and x_align % v == 0)
     pix = DWCONV_PIX
@@ -460,12 +486,14 @@ def _dwconv_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int, 
 
 def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
             stride: int = 1, groups: int = 1,
-            out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The int8 convolution of quantized operands with SAME padding: ``xq``
-    (N, H, W, C) int8 with per-sample scales ``s_x`` (N,), ``wq`` (O, kh, kw,
-    C / groups) OHWI int8 with per-channel scales ``s_w`` (O,).  Returns
-    (N, O, Ho, Wo) ``channels_last`` in ``out_dtype`` (``torch.int32``: the
-    raw accumulator, no epilogue).  CUDA: ``groups`` 1 through
+            out_dtype: torch.dtype = torch.bfloat16,
+            pads: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The int8 convolution of quantized operands: ``xq`` (N, H, W, C) int8
+    with per-sample scales ``s_x`` (N,), ``wq`` (O, kh, kw, C / groups) OHWI
+    int8 with per-channel scales ``s_w`` (O,), zero padding of ``pads``
+    (top, bottom, left, right; None: SAME; VALID is 0s).  Returns (N, O,
+    Ho, Wo) ``channels_last`` in ``out_dtype`` (``torch.int32``: the raw
+    accumulator, no epilogue).  CUDA: ``groups`` 1 through
     ``int8_conv.cu`` by :func:`int8_conv_plan`, ``groups == C == O``
     through ``int8_dwconv.cu`` by :func:`int8_dwconv_plan`."""
     global CONV_LAUNCHES, CONV_GEMM_LAUNCHES, CONV_GATHER_LAUNCHES, DWCONV_LAUNCHES
@@ -476,21 +504,22 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
     if cg * groups != c or o % groups:
         raise ValueError(f"conv_i8: weight {tuple(wq.shape)} does not fit {c} channels "
                          f"in {groups} groups")
+    pads = conv_pads(h, w, kh, kw, stride, pads)
     if xq.device.type == "cpu":
-        return conv_i8_plain(xq, s_x, wq, s_w, stride, groups, out_dtype)
+        return conv_i8_plain(xq, s_x, wq, s_w, stride, groups, out_dtype, pads)
     depthwise = check_kernel_args(xq, s_x, wq, s_w, groups)
     _check_cuda(xq, "conv_i8")
-    ho, wo = -(-h // stride), -(-w // stride)
+    ho, wo = conv_out(h, w, kh, kw, stride, pads)
     out = torch.empty((n, o, ho, wo), dtype=out_dtype, device=xq.device,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
     if depthwise:
         plan = int8_dwconv_plan(n, h, w, c, kh, kw, stride, xq.data_ptr() % 16,
-                                _sms(xq.device))
+                                _sms(xq.device), pads)
         route, name, extra = "depthwise", "int8_dwconv", plan[:4]
     else:
-        plan = int8_conv_plan(c, o, kh, kw, stride, xq.data_ptr(), wq.data_ptr())
+        plan = int8_conv_plan(c, o, kh, kw, stride, xq.data_ptr(), wq.data_ptr(), pads)
         route, name, extra = plan.route, "int8_conv", (plan.tile_n, plan.chunk, plan.staged)
     lib = _build.load(name, _DWCONV_SIGNATURES if depthwise else _CONV_SIGNATURES)
     operands = (xq.data_ptr(), s_x.data_ptr(), wq.data_ptr(), s_w.data_ptr(), out.data_ptr(),
@@ -500,8 +529,8 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
             err = lib.nns_int8_gemm(*operands, n * h * w, o, c, h * w, plan.tile_n, _stream(xq))
         else:
             err = getattr(lib, f"nns_{name}")(
-                *operands, n, h, w, c, o, kh, kw, stride, ho, wo, same_pads(h, kh, stride)[0],
-                same_pads(w, kw, stride)[0], *extra, _stream(xq))
+                *operands, n, h, w, c, o, kh, kw, stride, ho, wo, pads[0], pads[2], *extra,
+                _stream(xq))
     _build.check(lib, err, f"{name} ({route}, {plan})")
     if depthwise:
         DWCONV_LAUNCHES += 1

@@ -137,12 +137,17 @@ def test_start_without_cuda_raises(ref):
             el.start()
 
 
-@pytest.mark.parametrize("prop", ["mesh=tp:2", "prefix-cache=on", "custom=sim:1"])
-def test_unported_options_raise(ref, prop):
+@pytest.mark.parametrize("prop,reason", [
+    ("mesh=tp:2", "ROADMAP A11"),
+    # ported; without slots they raise as the JAX element does
+    ("prefix-cache=on", "slots >= 1"),
+    ("custom=sim:1", "slots >= 1"),
+], ids=["mesh=tp:2", "prefix-cache=on", "custom=sim:1"])
+def test_unported_options_raise(ref, prop, reason):
     key, _, value = prop.partition("=")
     el = make_element("tensor_generator", accelerator="cpu", custom=CUSTOM)
     el.set_property(key, value)
-    with pytest.raises(Exception, match="ROADMAP A(7|11)"):
+    with pytest.raises(Exception, match=reason):
         el.start()
 
 
