@@ -3,7 +3,7 @@
 one NVIDIA GPU.  Run from the root of a checkout::
 
     python3 chip_smoke.py [--frames 2048] [--vit-frames 1024] [--prompts 16] [--seed 0]
-                          [--only i,j]
+                          [--only i,j,k]
 
 Phases (any failure exits non-zero before the result lines are printed):
 
@@ -272,8 +272,23 @@ Phases (any failure exits non-zero before the result lines are printed):
          the zoo's float32 call on the card except at counted near-ties
          (top-2 logits within 1e-4 of the largest magnitude), ``top1`` once
          per micro-batch.
-   ``--only i,j`` runs paths i and j alone after the kernel build (j with
-   ``PAD_EDGES`` first), each summary a JSON line.
+   k. supervision, liveness, lifecycle and card memory, at path a's
+      configuration (1024 frames a run) and on path d's GPT-2 small:
+      k1 a real ``torch.cuda.OutOfMemoryError`` under an allocator capped
+      between one 64-frame and one 128-frame call's peak, each 128-frame
+      micro-batch retried as two halves; k2 an injected ``device.oom``,
+      ``device.lost`` under ``error-policy=restart`` and a ``hang`` under
+      ``stall-policy=restart``, the card's allocated bytes back within
+      1 MiB after them; k3 a hot swap between ``model://mobilenet_v2/1``
+      and ``/2`` at frame 300 and a rollback on an error burst; k4 the
+      memory monitor's watermarks around a tensor of a quarter of the
+      card; k5 the slot engine's OOM shed at its third decode call (8
+      prompts of 128 tokens, ``generate:32``, ``slots=4 chunk=16``).
+      Every run: each frame once and in order, labels equal to the
+      direct call of the model that served each micro-batch (in its
+      size), ``normalize_u8`` and ``top1`` once per successful call.
+   ``--only i,j,k`` runs paths i, j and k alone after the kernel build (j
+   with ``PAD_EDGES`` first), each summary a JSON line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -284,8 +299,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``{"vision": {...}}`` JSON line (path f's numbers), a ``{"media":
    {...}}`` JSON line (path g's numbers), an ``{"int8": {...}}`` JSON line
    (path h's numbers), a ``{"prefix_cache": {...}}`` line (path i's), a
-   ``{"model_files": {...}}`` line (path j's), one
-   ``{"kernels": [...]}`` JSON line, the card line, and last
+   ``{"model_files": {...}}`` line (path j's), a ``{"supervision": {...}}``
+   line (path k's), one ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -3747,6 +3762,537 @@ def run_files(torch, np, lab, counters, seed: int, card: str, work, labels) -> t
     return out, summary
 
 
+# -- path k: supervision, liveness, lifecycle and card memory ----------------------
+
+#: frames of k1, each run of k2, k3's swap run and k4; k3's rollback run
+SUPERVISION_FRAMES = 1024
+ROLLBACK_FRAMES = 512
+MOBILENET_CUSTOM = "arch:mobilenet_v2,dtype:bfloat16"
+
+
+@contextmanager
+def recording_calls():
+    """Every ``TorchCuda.invoke_batch`` call, in order: the backend's model
+    path, rows, whether it returned, the error's type and its cause's, the
+    ``normalize_u8`` / ``top1`` launches made meanwhile, and whether a hot
+    swap's staging thread made it (a warm-up call, concurrent with serving
+    ones: their launch deltas then overlap)."""
+    import threading
+
+    from nnstreamer_tpu_torch.backends.torch_cuda import TorchCuda
+    from nnstreamer_tpu_torch.ops import labeling as lab
+    from nnstreamer_tpu_torch.ops import preprocess as pre
+
+    inner, calls = TorchCuda.invoke_batch, []
+
+    def invoke_batch(self, inputs):
+        rec = {"model": self.model_path, "rows": int(inputs[0].shape[0]), "ok": False,
+               "error": None, "cause": None,
+               "warm": threading.current_thread().name.endswith("-model-stage")}
+        calls.append(rec)
+        n0, t0 = pre.LAUNCHES, lab.LAUNCHES
+        try:
+            out = inner(self, inputs)
+            rec["ok"] = True
+            return out
+        except BaseException as e:
+            rec["error"] = type(e).__name__
+            rec["cause"] = type(e.__cause__).__name__ if e.__cause__ is not None else None
+            raise
+        finally:
+            rec["normalize_u8"], rec["top1"] = pre.LAUNCHES - n0, lab.LAUNCHES - t0
+
+    with mock.patch.object(TorchCuda, "invoke_batch", invoke_batch):
+        yield calls
+
+
+def served_labels(torch, np, lab, modules: dict, images, calls) -> "np.ndarray":
+    """The labels the direct call gives, frame by frame, when each
+    successful serving call's rows run through the module of the model
+    that served them (``modules`` by model path), in that call's size."""
+    want, k = [], 0
+    for c in calls:
+        if not c["ok"] or c["warm"]:
+            continue
+        (_, n, logits, _), = direct_batches(torch, modules[c["model"]], images[k:], [c["rows"]])
+        want.append(lab.top1_plain(logits)[0].cpu().numpy())
+        k += n
+    if k != len(images):
+        raise AssertionError(f"path k: the calls served {k} rows for {len(images)} frames")
+    return np.concatenate(want)
+
+
+def supervised_run(torch, np, lab, counters, name: str, text: str, images, during=None,
+                   modules=None, timeout: float = 600, served=None) -> dict:
+    """One MobileNet-v2 labeling run of `text`: frames pushed one by one
+    (``during(pipe, i)`` called before frame i, ``served()`` once the
+    stream has ended and before the direct calls), then the checks every k
+    run shares: each frame once and in order, labels equal to the direct
+    call of the model that served each micro-batch, ``normalize_u8`` and
+    ``top1`` once per successful call (a failed call launched ``top1``
+    never).  Returns the calls, launches, health and labels."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(text)
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_calls() as calls:
+            for i in range(len(images)):
+                if pipe.errors:
+                    break  # the pipeline failed: wait() raises its error
+                if during is not None:
+                    during(pipe, i)
+                pipe["src"].push(images[i], pts=float(i))
+            if not pipe.errors:
+                pipe["src"].end_of_stream()
+            pipe.wait(timeout=timeout)
+        launches = counters.read()
+        if served is not None:
+            served()
+        health = pipe.health()["f"]
+        if modules is None:
+            be = pipe["f"].backend
+            modules = {be.model_path: be._module}
+        out = pipe["out"].frames
+        if [f.pts for f in out] != [float(i) for i in range(len(images))]:
+            raise AssertionError(f"{name}: {len(out)} of {len(images)} frames came back, or "
+                                 "some twice or out of order")
+        got = np.array([f.meta["label_index"] for f in out])
+        want = served_labels(torch, np, lab, modules, images, calls)
+    finally:
+        pipe.stop()
+    if not np.array_equal(got, want):
+        bad = np.flatnonzero(got != want)
+        raise AssertionError(f"{name}: {len(bad)} labels differ from the direct call of the "
+                             f"serving model (first frames {bad[:8]})")
+    ok = [c for c in calls if c["ok"] and not c["warm"]]
+    warm = [c for c in calls if c["warm"]]
+    failed = [c for c in calls if not c["ok"]]
+    per_call = [(c["rows"], c["ok"], c["warm"], c["normalize_u8"], c["top1"]) for c in calls]
+    if not warm and (any(c["top1"] != 1 or c["normalize_u8"] != 1 for c in ok)
+                     or any(c["top1"] for c in failed)):
+        raise AssertionError(f"{name}: launches per call {per_call} (want one of each per "
+                             "successful call, no top1 in a failed one)")
+    # a successful model call launches each kernel once; a failed one
+    # launched normalize_u8 only where the OOM came after it, never top1
+    reckoned = {"normalize_u8": len(ok) + len(warm) + sum(c["normalize_u8"] for c in failed),
+                "top1": len(ok) + len(warm)}
+    if {k: launches[k] for k in reckoned} != reckoned:
+        raise AssertionError(f"{name}: launches {launches}, reckoned from the calls {reckoned} "
+                             f"({per_call})")
+    return {"calls": calls, "launches": launches, "health": health, "labels": got,
+            "batches": len(ok)}
+
+
+def peak_bytes(torch, be, images, n: int) -> int:
+    """``max_memory_allocated`` over one ``n``-frame call of the backend."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = be.invoke_batch([images[:n]])
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated()
+
+
+def run_k1(torch, np, lab, counters, seed: int, images, labels) -> dict:
+    """k1: a real OOM.  The allocator is capped between one 64-frame and one
+    128-frame call's peak, three quarters of the way up (the cap counts
+    reserved bytes, and a half needs room for the allocator's block
+    rounding above its peak of allocated bytes), so every 128-frame
+    micro-batch fails with ``torch.cuda.OutOfMemoryError`` and the filter
+    retries it as two halves."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    text = labeling_text(f"{MOBILENET_CUSTOM}", seed, labels, "error-policy=restart")
+    probe = parse_pipeline(text)
+    probe.start()
+    try:
+        be = probe["f"].backend
+        peak_bytes(torch, be, images, 128)  # the first call pays the lazy set-up
+        p128, p64 = peak_bytes(torch, be, images, 128), peak_bytes(torch, be, images, 64)
+    finally:
+        probe.stop()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = p64 + 3 * (p128 - p64) // 4
+    print(f"k1: one call's peak allocated bytes {p128} for 128 frames, {p64} for 64; the "
+          f"allocator capped at {cap} bytes")
+    def uncap():
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+        torch.cuda.empty_cache()
+
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+    try:
+        # the reference labels come from direct calls with the cap lifted
+        run = supervised_run(torch, np, lab, counters, "k1", text, images, served=uncap)
+    finally:
+        uncap()
+    calls, h = run["calls"], run["health"]
+    failed = [c for c in calls if not c["ok"]]
+    if not failed or any((c["error"], c["cause"]) != ("DeviceOomError", "OutOfMemoryError")
+                         for c in failed):
+        raise AssertionError(f"k1: failed calls {failed} (want torch.cuda.OutOfMemoryError "
+                             "typed as DeviceOomError)")
+    if not (h["oom_retries"] > 0 and h["oom_shrinks"] > 0 and h["oom_evictions"] > 0
+            and h["oom_trimmed_bytes"] > 0) or (
+            h["restarts"] or h["dead_letters"]):
+        raise AssertionError(f"k1: health {h}")
+    if any(c["rows"] > 64 for c in calls if c["ok"]):
+        raise AssertionError(f"k1: a call of more than 64 rows got through the cap: {calls}")
+    return run | {"peak_128": p128, "peak_64": p64, "cap_bytes": cap, "failed_calls": len(failed)}
+
+
+def run_k2(torch, np, lab, counters, seed: int, images, labels) -> dict:
+    """k2: injected faults, each over its own run: one ``device.oom`` (one
+    shrink), one ``device.lost`` under ``error-policy=restart`` (the JAX
+    package's unsharded outcome: the loss re-raises into supervision, one
+    restart, the batch retried), and a ``hang`` at the filter's
+    ``handle_frame`` under ``stall-timeout`` and ``stall-policy=restart``
+    (the watchdog interrupts it, one restart, the batch retried); then the
+    card's allocated bytes must be back within 1 MiB."""
+    import gc
+
+    from nnstreamer_tpu_torch.core.resilience import FAULTS, DeviceLostError, DeviceOomError
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    runs = {}
+    faults = {
+        "oom": ("", lambda: FAULTS.arm("device.oom", exc=DeviceOomError, times=1, after=2)),
+        "lost": ("error-policy=restart restart-backoff=0.01",
+                 lambda: FAULTS.arm("device.lost", exc=DeviceLostError, times=1, after=2)),
+        "hang": ("stall-timeout=2 stall-policy=restart restart-backoff=0.01",
+                 lambda: FAULTS.arm("element.f.handle_frame", hang=True, times=1, after=2)),
+    }
+    for kind, (extra, arm) in faults.items():
+        text = labeling_text(MOBILENET_CUSTOM, seed, labels, extra)
+        try:
+            runs[kind] = supervised_run(torch, np, lab, counters, f"k2 {kind}", text, images,
+                                        during=lambda pipe, i: arm() if i == 0 else None)
+        finally:
+            FAULTS.reset()
+    h = {k: r["health"] for k, r in runs.items()}
+    if (h["oom"]["oom_retries"], h["oom"]["oom_shrinks"], h["oom"]["restarts"]) != (1, 1, 0):
+        raise AssertionError(f"k2 oom: health {h['oom']} (want one retry as two halves)")
+    if (h["lost"]["device_lost"], h["lost"]["restarts"], h["lost"]["remeshes"],
+            h["lost"]["dead_letters"]) != (1, 1, 0, 0):
+        raise AssertionError(f"k2 lost: health {h['lost']} (want one loss, one restart)")
+    if h["hang"]["restarts"] != 1 or h["hang"]["stalls"] < 1 or h["hang"]["dead_letters"]:
+        raise AssertionError(f"k2 hang: health {h['hang']} (want one stall, one restart)")
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if abs(after - before) > 1 << 20:
+        raise AssertionError(f"k2: card memory allocated {before} bytes before the faulted runs, "
+                             f"{after} after (want within 1 MiB)")
+    return {"runs": runs, "allocated_before": before, "allocated_after": after}
+
+
+def run_k3(torch, np, lab, counters, seed: int, images, work, labels) -> dict:
+    """k3: hot swap between ``model://mobilenet_v2/1`` and ``/2`` (seeds
+    seed+1 and seed+2, in the work dir's model repository): a reload at
+    frame 300 of a stream, every frame once and in order, each micro-batch's
+    labels equal to the direct call of the version that served it; then a
+    second run whose post-swap invokes fail (``filter.reload.post``) inside
+    the observation window rolls back to /1, every label /1's."""
+    from nnstreamer_tpu_torch.core.model_uri import resolve_model_uri
+    from nnstreamer_tpu_torch.core.resilience import FAULTS
+    from nnstreamer_tpu_torch.models import build
+
+    repo = work / "models"
+    os.environ["NNS_TPU_MODEL_REPO"] = str(repo)
+    modules, paths = {}, {}
+    for version in (1, 2):
+        module, _, _ = build("mobilenet_v2", custom_props(MOBILENET_CUSTOM)
+                             | {"seed": str(seed + version)})
+        d = repo / "mobilenet_v2" / str(version)
+        d.mkdir(parents=True, exist_ok=True)
+        torch.save(module.state_dict(), d / "model.pt")
+        paths[version] = resolve_model_uri(f"model://mobilenet_v2/{version}")
+        modules[paths[version]] = module.to("cuda").eval()
+    text = (f"appsrc name=src ! tensor_filter name=f framework=torch-cuda "
+            f"model=model://mobilenet_v2/1 custom={MOBILENET_CUSTOM} max-batch=128 "
+            f"batch-timeout=20 is-updatable=true staged-reload=true {{extra}} ! tensor_decoder "
+            f"mode=image_labeling option1={labels} ! tensor_sink name=out")
+    tickets = []
+
+    def reload_at_300(pipe, i):
+        # the stream goes on once the new model is staged: the swap lands at
+        # the next micro-batch boundary
+        if i == 300:
+            ticket = pipe.reload_model("f", "model://mobilenet_v2/2")
+            if not ticket.wait_staged(60) or not ticket.ok:
+                raise AssertionError(f"k3 swap: staging failed: {ticket.error}")
+            tickets.append(ticket)
+
+    swap = supervised_run(torch, np, lab, counters, "k3 swap",
+                          text.format(extra="observation-window=0.5"), images,
+                          during=reload_at_300, modules=modules)
+    served = [c["model"] for c in swap["calls"] if c["ok"] and not c["warm"]]
+    switch = served.index(paths[2]) if paths[2] in served else -1
+    if switch <= 0 or served[switch:] != [paths[2]] * (len(served) - switch) or (
+            swap["health"]["swaps"], swap["health"]["swap_failures"]) != (1, 0):
+        raise AssertionError(f"k3 swap: versions served {served}, health {swap['health']} "
+                             "(want /1 then /2 from one boundary on, one swap)")
+    swap_frame = sum(c["rows"] for c in swap["calls"] if c["ok"] and not c["warm"]
+                     and c["model"] == paths[1])
+
+    def armed_reload(pipe, i):
+        if i == 128:  # at least three micro-batches of 128 follow
+            ticket = pipe.reload_model("f", "model://mobilenet_v2/2")
+            if not ticket.wait_staged(60) or not ticket.ok:
+                raise AssertionError(f"k3 rollback: staging failed: {ticket.error}")
+            FAULTS.arm("filter.reload.post", exc=RuntimeError("the new model fails"), times=2)
+            tickets.append(ticket)
+
+    try:
+        rollback = supervised_run(
+            torch, np, lab, counters, "k3 rollback",
+            text.format(extra="observation-window=60 rollback-error-burst=2"),
+            images[:ROLLBACK_FRAMES], during=armed_reload, modules=modules)
+    finally:
+        FAULTS.reset()
+    hr = rollback["health"]
+    if any(c["model"] != paths[1] for c in rollback["calls"] if c["ok"] and not c["warm"]) or (
+            hr["swaps"], hr["rollbacks"], hr["model_version"], hr["restarts"]) != (1, 1, 0, 0) \
+            or tickets[-1].state != "rolled-back":
+        raise AssertionError(f"k3 rollback: health {hr}, ticket {tickets[-1].state} (want every "
+                             "frame served by /1 and one rollback)")
+    return {"swap": swap, "rollback": rollback, "swap_frame": swap_frame,
+            "batches": swap["batches"] + rollback["batches"]}
+
+
+def run_k4(torch, np, lab, counters, seed: int, images, labels) -> dict:
+    """k4: card-memory watermarks while frames stream.  The monitor's
+    ``high`` and ``low`` sit around a tensor of a quarter of the card that
+    the script allocates at 30% of the stream and frees (``del``, then
+    ``empty_cache``) at 60%: entering pressure runs the trim hooks (the
+    backend's ``trim_caches`` must release allocator segments and card
+    bytes; the host staging pools are left alone, since the monitor reads
+    the card), and the monitor must clear below ``low``."""
+    from nnstreamer_tpu_torch.core.liveness import device_memory_sample
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    big = total // 4
+    state, samples, hook_entries = {}, [], []
+    base = torch.cuda.memory_reserved()
+    high, low = (base + 0.6 * big) / total, (base + 0.3 * big) / total
+
+    def sample():
+        s = device_memory_sample()
+        samples.append((round(time.perf_counter(), 3), s[0], s[1]))
+        return s
+
+    grab, free = len(images) * 3 // 10, len(images) * 6 // 10
+
+    def during(pipe, i):
+        if i == 0:
+            mon = state["mon"] = pipe.enable_memory_monitor(
+                high=high, low=low, sustain_s=60.0, min_poll_s=0.05, sample=sample)
+            mon.trim_hooks = [wrapped(h) for h in mon.trim_hooks]
+            state["be"] = pipe["f"].backend
+            state["bytes0"] = state["be"].trimmed_bytes
+        elif i == grab:
+            state["x"] = torch.empty(big, dtype=torch.uint8, device="cuda")
+            wait_for(lambda: state["mon"].pressured, "entered pressure")
+        elif i == free:
+            del state["x"]
+            torch.cuda.empty_cache()
+            wait_for(lambda: not state["mon"].pressured, "cleared")
+
+    def wrapped(hook):
+        def run():
+            freed = int(hook() or 0)
+            hook_entries.append((getattr(hook, "__name__", "hook"), freed))
+            return freed
+        return run
+
+    def wait_for(pred, what):
+        deadline = time.perf_counter() + 10
+        while not pred():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"k4: the monitor never {what}: {state['mon'].snapshot()}")
+            time.sleep(0.01)
+
+    text = labeling_text(MOBILENET_CUSTOM, seed, labels)
+    run = supervised_run(torch, np, lab, counters, "k4", text, images, during=during)
+    snap = state["mon"].snapshot()
+    freed = dict(hook_entries)
+    card_bytes = state["be"].trimmed_bytes - state["bytes0"]
+    if snap["mem_trims"] != 1 or freed.get("trim_caches", 0) <= 0 or card_bytes <= 0 or freed.get(
+            "trim_staging_pools_on_host", 0):
+        raise AssertionError(f"k4: monitor {snap}, entries freed by the hooks {hook_entries}, "
+                             f"card bytes {card_bytes} (want one trim sweep, segments and bytes "
+                             "from trim_caches, no host-pool trim)")
+    return run | {"monitor": snap, "hook_entries": hook_entries, "trimmed_bytes": card_bytes,
+                  "high": high, "low": low, "tensor_bytes": big, "samples": samples}
+
+
+K5_PROMPTS, K5_TOKENS, K5_NEW = 8, 128, 32
+
+
+def run_k5(torch, np, counters, seed: int) -> dict:
+    """k5: the slot engine's OOM shed on GPT-2 small (path d's model): 8
+    prompts of 128 tokens, ``generate`` 32 greedy tokens through
+    ``slots=4 chunk=16``, once fault-free and once where the engine's
+    third decode call runs on the card (advancing the KV cache's write
+    positions in place) and then raises ``DeviceOomError``: the shed
+    stream ends with the typed final chunk (``evicted: oom``, its tokens a
+    prefix of its fault-free ones), every other stream's tokens equal the
+    fault-free run's, which holds only if the positions went back."""
+    from nnstreamer_tpu_torch.core.resilience import DeviceOomError
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    vocab = int(custom_props(LM_CUSTOM)["vocab"])
+    rng = np.random.default_rng(seed + 16)
+    prompts = [rng.integers(0, vocab, K5_TOKENS, dtype=np.int32) for _ in range(K5_PROMPTS)]
+    runs = {}
+    for kind in ("clean", "oom"):
+        pipe = parse_pipeline(
+            f"appsrc name=src ! tensor_generator name=g custom={LM_CUSTOM},seed:{seed} "
+            f"max-new={K5_NEW} chunk=16 slots=4 prefill-chunk=128 ! tensor_sink name=out")
+        counters.zero()
+        pipe.start()
+        decodes, fired = [0], []
+        try:
+            if kind == "oom":
+                eng = pipe["g"]._engine
+                inner = eng._decode_fn
+
+                def counted(k, inner=inner):
+                    decodes[0] += 1
+                    step = inner(k)
+                    if decodes[0] != 3:
+                        return step
+
+                    def runs_then_fails(cache, *args):
+                        before = cache.pos.clone()
+                        step(cache, *args)
+                        fired.append(int((cache.pos - before).abs().sum()))
+                        raise DeviceOomError("injected after decode call 3 ran")
+                    return runs_then_fails
+
+                eng._decode_fn = counted
+            for i, p in enumerate(prompts):
+                pipe["src"].push(p, pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+            snap = pipe["g"]._engine.snapshot()
+        finally:
+            pipe.stop()
+        by = {}
+        for f in pipe["out"].frames:
+            by.setdefault(int(f.pts), []).append(f)
+        runs[kind] = {"by": by, "snapshot": snap, "launches": counters.read()}
+    clean = {i: stream_tokens(fs, K5_NEW) for i, fs in runs["clean"]["by"].items()}
+    shed, equal = [], 0
+    for i, fs in sorted(runs["oom"]["by"].items()):
+        final = max(fs, key=lambda f: f.meta["chunk_index"])
+        if final.meta.get("evicted") == "oom":
+            toks = np.concatenate([f.tensors[0] for f in sorted(
+                fs, key=lambda f: f.meta["chunk_index"]) if f.tensors], axis=1)[0]
+            if ("deadline_expired" in final.meta or not final.meta["final"]
+                    or not np.array_equal(toks, clean[i][:len(toks)]) or len(toks) >= K5_NEW):
+                raise AssertionError(f"k5: shed stream {i}: tokens {toks} against {clean[i]}, "
+                                     f"final meta {final.meta}")
+            shed.append((i, len(toks)))
+        elif np.array_equal(stream_tokens(fs, K5_NEW), clean[i]):
+            equal += 1
+        else:
+            raise AssertionError(f"k5: stream {i} differs from the fault-free run")
+    snap = runs["oom"]["snapshot"]
+    if len(shed) != 1 or equal != K5_PROMPTS - 1 or (
+            snap["gen_oom_retries"], snap["gen_oom_sheds"]) != (1, 1) or fired[:1] == [0] or (
+            len(fired) != 1):
+        raise AssertionError(f"k5: shed {shed}, {equal} streams equal, snapshot {snap}, "
+                             f"positions the failed call advanced {fired}")
+    launches = {k: runs["clean"]["launches"][k] + runs["oom"]["launches"][k]
+                for k in runs["clean"]["launches"]}
+    return {"shed": shed, "equal": equal, "snapshot": snap, "launches": launches,
+            "positions_advanced": fired[0],
+            "batches": runs["clean"]["snapshot"]["gen_decode_steps"] + snap["gen_decode_steps"]}
+
+
+def run_supervision(torch, np, lab, counters, seed: int, card: str, work, labels) -> tuple:
+    """Path k: k1-k5 (see their docstrings) at path a's configuration
+    (MobileNet-v2 224, 1001 classes, bf16, ``max-batch=128``, the decoder's
+    device half fused) and GPT-2 small for k5.  Returns (paths: each
+    sub-path's launches and successful micro-batches, the summary line)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 15)
+    size = int(custom_props(MOBILENET_CUSTOM).get("size", "224"))
+    images = rng.integers(0, 256, (SUPERVISION_FRAMES, size, size, 3), dtype=np.uint8)
+    secs, paths = {}, {}
+
+    def timed(key, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        secs[key] = time.perf_counter() - t
+        return out
+
+    k1 = timed("k1", run_k1, torch, np, lab, counters, seed, images, labels)
+    k2 = timed("k2", run_k2, torch, np, lab, counters, seed, images, labels)
+    k3 = timed("k3", run_k3, torch, np, lab, counters, seed, images, work, labels)
+    k4 = timed("k4", run_k4, torch, np, lab, counters, seed, images, labels)
+    torch.cuda.empty_cache()
+    k5 = timed("k5", run_k5, torch, np, counters, seed)
+    for key, run in (("k1", k1), ("k2_oom", k2["runs"]["oom"]), ("k2_lost", k2["runs"]["lost"]),
+                     ("k2_hang", k2["runs"]["hang"]), ("k3_swap", k3["swap"]),
+                     ("k3_rollback", k3["rollback"]), ("k4", k4), ("k5", k5)):
+        paths[f"supervision_{key}"] = {"launches": run["launches"], "batches": run["batches"]}
+    keep = ("oom_retries", "oom_shrinks", "oom_evictions", "oom_trimmed_bytes", "device_lost",
+            "restarts",
+            "dead_letters", "swaps", "rollbacks", "model_version", "stalls")
+    health = {"k1": k1["health"], **{f"k2_{k}": r["health"] for k, r in k2["runs"].items()},
+              "k3_swap": k3["swap"]["health"], "k3_rollback": k3["rollback"]["health"]}
+    summary = {
+        "frames": SUPERVISION_FRAMES, "card": card,
+        "seconds": {k: round(v, 3) for k, v in secs.items()} | {
+            "total": round(time.perf_counter() - t0, 3)},
+        "health": {k: {f: h.get(f) for f in keep if f in h} for k, h in health.items()},
+        "k1": {"peak_128_bytes": k1["peak_128"], "peak_64_bytes": k1["peak_64"],
+               "cap_bytes": k1["cap_bytes"], "failed_calls": k1["failed_calls"],
+               "calls": len(k1["calls"]), "launches": {
+                   k: k1["launches"][k] for k in ("normalize_u8", "top1")}},
+        "k2": {"allocated_before": k2["allocated_before"],
+               "allocated_after": k2["allocated_after"]},
+        "k3": {"swap_frame": k3["swap_frame"]},
+        "k4": {"monitor": k4["monitor"], "hook_entries": k4["hook_entries"],
+               "trimmed_bytes": k4["trimmed_bytes"],
+               "tensor_bytes": k4["tensor_bytes"], "high": k4["high"], "low": k4["low"],
+               "samples": len(k4["samples"])},
+        "k5": {"shed": k5["shed"], "equal_streams": k5["equal"],
+               "positions_advanced_by_the_failed_call": k5["positions_advanced"],
+               "oom_retries": k5["snapshot"]["gen_oom_retries"],
+               "oom_sheds": k5["snapshot"]["gen_oom_sheds"]},
+    }
+    marks = [s for s in k4["samples"] if s[1] / max(1, s[2]) >= k4["high"]][:1] + \
+        [s for s in k4["samples"] if s[1] / max(1, s[2]) <= k4["low"]][-1:]
+    print(f"path k: k1 a real OOM on every 128-frame micro-batch under a cap of "
+          f"{k1['cap_bytes'] / 2**30:.2f} GiB (one call peaks at {k1['peak_128'] / 2**30:.2f} GiB "
+          f"for 128 frames, {k1['peak_64'] / 2**30:.2f} for 64): {k1['failed_calls']} "
+          f"torch.cuda.OutOfMemoryError typed as DeviceOomError, each retried as two halves; "
+          f"labels equal to the direct call at each serving call's size with the cap lifted; "
+          f"launches {summary['k1']['launches']}")
+    print(f"path k: k2 device.oom, device.lost (error-policy=restart) and a hang "
+          f"(stall-policy=restart) each over {SUPERVISION_FRAMES} frames: every frame once, in "
+          f"order, labels equal; allocated {k2['allocated_before']} bytes before, "
+          f"{k2['allocated_after']} after")
+    print(f"path k: k3 swap /1 -> /2 at frame {k3['swap_frame']}, rollback after 2 errors in the "
+          f"observation window, labels equal to the serving version's direct call")
+    print(f"path k: k4 monitor {k4['monitor']}; entries per hook {k4['hook_entries']}, card "
+          f"bytes from trim_caches {k4['trimmed_bytes']}; samples "
+          f"(clock, reserved, limit) {len(k4['samples'])}, first at pressure and last below low "
+          f"{marks}")
+    print(f"path k: k5 GPT-2 small decode call 3 ran (write positions advanced by "
+          f"{k5['positions_advanced']}) and then failed; shed stream (index, tokens) {k5['shed']}, "
+          f"{k5['equal']} streams equal to the fault-free run; seconds {summary['seconds']}; "
+          f"on {card}")
+    return paths, summary
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -3779,8 +4325,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= {"i", "j"}:
-        raise SystemExit(f"chip_smoke.py: --only takes i and j, not {sorted(only - {'i', 'j'})}")
+    if not only <= {"i", "j", "k"}:
+        raise SystemExit(f"chip_smoke.py: --only takes i, j and k, not "
+                         f"{sorted(only - {'i', 'j', 'k'})}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -3788,6 +4335,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "i" in only:
         print(json.dumps({"prefix_cache": run_prefix_path(torch, np, counters, args.seed,
                                                           card)["summary"]}))
+    if "k" in only:
+        print(json.dumps({"supervision": run_supervision(torch, np, lab, counters, args.seed,
+                                                         card, work, labels)[1]}))
     print(card)
     return 0
 
@@ -3799,7 +4349,7 @@ def main() -> int:
     ap.add_argument("--prompts", type=int, default=16, help="1024-token prompts through GPT-2 small")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
-                    help="comma-separated paths to run alone after the kernel build: i, j "
+                    help="comma-separated paths to run alone after the kernel build: i, j, k "
                          "(prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
@@ -3896,6 +4446,10 @@ def main() -> int:
     paths["gpt2_small_prefix_cache"] = prefix
     file_paths, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
     paths.update(file_paths)
+    torch.cuda.empty_cache()
+    supervision_paths, supervision = run_supervision(torch, np, lab, counters, args.seed, card,
+                                                     work, labels)
+    paths.update(supervision_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -3909,6 +4463,7 @@ def main() -> int:
     print(json.dumps({"int8": int8}))
     print(json.dumps({"prefix_cache": prefix.pop("summary")}))
     print(json.dumps({"model_files": files}))
+    print(json.dumps({"supervision": supervision}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -4,13 +4,16 @@ Port of ``nnstreamer_tpu/backends/base.py``: ``open/close``,
 ``get_model_info``/``set_input_info``, ``invoke`` (one frame) and
 ``invoke_batch`` (a leading batch dim), the staging hooks of the filter's
 ingest lane (``SUPPORTS_STAGING``, ``to_device``, ``staging_placement``),
-plus the accelerator wish-list parser and backend registration in the
-subplugin registry.
+the device-resource hooks of the filter's OOM and device-loss ladder
+(``trim_caches``, ``remesh_spec_after_loss``, ``dead_ordinals_after_loss``,
+``degraded``), ``reload`` (the legacy inline model reload), plus the
+accelerator wish-list parser and backend registration in the subplugin
+registry.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..core import registry
 from ..core.types import StreamSpec
@@ -47,9 +50,15 @@ class FilterBackend:
     def __init__(self):
         self.model_path: Optional[str] = None
         self.custom_props: Dict[str, str] = {}
+        # the element's props this backend was opened with (accelerators,
+        # exclude_ordinals): an inline reload re-opens with the same
+        self.open_props: Dict[str, Any] = {}
+        # serving in a reduced configuration (a device was lost under it)
+        self.degraded = False
 
     def open(self, model_path: Optional[str], props: Dict[str, Any]) -> None:
         self.model_path = model_path
+        self.open_props = dict(props)
         # "key1:val1,key2:val2" custom-prop dialect (reference `custom` prop)
         for part in str(props.get("custom") or "").split(","):
             if ":" in part:
@@ -58,6 +67,14 @@ class FilterBackend:
 
     def close(self) -> None:
         pass
+
+    def reload(self, model_path: str) -> None:
+        """Inline model reload (``staged-reload=false``, and every reload
+        of a shared backend): close, then open with the props of the first
+        open, so the placement the element asked for holds."""
+        props = self.open_props
+        self.close()
+        self.open(model_path, props)
 
     def get_model_info(self) -> Tuple[Optional[StreamSpec], Optional[StreamSpec]]:
         """(input schema, output schema) of one frame; None = unknown."""
@@ -93,6 +110,31 @@ class FilterBackend:
         (``core.buffer.DeviceBufferPool``).  ``None`` = no placement
         identity (host backends)."""
         return None
+
+    #: card bytes :meth:`trim_caches` has given back, over the backend's life
+    trimmed_bytes = 0
+
+    def trim_caches(self) -> int:
+        """Release card memory the backend can recreate on demand
+        (allocator caches, scratch): the relief hook of the filter's OOM
+        recovery and the watermark monitor.  Returns the entries released,
+        as the JAX backend does, and adds their bytes to
+        :attr:`trimmed_bytes`; the default holds nothing."""
+        return 0
+
+    def remesh_spec_after_loss(self, lost_ids: Sequence[int]):
+        """``(spec, dead_ids)`` to rebuild this backend with after losing
+        ``lost_ids``, or ``None`` when it has no re-mesh story (unsharded,
+        as every port backend is until ROADMAP A11): the filter then
+        re-raises into supervision."""
+        return None
+
+    def dead_ordinals_after_loss(self, lost_ids: Sequence[int]):
+        """Ordinals provably dead after a ``DeviceLostError`` with no
+        re-mesh story, for the filter's exclusion list (a supervision
+        restart must not re-pick a dead card).  The default knows only
+        what the error reported; ``()`` = nothing provably dead."""
+        return tuple(int(i) for i in (lost_ids or ()))
 
     @property
     def supports_batch(self) -> bool:

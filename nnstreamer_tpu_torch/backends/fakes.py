@@ -1,9 +1,12 @@
-"""A simulated asynchronous device, for testing the filter's feed on the CPU.
+"""Deterministic fake backends for tests, on the host.
 
-Port of ``nnstreamer_tpu/backends/fakes.py``, reduced to ``AsyncSim`` and
-its ``FakeDeviceArray``: the dispatch window's and the ingest lane's
+Port of ``nnstreamer_tpu/backends/fakes.py``: ``passthrough``, ``scaler``,
+``average`` and ``framecounter`` (element behaviour without a model, as in
+the reference's custom-filter examples), and ``async-sim`` with its
+``FakeDeviceArray``, so the dispatch window's and the ingest lane's
 threading contracts (FIFO completion, where the blocking waits happen,
-buffer reuse) can be pinned without a card.
+buffer reuse) and the filter's OOM and device-loss ladder (through the
+``device.oom``/``device.lost`` fault sites) can be pinned without a card.
 """
 
 from __future__ import annotations
@@ -15,8 +18,75 @@ from typing import Any, List, Optional
 
 import numpy as np
 
-from ..core.types import StreamSpec
+from ..core.resilience import FAULTS
+from ..core.types import StreamSpec, TensorSpec
 from .base import FilterBackend, register_backend
+
+
+class Passthrough(FilterBackend):
+    """Identity model."""
+
+    NAME = "passthrough"
+
+    def set_input_info(self, in_spec: StreamSpec) -> StreamSpec:
+        return in_spec
+
+    def invoke(self, inputs: List[Any]) -> List[Any]:
+        return list(inputs)
+
+    def invoke_batch(self, inputs: List[Any]) -> List[Any]:
+        return list(inputs)
+
+
+class Scaler(FilterBackend):
+    """Multiply by a constant from custom props ("factor:2")."""
+
+    NAME = "scaler"
+
+    @property
+    def factor(self) -> float:
+        return float(self.custom_props.get("factor", "2"))
+
+    def set_input_info(self, in_spec: StreamSpec) -> StreamSpec:
+        return in_spec
+
+    def invoke(self, inputs: List[Any]) -> List[Any]:
+        return [np.asarray(a) * np.asarray(a).dtype.type(self.factor) for a in inputs]
+
+    def invoke_batch(self, inputs: List[Any]) -> List[Any]:
+        return self.invoke(inputs)
+
+
+class Average(FilterBackend):
+    """Reduce each tensor to its scalar mean (float32, shape (1,))."""
+
+    NAME = "average"
+
+    def set_input_info(self, in_spec: StreamSpec) -> StreamSpec:
+        return StreamSpec(
+            tuple(TensorSpec((1,), np.float32, t.name) for t in in_spec.tensors),
+            in_spec.fmt, in_spec.framerate)
+
+    def invoke(self, inputs: List[Any]) -> List[Any]:
+        return [np.asarray([np.asarray(a).mean()], np.float32) for a in inputs]
+
+
+class FrameCounter(FilterBackend):
+    """Emit a running frame counter (ordering and liveness tests)."""
+
+    NAME = "framecounter"
+
+    def __init__(self):
+        super().__init__()
+        self._n = 0
+
+    def set_input_info(self, in_spec: StreamSpec) -> StreamSpec:
+        return StreamSpec((TensorSpec((1,), np.int64, "count"),), in_spec.fmt,
+                          in_spec.framerate)
+
+    def invoke(self, inputs: List[Any]) -> List[Any]:
+        self._n += 1
+        return [np.asarray([self._n], np.int64)]
 
 
 class FakeDeviceArray:
@@ -86,6 +156,9 @@ class AsyncSim(FilterBackend):
       thread that waits.
     * ``manual``      — "1": batches complete only via :meth:`release_one`
       / :meth:`release_all` (deterministic window tests).
+
+    ``invoke_batch`` carries the ``device.oom``/``device.lost`` fault
+    sites where the torch-cuda backend has them.
 
     ``blocking_syncs`` lists the thread of every wait that happened before
     its batch completed; ``to_device`` copies off the staging buffer, as a
@@ -169,6 +242,9 @@ class AsyncSim(FilterBackend):
         return [np.asarray(a) * 2 + 1 for a in inputs]
 
     def invoke_batch(self, inputs: List[Any]) -> List[Any]:
+        if FAULTS.is_armed():
+            FAULTS.check("device.oom")
+            FAULTS.check("device.lost")
         done = threading.Event()
         outs = [FakeDeviceArray(np.asarray(a) * 2 + 1, done, self._ms("transfer_ms"), self)
                 for a in inputs]
@@ -179,4 +255,5 @@ class AsyncSim(FilterBackend):
         return outs
 
 
-register_backend(AsyncSim)
+for _cls in (Passthrough, Scaler, Average, FrameCounter, AsyncSim):
+    register_backend(_cls)

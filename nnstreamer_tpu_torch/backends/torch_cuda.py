@@ -36,6 +36,16 @@ first launch, and each staged tensor is recorded on the compute stream so
 the caching allocator cannot hand its memory to the next copy while the
 model still reads it.  On the CPU ``to_device`` copies off the staging
 buffer (a ``torch.from_numpy`` view would alias the pooled buffer).
+
+Device errors: every model call runs inside ``core.resilience.device_call``
+(the ``device.oom`` / ``device.lost`` fault sites, and torch's
+``OutOfMemoryError`` and sticky CUDA errors typed as ``DeviceOomError`` /
+``DeviceLostError``); the copies run inside it with ``inject=False``.
+``trim_caches`` releases the caching allocator's free segments and returns
+how many CUDA got back (their bytes add to ``trimmed_bytes``).  The backend is unsharded, so ``remesh_spec_after_loss``
+is ``None`` (a loss re-raises into supervision) and
+``dead_ordinals_after_loss`` probes its own card; the filter passes the
+dead ordinals back as ``exclude_ordinals`` and ``pick_device`` skips them.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import numpy as np
 import torch
 
 from ..core.buffer import materialize
+from ..core.resilience import DeviceLostError, device_call
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec, dtype_to_name
 from .base import FilterBackend, register_backend
 
@@ -81,18 +92,31 @@ def unregister_torch_model(name: str) -> bool:
         return _model_registry.pop(name, None) is not None
 
 
-def pick_device(wishes: List[str]) -> torch.device:
+def pick_device(wishes: List[str], exclude=()) -> torch.device:
     """The first satisfiable accelerator wish: ``cpu``, or a CUDA card for
-    ``auto``/``default``/``gpu``/``gpu.N``.  Raises when none is."""
+    ``auto``/``default``/``gpu``/``gpu.N``.  Raises when none is.  Cards
+    in ``exclude`` (ordinals lost earlier) are never picked: a bare
+    ``gpu`` takes the first card left, ``gpu.N`` of a lost card raises."""
+    dead = {int(i) for i in exclude}
     for wish in wishes:
         kind, _, ordinal = wish.lower().partition(".")
         if kind == "cpu":
             return torch.device("cpu")
         if kind in ("auto", "default", "gpu", "cuda") and torch.cuda.is_available():
-            index = int(ordinal) if ordinal.isdigit() else 0
-            if index >= torch.cuda.device_count():
-                raise RuntimeError(f"accelerator {wish!r}: no CUDA device {index}")
-            return torch.device("cuda", index)
+            count = torch.cuda.device_count()
+            if ordinal.isdigit():
+                index = int(ordinal)
+                if index >= count:
+                    raise RuntimeError(f"accelerator {wish!r}: no CUDA device {index}")
+                if index in dead:
+                    raise DeviceLostError(f"accelerator {wish!r}: CUDA device {index} was lost",
+                                          device_ids=(index,))
+                return torch.device("cuda", index)
+            alive = [i for i in range(count) if i not in dead]
+            if not alive:
+                raise DeviceLostError(f"accelerator {wish!r}: every CUDA device was lost",
+                                      device_ids=tuple(sorted(dead)))
+            return torch.device("cuda", alive[0])
     raise RuntimeError(
         f"torch-cuda: no CUDA device for accelerator wishes {wishes} "
         "(pass accelerator=cpu to run on the CPU)")
@@ -189,7 +213,9 @@ class TorchCuda(FilterBackend):
         super().open(model_path, props)
         module, self._in_spec, self._out_spec, registered = self._resolve_model(model_path)
         self._declared_out = self._out_spec
-        self._device = pick_device(props.get("accelerators") or ["auto"])
+        wishes = props.get("accelerators") or ["auto"]
+        exclude = props.get("exclude_ordinals") or ()
+        self._device = pick_device(wishes, exclude=exclude) if exclude else pick_device(wishes)
         # a registered module is shared with its registrant and other
         # filters; a zoo build is this backend's own
         self._module = (_placed(module, self._device) if registered
@@ -202,6 +228,58 @@ class TorchCuda(FilterBackend):
         self._module = None
         self._posts = []
         self._copy_stream = None
+
+    def reload(self, model_path):
+        """Inline model reload in place: the new model is resolved and
+        placed on this backend's card before the old one is dropped, so a
+        failed load leaves the old model serving.  The card (and with it
+        the element's accelerator and dead ordinals), the copy stream and
+        the fused device halves stay; the schema of a fused output stays
+        the one negotiated."""
+        module, in_spec, out_spec, registered = self._resolve_model(model_path)
+        module = (_placed(module, self._device) if registered
+                  else module.to(self._device).eval())
+        self.model_path = model_path
+        self._module, self._in_spec, self._declared_out = module, in_spec, out_spec
+        if not self._posts:
+            self._out_spec = out_spec
+
+    # -- device-resource hooks (the filter's OOM and device-loss ladder) ----
+    def trim_caches(self) -> int:
+        """Release the caching allocator's free segments on this
+        backend's card (``torch.cuda.empty_cache``); returns the segments
+        that CUDA got back and adds their reserved bytes to
+        :attr:`trimmed_bytes`.  The padded batch buckets keep no scratch of
+        their own.  On the CPU there is nothing to release."""
+        dev = self._device
+        if dev is None or dev.type != "cuda":
+            return 0
+
+        def held():
+            stats = torch.cuda.memory_stats(dev)
+            return stats.get("segment.all.current", 0), stats.get("reserved_bytes.all.current", 0)
+
+        with torch.cuda.device(dev):
+            segs, before = held()
+            torch.cuda.empty_cache()
+            segs_after, after = held()
+        self.trimmed_bytes += max(0, before - after)
+        return max(0, segs - segs_after)
+
+    def dead_ordinals_after_loss(self, lost_ids):
+        """Reported ordinals win; otherwise probe this backend's own card
+        (a synchronize raises once its context is lost): dead -> its
+        ordinal, alive -> ``()`` (a spurious or injected loss condemns
+        nobody and the restart re-picks the card)."""
+        ids = tuple(int(i) for i in (lost_ids or ()))
+        dev = self._device
+        if ids or dev is None or dev.type != "cuda":
+            return ids
+        try:
+            torch.cuda.synchronize(dev)
+        except Exception:  # noqa: BLE001 — the probe's answer is "dead"
+            return (int(dev.index),)
+        return ()
 
     def get_model_info(self):
         return self._in_spec, self._out_spec
@@ -257,6 +335,9 @@ class TorchCuda(FilterBackend):
         reuses the buffers right after).  On CUDA the copies run on the
         copy stream, and each returned tensor carries the copy's event for
         :meth:`invoke_batch`."""
+        return device_call(self._to_device_raw, arrays, inject=False)
+
+    def _to_device_raw(self, arrays: List[Any]) -> List[Any]:
         dev = self._device
         if dev.type != "cuda":
             # a private copy: from_numpy alone would alias the pooled buffer
@@ -293,11 +374,16 @@ class TorchCuda(FilterBackend):
         return torch.cat([t, t[-1:].expand((bucket - n,) + tuple(t.shape[1:]))])
 
     def invoke(self, inputs: List[Any]) -> List[Any]:
-        return [o[0] for o in self.invoke_batch([self._put(a)[None] for a in inputs])]
+        return [o[0] for o in self.invoke_batch([a[None] for a in inputs])]
 
     def invoke_batch(self, inputs: List[Any]) -> List[Any]:
         """One model call for the whole micro-batch; outputs stay on the
-        device, sliced back to the batch's true size."""
+        device, sliced back to the batch's true size.  Runs inside
+        ``device_call``: the fault sites fire here, and a real OOM or
+        sticky CUDA error surfaces typed."""
+        return device_call(self._invoke_batch_raw, inputs)
+
+    def _invoke_batch_raw(self, inputs: List[Any]) -> List[Any]:
         n = int(inputs[0].shape[0])
         bucket = _next_pow2(n)
         xs = [self._pad_rows(self._put(a), bucket) for a in inputs]

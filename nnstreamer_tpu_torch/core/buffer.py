@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import itertools
 import threading
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -269,11 +270,13 @@ class DeviceBufferPool:
     another; pass the same token to ``release`` as to ``acquire``.
 
     The ring dict is LRU-bounded at ``MAX_KEYS`` keys (``rings_evicted``
-    counts the rings dropped).  Thread-safe; ``allocated``/``reused`` are
+    counts the rings dropped).  ``trim()`` drops every free buffer (the
+    memory-pressure relief valve); :func:`trim_staging_pools` trims every
+    live pool of the process.  Thread-safe; ``allocated``/``reused`` are
     exact under the lock."""
 
     __slots__ = ("_free", "_lock", "_max_per_key",
-                 "allocated", "reused", "rings_evicted")
+                 "allocated", "reused", "rings_evicted", "trims", "__weakref__")
 
     #: max distinct (shape, dtype, placement) rings kept live (LRU)
     MAX_KEYS = 32
@@ -285,6 +288,8 @@ class DeviceBufferPool:
         self.allocated = 0
         self.reused = 0
         self.rings_evicted = 0
+        self.trims = 0
+        _LIVE_POOLS.add(self)
 
     @staticmethod
     def _key(shape, dtype, placement=None) -> Tuple:
@@ -334,6 +339,16 @@ class DeviceBufferPool:
             lst.append(buf)
         return True
 
+    def trim(self) -> int:
+        """Drop every free staging buffer (the watermark monitor and the
+        filter's OOM recovery call this).  Acquired buffers are untouched:
+        they are the caller's until release.  Returns the buffers freed."""
+        with self._lock:
+            n = sum(len(lst) for lst in self._free.values())
+            self._free.clear()
+            self.trims += 1
+        return n
+
     @property
     def reuse_rate(self) -> float:
         """reused / (reused + allocated): 1.0 is a zero-allocation steady
@@ -342,3 +357,12 @@ class DeviceBufferPool:
         return self.reused / total if total else 0.0
 
 
+#: every live staging pool (each ingest lane owns one)
+_LIVE_POOLS: "weakref.WeakSet[DeviceBufferPool]" = weakref.WeakSet()
+
+
+def trim_staging_pools() -> int:
+    """Trim every live :class:`DeviceBufferPool` of the process; returns
+    the buffers freed.  They are host memory (pinned for a card), so only
+    a host-memory watermark gains from this."""
+    return sum(pool.trim() for pool in list(_LIVE_POOLS))

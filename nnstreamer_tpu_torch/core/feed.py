@@ -19,6 +19,12 @@ dispatch thread out of device I/O:
 
 Emission order stays strictly FIFO through both; the filter's
 ``pending_frames`` sums the window's payloads and the staged batch.
+
+Both threads' device waits run inside ``core.resilience.device_call`` with
+``inject=False``: a real card error surfacing there (an OOM in a copy, a
+kernel fault met at the reaper's synchronization) reaches the dispatch
+thread typed, while the armed ``device.*`` fault sites keep firing at
+model-call boundaries only.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 from .buffer import DeviceBufferPool
 from .buffer import materialize as _materialize
 from .liveness import ThreadBeat
+from .resilience import device_call
 from .telemetry import Log2Histogram
 
 
@@ -141,7 +148,7 @@ class CompletionWindow:
             # job after a long idle must not look wedged
             self.heartbeat.beat()
             try:
-                mats = self._materialize(entry.out_b)
+                mats = device_call(self._materialize, entry.out_b, inject=False)
                 err = None
             except (KeyboardInterrupt, SystemExit):
                 raise
@@ -330,7 +337,7 @@ class HostStagingLane:
                     bufs.append(buf)
                     _stack_into(rows, buf)
                 self.stack_s += time.perf_counter() - t0
-                dev = self._to_device(bufs)
+                dev = device_call(self._to_device, bufs, inject=False)
                 self.staged += 1
                 job._finish(list(dev), None)
             except (KeyboardInterrupt, SystemExit):

@@ -37,12 +37,25 @@ call brings its ``(S, k)`` tokens back.
   remaining chunks fall on the grid a cold prefill uses and its tokens are
   a cold run's.
 
-:class:`SimSlotModel` is a host-only model with the slot model's interface
-and a token oracle, for driving the scheduler without a transformer.
+* **device-resource resilience**: every model call runs inside
+  ``resilience.device_call`` (the ``device.oom`` / ``device.lost`` fault
+  sites, torch's OOM and sticky CUDA errors typed).  An OOM sheds the
+  lowest-priority occupant (its emitted tokens kept, a typed final chunk
+  with ``evicted: oom``) and retries the step on the smaller set; a device
+  loss hands every live stream off (``evicted: device_lost``) and calls
+  the ``on_device_lost`` hook, or re-raises without one.  The cache is
+  written in place, so each step's write positions are saved before it
+  and restored when it fails: the retry writes where the failed step did.
 
-Not ported (ROADMAP A7.3, A4.3): GOAWAY hand-off, resume and ledger
-adoption, OOM and device-loss recovery and the simulated model's chaos
-twins, SLO tracking.
+:class:`SimSlotModel` is a host-only model with the slot model's interface
+and a token oracle, for driving the scheduler without a transformer; its
+chaos twins (``fail_next``, ``oom_at_step``, ``lost_at_step``) raise the
+typed device errors.
+
+Not ported (ROADMAP A7.3): GOAWAY hand-off with resume state (a shed or
+handed-off stream's final chunk carries no resume state, as a JAX engine
+without a resume signature sends), resume and ledger adoption, SLO
+tracking.
 """
 
 from __future__ import annotations
@@ -57,7 +70,8 @@ import numpy as np
 import torch
 
 from .continuity import PREFIX_GRAIN, prefix_digests
-from .liveness import ThreadBeat
+from .liveness import DEADLINE_META, ThreadBeat
+from .resilience import DeviceLostError, DeviceOomError, device_call
 
 log = logging.getLogger("nnstreamer_tpu_torch.slots")
 
@@ -257,7 +271,7 @@ class GenStream:
         "sid", "frame", "prompt", "prompt_dev", "max_new", "chunk", "tenant",
         "priority", "deadline_ts", "token_budget_s", "state", "slot",
         "prefill_pos", "gen", "pending", "pending_n", "chunk_index",
-        "tokens_out", "last_token_ts",
+        "tokens_out", "last_token_ts", "joined_ts", "evict_reason",
         # shared-prefix cache: the chain digests of the prompt's eligible
         # chunks, the pinned entries it attached (released with the slot),
         # and the next chunk index to publish as prefill crosses a boundary
@@ -287,6 +301,8 @@ class GenStream:
         self.chunk_index = 0
         self.tokens_out = 0               # tokens actually emitted
         self.last_token_ts = now
+        self.joined_ts: Optional[float] = None  # when it took its slot
+        self.evict_reason: Optional[str] = None
         self.prefix_digests: List[str] = []
         self.prefix_entries: List[PrefixEntry] = []
         self.prefix_pub_i = 0
@@ -307,15 +323,18 @@ class SimSlotModel:
     t_j + 17) % vocab``.  A slot's "pages" are its position and the
     running prompt sum of its chunked prefill.
 
-    Not ported (ROADMAP A4.3): the chaos twins ``fail_next``,
-    ``oom_at_step`` and ``lost_at_step``, which raise the device error
-    types that come with A4.3."""
+    Chaos twins: decode ATTEMPT ``oom_at_step`` / ``lost_at_step`` (0-based;
+    the counter advances on faulted attempts, so the engine's retry
+    proceeds) raises ``DeviceOomError`` / ``DeviceLostError`` once, and
+    ``fail_next("oom"|"lost")`` arms the next attempt.  A fault fires
+    before any state changes."""
 
     device = torch.device("cpu")
 
     def __init__(self, slots: int, vocab: int = 997, step_base_ms: float = 1.0,
                  step_per_slot_ms: float = 0.05, prefill_ms_per_token: float = 0.02,
-                 sleep=time.sleep):
+                 sleep=time.sleep, oom_at_step: Optional[int] = None,
+                 lost_at_step: Optional[int] = None):
         self.slots = int(slots)
         self.vocab = int(vocab)
         self.step_base_s = step_base_ms * 1e-3
@@ -325,6 +344,17 @@ class SimSlotModel:
         # running prompt sum per slot: token 1 covers the whole prompt
         # across chunk boundaries
         self._prefill_carry: Dict[int, int] = {}
+        self.oom_at_step = oom_at_step
+        self.lost_at_step = lost_at_step
+        self._attempts = 0
+        self._pending_fault: Optional[str] = None
+
+    def fail_next(self, kind: str) -> None:
+        """Arm the NEXT decode attempt to raise the typed device error
+        (``"oom"`` | ``"lost"``), race-free against a running pump."""
+        if kind not in ("oom", "lost"):
+            raise ValueError(f"fail_next({kind!r}): want oom|lost")
+        self._pending_fault = kind
 
     def init_cache(self):
         return {"pos": np.zeros((self.slots,), np.int64)}
@@ -372,6 +402,13 @@ class SimSlotModel:
 
     def decode_fn(self, k: int):
         def fn(cache, tok, gen, active):
+            idx = self._attempts
+            self._attempts += 1
+            pending, self._pending_fault = self._pending_fault, None
+            if pending == "lost" or (self.lost_at_step is not None and idx == self.lost_at_step):
+                raise DeviceLostError("sim: simulated device loss", device_ids=(0,))
+            if pending == "oom" or (self.oom_at_step is not None and idx == self.oom_at_step):
+                raise DeviceOomError("sim: simulated card-memory exhaustion")
             act = np.asarray(active)
             self._sleep(k * (self.step_base_s + self.step_per_slot_s * int(act.sum())))
             tok = np.array(tok)
@@ -412,7 +449,8 @@ class SlotEngine:
                  token_budget_s: float = 0.0,
                  clock: Callable[[], float] = time.monotonic,
                  name: str = "slots",
-                 prefix_cache: Optional[PrefixCache] = None):
+                 prefix_cache: Optional[PrefixCache] = None,
+                 on_device_lost: Optional[Callable[..., Any]] = None):
         self.model = model
         self.slots = int(model.slots)
         self.device = torch.device(model.device)
@@ -434,6 +472,10 @@ class SlotEngine:
         # the pump beats once per loop: pending work with a stale beat
         # means a wedged pump (stuck in a device call)
         self.heartbeat = ThreadBeat(f"{name}-slots", clock=clock)
+        # ``on_device_lost(err) -> model | None`` rebuilds the model after a
+        # device loss (None: recovered in place); without a hook, or when
+        # it raises, the loss is sticky and supervision restarts the element
+        self.on_device_lost = on_device_lost
 
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)       # pump wakeups
@@ -467,6 +509,11 @@ class SlotEngine:
         self.prefill_chunks = 0
         self.tokens_total = 0
         self.tokens_per_step = 0.0  # EWMA of active slots per decode call
+        self.oom_retries = 0          # device steps retried after an OOM
+        self.oom_sheds = 0            # slots shed to relieve card memory
+        self.device_lost = 0          # device-loss events seen
+        self.device_lost_evicted = 0  # live streams handed off on a loss
+        self.remeshes = 0             # models rebuilt after a loss
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -586,6 +633,11 @@ class SlotEngine:
                 "gen_decode_steps": self.decode_steps,
                 "gen_prefill_chunks": self.prefill_chunks,
                 "gen_tokens_per_step": round(self.tokens_per_step, 3),
+                "gen_oom_retries": self.oom_retries,
+                "gen_oom_sheds": self.oom_sheds,
+                "gen_device_lost": self.device_lost,
+                "gen_device_lost_evicted": self.device_lost_evicted,
+                "gen_remeshes": self.remeshes,
             }
         if self.prefix is not None:
             snap.update(self.prefix.snapshot())
@@ -633,6 +685,10 @@ class SlotEngine:
         )
         if extra_meta:
             out.meta.update(extra_meta)
+            if extra_meta.get("deadline_expired"):
+                # the typed expiry IS the answer to the deadline: no element
+                # downstream may drop it as late (late-policy)
+                out.meta.pop(DEADLINE_META, None)
         s.chunk_index += 1
         self._ready.append((0, out))
         self._progress.notify_all()
@@ -736,11 +792,102 @@ class SlotEngine:
     def _evict(self, s: GenStream, reason: str) -> None:
         """Typed-expiry eviction (lock held): partial tokens flush with the
         eviction meta, the slot frees at this boundary."""
+        s.evict_reason = reason
         self._finish(s, "evicted", extra_meta={
             "evicted": reason, "deadline_expired": True,
         })
         log.warning("%s: stream %d evicted (%s) after %d token(s)",
                     self.name, s.sid, reason, s.tokens_out)
+
+    def _handoff_one(self, s: GenStream, reason: str) -> None:
+        """Close ONE live stream with a typed final chunk and free its slot
+        (lock held): partial tokens ride the chunk with ``evicted: reason``
+        and no ``deadline_expired`` marker.  (With resume, ROADMAP A7.3,
+        the chunk would also carry the state to continue elsewhere.)"""
+        if s.state == "waiting":
+            try:
+                self._waiting.remove(s)
+            except ValueError:
+                pass
+        s.state = "evicted"
+        s.evict_reason = reason
+        self._emit_terminal(s, extra_meta={"evicted": reason})
+        self._free_slot(s)
+
+    # -- device-resource resilience (degrade, don't die) ---------------------
+    def _device_step(self, fn, *args):
+        """Every model call of the pump goes through the classification
+        boundary (``device_call``): the recovery below keys on types."""
+        return device_call(fn, *args)
+
+    def _save_positions(self):
+        """The cache's write positions before a step (a failed step may
+        have advanced them part-way: the cache is written in place)."""
+        save = getattr(self.model, "save_positions", None)
+        return save(self._cache) if save is not None else self._cache
+
+    def _restore_positions(self, saved) -> None:
+        restore = getattr(self.model, "restore_positions", None)
+        if restore is not None:
+            restore(self._cache, saved)
+        else:
+            self._cache = saved  # a functional cache: the step made a new one
+
+    def _handle_oom(self) -> None:
+        """Card memory ran out mid-step: shed the LOWEST-priority occupant
+        (the latest joined among equals) with its tokens so far, freeing
+        its slot, then let the failed step retry on the smaller set.
+        Never a restart, never a poisoned frame."""
+        with self._lock:
+            self.oom_retries += 1
+            live = [s for s in self._occupants if s is not None and not s.finished]
+            if not live:
+                return  # nothing held: the bare retry is the relief
+            victim = min(live, key=lambda s: (s.priority, -(s.joined_ts or 0.0)))
+            self.oom_sheds += 1
+            self._handoff_one(victim, "oom")
+            log.warning("%s: device OOM: shed stream %d (priority %d, %d token(s) kept) and "
+                        "retrying the step", self.name, victim.sid, victim.priority,
+                        victim.tokens_out)
+
+    def _reset_device_state(self) -> None:
+        """Fresh cache and zeroed token and count vectors, after every
+        occupant was handed off (device-loss recovery)."""
+        self._cache = self.model.init_cache()
+        with torch.inference_mode():
+            self._tok_vec = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
+            self._gen_vec = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
+        self._active_host = None
+        self._prefill_lru.clear()
+        self._decode_lru.clear()
+        if self.prefix is not None:
+            self.prefix.clear()  # every reader was handed off: nothing pinned
+
+    def _handle_device_lost(self, err: DeviceLostError) -> None:
+        """The card was lost under the batch: hand EVERY live stream off,
+        then rebuild through the ``on_device_lost`` hook and keep serving.
+        Without a hook (or when it raises) the loss is sticky: the pump
+        fails and supervision restarts the element."""
+        handed = 0
+        with self._lock:
+            self.device_lost += 1
+            for s in list(self._streams.values()):
+                if s.finished:
+                    continue
+                self._handoff_one(s, "device_lost")
+                self.device_lost_evicted += 1
+                handed += 1
+        hook = self.on_device_lost
+        if hook is None:
+            raise err
+        replacement = hook(err)  # raises = unrecoverable: sticky error
+        with self._lock:
+            if replacement is not None:
+                self.model = replacement
+            self.remeshes += 1
+        self._reset_device_state()
+        log.warning("%s: device lost (%s): %d stream(s) handed off, model rebuilt (#%d)",
+                    self.name, err, handed, self.remeshes)
 
     def _reap_cancelled(self) -> None:
         """Free slots of streams cancelled since the last boundary and drop
@@ -766,6 +913,7 @@ class SlotEngine:
             s = self._waiting[wi]
             s.slot = slot
             s.state = "prefill"
+            s.joined_ts = now
             s.last_token_ts = now
             self._occupants[slot] = s
             self.joins += 1
@@ -816,8 +964,17 @@ class SlotEngine:
             ]
             budget = (self.prefill_priority if have_decode
                       else max(1, len(prefilling)))
-            for s in prefilling[:budget]:
-                self._prefill_one(s)
+            try:
+                for s in prefilling[:budget]:
+                    self._prefill_one(s)
+            except DeviceOomError:
+                # prefill is re-entrant (prefill_pos advances only on
+                # success): shed a slot and re-run next iteration
+                self._handle_oom()
+                continue
+            except DeviceLostError as e:
+                self._handle_device_lost(e)
+                continue
 
             # ---- decode: k tokens for every active slot in one call
             # (k = min(chunk, min remaining): every stream completes
@@ -835,8 +992,21 @@ class SlotEngine:
                 active[s.slot] = 1
             if self._active_host is None or not np.array_equal(active, self._active_host):
                 self._active_host, self._active = active, self._upload(active)
-            self._cache, self._tok_vec, self._gen_vec, toks = self._decode_fn(k)(
-                self._cache, self._tok_vec, self._gen_vec, self._active)
+            saved = self._save_positions()
+            try:
+                self._cache, self._tok_vec, self._gen_vec, toks = self._device_step(
+                    self._decode_fn(k), self._cache, self._tok_vec, self._gen_vec,
+                    self._active)
+            except DeviceOomError:
+                # tok/gen are reassigned only on success; the positions the
+                # step advanced go back, then the lowest-priority slot is
+                # shed and the step retries on the smaller batch
+                self._restore_positions(saved)
+                self._handle_oom()
+                continue
+            except DeviceLostError as e:
+                self._handle_device_lost(e)
+                continue
             # the one host copy per call: a yielded token must exist, not
             # merely be queued
             toks_host = toks.cpu().numpy()  # (slots, k)
@@ -884,7 +1054,13 @@ class SlotEngine:
         tp = s.prompt.shape[1]
         n = min(self.prefill_chunk, tp - s.prefill_pos)
         toks = s.prompt_dev[:, s.prefill_pos:s.prefill_pos + n]
-        self._cache, logits = self._prefill_fn(n)(self._cache, toks, s.slot)
+        saved = self._save_positions()
+        try:
+            self._cache, logits = self._device_step(self._prefill_fn(n), self._cache, toks,
+                                                    s.slot)
+        except (DeviceOomError, DeviceLostError):
+            self._restore_positions(saved)
+            raise
         s.prefill_pos += n
         if self.prefix is not None:
             self._publish_prefix(s)

@@ -22,6 +22,7 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence
 import numpy as np
 
 from ..core.buffer import BatchFrame, TensorFrame
+from ..core.lifecycle import pipeline_quiescing
 from ..core.types import ANY, FORMAT_STATIC, StreamSpec, TensorSpec
 from ..pipeline.element import (
     Element,
@@ -58,6 +59,10 @@ class AppSrc(SourceElement):
         self._q: _queue.Queue = _queue.Queue(maxsize=self.PROPERTIES["max-buffers"].default)
         self._spec: StreamSpec = ANY
         self._count = 0
+        # logical frames pushed and handed to the scheduler: a drain ends
+        # the stream only once every pushed frame went out
+        self._pushed = 0
+        self._popped = 0
 
     def start(self):
         depth = int(self.props["max-buffers"])
@@ -86,7 +91,9 @@ class AppSrc(SourceElement):
         if frame.pts is None and self.props["framerate"]:
             frame.pts = self._count * _frame_interval(self.props["framerate"])
         self._count += 1
-        self._q.put(frame)
+        self._pushed += getattr(frame, "batch_size", 1)  # before the put: a drain
+        # re-check never misses it
+        self._enqueue(frame)
 
     def push_block(self, arrays: Any, pts: Optional[Sequence[Optional[float]]] = None) -> None:
         """Push N logical frames as ONE stream item (a BatchFrame): the
@@ -104,8 +111,9 @@ class AppSrc(SourceElement):
             pts = [(self._count + i) * dt for i in range(n)]
         pts = list(pts) if pts is not None else [None] * n
         self._count += n
-        self._q.put(BatchFrame(tensors=tensors, pts=pts[0],
-                               frames_info=[(p, None, {}) for p in pts]))
+        self._pushed += n
+        self._enqueue(BatchFrame(tensors=tensors, pts=pts[0],
+                                 frames_info=[(p, None, {}) for p in pts]))
 
     def push_event(self, event) -> None:
         """Queue an in-band event (``Flush``, a custom event) into the
@@ -115,17 +123,38 @@ class AppSrc(SourceElement):
     def end_of_stream(self) -> None:
         self._q.put(None)
 
+    def _enqueue(self, item) -> None:
+        """Queue `item`, blocking while the queue is full; a pipeline that
+        stopped (an element failed) refuses it instead of blocking the
+        pushing thread for good."""
+        while True:
+            try:
+                self._q.put(item, timeout=0.1)
+                return
+            except _queue.Full:
+                if pipeline_quiescing(self, drain=False):
+                    raise ElementError(f"{self.name}: the pipeline stopped; push refused")
+
+    def pending_frames(self) -> int:
+        """Logical frames pushed but not yet handed to the scheduler."""
+        return max(0, self._pushed - self._popped)
+
     def frames(self) -> Iterator[TensorFrame]:
         while True:
             try:
                 item = self._q.get(timeout=0.1)
             except _queue.Empty:
-                p = self._pipeline
-                if p is not None and p._stop_flag.is_set():
+                # a stop ends the stream; a graceful drain ends it once every
+                # pushed frame went out (push counts before it enqueues)
+                if pipeline_quiescing(self, drain=False):
+                    return
+                if pipeline_quiescing(self) and self.pending_frames() <= 0:
                     return
                 continue
             if item is None:
                 return
+            if isinstance(item, TensorFrame):
+                self._popped += getattr(item, "batch_size", 1)
             yield item
 
 
@@ -164,6 +193,8 @@ class VideoTestSrc(SourceElement):
             else:  # gradient, phase-shifted per frame
                 row = (np.arange(w, dtype=np.uint32) * 255 // max(w - 1, 1) + i * 3) % 256
                 img = np.broadcast_to(row[None, :, None], (h, w, 3)).astype(np.uint8)
+            if pipeline_quiescing(self):
+                return  # a drain or stop: end the stream here
             yield TensorFrame([img], pts=i * dt, duration=dt)
             i += 1
 

@@ -21,10 +21,33 @@ out of device I/O:
 Both keep FIFO order: every boundary (EOS, the scheduler's idle hook, any
 event) dispatches the staged batch and drains the window first.  ``Flush``
 discards both.
+
+Device-resource resilience (degrade, don't die): every backend call goes
+through the OOM and device-loss ladder.  A ``DeviceOomError`` trims what
+can be recreated (the backend's allocator cache, the staging pools) and
+retries once, a micro-batch as two halves that land in a strictly smaller
+padded bucket, concatenated back on the card in order; a second OOM
+surfaces to supervision.  A ``DeviceLostError`` on an unsharded backend
+records the ordinals a probe finds dead and re-raises into supervision,
+whose restart re-picks the card.  No rung moves work off the card or to a
+plain version of a kernel.
+
+Hot swap (``is-updatable``, ``core/lifecycle.py``): ``request_reload``
+stages the new model on a second backend off the hot path (open, schema
+check, warm-up on its own CUDA stream), swaps at a drained frame boundary,
+serves errors inside the observation window with the retained old backend
+and rolls back on a burst.  Restarts and swaps re-apply the decoder's
+fused device half to every new backend.  The ingest lane is refused under
+``error-policy=skip|restart`` and ``stall-policy=restart``: its one-batch
+deferral would charge a failure to the wrong frames.
+
+Not ported (ROADMAP A4.3b): ``input-combination``/``output-combination``,
+manual model info, ``invoke-dynamic``, ``latency`` and ``throughput``.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,9 +64,41 @@ from ..core.buffer import (
     start_host_copies,
 )
 from ..core.feed import CompletionWindow, HostStagingLane, StagedBatch
+from ..core.lifecycle import HotSwapCoordinator, SwapTicket
 from ..core.model_uri import resolve_model_uri
+from ..core.resilience import FAULTS, DeviceLostError, DeviceOomError
 from ..core.types import ANY, StreamSpec
 from ..pipeline.element import ElementError, Property, TransformElement, element
+
+
+# shared model table: filters with the same shared-tensor-filter-key share
+# one backend instance
+_shared_lock = threading.Lock()
+_shared_table: Dict[str, Tuple[FilterBackend, int]] = {}
+
+
+def _shared_acquire(key: str, factory) -> FilterBackend:
+    with _shared_lock:
+        if key in _shared_table:
+            be, refs = _shared_table[key]
+            _shared_table[key] = (be, refs + 1)
+            return be
+        be = factory()
+        _shared_table[key] = (be, 1)
+        return be
+
+
+def _shared_release(key: str) -> bool:
+    """True when the caller holds the last reference and closes it."""
+    with _shared_lock:
+        if key not in _shared_table:
+            return True
+        be, refs = _shared_table[key]
+        if refs <= 1:
+            del _shared_table[key]
+            return True
+        _shared_table[key] = (be, refs - 1)
+        return False
 
 
 def _concat(pieces: List[Any]):
@@ -103,6 +158,19 @@ class TensorFilter(TransformElement):
             bool, False,
             "emit micro-batches as ONE BatchFrame (device-resident) instead of "
             "per-frame outputs (set automatically by the device-fusion pass)"),
+        "is-updatable": Property(bool, False, "allow hot model reload"),
+        "staged-reload": Property(
+            bool, True,
+            "hot reloads stage, validate and warm the new model on a second backend and "
+            "swap at a frame boundary (false = the backend's inline reload, still "
+            "guarded: a failed reload keeps the old model serving)"),
+        "observation-window": Property(
+            float, 5.0,
+            "seconds after a hot swap during which invoke errors are served by the "
+            "retained old model and an error burst rolls the swap back"),
+        "rollback-error-burst": Property(
+            int, 3, "invoke errors within observation-window that roll a hot swap back"),
+        "shared-tensor-filter-key": Property(str, "", "share one backend instance"),
     }
 
     def __init__(self, name=None):
@@ -124,6 +192,21 @@ class TensorFilter(TransformElement):
         self._staged: Optional[Tuple[StagedBatch, List[TensorFrame]]] = None
         # do the backend's outputs support the async copy? latched per backend
         self._win_async: Optional[bool] = None
+        self._owns_backend = True
+        # the decoder device halves the fusion pass folded in: re-applied to
+        # every backend this element opens (a restart, a hot swap)
+        self._fused_posts: List[Any] = []
+        # hot swap state machine (lifetime counters survive restarts)
+        self._swapper: Optional[HotSwapCoordinator] = None
+        # device-resource resilience, lifetime counters
+        self._oom_retries = 0     # invokes retried after a device OOM
+        self._oom_shrinks = 0     # micro-batches split into two halves
+        self._oom_evictions = 0   # allocator segments released on OOM
+        self._oom_trimmed_bytes = 0  # their card bytes
+        self._device_lost = 0     # lost-device events seen
+        self._remeshes = 0        # backends rebuilt on surviving devices
+        self._degraded = False    # serving in a reduced configuration
+        self._exclude: Tuple[int, ...] = ()  # ordinals found dead
 
     @property
     def batch_through_active(self) -> bool:
@@ -132,16 +215,27 @@ class TensorFilter(TransformElement):
     # -- device fusion (pipeline pass) --------------------------------------
     @property
     def can_fuse_postprocess(self) -> bool:
-        return self.backend is not None and hasattr(self.backend, "append_postprocess")
+        """A private, postprocess-capable backend: a shared one serves
+        every filter on its key, so no one filter's decoder half may be
+        folded into it."""
+        return (self.backend is not None and hasattr(self.backend, "append_postprocess")
+                and self._owns_backend)
 
     def fuse_device_postprocess(self, fn) -> None:
         """Fold ``fn`` (operates on the model's output list, on device) into
-        the backend call; the cached output schema no longer holds."""
+        the backend call; the cached output schema no longer holds.  Kept
+        for the run, so a restarted or hot-swapped backend gets it too."""
         if not self.can_fuse_postprocess:
             raise ElementError(f"{self.name}: backend cannot fuse a postprocess")
         self.backend.append_postprocess(fn)
+        self._fused_posts.append(fn)
         self._model_out = None
         self._derived.clear()
+
+    def clear_device_fusion(self) -> None:
+        """A new pipeline run re-decides fusion (``Pipeline.start``)."""
+        self._fused_posts = []
+        self._auto_batch_through = False
 
     # -- batching hook for the scheduler ------------------------------------
     @property
@@ -156,11 +250,10 @@ class TensorFilter(TransformElement):
         return max(0, int(self.props["batch-timeout"])) / 1000.0
 
     # -- lifecycle ----------------------------------------------------------
-    def start(self) -> None:
-        self._auto_batch_through = False  # re-set by the fusion pass, or not
-        lane_mode = str(self.props["ingest-lane"] or "auto").lower()
-        if lane_mode not in ("auto", "on", "off"):
-            raise ElementError(f"{self.name}: ingest-lane={lane_mode!r} (want auto|on|off)")
+    def _make_backend(self, model: Optional[str]) -> FilterBackend:
+        """Open a fresh backend for ``model`` (``model://`` and ``file://``
+        resolved) on the element's accelerator, never on a card found dead,
+        with the run's fused device halves appended."""
         fw = self.props["framework"]
         try:
             backend_cls = find_backend(fw)
@@ -169,19 +262,53 @@ class TensorFilter(TransformElement):
         props = dict(self.props)
         enabled, wishes = parse_accelerator(self.props["accelerator"])
         props["accelerators"] = wishes if enabled else ["cpu"]
+        if self._exclude:
+            props["exclude_ordinals"] = tuple(self._exclude)
         be = backend_cls()
-        # model://name[/version] and file:// (plain paths and names pass)
-        be.open(resolve_model_uri(self.props["model"]) or None, props)
+        be.open(resolve_model_uri(model) if model else None, props)
+        for fn in self._fused_posts:
+            be.append_postprocess(fn)
+        return be
+
+    def start(self) -> None:
+        # a restart within a run keeps the fusion the pass decided
+        self._auto_batch_through = bool(self._fused_posts) and self._auto_batch_through
+        lane_mode = str(self.props["ingest-lane"] or "auto").lower()
+        if lane_mode not in ("auto", "on", "off"):
+            raise ElementError(f"{self.name}: ingest-lane={lane_mode!r} (want auto|on|off)")
+        fw = self.props["framework"]
+        model = self.props["model"] or None
+        key = self.props["shared-tensor-filter-key"]
+        if key:
+            be = _shared_acquire(key, lambda: self._make_backend(model))
+            self._owns_backend = False
+        else:
+            be = self._make_backend(model)
+            self._owns_backend = True
         self.backend = be
         self._model_in, self._model_out = be.get_model_info()
+        if self._fused_posts:
+            self._model_out = None  # the fused schema is derived
         self._derived = {}
         # async device feed, armed for the fresh backend
         self._inflight = CompletionWindow(self.name)
         self._win_async = None
         self._staged = None
         self._lane = None
+        # the one-batch dispatch deferral surfaces an invoke error during the
+        # NEXT batch's call: fine under fail-stop, but skip/restart would
+        # dead-letter or replay the wrong frames, so those exclude the lane
+        replay_policy = (self.props.get("error-policy", "fail-stop") != "fail-stop"
+                         or self.props.get("stall-policy", "warn") == "restart")
         if lane_mode != "off" and self.preferred_batch > 1:
-            if be.SUPPORTS_STAGING:
+            if replay_policy:
+                if lane_mode == "on":
+                    self.stop()
+                    raise ElementError(
+                        f"{self.name}: ingest-lane=on is incompatible with "
+                        "error-policy=skip|restart / stall-policy=restart (deferred "
+                        "dispatch would misattribute the failed frames)")
+            elif be.SUPPORTS_STAGING:
                 self._lane = HostStagingLane(
                     be.to_device, name=self.name, placement=be.staging_placement())
             elif lane_mode == "on":
@@ -196,13 +323,20 @@ class TensorFilter(TransformElement):
                 "(staging overlaps per-micro-batch copies)")
 
     def stop(self) -> None:
+        """Join the lane and reaper threads and drop every backend this
+        element holds (serving, staged, retired), so a restart leaves no
+        tensor of the old backend on the card."""
         self._discard_staged()
         self._inflight.close()  # drops parked batches and stops the reaper
         if self._lane is not None:
             self._lane.close()
             self._lane = None
+        if self._swapper is not None:
+            self._swapper.close()  # its lifetime counters survive
         if self.backend is not None:
-            self.backend.close()
+            key = self.props["shared-tensor-filter-key"]
+            if _shared_release(key) if key else True:
+                self.backend.close()
             self.backend = None
 
     # -- negotiation --------------------------------------------------------
@@ -235,17 +369,36 @@ class TensorFilter(TransformElement):
         return n
 
     def transform(self, frame: TensorFrame) -> TensorFrame:
+        sw = self._swapper
+        if sw is not None and sw.has_boundary_work and not len(self._inflight):
+            self._swap_tick()  # nothing parked: the drained results are empty
+        if FAULTS.is_armed():
+            FAULTS.check("filter.invoke", interrupt=lambda: self.interrupted)
         # a pre-batched block on the per-frame path: its batch axis still
         # means "batch", and the block stays whole
-        invoke = self.backend.invoke_batch if isinstance(frame, BatchFrame) else self.backend.invoke
+        if isinstance(frame, BatchFrame):
+            out = self._resilient_invoke_batch(list(frame.tensors))
+        else:
+            out = self._resilient_invoke(list(frame.tensors))
         self.invokes += 1
-        return frame.with_tensors(invoke(list(frame.tensors)))
+        return frame.with_tensors(out)
 
     def handle_frame_batch(
         self, pad: int, frames: List[TensorFrame]
     ) -> List[Tuple[int, TensorFrame]]:
         """Micro-batched path: the scheduler hands N frames; they run as
-        invoke_batch calls of at most max-batch logical frames each."""
+        invoke_batch calls of at most max-batch logical frames each.  A
+        pending hot swap applies first, at a drained frame boundary (the
+        drained results go out ahead of this batch's)."""
+        sw = self._swapper
+        if sw is not None and sw.has_boundary_work:
+            pre = self._swap_tick()
+            if pre:
+                return pre + self._handle_batch(pad, frames)
+        return self._handle_batch(pad, frames)
+
+    def _handle_batch(self, pad: int, frames: List[TensorFrame]
+                      ) -> List[Tuple[int, TensorFrame]]:
         if any(isinstance(f, BatchFrame) for f in frames):
             # block ingest: the batch axis already exists; a staged lane
             # batch is older, so it goes first
@@ -295,7 +448,9 @@ class TensorFilter(TransformElement):
         """One invoke_batch, then batch-through (the whole micro-batch leaves
         as ONE frame, outputs still on the device; the next host boundary
         splits it) or the dispatch window."""
-        out_b = self.backend.invoke_batch(batched)
+        if FAULTS.is_armed():
+            FAULTS.check("filter.invoke", interrupt=lambda: self.interrupted)
+        out_b = self._resilient_invoke_batch(batched)
         self.invokes += 1
         if self.batch_through_active:
             infos = _logical_infos(frames)
@@ -391,13 +546,14 @@ class TensorFilter(TransformElement):
     def handle_eos(self, pad: int) -> List[Tuple[int, TensorFrame]]:
         """Release the staged batch and drain the window before EOS
         propagates."""
-        return self._flush_staged() + self._drain_inflight()
+        return self._flush_staged() + self._drain_inflight() + self._swap_tick()
 
     def handle_idle(self) -> List[Tuple[int, TensorFrame]]:
         """Scheduler idle hook: the input went quiet, so overlap has
         nothing left to win: release the staged batch and the window
-        instead of holding a live stream's tail until the next frame."""
-        return self._flush_staged() + self._drain_inflight()
+        instead of holding a live stream's tail until the next frame.  Also
+        a frame boundary: a staged swap on an idle stream lands here."""
+        return self._flush_staged() + self._drain_inflight() + self._swap_tick()
 
     def handle_event(self, pad, ev):
         if isinstance(ev, Flush):
@@ -409,3 +565,285 @@ class TensorFilter(TransformElement):
         # any other event must not overtake parked frames
         return self._flush_staged() + self._drain_inflight() + list(
             super().handle_event(pad, ev))
+
+    # -- zero-downtime model rollout (core/lifecycle.py) ---------------------
+    def _ensure_swapper(self) -> HotSwapCoordinator:
+        if self._swapper is None:
+            self._swapper = HotSwapCoordinator(
+                self.name, build=lambda m: self._make_backend(m or None),
+                validate=self._validate_staged, warmup=self._warmup_staged)
+        return self._swapper
+
+    def request_reload(self, model: str = "") -> SwapTicket:
+        """Validated hot model swap (``Pipeline.reload_model``): stage the
+        new model on a second backend in a background thread (open, schema
+        check against the negotiated specs, warm-up on a zero probe frame
+        on its own CUDA stream), then swap at the next frame boundary.  A
+        staging failure keeps the old model serving and counts
+        ``swap_failures``, never the restart budget."""
+        if not self.props["is-updatable"]:
+            raise ElementError(f"{self.name}: model reload requires is-updatable=true")
+        if self.backend is None:
+            raise ElementError(f"{self.name}: not started")
+        model = model or self.props["model"]
+        sw = self._ensure_swapper()
+        if not self._owns_backend or not self.props["staged-reload"]:
+            # a shared backend is every keyed filter's: no per-element
+            # pointer swap can replace it
+            return self._inline_reload(model)
+        return sw.request(model, observation_window=float(self.props["observation-window"]),
+                          error_burst=int(self.props["rollback-error-burst"]))
+
+    def _inline_reload(self, model: str) -> SwapTicket:
+        """The backend's own ``reload`` (it keeps its placement and fused
+        device halves) with the keep-serving guarantee: a failure logs,
+        counts ``swap_failures`` and never reaches supervision."""
+        sw = self._ensure_swapper()
+        try:
+            FAULTS.check("filter.reload.load")
+            self.backend.reload(resolve_model_uri(model) if model else model)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:  # noqa: BLE001 — reload boundary
+            self.log.error("model reload from %r failed (old model keeps serving): %s", model, e)
+            return sw.note_inline_failure(e)
+        self.props["model"] = model
+        return sw.note_inline_swap(model)
+
+    def _validate_staged(self, be: FilterBackend):
+        """Staging-thread schema check: the new model must accept the
+        negotiated input stream and keep producing the negotiated output
+        schema (downstream never renegotiates during a swap); with a fused
+        device half the output compared is the fused one.  Returns the
+        model info the element adopts at swap time."""
+        raw_in, raw_out = be.get_model_info()
+        negotiated = self.sink_specs.get(0)
+        if (negotiated is not None and negotiated.tensors and raw_in is not None
+                and not raw_in.is_compatible(negotiated)):
+            raise ElementError(
+                f"{self.name}: staged model input {raw_in.to_string()} does not accept the "
+                f"negotiated stream {negotiated.to_string()}")
+        new_out = None if self._fused_posts else raw_out
+        if new_out is None and negotiated is not None and negotiated.tensors:
+            new_out = be.set_input_info(negotiated)
+        cur_out = self.srcpads[0].spec if self.srcpads else None
+        if (new_out is not None and cur_out is not None and cur_out.tensors
+                and not cur_out.is_compatible(new_out)):
+            raise ElementError(
+                f"{self.name}: staged model output {new_out.to_string()} does not match "
+                f"the negotiated downstream schema {cur_out.to_string()}")
+        return raw_in, (None if self._fused_posts else raw_out)
+
+    def _probe_inputs(self, be: FilterBackend) -> Optional[List[np.ndarray]]:
+        """A zero frame of the negotiated (else the model's) input schema;
+        None when neither is static."""
+        spec = self.sink_specs.get(0)
+        if spec is None or not spec.tensors:
+            spec = be.get_model_info()[0]
+        if spec is None or not spec.tensors or not spec.is_static:
+            return None
+        return [np.zeros(t.shape, t.dtype) for t in spec.tensors]
+
+    def _warmup_staged(self, be: FilterBackend) -> None:
+        """Staging-thread warm-up: a probe invoke (and a batched one when
+        the hot path micro-batches), on a CUDA stream of the staging
+        thread's own, so its launches never queue behind the serving
+        stream's."""
+        probes = self._probe_inputs(be)
+        if probes is None:
+            return
+        dev = getattr(be, "device", None)
+        if dev is not None and dev.type == "cuda":
+            import torch
+
+            with torch.cuda.device(dev):
+                side = torch.cuda.Stream(dev)
+                with torch.cuda.stream(side):
+                    self._warm(be, probes)
+                side.synchronize()
+            return
+        self._warm(be, probes)
+
+    def _warm(self, be: FilterBackend, probes: List[np.ndarray]) -> None:
+        be.invoke(list(probes))
+        if be.supports_batch and self.preferred_batch > 1:
+            be.invoke_batch([p[None] for p in probes])
+
+    def _swap_tick(self) -> List[Tuple[int, TensorFrame]]:
+        """Frame-boundary lifecycle work: apply a staged swap, commit an
+        expired observation window and close retired backends, all AFTER
+        draining the staged batch and the dispatch window, so a retiring
+        backend outlives its last in-flight batch.  Returns the drained
+        results (emitted ahead of new output)."""
+        sw = self._swapper
+        if sw is None or not sw.has_boundary_work:
+            return []
+        drained = self._flush_staged()
+        drained.extend(self._drain_inflight())
+        staged = sw.take_staged()
+        if staged is not None:
+            be, model, raw_in, raw_out, ticket = staged
+            old_blob = (self.backend, self._model_in, self._model_out, self.props["model"])
+            self.backend = be
+            self._win_async = None  # re-latched for the fresh backend
+            if raw_in is not None:
+                self._model_in = raw_in
+            if raw_out is not None:
+                self._model_out = raw_out
+            self._derived = {}
+            self.props["model"] = model
+            sw.activated(old_blob, ticket)
+            self.log.info("hot-swapped to model %r (version %d)", model, sw.model_version)
+        if sw.observing:
+            sw.note_ok()  # commits once the observation window elapsed
+        sw.reap()
+        return drained
+
+    def _backend_invoke(self, inputs: List[Any]) -> List[Any]:
+        sw = self._swapper
+        if sw is None or not sw.observing:
+            return self.backend.invoke(inputs)
+        return self._observed_invoke(False, inputs)
+
+    def _backend_invoke_batch(self, inputs: List[Any]) -> List[Any]:
+        sw = self._swapper
+        if sw is None or not sw.observing:
+            return self.backend.invoke_batch(inputs)
+        return self._observed_invoke(True, inputs)
+
+    def _observed_invoke(self, batched: bool, inputs: List[Any]) -> List[Any]:
+        """Invoke inside the post-swap observation window: an error is
+        served by the RETAINED old backend (no frame lost) and counted; a
+        burst rolls the swap back.  Neither reaches supervision."""
+        sw = self._swapper
+        try:
+            if FAULTS.is_armed():
+                FAULTS.check("filter.reload.post", interrupt=lambda: self.interrupted)
+            out = self.backend.invoke_batch(inputs) if batched else self.backend.invoke(inputs)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:  # noqa: BLE001 — observation boundary
+            verdict = sw.note_error(e)
+            if verdict is None:
+                raise
+            (old_be, old_in, old_out, old_model), rolled_back = verdict
+            if rolled_back:
+                failed = self.backend
+                self.backend = old_be
+                self._win_async = None
+                self._model_in, self._model_out = old_in, old_out
+                self._derived = {}
+                self.props["model"] = old_model
+                sw.discard(failed)  # closed at the next drained boundary
+                p = self._pipeline
+                if p is not None:
+                    p.incident("swap_rollback", self.name, repr(e))
+        else:
+            sw.note_ok()
+            return out
+        # the retry on the old backend runs outside the handler (see
+        # _resilient_invoke_batch)
+        return old_be.invoke_batch(inputs) if batched else old_be.invoke(inputs)
+
+    # -- device-resource resilience (degrade, don't die) ---------------------
+    def _resilient_invoke(self, inputs: List[Any]) -> List[Any]:
+        """Per-frame invoke with the OOM and device-loss ladder: a single
+        frame has no batch to split, so an OOM trims and retries once."""
+        try:
+            return self._backend_invoke(inputs)
+        except DeviceOomError:
+            pass  # retried below, outside the handler (see _resilient_invoke_batch)
+        except DeviceLostError as e:
+            self._remesh_after_loss(e)
+            raise
+        self._oom_retries += 1
+        self._trim_for_oom()
+        return self._backend_invoke(inputs)
+
+    def _resilient_invoke_batch(self, inputs: List[Any]) -> List[Any]:
+        """Micro-batch invoke with the ladder: on an OOM, trim and retry
+        ONCE as two halves, in order.  The backend pads a batch of n rows
+        to the next power of two; a half of ceil(n/2) rows pads to a
+        strictly smaller bucket, hence a strictly smaller working set.  The
+        halves slice the same inputs (torch has no donation: nothing was
+        consumed by the failed attempt; a staged batch's tensors are the
+        lane's copies, and its pooled host buffer went back to the pool
+        once the copy completed) and their outputs are concatenated on the
+        card.  A second OOM surfaces to supervision.
+
+        The trim and the retry run after the handler has exited: inside
+        it the failed attempt's traceback still references the model's
+        frames, whose activations would then stay allocated on the card
+        through the retry."""
+        try:
+            return self._backend_invoke_batch(inputs)
+        except DeviceOomError:
+            pass
+        except DeviceLostError as e:
+            self._remesh_after_loss(e)
+            raise
+        self._oom_retries += 1
+        self._trim_for_oom()
+        n = int(inputs[0].shape[0])
+        if n <= 1:
+            return self._backend_invoke_batch(inputs)
+        self._oom_shrinks += 1
+        self.log.warning("device OOM on a %d-row micro-batch: trimmed caches, retrying as two "
+                         "half-bucket invokes", n)
+        h = (n + 1) // 2
+        out1 = self._backend_invoke_batch([t[:h] for t in inputs])
+        out2 = self._backend_invoke_batch([t[h:] for t in inputs])
+        return [concat_tensors([a, b], 0) for a, b in zip(out1, out2)]
+
+    def _trim_for_oom(self) -> None:
+        """Release the card memory the backend can recreate before the
+        retry: its allocator cache (``oom_evictions`` counts the entries,
+        as in the JAX package, ``oom_trimmed_bytes`` their bytes).  The
+        staging pools hold host memory, so the card gains nothing from
+        them."""
+        be = self.backend
+        if be is None:
+            return
+        before = be.trimmed_bytes
+        self._oom_evictions += int(be.trim_caches() or 0)
+        self._oom_trimmed_bytes += be.trimmed_bytes - before
+
+    def _remesh_after_loss(self, err: DeviceLostError) -> None:
+        """The JAX filter re-shards a mesh backend onto the surviving
+        devices here.  Every port backend is unsharded (ROADMAP A11), so
+        ``remesh_spec_after_loss`` is ``None``: record the ordinals a probe
+        finds dead (a restart must not re-pick them) and re-raise into
+        supervision, whose restart re-opens the backend.  A shared backend
+        is not this element's to replace: re-raised untouched.  Never
+        returns."""
+        self._device_lost += 1
+        be = self.backend
+        if be is None or not self._owns_backend:
+            raise err
+        reported = getattr(err, "device_ids", ()) or ()
+        if be.remesh_spec_after_loss(reported) is None:
+            dead = be.dead_ordinals_after_loss(reported)
+            if dead:
+                self._exclude = tuple(sorted(set(self._exclude) | set(dead)))
+            raise err
+        raise NotImplementedError(
+            f"{self.name}: re-meshing a sharded backend is not ported (ROADMAP A11)")
+
+    def health_info(self) -> Dict[str, Any]:
+        """Model-rollout and device-resource counters merged into
+        ``Pipeline.health()``."""
+        info: Dict[str, Any] = {
+            "model": self.props["model"],
+            "model_version": 0, "swaps": 0, "swap_failures": 0, "rollbacks": 0,
+            "oom_retries": self._oom_retries,
+            "oom_shrinks": self._oom_shrinks,
+            "oom_evictions": self._oom_evictions,
+            "oom_trimmed_bytes": self._oom_trimmed_bytes,
+            "device_lost": self._device_lost,
+            "remeshes": self._remeshes,
+            "degraded": 1 if (self._degraded or (
+                self.backend is not None and self.backend.degraded)) else 0,
+        }
+        if self._swapper is not None:
+            info.update(self._swapper.snapshot())
+        return info

@@ -18,8 +18,9 @@ Port of ``nnstreamer_tpu/elements/flow.py``:
   also duplicating frames against their pts, with its in/out/duplicate/
   drop counters, and its QoS shedding (``qos``, on by default as in the
   JAX package: ``note_qos`` sheds frames up to a reported late pts).  The
-  port's scheduler does not report deadline misses yet (ROADMAP A4.3), so
-  in a pipeline nothing calls ``note_qos`` and nothing is shed.
+  scheduler calls ``note_qos`` on every upstream ``tensor_rate`` when a
+  downstream element drops a frame past its deadline
+  (``Pipeline._qos_feedback``).
 """
 
 from __future__ import annotations

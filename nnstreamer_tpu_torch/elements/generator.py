@@ -21,7 +21,16 @@ wish ``start()`` raises, it never falls back).
   ``prefill-chunk`` multiple, and ``prefix-cap`` entries); a fresh pool
   per ``start()``.  ``custom=sim:1[,vocab:N,sim_step_ms:F,sim_per_slot_ms:F,
   sim_prefill_ms:F,seq:N]`` drives the engine with the host-only
-  ``SimSlotModel`` instead of a transformer (no card needed).
+  ``SimSlotModel`` instead of a transformer (no card needed);
+  ``sim_oom_step:K`` / ``sim_lost_step:K`` make its decode attempt K raise
+  the typed device error once (the chaos twins).
+* Device resilience (slotted): an OOM sheds the lowest-priority stream and
+  retries; a device loss hands every live stream off, then the simulated
+  model recovers in place while a real (unsharded) model re-raises into
+  supervision, whose restart re-opens the element on the card.
+* ``late-policy`` defaults to ``deliver`` here: a request past its
+  deadline reaches the engine, which answers it with the typed-expiry
+  final chunk instead of the scheduler dropping it silently.
 
 Sampling (greedy, temperature, top-k, per-step key folding) is the
 one-shot ``generate:<N>`` path's, so a stream's tokens are that path's.
@@ -30,9 +39,7 @@ Each chunk frame carries tokens (1, n) int32 and meta ``stream_seq``
 evicted streams add ``evicted``/``deadline_expired`` (the typed expiry).
 
 Not ported: ``mesh=`` (ROADMAP A11), resume (A7.3: a RESUME request is
-answered with the typed reject), resize, SLO tracking, device-loss
-recovery and the simulated model's chaos knobs ``sim_oom_step`` and
-``sim_lost_step`` (A4.3).
+answered with the typed reject), resize, SLO tracking (A4.4).
 """
 
 from __future__ import annotations
@@ -55,7 +62,7 @@ from ..core.liveness import (
 )
 from ..core.types import FORMAT_FLEXIBLE, StreamSpec
 from ..models import transformer
-from ..pipeline.element import Element, ElementError, Property, element
+from ..pipeline.element import Element, ElementError, Property, element, enum_prop_check
 
 #: frame.meta key of a RESUME request and of the typed refusal it gets
 #: (``nnstreamer_tpu/core/continuity.py``)
@@ -119,6 +126,11 @@ class TensorGenerator(Element):
             "max cached prefix entries (LRU among unpinned entries past the cap)"),
         # not ported: set, it raises at start() naming the ROADMAP item
         "mesh": Property(str, "", "tensor-parallel decode mesh (not ported: ROADMAP A11)"),
+        "late-policy": Property(
+            str, "deliver",
+            "requests past their deadline: deliver (the engine answers with the typed "
+            "expiry, default here) | drop (the scheduler drops them uncounted by the engine)",
+            convert=enum_prop_check("late-policy", "drop", "deliver")),
     }
 
     def __init__(self, name=None):
@@ -129,6 +141,7 @@ class TensorGenerator(Element):
         self._device = None
         self._engine = None
         self._prefix_pool = None
+        self._sim = False
 
     def start(self):
         props = _custom_props(self.props["custom"])
@@ -139,11 +152,7 @@ class TensorGenerator(Element):
             raise ElementError(
                 f"{self.name}: mesh= is not ported to nnstreamer_tpu_torch yet (ROADMAP A11)")
         sim = props.get("sim", "") not in ("", "0", "false")
-        for knob in ("sim_oom_step", "sim_lost_step"):
-            if knob in props:
-                raise ElementError(
-                    f"{self.name}: custom {knob}: the simulated device errors are not ported "
-                    "to nnstreamer_tpu_torch yet (ROADMAP A4.3)")
+        self._sim = sim
         # slotted mode needs its OWN mailbox and thread: the scheduler's
         # idle hook and pending_frames poll, which release the engine's
         # chunks between input frames, run for chain heads only
@@ -156,7 +165,11 @@ class TensorGenerator(Element):
                     slots, vocab=int(props.get("vocab", "997")),
                     step_base_ms=float(props.get("sim_step_ms", "1.0")),
                     step_per_slot_ms=float(props.get("sim_per_slot_ms", "0.05")),
-                    prefill_ms_per_token=float(props.get("sim_prefill_ms", "0.02")))
+                    prefill_ms_per_token=float(props.get("sim_prefill_ms", "0.02")),
+                    oom_at_step=(int(props["sim_oom_step"]) if "sim_oom_step" in props
+                                 else None),
+                    lost_at_step=(int(props["sim_lost_step"]) if "sim_lost_step" in props
+                                  else None))
                 self._device = model.device
                 self._max_seq = int(props.get("seq", str(1 << 30)))
             else:
@@ -173,6 +186,7 @@ class TensorGenerator(Element):
                 token_budget_s=float(self.props["token-budget-s"]),
                 name=self.name,
                 prefix_cache=self._prefix_pool,
+                on_device_lost=self._rebuild_on_device_loss,
             )
             self._engine.start()
             return
@@ -188,6 +202,18 @@ class TensorGenerator(Element):
         self._device = pick_device(wishes if enabled else ["cpu"])
         self._prefill, self._decode, self._max_seq = transformer.build_stream(
             props, self._device)
+
+    def _rebuild_on_device_loss(self, err):
+        """The engine's ``on_device_lost`` hook (pump thread, after every
+        live stream was handed off).  The simulated model recovers in place;
+        a real model is unsharded (ROADMAP A11) and has no surviving device
+        to move to, so the loss re-raises into supervision, whose restart
+        re-opens the element on the card."""
+        if self._sim:
+            return None
+        self.log.error("device lost (%s): an unsharded model has no survivor to move to; "
+                       "escalating to supervision", err)
+        raise err
 
     def _build_prefix_pool(self):
         """The PrefixCache of the prefix-* properties (None: off).  The
@@ -207,6 +233,13 @@ class TensorGenerator(Element):
         if cap < 1:
             raise ElementError(f"{self.name}: prefix-cap must be >= 1, got {cap}")
         return PrefixCache(grain=grain, cap_entries=cap)
+
+    def trim_prefix_cache(self) -> int:
+        """Memory-pressure trim hook (``Pipeline.enable_memory_monitor``
+        runs it first): drop every unreferenced cached prefix.  Returns
+        the entries freed."""
+        pool = self._prefix_pool
+        return pool.trim() if pool is not None else 0
 
     def stop(self):
         if self._engine is not None:

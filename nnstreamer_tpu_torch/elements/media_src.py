@@ -33,6 +33,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..core.buffer import TensorFrame
+from ..core.lifecycle import pipeline_quiescing
 from ..media.caps import MediaInfo, MediaSpec
 from ..pipeline.element import ElementError, Property, SourceElement, element
 
@@ -113,6 +114,8 @@ class FileSrc(_MediaSource):
                 chunk = f.read(self.props["blocksize"])
                 if not chunk:
                     return
+                if pipeline_quiescing(self):
+                    return  # a drain or stop: end the stream here
                 yield self._media_frame(np.frombuffer(chunk, np.uint8), media)
                 n += 1
 
@@ -155,6 +158,8 @@ class VideoFileSrc(_MediaSource):
                         img = _to_format(rgb, fmt)
                     except ValueError as e:
                         raise ElementError(f"{self.name}: {e}") from None
+                    if pipeline_quiescing(self):
+                        return  # a drain or stop: end the stream here
                     yield self._media_frame(_pad_rows(img, media.stride), media,
                                             pts=n * dt if dt is not None else None, duration=dt)
                     n += 1
@@ -244,6 +249,8 @@ class ImageFileSrc(_MediaSource):
                 f = self._media_frame(_pad_rows(img, media.stride), media,
                                       pts=n * dt if dt is not None else None, duration=dt)
                 f.meta["filename"] = p
+                if pipeline_quiescing(self):
+                    return  # a drain or stop: end the stream here
                 yield f
                 n += 1
             if not self.props["loop"]:
@@ -278,6 +285,8 @@ class AudioFileSrc(_MediaSource):
             if self._limit_reached(n):
                 return
             chunk = np.frombuffer(data[off:off + spb].tobytes(), np.uint8)
+            if pipeline_quiescing(self):
+                return  # a drain or stop: end the stream here
             yield self._media_frame(chunk, media, pts=off / rate, duration=spb / rate)
 
 
@@ -299,4 +308,6 @@ class TextFileSrc(_MediaSource):
             for n, line in enumerate(f):
                 if self._limit_reached(n):
                     return
+                if pipeline_quiescing(self):
+                    return  # a drain or stop: end the stream here
                 yield self._media_frame(np.frombuffer(line.rstrip(b"\r\n"), np.uint8), media)

@@ -411,6 +411,18 @@ class SlotModel:
         cache.pos[slot] = n
         return cache
 
+    @torch.inference_mode()
+    def save_positions(self, cache: KVCache) -> torch.Tensor:
+        """The rows' write positions before a step (a copy on the card):
+        the cache is written in place, and a step that fails part-way has
+        advanced them.  Pages past a restored position are rewritten by the
+        retry, so only the positions need restoring."""
+        return cache.pos.clone()
+
+    @torch.inference_mode()
+    def restore_positions(self, cache: KVCache, saved: torch.Tensor) -> None:
+        cache.pos.copy_(saved)
+
     def prefill_fn(self, n: int):
         """The prefill of an n-token chunk (one function for every n:
         eager PyTorch compiles nothing per shape)."""

@@ -6,18 +6,24 @@ properties (``PROPERTIES``), src pads and links, schema negotiation by
 calls (``handle_frame``, ``handle_event``; sources ``frames()``, sinks
 ``render()``), request pads (``NUM_SINK_PADS``/``NUM_SRC_PADS = None``:
 N:1 elements allocate a sink pad per link, 1:N elements a src pad per
-branch), and the fusion hints ``THREAD_BOUNDARY`` / ``FUSE_DOWNSTREAM``.
-Supervision, liveness and the common properties of the JAX package are
-not part of this port yet.
+branch), the fusion hints ``THREAD_BOUNDARY`` / ``FUSE_DOWNSTREAM``, and
+the supervision and liveness properties every element answers
+(``COMMON_PROPERTIES``: ``error-policy``, ``max-restarts``,
+``restart-backoff``, ``restart-window``, ``dead-letter-max``,
+``frame-deadline``, ``stall-timeout``, ``stall-policy``, ``late-policy``,
+and the sources' ``deadline-s``, anchored at emission) with the
+cooperative interrupt flag (:attr:`Element.interrupted`).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 from ..core.buffer import Event, TensorFrame
+from ..core.liveness import _check_stall_policy
 from ..core.types import ANY, StreamSpec
 
 
@@ -28,6 +34,8 @@ class Property:
     type: type = str
     default: Any = None
     doc: str = ""
+    # optional validator/transformer applied after type conversion
+    convert: Optional[Callable[[Any], Any]] = None
 
     def parse(self, value: Any) -> Any:
         if isinstance(value, str) and self.type is bool:
@@ -37,7 +45,51 @@ class Property:
                 value = self.type(value)
             except (TypeError, ValueError):
                 raise ValueError(f"cannot convert {value!r} to {self.type.__name__}") from None
-        return value
+        return self.convert(value) if self.convert else value
+
+
+def enum_prop_check(prop: str, *choices: str):
+    """Converter for enum-valued properties: a typo fails at set time."""
+    def convert(v: str) -> str:
+        if v not in choices:
+            raise ValueError(f"{prop} {v!r} (want {' | '.join(choices)})")
+        return v
+    return convert
+
+
+#: properties every element answers, under each class's own PROPERTIES
+#: (a class declaring the same key wins): supervision (what the scheduler
+#: does when the element raises on a frame; events always fail-stop) and
+#: liveness (the watchdog and deadline QoS)
+COMMON_PROPERTIES: Dict[str, Property] = {
+    "error-policy": Property(
+        str, "fail-stop",
+        "on frame error: fail-stop (stop the pipeline) | skip (drop the frame to the "
+        "dead-letter queue) | restart (restart the element with backoff and retry the "
+        "frame; fail-stop after max-restarts)",
+        convert=enum_prop_check("error-policy", "fail-stop", "skip", "restart")),
+    "max-restarts": Property(
+        int, 3, "restart policy: restarts allowed within restart-window before fail-stop"),
+    "restart-backoff": Property(
+        float, 0.05, "restart policy: base backoff seconds (doubles per restart, cap 2 s)"),
+    "restart-window": Property(
+        float, 60.0, "restart policy: seconds of health after which the restart budget "
+        "refills (0 = a lifetime budget)"),
+    "dead-letter-max": Property(
+        int, 16, "skip policy: dropped frames kept for inspection (0 = count only)"),
+    "frame-deadline": Property(
+        float, 0.0, "watchdog: max seconds one frame call may run (0 = off)"),
+    "stall-timeout": Property(
+        float, 0.0, "watchdog: seconds with input queued and no frame done (0 = off)"),
+    "stall-policy": Property(
+        str, "warn", "on a stall or overrun: warn | restart (interrupt the hung call, "
+        "restart and retry) | fail", convert=_check_stall_policy),
+    "late-policy": Property(
+        str, "drop", "frames past their deadline: drop (counted in health()) | deliver",
+        convert=enum_prop_check("late-policy", "drop", "deliver")),
+    "deadline-s": Property(
+        float, 0.0, "sources: stamp each frame with this latency budget (0 = none)"),
+}
 
 
 class ElementError(RuntimeError):
@@ -112,16 +164,22 @@ class Element:
     def __init__(self, name: Optional[str] = None):
         self.name = name or f"{self.FACTORY_NAME}{id(self) & 0xFFFF}"
         self.log = logging.getLogger(f"nnstreamer_tpu_torch.{self.name}")
-        self.props: Dict[str, Any] = {k: p.default for k, p in self.PROPERTIES.items()}
+        self.props: Dict[str, Any] = {
+            **{k: p.default for k, p in COMMON_PROPERTIES.items()},
+            **{k: p.default for k, p in self.PROPERTIES.items()},
+        }
         self.srcpads: List[SrcPad] = [SrcPad() for _ in range(self.NUM_SRC_PADS or 0)]
         self.sink_specs: Dict[int, StreamSpec] = {}
         self._pipeline = None  # set by Pipeline.add
         self._mailbox = None  # set by Pipeline.start for elements with sink pads
+        # set by the watchdog to interrupt a hung call cooperatively (see
+        # `interrupted`); cleared when the stall is handled
+        self._interrupted = threading.Event()
 
     # -- properties ---------------------------------------------------------
     def set_property(self, key: str, value: Any) -> None:
         key = key.replace("_", "-")
-        decl = self.PROPERTIES.get(key)
+        decl = self.PROPERTIES.get(key) or COMMON_PROPERTIES.get(key)
         if decl is None:
             raise ElementError(f"{self.name}: unknown property {key!r}")
         self.props[key] = decl.parse(value)
@@ -186,6 +244,20 @@ class Element:
 
     def set_sink_spec(self, pad: int, spec: StreamSpec) -> None:
         self.sink_specs[pad] = self.accept_spec(pad, spec)
+
+    # -- liveness -----------------------------------------------------------
+    @property
+    def interrupted(self) -> bool:
+        """True when the watchdog (stall-policy escalation) or a pipeline
+        stop wants this element's current call to give up now.  Element
+        code doing long waits polls it between steps and raises
+        :class:`~nnstreamer_tpu_torch.core.liveness.StallError`; injected
+        ``hang=`` faults poll it.  A running CUDA kernel cannot be
+        interrupted: only the waits around it can."""
+        if self._interrupted.is_set():
+            return True
+        p = self._pipeline
+        return p is not None and p._stop_flag.is_set()
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:

@@ -18,9 +18,21 @@ EOS), leaky mailboxes (``queue leaky=upstream|downstream``: a full box
 drops frames, never events), ``Flush`` (a head drops the frames still in
 its mailbox and keeps the events, in order), and EOS propagation.
 
-Not ported yet (see ROADMAP.md): telemetry, watchdog, flight recorder,
-memory monitor, deadline QoS, supervision/restart, drain and hot reload.
-A failing element stops the pipeline and ``wait()`` re-raises its error.
+Supervision and liveness (ROADMAP A4.3): every frame call runs under its
+element's ``error-policy`` (``_supervised``: fail-stop re-raises, skip
+dead-letters the frame, restart stops and starts the element with backoff
+and retries the call, isolating a poisoned frame of a micro-batch), with
+per-element health records (:meth:`Pipeline.health`); the watchdog
+(``stall-timeout``, ``frame-deadline``, ``stall-policy``) runs on a
+sweeper thread only when an element arms it; frames past their deadline
+are dropped before the call (``late-policy``) and every upstream
+``tensor_rate`` hears of it (``_qos_feedback``); the memory watermark
+monitor (:meth:`Pipeline.enable_memory_monitor`) polls on the same
+sweeper; :meth:`Pipeline.drain` flushes in-flight frames to the sinks and
+:meth:`Pipeline.reload_model` hot-swaps a filter's model.
+
+Not ported yet (ROADMAP A4.4): telemetry, the tracer, the flight
+recorder and the metrics endpoint; ``incident()`` only logs.
 """
 
 from __future__ import annotations
@@ -31,12 +43,48 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional, Set
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Set
 
 from ..core.buffer import EOS, BatchFrame, CapsEvent, Event, Flush, TensorFrame
+from ..core.liveness import DEADLINE_META, StallError, Watchdog, stamp_deadline
+from ..core.resilience import FAULTS, RetryPolicy, is_transient
 from .element import Element, ElementError, SourceElement
 
 _STOP = object()  # mailbox sentinel: the worker exits
+_SUPERVISED_STOPPING = object()  # _supervised's answer: the worker exits quietly
+
+
+@dataclass
+class BusMessage:
+    """Out-of-band message to the application (≙ GstMessage)."""
+
+    kind: str  # "error" | "eos" | "element" | "warning" | "health"
+    source: str
+    data: Any = None
+
+
+@dataclass
+class ElementHealth:
+    """Supervision record for one element (see ``Pipeline.health()``).
+
+    ``dead_letters`` counts every frame dropped under the ``skip`` policy
+    for the element's lifetime; ``dlq`` keeps only the most recent
+    ``dead-letter-max`` of them as ``(frame, error_repr)`` pairs, the
+    frames as they were (a card-resident batch stays on the card)."""
+
+    state: str = "idle"  # idle|running|restarting|degraded|failed|finished|stalled
+    restarts: int = 0  # within the current restart-window (gates the budget)
+    restarts_total: int = 0  # lifetime, for health reporting
+    last_restart_ts: float = 0.0
+    dead_letters: int = 0
+    deadline_drops: int = 0  # frames expired before this element processed them
+    last_error: str = ""
+    dlq: deque = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        if self.dlq is None:
+            self.dlq = deque(maxlen=16)
 
 
 class _LeakyMailbox:
@@ -110,7 +158,8 @@ class _ElemState:
     mailboxes)."""
 
     __slots__ = ("el", "connected", "eos_pads", "caps_pads", "finished",
-                 "next_state", "next_pad", "out_pad")
+                 "next_state", "next_pad", "out_pad", "watch", "terminal",
+                 "delivered", "in_call")
 
     def __init__(self, el: Element):
         self.el = el
@@ -121,6 +170,13 @@ class _ElemState:
         self.next_state: Optional["_ElemState"] = None
         self.next_pad = 0
         self.out_pad = 0
+        self.watch = None  # liveness watch, bound at worker start
+        # drain accounting: a terminal element (no linked src pad) counts
+        # the logical frames it consumed; in_call counts the frames taken
+        # off a queue and not yet routed (a halt mid-call abandons them)
+        self.terminal = False
+        self.delivered = 0
+        self.in_call = 0
 
 
 class _Seg:
@@ -160,10 +216,100 @@ class Pipeline:
         self.errors: List[BaseException] = []
         self._threads: List[threading.Thread] = []
         self._stop_flag = threading.Event()
+        # graceful drain: sources stop producing and flush EOS
+        self._drain_flag = threading.Event()
         self._sinks_done = threading.Event()
         self._sink_lock = threading.Lock()
         self._pending_sinks = 0
         self._started = False
+        self._bus_watchers: List[Callable[[BusMessage], None]] = []
+        # supervision: per-element health records (error-policy)
+        self.health_map: Dict[str, ElementHealth] = {}
+        # liveness: built at start() iff an element arms stall-timeout or
+        # frame-deadline (or a memory monitor wants the cadence); the
+        # sweeper thread polls it
+        self._watchdog: Optional[Watchdog] = None
+        self._watches: Dict[str, Any] = {}
+        self._wd_thread: Optional[threading.Thread] = None
+        self._upstream: Dict[str, List[Element]] = {}  # QoS feedback routing
+        self._qos_warn_ts: Dict[str, float] = {}  # per-element warn throttle
+        self._mem_monitor = None
+        self._seg_of: Dict[str, _Seg] = {}
+        self._halt_discarded = 0
+
+    # -- the bus ------------------------------------------------------------
+    def post(self, msg: BusMessage) -> None:
+        """Hand `msg` to every bus watcher (the port keeps no queue of
+        messages: nothing reads one yet)."""
+        for cb in list(self._bus_watchers):
+            try:
+                cb(msg)
+            except Exception:  # watcher bugs must not kill workers
+                self.log.exception("bus watcher failed")
+
+    def add_bus_watcher(self, cb: Callable[[BusMessage], None]) -> None:
+        self._bus_watchers.append(cb)
+
+    def incident(self, kind: str, source: str, detail: Any = None) -> None:
+        """Incident hook (watchdog stall, dead letter, swap rollback,
+        memory pressure).  The flight recorder it dumps in the JAX package
+        comes with ROADMAP A4.4; here it only logs."""
+        self.log.info("incident %s at %s: %r", kind, source, detail)
+
+    # -- memory-pressure watermarks (core/liveness.py) -----------------------
+    def enable_memory_monitor(self, high: float = 0.90, low: float = 0.75,
+                              sustain_s: float = 2.0, host_limit_bytes: int = 0,
+                              sample=None, clock=None, min_poll_s: float = 0.25):
+        """Attach a :class:`~..core.liveness.MemoryPressureMonitor`: card
+        memory (and host RSS) watermarks polled on the watchdog sweeper's
+        cadence, never on a per-frame path.  Crossing ``high`` runs the
+        trim ladder: the generators' cold prefix entries first, then every
+        filter backend's ``trim_caches`` (the caching allocator's free
+        segments), then, only while the monitor reads host memory (no card
+        in use), the process's staging-buffer pools, which hold host
+        memory.  Each hook returns entries.  Returns the monitor
+        (``sample``/``clock`` injectable for tests)."""
+        from ..core.buffer import trim_staging_pools
+        from ..core.liveness import MemoryPressureMonitor
+
+        def trim_hook(attr: str, of_backend: bool):
+            def trim() -> int:
+                freed = 0
+                for el in self.elements.values():
+                    owner = getattr(el, "backend", None) if of_backend else el
+                    fn = getattr(owner, attr, None)
+                    if fn is not None:
+                        try:
+                            freed += int(fn() or 0)
+                        except Exception:
+                            self.log.exception("%s failed for %s", attr, el.name)
+                return freed
+            trim.__name__ = attr
+            return trim
+
+        def trim_staging_pools_on_host() -> int:
+            return trim_staging_pools() if mon.bytes_limit <= 0 else 0
+
+        kwargs = {}
+        if sample is not None:
+            kwargs["sample"] = sample
+        if clock is not None:
+            kwargs["clock"] = clock
+        mon = MemoryPressureMonitor(
+            high=high, low=low, sustain_s=sustain_s, min_poll_s=min_poll_s,
+            host_limit_bytes=host_limit_bytes,
+            on_pressure=lambda snap: self.incident("memory_pressure", self.name, snap),
+            trim_hooks=(trim_hook("trim_prefix_cache", False), trim_hook("trim_caches", True),
+                        trim_staging_pools_on_host),
+            **kwargs)
+        self._mem_monitor = mon
+        if self._started and (self._wd_thread is None or not self._wd_thread.is_alive()):
+            # armed mid-run with no sweeper: start one for the monitor
+            self._wd_thread = threading.Thread(
+                target=self._watchdog_loop, args=(mon.min_poll_s,),
+                name=f"{self.name}-watchdog", daemon=True)
+            self._wd_thread.start()
+        return mon
 
     # -- construction -------------------------------------------------------
     def add(self, *elements: Element) -> Element:
@@ -311,6 +457,9 @@ class Pipeline:
             seg = _Seg(chain)
             for e in chain:
                 st = _ElemState(e)
+                st.terminal = not isinstance(e, SourceElement) and not any(
+                    p.is_linked for p in e.srcpads)
+                self._seg_of[e.name] = seg
                 st.connected = {
                     pad for other in self.elements.values() for sp in other.srcpads
                     for d, pad in sp.links if d is e
@@ -338,7 +487,11 @@ class Pipeline:
         started: List[Element] = []
         try:
             # start (open models) BEFORE negotiation so elements can expose
-            # model-derived schemas
+            # model-derived schemas; a fresh run re-decides device fusion
+            for el in self.elements.values():
+                clear = getattr(el, "clear_device_fusion", None)
+                if clear is not None:
+                    clear()
             for el in self.elements.values():
                 el.start()
                 started.append(el)
@@ -351,6 +504,7 @@ class Pipeline:
                 except Exception:
                     self.log.exception("stop() failed for %s", el.name)
             raise
+        self._seg_of = {}
         self._segments = self._compute_segments()
         self._pending_sinks = sum(
             1 for el in self.elements.values()
@@ -358,9 +512,22 @@ class Pipeline:
         )
         self.errors = []
         self._stop_flag.clear()
+        self._drain_flag.clear()
         self._sinks_done.clear()
         if self._pending_sinks == 0:
             self._sinks_done.set()
+        self.health_map = {
+            el.name: ElementHealth(state="running", dlq=deque(maxlen=self._dlq_maxlen(el)))
+            for el in self.elements.values()
+        }
+        # upstream adjacency for deadline-QoS feedback
+        self._upstream = {n: [] for n in self.elements}
+        for el in self.elements.values():
+            for pad in el.srcpads:
+                for dst, _ in pad.links:
+                    self._upstream[dst.name].append(el)
+        for el in self.elements.values():
+            el._interrupted.clear()
         for seg in self._segments:
             head = seg.chain[0]
             if isinstance(head, SourceElement):
@@ -377,14 +544,103 @@ class Pipeline:
                 target = self._run_chain_head
             self._threads.append(
                 threading.Thread(target=target, args=(seg,), name=head.name, daemon=True))
+        self._arm_watchdog()  # after the mailboxes: watches read their depth
         for t in self._threads:
             t.start()
+        if self._wd_thread is not None:
+            self._wd_thread.start()
         self._started = True
         return self
 
-    def stop(self) -> None:
-        """Tear the pipeline down; frames still queued are abandoned."""
+    @staticmethod
+    def _dlq_maxlen(el: Element) -> int:
+        v = el.props.get("dead-letter-max")
+        # 0 is valid (count drops, keep no frame); only absent means 16
+        return 16 if v is None else max(0, int(v))
+
+    def _arm_watchdog(self) -> None:
+        """Build the watchdog for every element that armed stall-timeout or
+        frame-deadline; no thread and no hot-path cost when nothing is
+        armed and no memory monitor wants the cadence."""
+        self._watchdog = None
+        self._watches = {}
+        self._wd_thread = None
+        armed = [el for el in self.elements.values()
+                 if float(el.props.get("stall-timeout") or 0.0) > 0
+                 or float(el.props.get("frame-deadline") or 0.0) > 0]
+        extra = [] if self._mem_monitor is None else [self._mem_monitor.min_poll_s]
+        if not armed:
+            if extra:
+                self._wd_thread = threading.Thread(
+                    target=self._watchdog_loop, args=(min(extra),),
+                    name=f"{self.name}-watchdog", daemon=True)
+            return
+        self._watchdog = Watchdog()
+        for el in armed:
+            # a fused element has no mailbox: its segment head's holds the
+            # pending work (an appsrc head: its own queue)
+            box = el._mailbox
+            if box is None:
+                seg = self._seg_of.get(el.name)
+                head = seg.chain[0] if seg else el
+                box = head._mailbox or getattr(head, "_q", None)
+            qsize = box.qsize if hasattr(box, "qsize") else (lambda: 0)
+            self._watches[el.name] = self._watchdog.register(
+                el.name,
+                stall_timeout=float(el.props.get("stall-timeout") or 0.0),
+                frame_deadline=float(el.props.get("frame-deadline") or 0.0),
+                policy=el.props.get("stall-policy", "warn"),
+                qsize=qsize,
+                on_event=lambda w, kind, elapsed, el=el: self._on_liveness(el, kind, elapsed))
+        self._wd_thread = threading.Thread(
+            target=self._watchdog_loop, args=(min([self._watchdog.min_interval()] + extra),),
+            name=f"{self.name}-watchdog", daemon=True)
+
+    def _watchdog_loop(self, interval: float) -> None:
+        while not self._stop_flag.wait(interval):
+            try:
+                if self._watchdog is not None:
+                    self._watchdog.check()
+            except Exception:  # a sweep bug must never kill liveness
+                self.log.exception("watchdog sweep failed")
+            mon = self._mem_monitor
+            if mon is not None:
+                try:
+                    mon.poll()  # rate-limited internally
+                except Exception:
+                    self.log.exception("memory-pressure poll failed")
+
+    def _on_liveness(self, el: Element, kind: str, elapsed: float) -> None:
+        """Watchdog escalation (sweeper thread): a bus warning always;
+        stall-policy restart or fail also interrupt the hung call
+        cooperatively (the worker's StallError handling restarts: only the
+        hung thread itself can retry its frame)."""
+        policy = el.props.get("stall-policy", "warn")
+        h = self.health_map.get(el.name)
+        if h is not None:
+            h.last_error = f"liveness: {kind} after {elapsed:.3f}s"
+        self.post(BusMessage("warning", el.name, {
+            "liveness": kind, "elapsed": elapsed, "policy": policy}))
+        self.incident(f"watchdog_{kind}", el.name, {"elapsed": elapsed, "policy": policy})
+        if policy == "warn":
+            return
+        el._interrupted.set()
+        if policy == "fail":
+            # the element may be wedged for good: surface the failure now
+            err = StallError(f"{el.name}: {kind} after {elapsed:.3f}s (stall-policy=fail)")
+            if h is not None:
+                h.state = "stalled"
+            self.errors.append(err)
+            self.post(BusMessage("error", el.name, err))
+            self._stop_flag.set()
+            self._sinks_done.set()
+
+    def _halt_workers(self) -> None:
+        """Immediate worker shutdown: stop flag, mailbox sentinels, join.
+        Frames still queued are abandoned (``_count_abandoned`` counts
+        them before element state is torn down)."""
         self._stop_flag.set()
+        self._halt_discarded = 0
         for el in self.elements.values():
             box = el._mailbox
             if box is None:
@@ -392,13 +648,29 @@ class Pipeline:
             try:
                 box.put_nowait((0, _STOP))
             except queue.Full:
-                try:  # make room: the evicted frame is abandoned anyway
-                    box.get_nowait()
+                try:  # make room: the evicted frame is abandoned too
+                    _, item = box.get_nowait()
+                    if isinstance(item, TensorFrame):
+                        self._halt_discarded += getattr(item, "batch_size", 1)
                     box.put_nowait((0, _STOP))
                 except (queue.Empty, queue.Full):
                     pass
         for t in self._threads:
             t.join(timeout=5.0)
+
+    def stop(self, drain: bool = False, drain_timeout: Optional[float] = None) -> None:
+        """Tear the pipeline down; frames still queued are abandoned.
+        ``drain=True`` first flushes every in-flight frame to the sinks via
+        :meth:`drain` (bounded by ``drain_timeout``)."""
+        if drain and self._started and not self._stop_flag.is_set():
+            self.drain(drain_timeout)
+            if not self._started:
+                return  # an expired drain already tore the pipeline down
+        self._halt_workers()
+        if self._wd_thread is not None:
+            if self._wd_thread.is_alive():
+                self._wd_thread.join(timeout=2.0)
+            self._wd_thread = None
         for el in self.elements.values():
             try:
                 el.stop()
@@ -429,12 +701,348 @@ class Pipeline:
                 raise self.errors[0]
             raise TimeoutError(f"pipeline {self.name!r} did not finish in {timeout}s")
 
+    # -- zero-downtime operations (core/lifecycle.py) ------------------------
+    @property
+    def draining(self) -> bool:
+        """True between ``drain()`` and completion or teardown: sources
+        stop producing and flush EOS (a source waiting inside ``frames()``
+        polls ``lifecycle.pipeline_quiescing``)."""
+        return self._drain_flag.is_set()
+
+    def delivered_frames(self) -> int:
+        """Logical frames consumed by terminal elements since start()."""
+        return sum(st.delivered for seg in self._segments for st in seg.states.values())
+
+    def _count_abandoned(self) -> int:
+        """Logical frames an immediate halt abandoned: whatever is still
+        queued in mailboxes, parked in elements (``pending_frames``), taken
+        off a queue mid-call or stashed.  Call after ``_halt_workers`` and
+        before element ``stop()`` clears that state."""
+        n = self._halt_discarded
+        for el in self.elements.values():
+            box = el._mailbox
+            if box is not None:
+                try:
+                    while True:
+                        _, item = box.get_nowait()
+                        if isinstance(item, TensorFrame):
+                            n += getattr(item, "batch_size", 1)
+                except queue.Empty:
+                    pass
+            pending = getattr(el, "pending_frames", None)
+            if pending is not None:
+                try:
+                    n += int(pending() or 0)
+                except Exception:
+                    self.log.exception("pending_frames failed for %s", el.name)
+        for seg in self._segments:
+            n += sum(st.in_call for st in seg.states.values())
+            n += sum(getattr(item, "batch_size", 1) for _, item in seg.stash
+                     if isinstance(item, TensorFrame))
+        return n
+
+    def drain(self, timeout: Optional[float] = None) -> Dict[str, Any]:
+        """Graceful drain: quiesce every source, flush all in-flight frames
+        through to the sinks via EOS, and return exact accounting:
+        ``{"drained": frames delivered to terminal elements since the call,
+        "dropped": frames abandoned because the deadline expired (the
+        pipeline is then torn down), "elapsed": seconds}``.  A completed
+        drain leaves the pipeline stopped at EOS; ``stop()`` releases it."""
+        t0 = time.monotonic()
+        if not self._started:
+            return {"drained": 0, "dropped": 0, "elapsed": 0.0}
+        base = self.delivered_frames()
+        self._drain_flag.set()
+        finished = self._sinks_done.wait(timeout)
+        dropped = 0
+        if not finished:
+            self._halt_workers()
+            dropped = self._count_abandoned()
+        drained = self.delivered_frames() - base
+        elapsed = time.monotonic() - t0
+        self.post(BusMessage("element", self.name, {"drain": {
+            "drained": drained, "dropped": dropped, "elapsed": elapsed,
+            "completed": finished}}))
+        if not finished:
+            self.stop()  # finish the teardown (workers already joined)
+        return {"drained": drained, "dropped": dropped, "elapsed": elapsed}
+
+    def reload_model(self, element, model: str = ""):
+        """Zero-downtime model rollout: stage, validate and warm ``model``
+        on a second backend off the hot path, then hot-swap the named
+        ``tensor_filter`` at a frame boundary (``core/lifecycle.py``).
+        Returns the :class:`~..core.lifecycle.SwapTicket`."""
+        el = self.elements[element] if isinstance(element, str) else element
+        request = getattr(el, "request_reload", None)
+        if request is None:
+            raise ElementError(f"{el.name} does not support hot model reload")
+        return request(model)
+
+    # -- supervision ---------------------------------------------------------
+    def health(self) -> Dict[str, Dict[str, Any]]:
+        """Live supervision snapshot: per element its state, policy,
+        restarts (lifetime and in the window), dead letters and their
+        retained depth, deadline drops, watchdog counters when armed, and
+        the element's own ``health_info()`` (the filter's OOM, device-loss
+        and swap counters)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for name, el in self.elements.items():
+            h = self.health_map.get(name) or ElementHealth()
+            entry: Dict[str, Any] = {
+                "state": h.state,
+                "policy": el.props.get("error-policy", "fail-stop"),
+                "restarts": h.restarts_total,
+                "restarts_window": h.restarts,
+                "dead_letters": h.dead_letters,
+                "dead_letter_depth": len(h.dlq),
+                "deadline_drops": h.deadline_drops,
+                "last_error": h.last_error,
+            }
+            w = self._watches.get(name)
+            if w is not None:
+                entry["stalls"] = w.stalls
+                entry["overruns"] = w.overruns
+            info = getattr(el, "health_info", None)
+            if info is not None:
+                try:
+                    entry.update(info() or {})
+                except Exception:  # health must never kill the caller
+                    self.log.exception("health_info failed for %s", name)
+            out[name] = entry
+        return out
+
+    def post_health(self) -> None:
+        self.post(BusMessage("health", self.name, self.health()))
+
+    # -- deadline QoS ---------------------------------------------------------
+    def _expire_late(self, el: Element, frames):
+        """Deadline QoS: drop frames whose budget is exhausted before `el`
+        processes them (``late-policy=drop``), counted in
+        ``health()[el]["deadline_drops"]``, with a bus warning at most once
+        a second and QoS feedback to every upstream throttler.  A frame
+        with no deadline costs one dict lookup."""
+        keep = None  # forked lazily: the no-drop path copies nothing
+        now = time.monotonic()
+        for i, f in enumerate(frames):
+            ts = f.meta.get(DEADLINE_META)
+            # delivered strictly before the deadline, dropped from now >= ts
+            if ts is None or now < ts:
+                if keep is not None:
+                    keep.append(f)
+                continue
+            if keep is None:
+                if el.props.get("late-policy", "drop") != "drop":
+                    return frames
+                keep = list(frames[:i])
+            n = getattr(f, "batch_size", 1)
+            h = self.health_map.get(el.name)
+            if h is not None:
+                h.deadline_drops += n
+            lateness = now - ts
+            if now - self._qos_warn_ts.get(el.name, float("-inf")) >= 1.0:
+                self._qos_warn_ts[el.name] = now
+                self.log.warning("%s: dropped %d frame(s) %.3fs past deadline "
+                                 "(late-policy=drop)", el.name, n, lateness)
+                self.post(BusMessage("warning", el.name, {
+                    "qos": "deadline", "dropped": n, "lateness": lateness}))
+            self._qos_feedback(el, f, lateness)
+        return frames if keep is None else keep
+
+    def _qos_feedback(self, el: Element, frame, lateness: float) -> None:
+        """Tell every upstream throttler a deadline was missed (≙ QoS
+        events travelling upstream to tensor_rate): elements exposing
+        ``note_qos(pts, lateness)`` shed earlier, where dropping is
+        cheapest."""
+        seen = {el.name}
+        stack = [el.name]
+        while stack:
+            for up in self._upstream.get(stack.pop(), ()):
+                if up.name in seen:
+                    continue
+                seen.add(up.name)
+                note = getattr(up, "note_qos", None)
+                if note is not None:
+                    try:
+                        note(frame.pts, lateness)
+                    except Exception:
+                        self.log.exception("note_qos failed for %s", up.name)
+                stack.append(up.name)
+
+    def _dead_letter(self, el: Element, frames, err: BaseException) -> None:
+        """skip policy: keep the dropped frame(s) as they are (no host
+        copy of a card tensor) and warn on the bus."""
+        h = self.health_map[el.name]
+        frames = frames if isinstance(frames, list) else [frames]
+        n = sum(getattr(f, "batch_size", 1) for f in frames)
+        for f in frames:
+            h.dlq.append((f, repr(err)))
+        h.dead_letters += n
+        h.last_error = repr(err)
+        self.log.warning("%s: dropped %d poisoned frame(s) (error-policy=skip): %s",
+                         el.name, n, err)
+        # the bus keeps the error's text: the exception's traceback would pin
+        # the failed call's card tensors for as long as the message lives
+        self.post(BusMessage("warning", el.name, {"policy": "skip", "dropped": n,
+                                                  "error": repr(err)}))
+        self.incident("dead_letter", el.name, err)
+
+    def _restart_element(self, el: Element, err: BaseException) -> str:
+        """restart policy: stop and start `el` with exponential backoff.
+        Returns "retry" (restarted: re-run the failed call), "degraded"
+        (max-restarts exhausted, or start() itself failed, as after a
+        sticky CUDA error: the caller falls back to fail-stop) or
+        "stopping" (the pipeline shut down mid-backoff)."""
+        h = self.health_map[el.name]
+        el._interrupted.clear()  # a liveness interrupt is consumed here
+        h.last_error = repr(err)
+        limit = int(el.props.get("max-restarts", 3))
+        window = float(el.props.get("restart-window", 60.0) or 0.0)
+        now = time.monotonic()
+        if window > 0 and h.last_restart_ts and now - h.last_restart_ts > window:
+            h.restarts = 0  # sustained health since the last restart: refill
+        h.last_restart_ts = now
+        if h.restarts >= limit:
+            h.state = "degraded"
+            self.log.error("%s: max-restarts=%d exhausted; degrading to fail-stop",
+                           el.name, limit)
+            self.post(BusMessage("warning", el.name, {
+                "policy": "restart", "degraded": True, "error": repr(err)}))
+            self.post_health()
+            return "degraded"
+        h.restarts += 1
+        h.restarts_total += 1
+        h.state = "restarting"
+        base = float(el.props.get("restart-backoff", 0.05) or 0.0)
+        delay = (RetryPolicy(base_delay_s=base, max_delay_s=2.0, jitter=0.1)
+                 .delay_for(h.restarts) if base > 0 else 0.0)
+        self.log.warning("%s: restart %d/%d after error (backoff %.3fs): %s",
+                         el.name, h.restarts, limit, delay, err)
+        self.post(BusMessage("warning", el.name, {
+            "policy": "restart", "restart": h.restarts, "error": repr(err)}))
+        try:
+            el.stop()
+        except Exception:
+            self.log.exception("%s: stop() during restart failed", el.name)
+        if (delay > 0 and self._stop_flag.wait(delay)) or self._stop_flag.is_set():
+            return "stopping"
+        try:
+            el.start()
+        except Exception:  # interrupts must propagate, not "degrade"
+            self.log.exception("%s: start() during restart failed", el.name)
+            h.state = "degraded"
+            self.post_health()
+            return "degraded"
+        h.state = "running"
+        return "retry"
+
+    def _skip_failed(self, el: Element, frames, err: BaseException, per_item) -> list:
+        """skip semantics for a failed call: a micro-batch with a per-item
+        re-call isolates the poison (each frame re-runs alone, so one bad
+        frame does not take its batchmates to the dead-letter queue);
+        otherwise the whole input is dead-lettered."""
+        if per_item is not None and isinstance(frames, list) and len(frames) > 1:
+            outs: list = []
+            for f in frames:
+                try:
+                    outs.extend(per_item(f) or [])
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except BaseException as e2:  # noqa: BLE001 — policy boundary
+                    self._dead_letter(el, [f], e2)
+            return outs
+        self._dead_letter(el, frames, err)
+        return []
+
+    def _fast_path(self, el: Element, watch) -> bool:
+        """True when ``_supervised`` would change nothing for this call: no
+        watchdog heartbeat, no fault armed, no pending interrupt,
+        fail-stop and stall-policy warn."""
+        return (watch is None and not FAULTS.is_armed() and not el._interrupted.is_set()
+                and el.props.get("error-policy", "fail-stop") == "fail-stop"
+                and el.props.get("stall-policy", "warn") == "warn")
+
+    def _call(self, el: Element, st: _ElemState, call, frames, per_item=None):
+        """One frame-processing call, supervised unless nothing would
+        change (the answer may be ``_SUPERVISED_STOPPING``)."""
+        if self._fast_path(el, st.watch):
+            return call()
+        return self._supervised(el, call, frames, per_item)
+
+    def _supervised(self, el: Element, call, frames, per_item=None):
+        """Run one frame-processing call under `el`'s error-policy.
+
+        fail-stop re-raises (the worker boundary turns it into a pipeline
+        error); skip dead-letters the poisoned frame(s), isolating them per
+        frame via `per_item` when the call was a micro-batch; restart
+        restarts the element and retries the same call (no frame lost to a
+        transient fault), degrading to fail-stop once max-restarts is spent,
+        and treats fatal (bad-input) errors like skip.  A StallError (a hung
+        call the watchdog interrupted) follows stall-policy whatever the
+        error-policy.  Elements with ``SUPERVISES_OWN_ERRORS`` run fail-stop:
+        an error surfacing in one call may belong to another in flight."""
+        policy = el.props.get("error-policy", "fail-stop")
+        if getattr(el, "SUPERVISES_OWN_ERRORS", False):
+            policy = "fail-stop"
+        wd, watch = self._watchdog, self._watches.get(el.name)
+        while True:
+            try:
+                if el._interrupted.is_set():
+                    # a stale interrupt (the flagged call completed on its
+                    # own) must not leak into this healthy call
+                    el._interrupted.clear()
+                if watch is not None:
+                    wd.begin(watch)  # before the fault site: an injected
+                    # hang lands inside the monitored window
+                try:
+                    if FAULTS.is_armed():
+                        FAULTS.check(f"element.{el.name}.handle_frame",
+                                     interrupt=lambda: el.interrupted)
+                    result = call()
+                    if policy != "fail-stop" and not isinstance(result, (list, tuple)):
+                        result = list(result)  # lazy outputs raise while iterated
+                finally:
+                    if watch is not None:
+                        wd.done(watch)
+                return result
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:  # noqa: BLE001 — policy boundary
+                if isinstance(e, StallError):
+                    el._interrupted.clear()
+                    sp = el.props.get("stall-policy", "warn")
+                    if sp == "restart":
+                        verdict = self._restart_element(el, e)
+                        if verdict == "retry":
+                            continue
+                        if verdict == "stopping":
+                            return _SUPERVISED_STOPPING
+                        raise  # degraded: fail-stop
+                    if sp == "fail":
+                        raise
+                if policy == "skip":
+                    return self._skip_failed(el, frames, e, per_item)
+                if policy == "restart":
+                    if not is_transient(e):
+                        # a restart cannot fix a bad frame: dead-letter it
+                        return self._skip_failed(el, frames, e, per_item)
+                    verdict = self._restart_element(el, e)
+                    if verdict == "retry":
+                        continue
+                    if verdict == "stopping":
+                        return _SUPERVISED_STOPPING
+                raise
+
     # -- worker runtime ------------------------------------------------------
     def _fail(self, el: Element, e: BaseException) -> bool:
         """Record a fatal element failure and stop the stream; False (the
         worker must exit)."""
         self.log.error("element %s failed", el.name, exc_info=e)
+        h = self.health_map.get(el.name)
+        if h is not None:
+            h.state = "failed"
+            h.last_error = repr(e)
         self.errors.append(e)
+        self.post(BusMessage("error", el.name, e))
         self._stop_flag.set()
         self._sinks_done.set()  # unblock wait()
         return False
@@ -486,6 +1094,9 @@ class Pipeline:
         this segment, is done."""
         el = st.el
         st.finished = True
+        h = self.health_map.get(el.name)
+        if h is not None and h.state not in ("degraded", "failed"):
+            h.state = "finished"
         if any(p.is_linked for p in el.srcpads):
             for i in range(len(el.srcpads)):
                 self._route_one(seg, st, i, EOS())
@@ -494,6 +1105,7 @@ class Pipeline:
                 self._pending_sinks -= 1
                 if self._pending_sinks <= 0:
                     self._sinks_done.set()
+            self.post(BusMessage("eos", el.name))
         return False
 
     def _dispatch(self, seg: _Seg, st: _ElemState, pad: int, item) -> bool:
@@ -503,13 +1115,7 @@ class Pipeline:
         el = st.el
         try:
             if isinstance(item, TensorFrame):
-                if isinstance(item, BatchFrame) and not el.BATCH_AWARE:
-                    # per-frame elements get logical frames, never a batch axis
-                    for f in item.split():
-                        if not self._route_outs(seg, st, el.handle_frame(pad, f) or ()):
-                            return False
-                    return True
-                return self._route_outs(seg, st, el.handle_frame(pad, item) or ())
+                return self._dispatch_frame(seg, st, pad, item)
             if isinstance(item, CapsEvent):
                 el.set_sink_spec(pad, item.spec)
                 st.caps_pads.add(pad)
@@ -533,6 +1139,36 @@ class Pipeline:
         except BaseException as e:  # noqa: BLE001 — the element's boundary
             return self._fail(el, e)
 
+    def _dispatch_frame(self, seg: _Seg, st: _ElemState, pad: int, frame) -> bool:
+        """Run one frame through `st.el` under its supervision and deadline
+        QoS, and route the outputs.  A BatchFrame reaching a per-frame
+        element is split into logical frames, each supervised alone."""
+        el = st.el
+        if isinstance(frame, BatchFrame) and not el.BATCH_AWARE:
+            lfs = self._expire_late(el, frame.split())
+            for k, lf in enumerate(lfs):
+                st.in_call = len(lfs) - k
+                outs = self._call(el, st, lambda lf=lf: el.handle_frame(pad, lf) or (), lf)
+                if outs is _SUPERVISED_STOPPING:
+                    return False
+                if st.terminal:
+                    st.delivered += 1
+                st.in_call = len(lfs) - k - 1
+                if not self._route_outs(seg, st, outs):
+                    return False
+            return True
+        if not self._expire_late(el, (frame,)):
+            return True  # past its deadline: a counted drop
+        n = getattr(frame, "batch_size", 1)
+        st.in_call = n
+        outs = self._call(el, st, lambda: el.handle_frame(pad, frame) or (), frame)
+        if outs is _SUPERVISED_STOPPING:
+            return False
+        if st.terminal:
+            st.delivered += n
+        st.in_call = 0
+        return self._route_outs(seg, st, outs)
+
     def _flush_mailbox(self, box, stash: deque) -> None:
         """Drop the frames queued behind a ``Flush`` in a head's mailbox
         (and in its batch-fill stash), keeping the events in order.  A
@@ -552,27 +1188,94 @@ class Pipeline:
 
     def _run_source(self, seg: _Seg) -> None:
         el = seg.chain[0]
-        st = seg.states[el.name]
+        for st in seg.states.values():
+            st.watch = self._watches.get(st.el.name)
         try:
-            for i in range(len(el.srcpads)):
-                if not self._route_one(seg, st, i, CapsEvent(el.output_spec())):
-                    return
-            for frame in el.frames():
-                if self._stop_flag.is_set():
-                    return
-                if isinstance(frame, Event):
-                    if not self._route_outs(seg, st, el.handle_event(0, frame) or ()):
-                        return
-                elif not self._route_one(seg, st, 0, frame):
-                    return
-            for i in range(len(el.srcpads)):
-                # unchecked: a fused downstream finishing returns False
-                self._route_one(seg, st, i, EOS())
+            self._supervised_source(seg)
         except BaseException as e:  # noqa: BLE001 — worker boundary
             self._fail(el, e)
 
+    def _supervised_source(self, seg: _Seg) -> None:
+        """Source supervision: ``error-policy=restart`` (or a watchdog
+        interrupt under ``stall-policy=restart``) re-opens the source and
+        re-enters ``frames()`` from its current state; fresh caps events
+        re-negotiate downstream, and frames emitted before the error are
+        not replayed.  ``skip`` cannot resume a broken generator mid-frame,
+        so sources treat it as fail-stop.  Errors of fused downstream
+        elements never reach here: ``_dispatch`` handles them."""
+        el = seg.chain[0]
+        while True:
+            try:
+                return self._source_body(seg)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:  # noqa: BLE001 — policy boundary
+                stall_restart = (isinstance(e, StallError)
+                                 and el.props.get("stall-policy") == "restart")
+                if isinstance(e, StallError):
+                    el._interrupted.clear()
+                if el.props.get("error-policy") != "restart" and not stall_restart:
+                    raise
+                if not is_transient(e):
+                    raise  # a source has no input frame to dead-letter
+                verdict = self._restart_element(el, e)
+                if verdict == "retry":
+                    continue
+                if verdict == "stopping":
+                    return
+                raise
+
+    def _source_body(self, seg: _Seg) -> None:
+        el = seg.chain[0]
+        st = seg.states[el.name]
+        # deadline stamping (deadline-s), anchored at the clock at emission
+        budget = float(el.props.get("deadline-s") or 0.0)
+        for i in range(len(el.srcpads)):
+            if not self._route_one(seg, st, i, CapsEvent(el.output_spec())):
+                return
+        # the busy window wraps each pull from frames() (and the fault
+        # site); routing downstream stays outside it
+        wd, watch = self._watchdog, self._watches.get(el.name)
+        frames_it = iter(el.frames())
+        src_pending = getattr(el, "pending_frames", None)
+        while True:
+            if self._drain_flag.is_set() and (src_pending is None or src_pending() <= 0):
+                break  # graceful drain: flush what is in flight via EOS
+            if el._interrupted.is_set():
+                el._interrupted.clear()  # stale: the pull completed anyway
+            if watch is not None:
+                wd.begin(watch)
+            try:
+                try:
+                    frame = next(frames_it)
+                except StopIteration:
+                    break
+                if self._stop_flag.is_set():
+                    return
+                if not isinstance(frame, Event) and FAULTS.is_armed():
+                    FAULTS.check(f"element.{el.name}.frames", interrupt=lambda: el.interrupted)
+            finally:
+                if watch is not None:
+                    wd.done(watch)
+            if isinstance(frame, Event):
+                if not self._route_outs(seg, st, el.handle_event(0, frame) or ()):
+                    return
+                continue
+            if budget > 0:
+                stamp_deadline(frame, budget)
+            if not self._route_one(seg, st, 0, frame):
+                return
+        for i in range(len(el.srcpads)):
+            # unchecked: a fused downstream finishing returns False
+            self._route_one(seg, st, i, EOS())
+        h = self.health_map.get(el.name)
+        if h is not None and h.state == "running":
+            h.state = "finished"
+
     def _run_chain_head(self, seg: _Seg) -> None:
         el = seg.chain[0]
+        for st in seg.states.values():
+            st.watch = self._watches.get(st.el.name)
         try:
             self._chain_loop(seg)
         except BaseException as e:  # noqa: BLE001 — worker boundary
@@ -617,8 +1320,20 @@ class Pipeline:
             if item is _STOP:
                 return
             if batching and isinstance(item, TensorFrame):
-                frames = self._fill_batch(box, stash, pad, item, want, wait_s)
-                if not self._route_outs(seg, st, el.handle_frame_batch(pad, frames) or ()):
+                frames = self._expire_late(
+                    el, self._fill_batch(box, stash, pad, item, want, wait_s))
+                if not frames:
+                    continue  # the whole micro-batch expired
+                st.in_call = sum(getattr(f, "batch_size", 1) for f in frames)
+                outs = self._call(
+                    el, st, lambda frames=frames, pad=pad: el.handle_frame_batch(pad, frames) or (),
+                    frames, per_item=lambda f, pad=pad: el.handle_frame_batch(pad, [f]) or ())
+                if outs is _SUPERVISED_STOPPING:
+                    return
+                if st.terminal:
+                    st.delivered += st.in_call
+                st.in_call = 0
+                if not self._route_outs(seg, st, outs):
                     return
             elif not self._dispatch(seg, st, pad, item):
                 return

@@ -439,7 +439,16 @@ class TestElementWiring:
 
     @pytest.mark.parametrize("knob", ["sim_oom_step", "sim_lost_step"])
     def test_sim_chaos_knobs_name_the_roadmap(self, knob):
-        pipe = _pipeline(custom=f"sim:1,{knob}:3")
-        with pytest.raises(Exception, match="ROADMAP A4.3"):
-            pipe.start()
-        pipe.stop()
+        """The chaos knobs of ROADMAP A4.3 (ported): decode attempt 3
+        raises the typed device error once and the engine recovers."""
+        pipe = _pipeline(custom=f"sim:1,{knob}:3", extra="chunk=1")
+        _, snap = _run(pipe, [np.arange(1, 9, dtype=np.int32)])
+        finals = [f for f in pipe["out"].frames if f.meta["final"]]
+        reason = "oom" if knob == "sim_oom_step" else "device_lost"
+        assert [f.meta.get("evicted") for f in finals] == [reason]
+        assert finals[0].meta["tokens_done"] == 4  # token 1, then attempts 0-2 (k = 1)
+        if knob == "sim_oom_step":
+            assert (snap["gen_oom_retries"], snap["gen_oom_sheds"]) == (1, 1)
+        else:
+            assert (snap["gen_device_lost"], snap["gen_device_lost_evicted"],
+                    snap["gen_remeshes"]) == (1, 1, 1)
