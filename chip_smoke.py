@@ -287,8 +287,38 @@ Phases (any failure exits non-zero before the result lines are printed):
       Every run: each frame once and in order, labels equal to the
       direct call of the model that served each micro-batch (in its
       size), ``normalize_u8`` and ``top1`` once per successful call.
-   ``--only i,j,k`` runs paths i, j and k alone after the kernel build (j
-   with ``PAD_EDGES`` first), each summary a JSON line.
+   l. observability on the card, at path a's configuration (``OBS_FRAMES``
+      1024 frames) and on path d's GPT-2 small:
+      1. ``latency=1 throughput=1`` with ``enable_tracing()``, a flight
+         recorder and ``serve_metrics(0)``, ``/metrics`` scraped over
+         127.0.0.1 mid-run and after EOS: ``nns.element.frames`` of the
+         filter and the sink 1024, ``nns.filter.invokes`` equal to the
+         micro-batches and to the ``normalize_u8`` and ``top1`` launches,
+         labels equal to the direct call, the tracer's bytes through the
+         filter 1024 x 224 x 224 x 3, and ``torch.profiler`` seeing the
+         same device-to-host copies traced as untraced, of the labels'
+         bytes only; frames/s traced and untraced, the filter's proctime
+         p50/p99 and ``latency_us`` (the host's time around the backend
+         call) beside the direct call's device time per frame, printed as
+         information;
+      2. ``trace=1 trace-dir=...`` over a warm-up micro-batch of 128
+         frames and then ``OBS_SHORT_FRAMES`` (256) counted frames behind an
+         ``annotate`` marker: after ``stop()`` one Chrome trace naming, after
+         the marker, the ``normalize_u8`` and ``top1`` kernels as often as
+         their launch counters count them, and no profiler session left;
+      3. k2's hang under ``stall-policy=restart`` with the recorder armed:
+         exactly one dump, posted on the bus, holding the filter's open
+         span with its trace id and a thread profile in which the filter's
+         thread is parked in the hung call; every frame once, labels equal;
+      4. ``output-combination=i0,o0`` with manual ``input``/``input-type``
+         matching the model, 256 frames: i0 byte-equal to each pushed frame,
+         o0 bit-equal to the direct call's logits; a mismatching ``input``
+         and a mismatching ``output`` raise the JAX package's texts;
+      5. GPT-2 small, 8 prompts of 128 tokens, ``slots=4 chunk=16``, 32
+         greedy tokens, with and without the three ``slo-*`` objectives:
+         equal tokens, 8 streams good, the ``nns.slo.*`` series in a scrape.
+   ``--only i,j,k,l`` runs paths i, j, k and l alone after the kernel build
+   (j with ``PAD_EDGES`` first), each summary a JSON line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -300,7 +330,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    {...}}`` JSON line (path g's numbers), an ``{"int8": {...}}`` JSON line
    (path h's numbers), a ``{"prefix_cache": {...}}`` line (path i's), a
    ``{"model_files": {...}}`` line (path j's), a ``{"supervision": {...}}``
-   line (path k's), one ``{"kernels": [...]}`` JSON line, the card line, and last
+   line (path k's), an ``{"observability": {...}}`` line (path l's), one
+   ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -392,8 +423,13 @@ def cuda_kernels(torch, fn) -> list:
     torch.cuda.synchronize()
     for _ in range(2):  # a process's first profile may record no device events
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # kernels that run within moments of the session's start or end
+            # can be left out of it (seen on the card: a session's launches
+            # missing from its events): margins on both sides
+            time.sleep(0.2)
             fn()
             torch.cuda.synchronize()
+            time.sleep(0.2)
         names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
         if names:
             break
@@ -3823,17 +3859,19 @@ def served_labels(torch, np, lab, modules: dict, images, calls) -> "np.ndarray":
 
 
 def supervised_run(torch, np, lab, counters, name: str, text: str, images, during=None,
-                   modules=None, timeout: float = 600, served=None) -> dict:
+                   modules=None, timeout: float = 600, served=None, setup=None) -> dict:
     """One MobileNet-v2 labeling run of `text`: frames pushed one by one
-    (``during(pipe, i)`` called before frame i, ``served()`` once the
-    stream has ended and before the direct calls), then the checks every k
-    run shares: each frame once and in order, labels equal to the direct
+    (``setup(pipe)`` called before the pipeline starts, ``during(pipe, i)``
+    before frame i, ``served()`` once the stream has ended and before the
+    direct calls), then the checks every k and l run shares: each frame once and in order, labels equal to the direct
     call of the model that served each micro-batch, ``normalize_u8`` and
     ``top1`` once per successful call (a failed call launched ``top1``
     never).  Returns the calls, launches, health and labels."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
     pipe = parse_pipeline(text)
+    if setup is not None:
+        setup(pipe)
     counters.zero()
     pipe.start()
     try:
@@ -4293,6 +4331,447 @@ def run_supervision(torch, np, lab, counters, seed: int, card: str, work, labels
     return paths, summary
 
 
+OBS_FRAMES = 1024
+OBS_SHORT_FRAMES = 256
+L5_PROMPTS, L5_TOKENS, L5_NEW = 8, 128, 32
+#: l5's objectives: loose enough that a healthy run meets them
+L5_SLO = "slo-ttft-p95=10 slo-token-p99=1 slo-availability=0.99"
+
+
+def scrape(port: int) -> dict:
+    """``/metrics`` of the endpoint on 127.0.0.1:`port` as {name{labels}:
+    value}; a malformed line fails."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out, line_re = {}, re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = line_re.match(line)
+        if m is None:
+            raise AssertionError(f"path l: unparseable exposition line {line!r}")
+        out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def series(metrics: dict, name: str, **labels) -> float:
+    """The sum of a scrape's `name` samples whose labels include `labels`;
+    fails when there is none."""
+    total, found = 0.0, False
+    for key, v in metrics.items():
+        base, _, rest = key.partition("{")
+        if base == name and all(f'{k}="{val}"' in rest for k, val in labels.items()):
+            total, found = total + v, True
+    if not found:
+        raise AssertionError(f"path l: the scrape has no {name} series with labels {labels}")
+    return total
+
+
+def d2h_copies(prof, path) -> list:
+    """The bytes of every device-to-host copy a ``torch.profiler`` session
+    saw, sorted, from its Chrome trace written to `path`."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    return sorted(int(e.get("args", {}).get("bytes", -1)) for e in events
+                  if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", ""))
+
+
+def run_l1(torch, np, lab, counters, seed: int, images, labels, work) -> dict:
+    """l1: path a's pipeline with ``latency=1 throughput=1``, untraced, then
+    traced, with a flight recorder and ``/metrics`` scraped over 127.0.0.1
+    mid-run and after EOS.  Both under ``torch.profiler`` (device
+    activity), both timed again without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    n = len(images)
+    text = labeling_text(MOBILENET_CUSTOM, seed, labels, "latency=1 throughput=1")
+
+    def one(traced: bool, profiled: bool) -> dict:
+        pipe = parse_pipeline(text, name="l1")
+        tracer, port, mid = None, None, None
+        if traced:
+            tracer = pipe.enable_tracing()
+            pipe.enable_flight_recorder(dump_dir=str(work / "l1_flight"))
+            port = pipe.serve_metrics(0)
+        prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else None
+        counters.zero()
+        pipe.start()
+        try:
+            with recording_io(pipe, "f") as (sizes, outs, _):
+                if prof is not None:
+                    prof.start()
+                    time.sleep(0.5)  # margins: see cuda_kernels
+                t0 = time.perf_counter()
+                for i in range(n):
+                    pipe["src"].push(images[i], pts=float(i))
+                    if port is not None and i == n // 2:
+                        mid = scrape(port)
+                pipe["src"].end_of_stream()
+                pipe.wait(timeout=600)
+                wall = time.perf_counter() - t0
+                if prof is not None:
+                    time.sleep(0.5)
+                    prof.stop()
+            launches = counters.read()
+            end = scrape(port) if port is not None else None
+            f = pipe["f"]
+            run = {"fps": n / wall, "sizes": list(sizes), "launches": launches, "mid": mid,
+                   "end": end, "latency_us": f.latency_us, "throughput_fps": f.throughput_fps,
+                   "module": f.backend._module,
+                   "labels": np.array([fr.meta["label_index"] for fr in pipe["out"].frames]),
+                   "out_bytes": sorted(
+                       int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
+                       for call in outs for shape, dt, _ in call)}
+            if tracer is not None:
+                rep = tracer.report()["f"]
+                run |= {"proctime_us_p50": rep["proctime_us_p50"],
+                        "proctime_us_p99": rep["proctime_us_p99"],
+                        "filter_bytes": tracer._stats["f"].bytes}
+        finally:
+            pipe.stop()
+        if prof is not None:
+            run["d2h"] = d2h_copies(prof, work / "l1_profile.json")
+        return run
+
+    # untraced first: a process's first model call carries the card's lazy
+    # set-up, which must not land in the traced run's proctime
+    plain = one(False, True)
+    traced = one(True, True)
+    timed = {"untraced_fps": one(False, False)["fps"], "traced_fps": one(True, False)["fps"]}
+    sizes, launches, end = traced["sizes"], traced["launches"], traced["end"]
+    batches = len(sizes)
+    for el in ("f", "out"):
+        if series(end, "nns_element_frames", element=el, pipeline="l1") != n:
+            raise AssertionError(f"l1: nns.element.frames of {el} is not {n}")
+    invokes = series(end, "nns_filter_invokes", element="f", pipeline="l1")
+    if not invokes == batches == launches["normalize_u8"] == launches["top1"]:
+        raise AssertionError(f"l1: nns.filter.invokes {invokes}, {batches} micro-batches, "
+                             f"launches {launches} (want all equal)")
+    for key in ("nns_element_frames", "nns_filter_invokes", "nns_feed_lane_staged",
+                "nns_pool_device_reused"):
+        series(traced["mid"], key, pipeline="l1")
+    want = np.concatenate([lab.top1_plain(logits)[0].cpu().numpy() for _, _, logits, _ in
+                           direct_batches(torch, traced["module"], images, sizes)])
+    for run in (traced, plain):
+        if not np.array_equal(run["labels"], want):
+            raise AssertionError(f"l1: {int((run['labels'] != want).sum())} labels differ from "
+                                 "the direct call")
+    frame_bytes = n * int(np.prod(images.shape[1:]))
+    if traced["filter_bytes"] != frame_bytes:
+        raise AssertionError(f"l1: the tracer counted {traced['filter_bytes']} bytes through the "
+                             f"filter for {frame_bytes}")
+    # the decoder brings each micro-batch's labels to the host, and nothing
+    # else may cross, traced or not (each run in its own micro-batch sizes;
+    # a copy of no bytes moves nothing)
+    moved = {k: [b for b in r["d2h"] if b] for k, r in (("traced", traced), ("plain", plain))}
+    if moved["traced"] != traced["out_bytes"] or moved["plain"] != plain["out_bytes"]:
+        raise AssertionError(f"l1: device-to-host copies' bytes traced {traced['d2h']}, "
+                             f"untraced {plain['d2h']}, the labels' {traced['out_bytes']}")
+    x = torch.from_numpy(images[:128]).to("cuda")
+    module = traced["module"]
+    with torch.inference_mode():
+        direct_ms = time_ms(lambda: module(x), reps=5, inner=4) / 128
+    return {"launches": launches, "batches": batches, "frames": n,
+            "fps_traced_profiled": traced["fps"], "fps_untraced_profiled": plain["fps"],
+            "fps_traced": timed["traced_fps"], "fps_untraced": timed["untraced_fps"],
+            "proctime_us_p50": traced["proctime_us_p50"],
+            "proctime_us_p99": traced["proctime_us_p99"],
+            "latency_us": traced["latency_us"], "throughput_fps": traced["throughput_fps"],
+            "direct_device_ms_per_frame": direct_ms, "d2h_copies": len(moved["traced"]),
+            "d2h_bytes": sum(moved["traced"]),
+            "d2h_empty_copies": [traced["d2h"].count(0), plain["d2h"].count(0)],
+            "filter_bytes": traced["filter_bytes"],
+            "scrape_series": len(end)}
+
+
+def run_l2(torch, np, counters, seed: int, images, labels, work) -> dict:
+    """l2: ``trace=1``: the filter holds the process's ``torch.profiler``
+    session; after ``stop()`` its Chrome trace must name the
+    ``normalize_u8`` and ``top1`` kernels of the counted frames as often as
+    their launch counters count them, and no session may remain.  A
+    warm-up micro-batch goes first, and a marker (``annotate``) between it
+    and the counted frames separates them in the trace: in full runs the
+    first micro-batch's ``normalize_u8`` record went missing from its
+    session (PERF.md, PR 17)."""
+    import shutil
+    import threading
+
+    from nnstreamer_tpu_torch.core import profiler
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    trace_dir = work / "l2_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    if profiler.trace_active() or torch._C._autograd._profiler_enabled():
+        raise AssertionError("l2: a profiler session is already active")
+    pipe = parse_pipeline(labeling_text(MOBILENET_CUSTOM, seed, labels,
+                                        f"trace=1 trace-dir={trace_dir}"))
+    warm, arrived = 128, [0]
+    warmed = threading.Event()
+
+    def on_frame(_):
+        arrived[0] += 1
+        if arrived[0] == warm:
+            warmed.set()
+
+    pipe["out"].connect_new_data(on_frame)
+    pipe.start()
+    try:
+        if not (pipe.health()["f"]["profiler_active"] and profiler.trace_active()):
+            raise AssertionError("l2: trace=1 did not start a torch.profiler session")
+        with recording_batches(pipe, "f") as sizes:
+            for i in range(warm):
+                pipe["src"].push(images[i], pts=float(i))
+            if not warmed.wait(300):
+                raise AssertionError("l2: the warm-up frames did not arrive")
+            # margins around the marker (see cuda_kernels)
+            time.sleep(0.5)
+            counters.zero()
+            warm_batches = len(sizes)
+            with profiler.annotate("chip_smoke l2 counted frames"):
+                pass
+            time.sleep(0.5)
+            for i in range(len(images)):
+                pipe["src"].push(images[i], pts=float(warm + i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+        launches = counters.read()
+        time.sleep(0.5)
+    finally:
+        pipe.stop()
+    batches = len(sizes) - warm_batches
+    files = sorted(trace_dir.glob("nns_trace_*.json"))
+    if profiler.trace_active() or len(files) != 1:
+        raise AssertionError(f"l2: after stop() trace_active {profiler.trace_active()}, "
+                             f"trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    marks = [e["ts"] for e in events if e.get("name") == "chip_smoke l2 counted frames"]
+    if len(marks) != 1:
+        raise AssertionError(f"l2: the trace holds {len(marks)} markers")
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel" and e.get("ts", 0) > marks[0]]
+    named = {k: sum(f"{k}_kernel" in name for name in kernels) for k in ("normalize_u8", "top1")}
+    if any(named[k] != launches[k] or not launches[k] for k in named) or launches["top1"] != batches:
+        # the trace goes to chiprun_out/ of the working directory for a look
+        keep = Path.cwd() / "chiprun_out" / "l2_trace.json"
+        keep.parent.mkdir(exist_ok=True)
+        shutil.copy(files[0], keep)
+        ours = sorted((e.get("ts"), e.get("cat"), e.get("name", "")[:40]) for e in events
+                      if "normalize_u8" in e.get("name", "") or "top1" in e.get("name", ""))
+        raise AssertionError(f"l2: after the marker ({marks[0]}) the trace names {named} for "
+                             f"launches {launches} in {batches} micro-batches; our kernels "
+                             f"{ours}; copied to {keep}")
+    return {"launches": launches, "batches": batches, "trace_kernels": len(kernels),
+            "named": named, "trace_bytes": files[0].stat().st_size,
+            "warmup_batches": warm_batches}
+
+
+def run_l3(torch, np, lab, counters, seed: int, images, labels, work) -> dict:
+    """l3: k2's hang (``stall-policy=restart``) with a flight recorder: one
+    dump holding the stalled filter's open span with its trace id and a
+    thread profile of the named threads; every frame once, labels equal."""
+    import shutil
+
+    from nnstreamer_tpu_torch.core.resilience import FAULTS
+
+    dump_dir = work / "l3_flight"
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    bus = []
+
+    def setup(pipe):
+        pipe.enable_flight_recorder(dump_dir=str(dump_dir))
+        pipe.add_bus_watcher(bus.append)
+
+    text = labeling_text(MOBILENET_CUSTOM, seed, labels,
+                         "stall-timeout=2 stall-policy=restart restart-backoff=0.01")
+    try:
+        run = supervised_run(
+            torch, np, lab, counters, "l3", text, images, setup=setup,
+            during=lambda pipe, i: FAULTS.arm("element.f.handle_frame", hang=True, times=1,
+                                              after=2) if i == 0 else None)
+    finally:
+        FAULTS.reset()
+    files = sorted(dump_dir.glob("nns_flight_*.json"))
+    posted = [m.data["flight_dump"] for m in bus
+              if isinstance(m.data, dict) and "flight_dump" in m.data]
+    if len(files) != 1 or posted != [str(files[0])]:
+        raise AssertionError(f"l3: dumps {files}, posted on the bus {posted} (want one)")
+    dump = json.loads(files[0].read_text())
+    stuck = [(t["trace_id"], s) for t in dump["traces"] for s in t["spans"] if s.get("open")]
+    profiled = (dump["thread_profile"] or {}).get("threads", {})
+    threads = sorted(profiled)
+    if (dump["source"], dump["reason"]) != ("f", "watchdog_stall") or [
+            s["element"] for _, s in stuck] != ["f"] or not stuck[0][0]:
+        raise AssertionError(f"l3: dump {dump['source']} {dump['reason']}, open spans {stuck}")
+    parked = [st["stack"] for st in profiled.get("f", {}).get("top_stacks", [])]
+    if not any("pipeline.py:_supervised" in st for st in parked):
+        raise AssertionError(f"l3: the dump's thread profile holds {threads}; the filter's "
+                             f"thread f is not parked in its hung call: {parked}")
+    h = run["health"]
+    if h["restarts"] != 1 or h["stalls"] < 1 or h["dead_letters"]:
+        raise AssertionError(f"l3: health {h} (want one stall, one restart)")
+    return {"launches": run["launches"], "batches": run["batches"], "dump": files[0].name,
+            "stuck_for_ms": stuck[0][1]["stuck_for_ms"], "trace_id": stuck[0][0],
+            "threads": threads, "dump_bytes": files[0].stat().st_size}
+
+
+def run_l4(torch, np, counters, seed: int, images) -> dict:
+    """l4: ``output-combination=i0,o0`` with manual ``input``/``input-type``
+    matching the model: each output frame is the pushed frame (byte-equal)
+    and the logits of the direct call; a mismatching input or output
+    declaration raises the JAX package's error text."""
+    from nnstreamer_tpu_torch.core.types import StreamSpec
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    size = images.shape[1]
+    caps = StreamSpec.from_string(
+        f"tensors,format=static,num=1,dimensions=3:{size}:{size},types=uint8")
+    base = (f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model=zoo "
+            f"custom={MOBILENET_CUSTOM},seed:{seed} max-batch=128 batch-timeout=20 ")
+    pipe = parse_pipeline(base + f"output-combination=i0,o0 input=3:{size}:{size} "
+                          "input-type=uint8 ! tensor_sink name=out")
+    pipe["src"].set_spec(caps)
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            for i in range(len(images)):
+                pipe["src"].push(images[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+        launches = counters.read()
+        module = pipe["f"].backend._module
+    finally:
+        pipe.stop()
+    out = pipe["out"].frames
+    if [f.pts for f in out] != [float(i) for i in range(len(images))] or launches["top1"] or (
+            launches["normalize_u8"] != len(sizes)):
+        raise AssertionError(f"l4: {len(out)} frames back, launches {launches} for "
+                             f"{len(sizes)} micro-batches")
+    for i, f in enumerate(out):
+        if not (isinstance(f.tensors[0], np.ndarray) and np.array_equal(f.tensors[0], images[i])):
+            raise AssertionError(f"l4: i0 of frame {i} is not the pushed frame")
+    want = np.concatenate([logits.float().cpu().numpy() for _, _, logits, _ in
+                           direct_batches(torch, module, images, sizes)])
+    got = np.stack([np.asarray(f.tensors[1], np.float32) for f in out])
+    err = float(np.abs(got - want).max())
+    if err != 0.0:
+        raise AssertionError(f"l4: o0 differs from the direct call's logits by up to {err}")
+    refusals = {}
+    for props, expect in (
+            (f"input=3:{size + 1}:{size + 1} input-type=uint8",
+             "f: stream schema " + caps.to_string() + " does not match model input "
+             f"tensors,format=static,num=1,dimensions=3:{size + 1}:{size + 1},types=uint8"),
+            ("output=1000 output-type=float32",
+             "f: output=1000/float32 does not match the model's output ")):
+        bad = parse_pipeline(base + props + " ! tensor_sink name=out")
+        bad["src"].set_spec(caps)
+        try:
+            bad.start()
+        except Exception as e:  # noqa: BLE001 — the refusal is the check
+            refusals[props] = f"{type(e).__name__}: {e}"
+        else:
+            bad.stop()
+            raise AssertionError(f"l4: {props} was accepted")
+        if not refusals[props].startswith(f"ElementError: {expect}"):
+            raise AssertionError(f"l4: {props} raised {refusals[props]!r}")
+    return {"launches": launches, "batches": len(sizes), "refusals": refusals,
+            "max_abs_err": err}
+
+
+def run_l5(torch, np, counters, seed: int) -> dict:
+    """l5: path d's GPT-2 small through ``tensor_generator slots=4
+    chunk=16`` (8 prompts of 128 tokens, 32 greedy tokens), once plain and
+    once with the three ``slo-*`` objectives armed: equal tokens, 8 streams
+    counted good, the ``nns.slo.*`` series in a scrape."""
+    vocab = int(custom_props(LM_CUSTOM)["vocab"])
+    rng = np.random.default_rng(seed + 17)
+    prompts = [rng.integers(0, vocab, L5_TOKENS, dtype=np.int32) for _ in range(L5_PROMPTS)]
+    custom = f"{LM_CUSTOM},seed:{seed}"
+    counters.zero()
+    plain = run_generator(np, custom, prompts, L5_NEW, 16, 4)[0]
+
+    def keep(pipe):
+        port = pipe.serve_metrics(0)
+        return scrape(port), pipe.health()["g"]
+
+    toks, _, _, wall, (metrics, health) = run_generator(np, custom, prompts, L5_NEW, 16, 4,
+                                                        keep=keep, extra=L5_SLO)
+    launches = counters.read()
+    if any(not np.array_equal(a, b) for a, b in zip(toks, plain)):
+        raise AssertionError("l5: tokens with the SLO objectives armed differ from the plain run")
+    row = health["slo"]["_" if "_" in health["slo"] else ""]
+    good = series(metrics, "nns_slo_good", element="g")
+    ttft = series(metrics, "nns_slo_ttft_seconds_count", element="g")
+    tokens = series(metrics, "nns_slo_token_seconds_count", element="g")
+    for key in ("nns_slo_status", "nns_slo_availability", "nns_slo_ttft_burn",
+                "nns_slo_token_burn", "nns_slo_availability_burn", "nns_slo_ttft_p95_ms"):
+        series(metrics, key, element="g")
+    if (good, ttft, row["good"]) != (L5_PROMPTS,) * 3 or tokens != L5_PROMPTS * (L5_NEW - 1):
+        raise AssertionError(f"l5: nns.slo.good {good}, ttft observations {ttft}, token "
+                             f"observations {tokens}, SLO row {row}")
+    if any(launches.values()):
+        raise AssertionError(f"l5: the KV-cache decode launched {launches}")
+    return {"launches": launches, "batches": health["gen_decode_steps"], "slo": row,
+            "seconds": wall}
+
+
+def run_observability(torch, np, lab, counters, seed: int, card: str, work, labels) -> tuple:
+    """Path l: l1-l5 (see their docstrings).  Returns (paths: each
+    sub-path's launches and micro-batches, the summary line)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 18)
+    size = int(custom_props(MOBILENET_CUSTOM).get("size", "224"))
+    images = rng.integers(0, 256, (OBS_FRAMES, size, size, 3), dtype=np.uint8)
+    short = images[:OBS_SHORT_FRAMES]
+    secs = {}
+
+    def timed(key, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        secs[key] = time.perf_counter() - t
+        return out
+
+    l1 = timed("l1", run_l1, torch, np, lab, counters, seed, images, labels, work)
+    l2 = timed("l2", run_l2, torch, np, counters, seed, short, labels, work)
+    l3 = timed("l3", run_l3, torch, np, lab, counters, seed, images, labels, work)
+    l4 = timed("l4", run_l4, torch, np, counters, seed, short)
+    torch.cuda.empty_cache()
+    l5 = timed("l5", run_l5, torch, np, counters, seed)
+    runs = {"l1": l1, "l2": l2, "l3": l3, "l4": l4, "l5": l5}
+    paths = {f"observability_{k}": {"launches": r["launches"], "batches": r["batches"]}
+             for k, r in runs.items()}
+    summary = {"card": card,
+               "seconds": {k: round(v, 3) for k, v in secs.items()} | {
+                   "total": round(time.perf_counter() - t0, 3)}}
+    for k, r in runs.items():
+        summary[k] = {key: v for key, v in r.items() if key not in ("launches",)}
+    print(f"path l: l1 {OBS_FRAMES} frames traced with a flight recorder and /metrics scraped "
+          f"mid-run and after EOS ({l1['scrape_series']} series): {l1['fps_traced']:.1f} "
+          f"frames/s traced, {l1['fps_untraced']:.1f} untraced (host clock, one run each; "
+          f"under torch.profiler {l1['fps_traced_profiled']:.1f} and "
+          f"{l1['fps_untraced_profiled']:.1f}); the filter's proctime p50 "
+          f"{l1['proctime_us_p50']:.0f} us p99 {l1['proctime_us_p99']:.0f} us and latency_us "
+          f"{l1['latency_us']:.1f} per frame (host wall around the backend call: launch time) "
+          f"beside the direct call's {l1['direct_device_ms_per_frame'] * 1e3:.1f} us of device "
+          f"time per frame at 128; device-to-host copies {l1['d2h_copies']} of "
+          f"{l1['d2h_bytes']} bytes, traced as untraced, the labels' only (copies of no bytes, "
+          f"traced and untraced: {l1['d2h_empty_copies']}); on {card}")
+    print(f"path l: l2 trace=1 over {OBS_SHORT_FRAMES} frames: the Chrome trace names "
+          f"{l2['named']} of {l2['trace_kernels']} kernels, equal to the launch counters; "
+          f"l3 one dump {l3['dump']} with the stalled filter's open span (trace id "
+          f"{l3['trace_id']}, stuck {l3['stuck_for_ms']:.0f} ms) and threads {l3['threads']}; "
+          f"l4 output-combination=i0,o0: i0 the pushed frames, o0 the direct call's logits "
+          f"(max abs err {l4['max_abs_err']}), refusals {sorted(l4['refusals'])}; l5 SLO row "
+          f"{l5['slo']}; seconds {summary['seconds']}; on {card}")
+    return paths, summary
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -4325,9 +4804,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= {"i", "j", "k"}:
-        raise SystemExit(f"chip_smoke.py: --only takes i, j and k, not "
-                         f"{sorted(only - {'i', 'j', 'k'})}")
+    if not only <= {"i", "j", "k", "l"}:
+        raise SystemExit(f"chip_smoke.py: --only takes i, j, k and l, not "
+                         f"{sorted(only - {'i', 'j', 'k', 'l'})}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -4338,6 +4817,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "k" in only:
         print(json.dumps({"supervision": run_supervision(torch, np, lab, counters, args.seed,
                                                          card, work, labels)[1]}))
+    if "l" in only:
+        print(json.dumps({"observability": run_observability(torch, np, lab, counters,
+                                                             args.seed, card, work, labels)[1]}))
     print(card)
     return 0
 
@@ -4349,7 +4831,7 @@ def main() -> int:
     ap.add_argument("--prompts", type=int, default=16, help="1024-token prompts through GPT-2 small")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
-                    help="comma-separated paths to run alone after the kernel build: i, j, k "
+                    help="comma-separated paths to run alone after the kernel build: i, j, k, l "
                          "(prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
@@ -4450,6 +4932,10 @@ def main() -> int:
     supervision_paths, supervision = run_supervision(torch, np, lab, counters, args.seed, card,
                                                      work, labels)
     paths.update(supervision_paths)
+    torch.cuda.empty_cache()
+    observability_paths, observability = run_observability(torch, np, lab, counters, args.seed,
+                                                           card, work, labels)
+    paths.update(observability_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -4464,6 +4950,7 @@ def main() -> int:
     print(json.dumps({"prefix_cache": prefix.pop("summary")}))
     print(json.dumps({"model_files": files}))
     print(json.dumps({"supervision": supervision}))
+    print(json.dumps({"observability": observability}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -273,10 +273,10 @@ class DeviceBufferPool:
     counts the rings dropped).  ``trim()`` drops every free buffer (the
     memory-pressure relief valve); :func:`trim_staging_pools` trims every
     live pool of the process.  Thread-safe; ``allocated``/``reused`` are
-    exact under the lock."""
+    exact under the lock.  :func:`staging_pool_totals` sums every pool the
+    process made, the ``nns.pool.device_*`` series."""
 
-    __slots__ = ("_free", "_lock", "_max_per_key",
-                 "allocated", "reused", "rings_evicted", "trims", "__weakref__")
+    __slots__ = ("_free", "_lock", "_max_per_key", "_counts", "__weakref__")
 
     #: max distinct (shape, dtype, placement) rings kept live (LRU)
     MAX_KEYS = 32
@@ -285,11 +285,11 @@ class DeviceBufferPool:
         self._free: "OrderedDict[Tuple, List[np.ndarray]]" = OrderedDict()
         self._lock = threading.Lock()
         self._max_per_key = max(0, max_per_key)
-        self.allocated = 0
-        self.reused = 0
-        self.rings_evicted = 0
-        self.trims = 0
+        # allocated, reused, rings_evicted, trims: a list the process-wide
+        # totals keep once the pool is gone (staging_pool_totals)
+        self._counts = [0] * len(_POOL_COUNTS)
         _LIVE_POOLS.add(self)
+        weakref.finalize(self, _retire, self._counts)
 
     @staticmethod
     def _key(shape, dtype, placement=None) -> Tuple:
@@ -357,8 +357,52 @@ class DeviceBufferPool:
         return self.reused / total if total else 0.0
 
 
+
+def _count_property(i: int, doc: str) -> property:
+    def get(self) -> int:
+        return self._counts[i]
+
+    def set_(self, v: int) -> None:
+        self._counts[i] = v
+
+    return property(get, set_, doc=doc)
+
+
+for _i, (_name, _doc) in enumerate((("allocated", "staging buffers freshly allocated"),
+                                     ("reused", "staging buffers reused"),
+                                     ("rings_evicted", "rings dropped by the key-space LRU"),
+                                     ("trims", "memory-pressure trims"))):
+    setattr(DeviceBufferPool, _name, _count_property(_i, _doc))
+
+
 #: every live staging pool (each ingest lane owns one)
 _LIVE_POOLS: "weakref.WeakSet[DeviceBufferPool]" = weakref.WeakSet()
+_POOL_COUNTS = ("allocated", "reused", "rings_evicted", "trims")
+_RETIRED = [0] * len(_POOL_COUNTS)
+_RETIRED_LOCK = threading.Lock()
+
+
+def _retire(counts: List[int]) -> None:
+    """A closed lane's pool goes with it; its counts stay in the
+    process-wide totals, which are counters."""
+    with _RETIRED_LOCK:
+        for i, v in enumerate(counts):
+            _RETIRED[i] += v
+
+
+def staging_pool_totals() -> Dict[str, float]:
+    """The process's staging pools as one (the JAX package's single
+    ``DEVICE_POOL``): ``allocated``, ``reused``, ``rings_evicted`` and
+    ``trims`` summed over every pool the process made, and ``reuse_rate``.
+    Exported as the ``nns.pool.device_*`` series."""
+    with _RETIRED_LOCK:
+        out: Dict[str, float] = dict(zip(_POOL_COUNTS, _RETIRED))
+    for pool in list(_LIVE_POOLS):
+        for k, v in zip(_POOL_COUNTS, pool._counts):
+            out[k] += v
+    total = out["reused"] + out["allocated"]
+    out["reuse_rate"] = out["reused"] / total if total else 0.0
+    return out
 
 
 def trim_staging_pools() -> int:

@@ -350,6 +350,11 @@ class HostStagingLane:
                 for b in bufs:
                     self.pool.release(b, placement=self._placement)
 
+    def pending(self) -> int:
+        """Staging jobs queued and not yet taken by the lane thread."""
+        with self._cv:
+            return len(self._q)
+
     def close(self) -> None:
         """Stop the worker; queued jobs resolve with an error, never
         stranding a waiter."""

@@ -35,14 +35,14 @@ reads), and every counter exact.
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from .log import get_logger
 from .resilience import FAULTS, RemoteApplicationError
 
-log = logging.getLogger("nnstreamer_tpu_torch.lifecycle")
+log = get_logger("lifecycle")
 
 
 class ServerGoawayError(RemoteApplicationError):

@@ -25,15 +25,15 @@ Design rules (same as resilience.py):
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from .log import get_logger
 from .resilience import RemoteApplicationError, TransientError
 
-log = logging.getLogger("nnstreamer_tpu_torch.liveness")
+log = get_logger("liveness")
 
 
 class StallError(TransientError):
@@ -496,7 +496,8 @@ class MemoryPressureMonitor:
     host memory — memory the process can recreate; each returns the
     entries it freed); pressure SUSTAINED for
     ``sustain_s`` fires ``on_pressure(snapshot)`` once per
-    ``incident_interval_s`` (a flight recorder comes with ROADMAP A4.4).
+    ``incident_interval_s`` (``Pipeline.enable_memory_monitor`` routes it
+    into ``Pipeline.incident``, which dumps the flight recorder).
 
     ``sample``/``clock`` are injectable — tier-1 drives the whole ladder
     on fake samples with a fake clock."""

@@ -26,7 +26,6 @@ memory access, an unspecified launch failure, ...) become
 
 from __future__ import annotations
 
-import logging
 import random
 import threading
 import time
@@ -35,7 +34,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 import torch
 
-log = logging.getLogger("nnstreamer_tpu_torch.resilience")
+from .log import get_logger
+
+log = get_logger("resilience")
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +351,9 @@ class CircuitBreaker:
         self.half_open_max = max(1, int(half_open_max))
         self.name = name
         # observability hook: fired (outside the lock) each time the
-        # breaker transitions to OPEN — the query client routes it into
-        # the pipeline's flight recorder (Documentation/observability.md)
+        # breaker transitions to OPEN.  Its owner routes it into
+        # ``Pipeline.incident`` (a flight-recorder dump); the JAX package's
+        # owner is the query client, which the port gains with ROADMAP A13
         self._on_trip = on_trip
         self._clock = clock
         self._lock = threading.Lock()

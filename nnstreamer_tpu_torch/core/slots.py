@@ -60,7 +60,6 @@ tracking.
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from collections import OrderedDict
@@ -71,9 +70,10 @@ import torch
 
 from .continuity import PREFIX_GRAIN, prefix_digests
 from .liveness import DEADLINE_META, ThreadBeat
+from .log import get_logger
 from .resilience import DeviceLostError, DeviceOomError, device_call
 
-log = logging.getLogger("nnstreamer_tpu_torch.slots")
+log = get_logger("slots")
 
 #: terminal stream states
 DONE_STATES = ("done", "evicted", "cancelled")
@@ -271,7 +271,7 @@ class GenStream:
         "sid", "frame", "prompt", "prompt_dev", "max_new", "chunk", "tenant",
         "priority", "deadline_ts", "token_budget_s", "state", "slot",
         "prefill_pos", "gen", "pending", "pending_n", "chunk_index",
-        "tokens_out", "last_token_ts", "joined_ts", "evict_reason",
+        "tokens_out", "last_token_ts", "submitted_ts", "joined_ts", "evict_reason",
         # shared-prefix cache: the chain digests of the prompt's eligible
         # chunks, the pinned entries it attached (released with the slot),
         # and the next chunk index to publish as prefill crosses a boundary
@@ -301,6 +301,7 @@ class GenStream:
         self.chunk_index = 0
         self.tokens_out = 0               # tokens actually emitted
         self.last_token_ts = now
+        self.submitted_ts = now  # the TTFT origin
         self.joined_ts: Optional[float] = None  # when it took its slot
         self.evict_reason: Optional[str] = None
         self.prefix_digests: List[str] = []
@@ -450,7 +451,8 @@ class SlotEngine:
                  clock: Callable[[], float] = time.monotonic,
                  name: str = "slots",
                  prefix_cache: Optional[PrefixCache] = None,
-                 on_device_lost: Optional[Callable[..., Any]] = None):
+                 on_device_lost: Optional[Callable[..., Any]] = None,
+                 slo=None):
         self.model = model
         self.slots = int(model.slots)
         self.device = torch.device(model.device)
@@ -476,6 +478,11 @@ class SlotEngine:
         # device loss (None: recovered in place); without a hook, or when
         # it raises, the loss is sticky and supervision restarts the element
         self.on_device_lost = on_device_lost
+        # per-stream SLO accounting (telemetry.SloTracker): one TTFT at the
+        # first-token pick, one record_n per decode call, one outcome per
+        # finished stream, all on the pump thread (the tracker's single
+        # writer); None costs nothing
+        self.slo = slo
 
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)       # pump wakeups
@@ -633,6 +640,7 @@ class SlotEngine:
                 "gen_decode_steps": self.decode_steps,
                 "gen_prefill_chunks": self.prefill_chunks,
                 "gen_tokens_per_step": round(self.tokens_per_step, 3),
+                "gen_jit_buckets": len(self._prefill_lru) + len(self._decode_lru),
                 "gen_oom_retries": self.oom_retries,
                 "gen_oom_sheds": self.oom_sheds,
                 "gen_device_lost": self.device_lost,
@@ -768,12 +776,20 @@ class SlotEngine:
         s.state = state
         if state == "done":
             self.completions += 1
+            self._slo_stream(s, "good")
             self._emit_terminal(s)
         elif state == "evicted":
             self.evictions += 1
+            # typed expiry (deadline or pace): the SLO ledger counts it
+            # expired, never goodput
+            self._slo_stream(s, "expired")
             self._emit_terminal(s, extra_meta=extra_meta or {})
         # cancelled: the consumer is gone — nothing to emit
         self._free_slot(s)
+
+    def _slo_stream(self, s: GenStream, outcome: str) -> None:
+        if self.slo is not None:
+            self.slo.note_stream(s.tenant, outcome)
 
     def _sweep_deadlines(self, now: float) -> None:
         """Evict streams whose request deadline is blown, waiting ones
@@ -895,6 +911,8 @@ class SlotEngine:
         self._waiting = [w for w in self._waiting if w.state != "cancelled"]
         for s in list(self._streams.values()):
             if s.state == "cancelled":
+                # classified here, on the pump thread, once per stream
+                self._slo_stream(s, "evicted")
                 self._free_slot(s)
 
     def _join_waiting(self, now: float) -> List[GenStream]:
@@ -1031,6 +1049,10 @@ class SlotEngine:
                         s.token_budget_s > 0.0
                         and (now - s.last_token_ts) / k > s.token_budget_s
                     )
+                    # SLO per-token inter-arrival: the call's k tokens as k
+                    # observations of the same pace (one bucket increment)
+                    if self.slo is not None:
+                        self.slo.note_tokens(s.tenant, max(0.0, now - s.last_token_ts), k)
                     s.last_token_ts = now
                     s.pending.append(row.astype(np.int32))
                     s.pending_n += k
@@ -1075,6 +1097,8 @@ class SlotEngine:
         self._gen_vec[s.slot] = 1
         t1_host = int(t1[0])
         now = self.clock()
+        if self.slo is not None:  # one TTFT per first token
+            self.slo.note_ttft(s.tenant, max(0.0, now - s.submitted_ts))
         with self._lock:
             s.prompt_dev = None
             if s.finished:  # cancelled during prefill

@@ -16,7 +16,7 @@ import math
 import struct
 from dataclasses import dataclass, replace
 from fractions import Fraction
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -266,6 +266,10 @@ class StreamSpec:
                 raise ValueError("dimensions/types count mismatch")
             tensors = tuple(TensorSpec(d, t) for d, t in zip(dims, types))
         return cls(tensors, fields.get("format", FORMAT_STATIC), fr)
+
+    def pick(self, indices: Iterable[int]) -> "StreamSpec":
+        """Subset/reorder tensors (``input-combination`` semantics)."""
+        return replace(self, tensors=tuple(self.tensors[i] for i in indices))
 
 
 # Wildcard schema: matches anything (reference: ANY caps).

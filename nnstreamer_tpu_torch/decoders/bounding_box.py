@@ -27,12 +27,12 @@ so only the surviving top-K boxes (3 KB a frame) leave the card.
 
 from __future__ import annotations
 
-import logging
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..core.buffer import TensorFrame, materialize
+from ..core.log import get_logger
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
 from . import util
 
@@ -160,7 +160,7 @@ class BoundingBoxes:
         out.meta["boxes"] = boxes_meta
         out.meta["box_mode"] = self.mode
         if self.log and boxes_meta:
-            logging.getLogger("nnstreamer_tpu_torch.decoder.bounding_boxes").info(
+            get_logger("decoder.bounding_boxes").info(
                 "bounding_boxes[%s]: %d detections", self.mode, len(boxes_meta))
         return out
 

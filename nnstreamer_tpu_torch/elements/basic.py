@@ -139,6 +139,11 @@ class AppSrc(SourceElement):
         """Logical frames pushed but not yet handed to the scheduler."""
         return max(0, self._pushed - self._popped)
 
+    def health_info(self) -> dict:
+        """Ingest-buffer depth merged into ``Pipeline.health()`` (and the
+        registry as ``nns.source.pending``)."""
+        return {"pending_frames": self.pending_frames()}
+
     def frames(self) -> Iterator[TensorFrame]:
         while True:
             try:
@@ -219,9 +224,16 @@ class TensorSink(SinkElement):
         super().__init__(name)
         self.frames: List[TensorFrame] = []
         self._callbacks: List[Callable[[TensorFrame], None]] = []
+        # logical frames rendered (single writer: the sink's thread)
+        self._rendered = 0
 
     def connect_new_data(self, cb: Callable[[TensorFrame], None]) -> None:
         self._callbacks.append(cb)
+
+    def health_info(self) -> dict:
+        """Delivery counter merged into ``Pipeline.health()`` (and the
+        registry as ``nns.sink.rendered``)."""
+        return {"rendered_frames": self._rendered}
 
     def render(self, frame: TensorFrame) -> None:
         if isinstance(frame, BatchFrame) and self.props["split-batches"]:
@@ -232,6 +244,7 @@ class TensorSink(SinkElement):
             return
         if self.props["to-host"]:
             frame = frame.to_host()
+        self._rendered += getattr(frame, "batch_size", 1)
         self.frames.append(frame)
         limit = self.props["max-stored"]
         if limit and len(self.frames) > limit:

@@ -11,6 +11,8 @@ register under registry kind "decoder" with the contract::
 
 and, to be fusable, a device half ``device_fn`` (runs inside the upstream
 filter's backend call) with its host finisher ``decode_fused``.
+``config-file`` names a key=value file whose lines become properties
+(properties set explicitly win).
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ class TensorDecoder(TransformElement):
             f"option{i}": Property(str, "", f"mode-specific option {i}")
             for i in range(1, _N_OPTIONS + 1)
         },
+        "config-file": Property(
+            str, "", "key=value file applied as properties (explicit pipeline-text "
+            "properties win)"),
         "device-fused": Property(
             str, "auto",
             "auto = let the pipeline fold this decoder's device half into the "
@@ -67,6 +72,7 @@ class TensorDecoder(TransformElement):
 
     def start(self):
         self._fused = False  # re-fused (or not) by the pass on every start
+        self._apply_config_file()
         mode = self.props["mode"]
         if not mode:
             raise ElementError(f"{self.name}: decoder requires mode=")

@@ -41,13 +41,33 @@ fused device half to every new backend.  The ingest lane is refused under
 ``error-policy=skip|restart`` and ``stall-policy=restart``: its one-batch
 deferral would charge a failure to the wrong frames.
 
-Not ported (ROADMAP A4.3b): ``input-combination``/``output-combination``,
-manual model info, ``invoke-dynamic``, ``latency`` and ``throughput``.
+Model I/O (the JAX filter's properties): ``input-combination`` picks and
+orders the tensors handed to the model, ``output-combination`` composes
+each output frame from ``iN`` (the frame's own input tensors, as the
+filter received them, never a staging buffer) and ``oN`` (model outputs);
+manual model info (``input``/``input-type``/``inputname``/``inputranks``,
+the output side, ``inputlayout``/``outputlayout``) declares or checks
+the model's schemas; ``invoke-dynamic`` advertises a flexible output
+stream and is per-frame; ``config-file`` applies a key=value file.
+``batch-through`` with ``output-combination`` is refused, and the fusion
+pass skips a filter with ``output-combination`` or ``invoke-dynamic``.
+
+Telemetry: ``latency``/``throughput``/``latency-report`` measure the
+host's wall time around the backend call (on the card, with the dispatch
+window, that is launch time, not model time); ``metrics_info`` and
+``histograms_info`` feed the metrics registry (invokes, the dispatch
+window and the ingest lane); ``trace=1`` holds the process's
+``torch.profiler`` session (``core/profiler.py``) from ``start()`` to
+``stop()``, whose last holder writes a Chrome trace into ``trace-dir``.
+``mesh`` (a serving mesh) is not ported: set, it raises naming ROADMAP
+A11.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,9 +85,20 @@ from ..core.buffer import (
 )
 from ..core.feed import CompletionWindow, HostStagingLane, StagedBatch
 from ..core.lifecycle import HotSwapCoordinator, SwapTicket
+from ..core.liveness import thread_census
 from ..core.model_uri import resolve_model_uri
+from ..core.profiler import trace_start, trace_stop
 from ..core.resilience import FAULTS, DeviceLostError, DeviceOomError
-from ..core.types import ANY, StreamSpec
+from ..core.telemetry import TL_INVOKE_META, TL_RX_META
+from ..core.types import (
+    ANY,
+    FORMAT_FLEXIBLE,
+    FORMAT_STATIC,
+    StreamSpec,
+    TensorSpec,
+    dtype_from_name,
+    parse_dims_string,
+)
 from ..pipeline.element import ElementError, Property, TransformElement, element
 
 
@@ -106,13 +137,33 @@ def _concat(pieces: List[Any]):
     return pieces[0] if len(pieces) == 1 else concat_tensors(pieces, 0)
 
 
-def _batched_tensors(frames: Sequence[TensorFrame]) -> List[Any]:
+def _parse_combination(text: str) -> Optional[List[Tuple[str, int]]]:
+    """Parse "0,2" / "i0,o1" combination strings into (src, idx) pairs;
+    a bare index is tagged "" (the input side for input-combination, the
+    output side for output-combination)."""
+    if not text:
+        return None
+    out = []
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if part[0] in ("i", "o"):
+            out.append((part[0], int(part[1:])))
+        else:
+            out.append(("", int(part)))
+    return out or None
+
+
+def _batched_tensors(frames: Sequence[TensorFrame],
+                     select: Optional[List[int]] = None) -> List[Any]:
     """ONE batched tensor list for a mixed plain/BatchFrame list: plain
-    frames gain a length-1 batch axis, blocks pass through."""
-    pieces = [
-        list(f.tensors) if isinstance(f, BatchFrame) else [t[None] for t in f.tensors]
-        for f in frames
-    ]
+    frames gain a length-1 batch axis, blocks pass through.  ``select``
+    narrows to the given tensor indices (input-combination)."""
+    pieces = []
+    for f in frames:
+        tens = [f.tensors[i] for i in select] if select is not None else list(f.tensors)
+        pieces.append(tens if isinstance(f, BatchFrame) else [t[None] for t in tens])
     return [_concat([p[t] for p in pieces]) for t in range(len(pieces[0]))]
 
 
@@ -171,6 +222,31 @@ class TensorFilter(TransformElement):
         "rollback-error-burst": Property(
             int, 3, "invoke errors within observation-window that roll a hot swap back"),
         "shared-tensor-filter-key": Property(str, "", "share one backend instance"),
+        # not ported: set, it raises at start() naming the ROADMAP item
+        "mesh": Property(str, "", "serve the model sharded across a device mesh (not ported: "
+                         "ROADMAP A11)"),
+        "input-combination": Property(str, "", "subset/reorder input tensors, e.g. '0,2'"),
+        "output-combination": Property(str, "", "compose output from 'iN'/'oN' tensors"),
+        "latency": Property(int, 0, "1 = enable per-invoke latency measurement"),
+        "throughput": Property(int, 0, "1 = enable throughput measurement"),
+        "latency-report": Property(int, 0, "1 = post latency bus messages"),
+        "invoke-dynamic": Property(bool, False, "output schema varies per buffer"),
+        # manual model-info override: declare or check the I/O schemas
+        "input": Property(str, "", "manual input dims 'd:d:d[,d:d]' (reference dialect)"),
+        "input-type": Property(str, "", "manual input element types 't[,t]'"),
+        "inputname": Property(str, "", "manual input tensor names"),
+        "inputranks": Property(str, "", "true ranks of manual input dims"),
+        "output": Property(str, "", "manual output dims (validated/declared)"),
+        "output-type": Property(str, "", "manual output element types"),
+        "outputname": Property(str, "", "manual output tensor names"),
+        "outputranks": Property(str, "", "true ranks of manual output dims"),
+        "inputlayout": Property(str, "", "NCHW|NHWC|ANY per input (recorded; declarative)"),
+        "outputlayout": Property(str, "", "NCHW|NHWC|ANY per output (recorded; declarative)"),
+        "config-file": Property(
+            str, "", "key=value file applied as properties (explicit pipeline-text "
+            "properties win)"),
+        "trace": Property(int, 0, "1 = capture a torch.profiler trace while running"),
+        "trace-dir": Property(str, "/tmp/nns_tpu_trace", "profiler output dir"),
     }
 
     def __init__(self, name=None):
@@ -207,6 +283,19 @@ class TensorFilter(TransformElement):
         self._remeshes = 0        # backends rebuilt on surviving devices
         self._degraded = False    # serving in a reduced configuration
         self._exclude: Tuple[int, ...] = ()  # ordinals found dead
+        # latency/throughput properties: the last 10 invokes' per-frame µs
+        self._latency_ring: deque = deque(maxlen=10)
+        self._nframes = 0
+        self._t_first: Optional[float] = None
+        self._t_last: Optional[float] = None
+        self._invoked_frames = 0
+        # handler-entry stamp: the trace span's dispatch segment starts here
+        self._t_handler = 0.0
+        # combination properties, parsed once at start()
+        self._in_comb: Optional[List[Tuple[str, int]]] = None
+        self._out_comb: Optional[List[Tuple[str, int]]] = None
+        self._out_needs_inputs = False
+        self._tracing = False  # holds a torch.profiler session reference
 
     @property
     def batch_through_active(self) -> bool:
@@ -215,11 +304,13 @@ class TensorFilter(TransformElement):
     # -- device fusion (pipeline pass) --------------------------------------
     @property
     def can_fuse_postprocess(self) -> bool:
-        """A private, postprocess-capable backend: a shared one serves
-        every filter on its key, so no one filter's decoder half may be
-        folded into it."""
+        """A private, postprocess-capable backend (a shared one serves every
+        filter on its key, so no one filter's decoder half may be folded
+        into it), and no combination or dynamic output that would change
+        what the postprocess sees."""
         return (self.backend is not None and hasattr(self.backend, "append_postprocess")
-                and self._owns_backend)
+                and self._owns_backend and not self.props["invoke-dynamic"]
+                and not self._out_comb)
 
     def fuse_device_postprocess(self, fn) -> None:
         """Fold ``fn`` (operates on the model's output list, on device) into
@@ -270,7 +361,135 @@ class TensorFilter(TransformElement):
             be.append_postprocess(fn)
         return be
 
+    # -- manual model info ---------------------------------------------------
+    @staticmethod
+    def _apply_rank(shape: tuple, rank: int) -> tuple:
+        """Trim/pad OUTERMOST (numpy-leading) unit dims so the shape has the
+        declared true rank (inputranks/outputranks)."""
+        shape = tuple(shape)
+        while len(shape) > rank:
+            if shape[0] not in (1, None):
+                raise ElementError(
+                    f"cannot reduce shape {shape} to rank {rank}: leading "
+                    f"dim {shape[0]} != 1")
+            shape = shape[1:]
+        while len(shape) < rank:
+            shape = (1,) + shape
+        return shape
+
+    def _manual_spec(self, side: str) -> Optional[StreamSpec]:
+        """The manual model-info override of 'input' or 'output' from the
+        reference-dialect properties, or None when not configured."""
+        dims_text = self.props[side]
+        types_text = self.props[f"{side}-type"]
+        if not dims_text and not types_text:
+            return None
+        if not dims_text or not types_text:
+            raise ElementError(f"{self.name}: {side} and {side}-type must be given together")
+        dims = [d for d in dims_text.split(",") if d.strip()]
+        types = [t.strip() for t in types_text.split(",") if t.strip()]
+        if len(dims) != len(types):
+            raise ElementError(
+                f"{self.name}: {side} declares {len(dims)} tensors but "
+                f"{side}-type declares {len(types)}")
+        names_key = "inputname" if side == "input" else "outputname"
+        ranks_key = "inputranks" if side == "input" else "outputranks"
+        names = self.props[names_key].split(",") if self.props[names_key] else []
+        ranks = ([int(r) for r in self.props[ranks_key].split(",") if r.strip()]
+                 if self.props[ranks_key] else [])
+        specs = []
+        for i, (d, t) in enumerate(zip(dims, types)):
+            try:
+                shape = parse_dims_string(d)
+                if i < len(ranks):
+                    shape = self._apply_rank(shape, ranks[i])
+                spec = TensorSpec(shape, dtype_from_name(t),
+                                  names[i].strip() if i < len(names) else "")
+            except (ValueError, ElementError) as e:
+                raise ElementError(f"{self.name}: {side}[{i}]: {e}") from None
+            specs.append(spec)
+        return StreamSpec(tuple(specs), FORMAT_STATIC, None)
+
+    @staticmethod
+    def _as_stream_spec(s) -> Optional[StreamSpec]:
+        """A backend model-info value (None | StreamSpec) as a StreamSpec,
+        or None when empty or unknown."""
+        if s is None:
+            return None
+        return s if s.tensors else None
+
+    _LAYOUTS = ("", "none", "any", "nchw", "nhwc")
+
+    def _check_layouts(self) -> None:
+        for key in ("inputlayout", "outputlayout"):
+            for i, lay in enumerate(x.strip().lower() for x in self.props[key].split(",")
+                                    if x.strip()):
+                if lay not in self._LAYOUTS:
+                    raise ElementError(
+                        f"{self.name}: {key}[{i}]: unknown layout {lay!r} "
+                        f"(want NCHW|NHWC|ANY|NONE); note PyTorch owns physical "
+                        "layout on the card — this prop is declarative")
+
+    def _apply_manual_info(self) -> None:
+        """Manual model info against the backend's (start(), after open):
+        an input override declares the input of a model that cannot infer
+        it, or reshapes one that can (``set_input_info``); an output
+        override declares or must match the model's output."""
+        in_override = self._manual_spec("input")
+        out_override = self._manual_spec("output")
+        fw = self.props["framework"]
+        if in_override is not None:
+            if not self._owns_backend:
+                raise ElementError(
+                    f"{self.name}: manual input override is incompatible with "
+                    "shared-tensor-filter-key (set it on a non-shared filter)")
+            model_in = self._as_stream_spec(self._model_in)
+            if model_in is None:
+                self._model_in = in_override
+                try:
+                    derived = self.backend.set_input_info(in_override)
+                    if self._as_stream_spec(derived) is not None:
+                        self._model_out = derived
+                except NotImplementedError:
+                    pass
+            elif not in_override.is_compatible(model_in):
+                try:
+                    self._model_out = self.backend.set_input_info(in_override)
+                except NotImplementedError:
+                    raise ElementError(
+                        f"{self.name}: input={self.props['input']} conflicts with the "
+                        f"model's declared input and backend {fw!r} cannot reshape") from None
+                self._model_in = in_override
+        if out_override is not None:
+            model_out = self._as_stream_spec(self._model_out)
+            if model_out is None:
+                self._model_out = out_override
+            elif not out_override.is_compatible(model_out):
+                raise ElementError(
+                    f"{self.name}: output={self.props['output']}/"
+                    f"{self.props['output-type']} does not match the "
+                    f"model's output "
+                    f"{tuple((t.shape, str(t.dtype)) for t in model_out.tensors)}")
+
     def start(self) -> None:
+        self._apply_config_file()
+        self._check_layouts()
+        self._tracing = False
+        self._in_comb = _parse_combination(self.props["input-combination"])
+        self._out_comb = _parse_combination(self.props["output-combination"])
+        # constant per run: does output-combination read any INPUT tensor?
+        self._out_needs_inputs = self._out_comb is not None and any(
+            src == "i" for src, _ in self._out_comb)
+        if self.props["batch-through"] and self._out_comb:
+            # the BatchFrame fast path bypasses _compose_outputs
+            raise ElementError(
+                f"{self.name}: batch-through=true is incompatible with output-combination")
+        if self.props["invoke-dynamic"] and int(self.props["max-batch"]) > 1:
+            raise ElementError(
+                f"{self.name}: invoke-dynamic is per-frame (incompatible with max-batch>1)")
+        if self.props["mesh"]:
+            raise ElementError(
+                f"{self.name}: mesh= is not ported to nnstreamer_tpu_torch yet (ROADMAP A11)")
         # a restart within a run keeps the fusion the pass decided
         self._auto_batch_through = bool(self._fused_posts) and self._auto_batch_through
         lane_mode = str(self.props["ingest-lane"] or "auto").lower()
@@ -287,6 +506,11 @@ class TensorFilter(TransformElement):
             self._owns_backend = True
         self.backend = be
         self._model_in, self._model_out = be.get_model_info()
+        try:
+            self._apply_manual_info()
+        except ElementError:
+            self.stop()
+            raise
         if self._fused_posts:
             self._model_out = None  # the fused schema is derived
         self._derived = {}
@@ -321,6 +545,10 @@ class TensorFilter(TransformElement):
             raise ElementError(
                 f"{self.name}: ingest-lane=on requires max-batch>1 "
                 "(staging overlaps per-micro-batch copies)")
+        # trace only once the backend is open: a start() that failed must
+        # not hold a profiler reference (the pipeline never stops it then)
+        if self.props["trace"]:
+            self._tracing = trace_start(self.props["trace-dir"])
 
     def stop(self) -> None:
         """Join the lane and reaper threads and drop every backend this
@@ -333,6 +561,9 @@ class TensorFilter(TransformElement):
             self._lane = None
         if self._swapper is not None:
             self._swapper.close()  # its lifetime counters survive
+        if self._tracing:
+            trace_stop()
+            self._tracing = False
         if self.backend is not None:
             key = self.props["shared-tensor-filter-key"]
             if _shared_release(key) if key else True:
@@ -340,22 +571,104 @@ class TensorFilter(TransformElement):
             self.backend = None
 
     # -- negotiation --------------------------------------------------------
+    def _input_for_backend(self, spec: StreamSpec) -> StreamSpec:
+        comb = (self._in_comb if self.backend is not None
+                else _parse_combination(self.props["input-combination"]))
+        if comb:
+            return spec.pick([i for _, i in comb])
+        return spec
+
     def accept_spec(self, pad, spec):
-        if self._model_in is not None and spec.tensors and not self._model_in.is_compatible(spec):
-            raise ElementError(
-                f"{self.name}: stream schema {spec.to_string()} does not match "
-                f"model input {self._model_in.to_string()}")
+        if self._model_in is not None and spec.tensors:
+            got = self._input_for_backend(spec)
+            if not self._model_in.is_compatible(got):
+                raise ElementError(
+                    f"{self.name}: stream schema {got.to_string()} does not match "
+                    f"model input {self._model_in.to_string()}")
         return spec
 
     def derive_spec(self, pad=0):
-        if self._model_out is not None:
-            return self._model_out
         in_spec = self.sink_specs.get(0, ANY)
-        if self.backend is not None and in_spec.tensors:
+        if self.props["invoke-dynamic"]:
+            # per-buffer output schemas: a flexible stream, negotiated late
+            return StreamSpec((), FORMAT_FLEXIBLE, in_spec.framerate)
+        if self._model_out is not None:
+            out = self._model_out
+        elif self.backend is not None and in_spec.tensors:
             if in_spec not in self._derived:
-                self._derived[in_spec] = self.backend.set_input_info(in_spec)
-            return self._derived[in_spec]
-        return ANY
+                self._derived[in_spec] = self.backend.set_input_info(
+                    self._input_for_backend(in_spec))
+            out = self._derived[in_spec]
+        else:
+            return ANY
+        comb = self._out_comb
+        if comb:
+            # 'iN' indexes the ORIGINAL input tensors (before input-combination)
+            tensors = [in_spec.tensors[i] if src == "i" else out.tensors[i] for src, i in comb]
+            out = StreamSpec(tuple(tensors), out.fmt, in_spec.framerate or out.framerate)
+        return out
+
+    # -- telemetry ------------------------------------------------------------
+    def _compose_outputs(self, orig_inputs: List[Any], outputs: List[Any]) -> List[Any]:
+        comb = self._out_comb
+        if not comb:
+            return outputs
+        return [orig_inputs[i] if src == "i" else outputs[i] for src, i in comb]
+
+    def _record_stats(self, dt_s: float, nframes: int) -> None:
+        """One backend call of ``nframes`` logical frames took ``dt_s`` of
+        host wall time (on the card: the launches, not the model's device
+        time)."""
+        self.invokes += 1
+        self._invoked_frames += nframes
+        if self.props["latency"]:
+            self._latency_ring.append(dt_s * 1e6 / max(nframes, 1))
+            if self.props["latency-report"] and self._pipeline is not None:
+                from ..pipeline.pipeline import BusMessage
+
+                self._pipeline.post(BusMessage(
+                    "element", self.name, {"latency-us": self.latency_us, "batch": nframes}))
+        if self.props["throughput"]:
+            t = time.monotonic()
+            if self._t_first is None:
+                self._t_first = t
+            self._t_last = t
+            self._nframes += nframes
+
+    @property
+    def latency_us(self) -> float:
+        """Average per-frame invoke latency of the last 10 invokes, µs: the
+        host's wall time around the backend call."""
+        return float(np.mean(self._latency_ring)) if self._latency_ring else 0.0
+
+    @property
+    def throughput_fps(self) -> float:
+        """Outputs/sec since start."""
+        if not self._nframes or self._t_first is None or self._t_last == self._t_first:
+            return 0.0
+        return self._nframes / (self._t_last - self._t_first)
+
+    @staticmethod
+    def _stamp_invoke_spans(frames: Sequence[TensorFrame], dispatch_s: float,
+                            compute_s: float) -> None:
+        """Frames that carry a server receive stamp (``TL_RX_META``) get this
+        invoke's (dispatch, compute) host durations; one dict probe per
+        invoke for a stream that never crossed a wire."""
+        probe = frames[0]
+        m0 = (probe.frames_info[0][2] if isinstance(probe, BatchFrame) and probe.frames_info
+              else probe.meta)
+        if TL_RX_META not in m0:
+            return
+        span = (max(0.0, dispatch_s), max(0.0, compute_s))
+        for f in frames:
+            if isinstance(f, BatchFrame):
+                for _, _, m in f.frames_info:
+                    if TL_RX_META in m:
+                        m[TL_INVOKE_META] = span
+                if TL_RX_META in f.meta:
+                    f.meta[TL_INVOKE_META] = span
+            elif TL_RX_META in f.meta:
+                f.meta[TL_INVOKE_META] = span
 
     # -- processing ---------------------------------------------------------
     def pending_frames(self) -> int:
@@ -372,16 +685,23 @@ class TensorFilter(TransformElement):
         sw = self._swapper
         if sw is not None and sw.has_boundary_work and not len(self._inflight):
             self._swap_tick()  # nothing parked: the drained results are empty
+        comb = self._in_comb
+        inputs = [frame.tensors[i] for _, i in comb] if comb else list(frame.tensors)
         if FAULTS.is_armed():
             FAULTS.check("filter.invoke", interrupt=lambda: self.interrupted)
+        t0 = time.perf_counter()
         # a pre-batched block on the per-frame path: its batch axis still
         # means "batch", and the block stays whole
         if isinstance(frame, BatchFrame):
-            out = self._resilient_invoke_batch(list(frame.tensors))
+            out = self._resilient_invoke_batch(inputs)
+            dt = time.perf_counter() - t0
+            self._record_stats(dt, frame.batch_size)
         else:
-            out = self._resilient_invoke(list(frame.tensors))
-        self.invokes += 1
-        return frame.with_tensors(out)
+            out = self._resilient_invoke(inputs)
+            dt = time.perf_counter() - t0
+            self._record_stats(dt, 1)
+        self._stamp_invoke_spans((frame,), 0.0, dt)
+        return frame.with_tensors(self._compose_outputs(frame.tensors, out))
 
     def handle_frame_batch(
         self, pad: int, frames: List[TensorFrame]
@@ -399,6 +719,7 @@ class TensorFilter(TransformElement):
 
     def _handle_batch(self, pad: int, frames: List[TensorFrame]
                       ) -> List[Tuple[int, TensorFrame]]:
+        self._t_handler = time.perf_counter()
         if any(isinstance(f, BatchFrame) for f in frames):
             # block ingest: the batch axis already exists; a staged lane
             # batch is older, so it goes first
@@ -410,36 +731,45 @@ class TensorFilter(TransformElement):
             results.extend(self._drain_inflight())
             results.append((0, self.transform(frames[0])))
             return results
+        comb = self._in_comb
+        select = [i for _, i in comb] if comb else None
         if self._lane is not None and type(frames[0].tensors[0]) is np.ndarray:
             # host ingest: stacking and the copy to the device move to the
             # lane thread, and dispatch is DEFERRED BY ONE BATCH: by the time
             # batch k's device tensors are needed, its copy has overlapped
-            # batch k-1's compute
-            job = self._lane.submit([list(f.tensors) for f in frames])
+            # batch k-1's compute.  The staging buffer holds the model's
+            # inputs only: output-combination reads the frames themselves
+            job = self._lane.submit([
+                [f.tensors[i] for i in select] if select is not None else list(f.tensors)
+                for f in frames])
             prev, self._staged = self._staged, (job, frames)
             if prev is None:
                 return []
             return self._run_batch(self._staged_result(prev[0]), prev[1])
         results = self._flush_staged()  # a mixed stream keeps FIFO
-        results.extend(self._run_batch(_batched_tensors(frames), frames))
+        results.extend(self._run_batch(_batched_tensors(frames, select), frames))
         return results
 
     def _handle_prebatched(self, frames: List[TensorFrame]) -> List[Tuple[int, TensorFrame]]:
         """Frames that carry a batch axis (possibly mixed with plain ones):
         one concatenation, chunked so max-batch keeps bounding the invoke's
         batch axis."""
-        batched = _batched_tensors(frames)
+        comb = self._in_comb
+        batched = _batched_tensors(frames, [i for _, i in comb] if comb else None)
         infos = _logical_infos(frames)
         mb = max(1, int(self.props["max-batch"]))
         if len(infos) <= mb:
             return self._run_batch(batched, frames)
+        # 'iN' entries index the ORIGINAL input tensors: when
+        # input-combination narrowed `batched`, the chunks carry the originals
+        carry = _batched_tensors(frames) if self._out_needs_inputs and comb else batched
         results = []
         for k in range(0, len(infos), mb):
             cinfos = infos[k:k + mb]
             chunk = BatchFrame(
-                tensors=[t[k:k + mb] for t in batched], pts=cinfos[0][0],
+                tensors=[t[k:k + mb] for t in carry], pts=cinfos[0][0],
                 duration=cinfos[0][1], meta=dict(cinfos[0][2]), frames_info=list(cinfos))
-            results.extend(self._run_batch(chunk.tensors, [chunk]))
+            results.extend(self._run_batch([t[k:k + mb] for t in batched], [chunk]))
         return results
 
     def _run_batch(
@@ -450,8 +780,11 @@ class TensorFilter(TransformElement):
         splits it) or the dispatch window."""
         if FAULTS.is_armed():
             FAULTS.check("filter.invoke", interrupt=lambda: self.interrupted)
+        t0 = time.perf_counter()
         out_b = self._resilient_invoke_batch(batched)
-        self.invokes += 1
+        dt = time.perf_counter() - t0
+        self._record_stats(dt, sum(getattr(f, "batch_size", 1) for f in frames))
+        self._stamp_invoke_spans(frames, t0 - self._t_handler if self._t_handler else 0.0, dt)
         if self.batch_through_active:
             infos = _logical_infos(frames)
             p, d, m = infos[0]
@@ -487,14 +820,37 @@ class TensorFilter(TransformElement):
         # synchronous: batches parked while the window was active go first
         return self._drain_inflight() + self._emit_batch(materialize(out_b), frames)
 
-    @staticmethod
-    def _emit_batch(out_np: List[np.ndarray], frames: List[TensorFrame]
+    def _emit_batch(self, out_np: List[np.ndarray], frames: List[TensorFrame]
                     ) -> List[Tuple[int, TensorFrame]]:
-        """One frame per logical input frame, each a view of its rows."""
-        return [
-            (0, TensorFrame([o[b] for o in out_np], pts=p, duration=d, meta=dict(m)))
-            for b, (p, d, m) in enumerate(_logical_infos(frames))
-        ]
+        """One frame per logical input frame, each a view of its rows.
+        With output-combination, an ``iN`` entry is the frame's own input
+        tensor as the filter received it (a block's rows come to the host
+        with the outputs), never the staging buffer the lane recycles."""
+        if not self._out_comb:
+            return [
+                (0, TensorFrame([o[b] for o in out_np], pts=p, duration=d, meta=dict(m)))
+                for b, (p, d, m) in enumerate(_logical_infos(frames))
+            ]
+        need_idx = sorted({i for src, i in self._out_comb if src == "i"})
+        results = []
+        b = 0
+        for f in frames:
+            if isinstance(f, BatchFrame):
+                ins: List[Any] = [None] * len(f.tensors)
+                if need_idx:
+                    for i, m in zip(need_idx, materialize([f.tensors[i] for i in need_idx])):
+                        ins[i] = m
+                for j, (p, d, m) in enumerate(f.frames_info):
+                    outs = self._compose_outputs(
+                        [t[j] if t is not None else None for t in ins],
+                        [o[b + j] for o in out_np])
+                    results.append((0, TensorFrame(outs, pts=p, duration=d, meta=dict(m))))
+                b += f.batch_size
+            else:
+                outs = [o[b] for o in out_np]
+                results.append((0, f.with_tensors(self._compose_outputs(f.tensors, outs))))
+                b += 1
+        return results
 
     def _pop_ready(self) -> List[Tuple[int, TensorFrame]]:
         results: List[Tuple[int, TensorFrame]] = []
@@ -618,16 +974,18 @@ class TensorFilter(TransformElement):
         model info the element adopts at swap time."""
         raw_in, raw_out = be.get_model_info()
         negotiated = self.sink_specs.get(0)
-        if (negotiated is not None and negotiated.tensors and raw_in is not None
-                and not raw_in.is_compatible(negotiated)):
+        got = (self._input_for_backend(negotiated)
+               if negotiated is not None and negotiated.tensors else None)
+        if got is not None and raw_in is not None and not raw_in.is_compatible(got):
             raise ElementError(
                 f"{self.name}: staged model input {raw_in.to_string()} does not accept the "
-                f"negotiated stream {negotiated.to_string()}")
+                f"negotiated stream {got.to_string()}")
         new_out = None if self._fused_posts else raw_out
-        if new_out is None and negotiated is not None and negotiated.tensors:
-            new_out = be.set_input_info(negotiated)
+        if new_out is None and got is not None:
+            new_out = be.set_input_info(got)
         cur_out = self.srcpads[0].spec if self.srcpads else None
         if (new_out is not None and cur_out is not None and cur_out.tensors
+                and not self.props["invoke-dynamic"] and not self._out_comb
                 and not cur_out.is_compatible(new_out)):
             raise ElementError(
                 f"{self.name}: staged model output {new_out.to_string()} does not match "
@@ -638,7 +996,9 @@ class TensorFilter(TransformElement):
         """A zero frame of the negotiated (else the model's) input schema;
         None when neither is static."""
         spec = self.sink_specs.get(0)
-        if spec is None or not spec.tensors:
+        if spec is not None and spec.tensors:
+            spec = self._input_for_backend(spec)
+        else:
             spec = be.get_model_info()[0]
         if spec is None or not spec.tensors or not spec.is_static:
             return None
@@ -843,7 +1203,34 @@ class TensorFilter(TransformElement):
             "remeshes": self._remeshes,
             "degraded": 1 if (self._degraded or (
                 self.backend is not None and self.backend.degraded)) else 0,
+            # the torch.profiler session this element holds (trace=1)
+            "profiler_active": 1 if self._tracing else 0,
         }
         if self._swapper is not None:
             info.update(self._swapper.snapshot())
+        # named-thread census: the dispatch window's reaper and the ingest
+        # lane's stager (a wedged one shows alive with a growing age)
+        lane = self._lane
+        info["threads"] = thread_census(self._inflight.heartbeat,
+                                        lane.heartbeat if lane is not None else None)
         return info
+
+    def metrics_info(self):
+        """Registry rows (scrape time only): the invoke counters and the
+        asynchronous feed's dispatch window and ingest lane."""
+        win = self._inflight
+        lane = self._lane
+        return [
+            ("nns.filter.invokes", self.invokes),
+            ("nns.filter.invoked_frames", self._invoked_frames),
+            ("nns.filter.invoke_latency", self.latency_us * 1e-6),
+            ("nns.feed.window_occupancy", len(win)),
+            ("nns.feed.window_reaped", win.reaped),
+            ("nns.feed.dispatch_waits", win.dispatch_waits),
+            ("nns.feed.lane_pending", lane.pending() if lane is not None else 0),
+            ("nns.feed.lane_staged", lane.staged if lane is not None else 0),
+        ]
+
+    def histograms_info(self):
+        """The dispatch window's dwell (park to pop), a log2 histogram."""
+        return [("nns.feed.window_dwell_seconds", self._inflight.dwell)]

@@ -38,8 +38,17 @@ Each chunk frame carries tokens (1, n) int32 and meta ``stream_seq``
 (source frame seq), ``chunk_index``, ``tokens_done`` and ``final``;
 evicted streams add ``evicted``/``deadline_expired`` (the typed expiry).
 
+Per-stream SLOs (slotted): ``slo-ttft-p95``, ``slo-token-p99`` and
+``slo-availability`` arm a :class:`~..core.telemetry.SloTracker` the
+engine feeds on its pump thread (one TTFT per first token, one per-token
+record per decode call, one outcome per finished stream); burn rates and
+status are computed at scrape time and exported per tenant as
+``nns.slo.*`` (``health_info``'s ``slo`` rows, ``histograms_info``).
+``health_info`` also carries the engine's counters (``nns.gen.*``) and
+its pump's thread census; a wedged pump is a flight-recorder incident.
+
 Not ported: ``mesh=`` (ROADMAP A11), resume (A7.3: a RESUME request is
-answered with the typed reject), resize, SLO tracking (A4.4).
+answered with the typed reject), resize (A13).
 """
 
 from __future__ import annotations
@@ -59,7 +68,9 @@ from ..core.liveness import (
     PRIORITY_META,
     TENANT_META,
     clamp_priority,
+    thread_census,
 )
+from ..core.telemetry import SloTracker
 from ..core.types import FORMAT_FLEXIBLE, StreamSpec
 from ..models import transformer
 from ..pipeline.element import Element, ElementError, Property, element, enum_prop_check
@@ -124,6 +135,20 @@ class TensorGenerator(Element):
         "prefix-cap": Property(
             int, 256,
             "max cached prefix entries (LRU among unpinned entries past the cap)"),
+        # per-stream SLO accounting (core/telemetry.py SloTracker, engine
+        # side): 0 = objective not armed
+        "slo-ttft-p95": Property(
+            float, 0.0,
+            "TTFT objective: 95% of fresh streams must emit their first token within this "
+            "many seconds (0 = off)"),
+        "slo-token-p99": Property(
+            float, 0.0,
+            "per-token objective: 99% of token inter-arrivals must be under this many "
+            "seconds (0 = off)"),
+        "slo-availability": Property(
+            float, 0.0,
+            "goodput objective, e.g. 0.999: completed streams / classified streams "
+            "(shed+evicted+expired+errors are the error budget; 0 = off)"),
         # not ported: set, it raises at start() naming the ROADMAP item
         "mesh": Property(str, "", "tensor-parallel decode mesh (not ported: ROADMAP A11)"),
         "late-policy": Property(
@@ -142,6 +167,8 @@ class TensorGenerator(Element):
         self._engine = None
         self._prefix_pool = None
         self._sim = False
+        self._slo = None  # SloTracker (slo-* properties; slotted only)
+        self._resume_rejects = 0
 
     def start(self):
         props = _custom_props(self.props["custom"])
@@ -177,6 +204,7 @@ class TensorGenerator(Element):
                 self._device = pick_device(wishes if enabled else ["cpu"])
                 model, self._max_seq = transformer.build_slot_stream(props, slots, self._device)
             self._prefix_pool = self._build_prefix_pool()
+            self._slo = self._build_slo()
             self._engine = SlotEngine(
                 model,
                 max_seq=self._max_seq,
@@ -187,6 +215,7 @@ class TensorGenerator(Element):
                 name=self.name,
                 prefix_cache=self._prefix_pool,
                 on_device_lost=self._rebuild_on_device_loss,
+                slo=self._slo,
             )
             self._engine.start()
             return
@@ -214,6 +243,18 @@ class TensorGenerator(Element):
         self.log.error("device lost (%s): an unsharded model has no survivor to move to; "
                        "escalating to supervision", err)
         raise err
+
+    def _build_slo(self):
+        """SloTracker from the slo-* properties (None when no objective is
+        armed: the engine's record paths then cost nothing)."""
+        try:
+            tracker = SloTracker(
+                ttft_p95_s=float(self.props["slo-ttft-p95"]),
+                token_p99_s=float(self.props["slo-token-p99"]),
+                availability=float(self.props["slo-availability"]))
+        except ValueError as e:
+            raise ElementError(f"{self.name}: {e}") from None
+        return tracker if tracker.armed else None
 
     def _build_prefix_pool(self):
         """The PrefixCache of the prefix-* properties (None: off).  The
@@ -256,6 +297,24 @@ class TensorGenerator(Element):
         # chunk length varies (tail chunk): flexible stream
         return StreamSpec((), FORMAT_FLEXIBLE)
 
+    # -- telemetry ------------------------------------------------------------
+    def health_info(self) -> Dict:
+        """The slot engine's counters (exported as ``nns.gen.*`` and
+        ``nns.prefix.*``), the pump's thread census and the per-tenant SLO
+        rows (``nns.slo.*``), merged into ``Pipeline.health()``."""
+        info: Dict = {"gen_resume_rejects": self._resume_rejects}
+        eng = self._engine
+        if eng is not None:
+            info.update(eng.snapshot())
+            info["threads"] = thread_census(eng.heartbeat)
+        if self._slo is not None:
+            info["slo"] = self._slo.snapshot()
+        return info
+
+    def histograms_info(self):
+        """Per-tenant TTFT and inter-token log2 histograms."""
+        return self._slo.hist_rows() if self._slo is not None else []
+
     # -- continuous-batching hooks ------------------------------------------
     def pending_frames(self) -> int:
         """Streams parked in the slot engine plus undelivered chunks."""
@@ -273,6 +332,11 @@ class TensorGenerator(Element):
             self.log.warning(
                 "slot pump %s wedged: no heartbeat for %.1fs with %d stream(s)/chunk(s) "
                 "pending", eng.heartbeat.name, eng.heartbeat.age_s(), eng.pending())
+            p = self._pipeline
+            if p is not None:
+                p.incident("thread_stall", self.name,
+                           f"{eng.heartbeat.name} wedged ({eng.heartbeat.age_s():.1f}s, "
+                           f"pending={eng.pending()})")
         return eng.pop_ready()
 
     def handle_eos(self, pad):
@@ -363,6 +427,7 @@ class TensorGenerator(Element):
         """Typed terminal refusal of one RESUME request: a tensor-less final
         chunk naming the reason; the other streams go on."""
         self.log.warning("resume refused: %s", reason)
+        self._resume_rejects += 1
         out = lf.with_tensors([])
         out.meta.update(stream_seq=lf.seq, chunk_index=0, tokens_done=0, final=True)
         out.meta[RESUME_REJECT_META] = reason

@@ -12,18 +12,20 @@ the supervision and liveness properties every element answers
 ``restart-backoff``, ``restart-window``, ``dead-letter-max``,
 ``frame-deadline``, ``stall-timeout``, ``stall-policy``, ``late-policy``,
 and the sources' ``deadline-s``, anchored at emission) with the
-cooperative interrupt flag (:attr:`Element.interrupted`).
+cooperative interrupt flag (:attr:`Element.interrupted`), and
+``_apply_config_file`` for elements that declare ``config-file`` (its
+key=value lines become properties; properties set explicitly win).
 """
 
 from __future__ import annotations
 
-import logging
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 from ..core.buffer import Event, TensorFrame
 from ..core.liveness import _check_stall_policy
+from ..core.log import get_logger
 from ..core.types import ANY, StreamSpec
 
 
@@ -163,11 +165,14 @@ class Element:
 
     def __init__(self, name: Optional[str] = None):
         self.name = name or f"{self.FACTORY_NAME}{id(self) & 0xFFFF}"
-        self.log = logging.getLogger(f"nnstreamer_tpu_torch.{self.name}")
+        self.log = get_logger(self.name)
         self.props: Dict[str, Any] = {
             **{k: p.default for k, p in COMMON_PROPERTIES.items()},
             **{k: p.default for k, p in self.PROPERTIES.items()},
         }
+        # keys set explicitly (pipeline text or API): a config-file defers
+        # to them
+        self._explicit_props: set = set()
         self.srcpads: List[SrcPad] = [SrcPad() for _ in range(self.NUM_SRC_PADS or 0)]
         self.sink_specs: Dict[int, StreamSpec] = {}
         self._pipeline = None  # set by Pipeline.add
@@ -183,12 +188,47 @@ class Element:
         if decl is None:
             raise ElementError(f"{self.name}: unknown property {key!r}")
         self.props[key] = decl.parse(value)
+        self._explicit_props.add(key)
 
     def get_property(self, key: str) -> Any:
         key = key.replace("_", "-")
         if key not in self.props:
             raise ElementError(f"{self.name}: unknown property {key!r}")
         return self.props[key]
+
+    def _apply_config_file(self) -> None:
+        """The ``config-file`` property: its key=value lines become
+        properties, and properties set explicitly win.  Elements that
+        declare the property call this at the top of ``start()``."""
+        path = self.props.get("config-file", "")
+        if not path:
+            return
+        try:
+            with open(path) as f:
+                lines = f.read().splitlines()
+        except OSError as e:
+            raise ElementError(f"{self.name}: config-file: {e}") from None
+        for ln, raw in enumerate(lines, 1):
+            line = raw.strip()
+            # comment lines only: an inline '#' may be part of a value
+            if not line or line.startswith("#"):
+                continue
+            key, sep, value = line.partition("=")
+            if not sep:
+                raise ElementError(
+                    f"{self.name}: config-file {path}:{ln}: expected "
+                    f"key=value, got {raw!r}")
+            key = key.strip().replace("_", "-")
+            if key == "config-file":
+                raise ElementError(
+                    f"{self.name}: config-file {path}:{ln}: nested config-file not allowed")
+            if key in self._explicit_props:
+                continue
+            try:
+                self.set_property(key, value.strip())
+            except (ElementError, ValueError) as e:
+                raise ElementError(f"{self.name}: config-file {path}:{ln}: {e}") from None
+            self._explicit_props.discard(key)  # config values stay soft
 
     # -- pads ---------------------------------------------------------------
     def request_src_pad(self) -> SrcPad:

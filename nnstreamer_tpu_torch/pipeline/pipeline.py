@@ -31,13 +31,23 @@ monitor (:meth:`Pipeline.enable_memory_monitor`) polls on the same
 sweeper; :meth:`Pipeline.drain` flushes in-flight frames to the sinks and
 :meth:`Pipeline.reload_model` hot-swaps a filter's model.
 
-Not ported yet (ROADMAP A4.4): telemetry, the tracer, the flight
-recorder and the metrics endpoint; ``incident()`` only logs.
+Observability (ROADMAP A4.4): :meth:`Pipeline.enable_tracing` attaches a
+:class:`~..core.tracer.PipelineTracer` that the scheduler feeds around
+every handler call (``frame_begin``/``frame_out``), at every source
+(``stamp_source``) and at every mailbox (``queue_level``, and
+``queue_wait`` from the ``TL_QPUT_META`` stamp ``_push`` writes); with no
+tracer each hook is one ``tracer is not None`` test per frame.
+:meth:`Pipeline.enable_flight_recorder` rides the tracer, and
+:meth:`Pipeline.incident` (watchdog stall, dead letter, swap rollback,
+memory pressure, a wedged slot pump) dumps it and posts the dump's path on
+the bus.  Every running pipeline registers a collector in the process-wide
+metrics registry under a unique ``pipeline=`` label;
+:meth:`Pipeline.metrics_snapshot` reads it and :meth:`Pipeline.serve_metrics`
+(or ``NNS_METRICS_PORT``) serves it as Prometheus text on 127.0.0.1.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import queue
 import threading
@@ -48,7 +58,19 @@ from typing import Any, Callable, Dict, List, Optional, Set
 
 from ..core.buffer import EOS, BatchFrame, CapsEvent, Event, Flush, TensorFrame
 from ..core.liveness import DEADLINE_META, StallError, Watchdog, stamp_deadline
+from ..core.log import get_logger
 from ..core.resilience import FAULTS, RetryPolicy, is_transient
+from ..core.telemetry import (
+    REGISTRY,
+    TL_QPUT_META,
+    FlightRecorder,
+    MetricsServer,
+    TelemetrySnapshot,
+    claim_pipeline_label,
+    collect_pipeline,
+    release_pipeline_label,
+)
+from ..core.tracer import META_SRC_TS, PipelineTracer, frame_nbytes
 from .element import Element, ElementError, SourceElement
 
 _STOP = object()  # mailbox sentinel: the worker exits
@@ -207,7 +229,7 @@ class Pipeline:
     def __init__(self, name: str = "pipeline", default_queue_size: int = 16,
                  fuse: Optional[bool] = None):
         self.name = name
-        self.log = logging.getLogger(f"nnstreamer_tpu_torch.{name}")
+        self.log = get_logger(name)
         self.elements: Dict[str, Element] = {}
         self.default_queue_size = default_queue_size
         # streaming-thread fusion (None = the NNS_FUSE default, on)
@@ -236,6 +258,15 @@ class Pipeline:
         self._mem_monitor = None
         self._seg_of: Dict[str, _Seg] = {}
         self._halt_discarded = 0
+        # GstShark-analog tracing (core/tracer.py): None = off, one branch
+        # per frame; the flight recorder rides the tracer
+        self.tracer: Optional[PipelineTracer] = None
+        self._recorder = None
+        # metrics registry (core/telemetry.py): the pipeline= label claimed
+        # at start(), the scrape-time collector and the /metrics endpoint
+        self._telemetry_label: Optional[str] = None
+        self._collector = None
+        self._metrics_server = None
 
     # -- the bus ------------------------------------------------------------
     def post(self, msg: BusMessage) -> None:
@@ -250,11 +281,110 @@ class Pipeline:
     def add_bus_watcher(self, cb: Callable[[BusMessage], None]) -> None:
         self._bus_watchers.append(cb)
 
-    def incident(self, kind: str, source: str, detail: Any = None) -> None:
-        """Incident hook (watchdog stall, dead letter, swap rollback,
-        memory pressure).  The flight recorder it dumps in the JAX package
-        comes with ROADMAP A4.4; here it only logs."""
-        self.log.info("incident %s at %s: %r", kind, source, detail)
+    def incident(self, kind: str, source: str, detail: Any = None) -> Optional[str]:
+        """Incident hook (watchdog stall, dead letter, swap rollback, memory
+        pressure, a wedged slot pump): dump the flight recorder and post the
+        dump's path on the bus.  No-op without a recorder; rate-limited by
+        the recorder.  Returns the dump's path, if one was written."""
+        rec = self._recorder
+        if rec is None:
+            return None
+        path = rec.dump(kind, source, detail, logger=self.log)
+        if path is not None:
+            self.post(BusMessage("warning", source, {"incident": kind, "flight_dump": path}))
+        return path
+
+    # -- observability (core/tracer.py, core/telemetry.py) -------------------
+    def enable_tracing(self, detail: bool = False) -> PipelineTracer:
+        """Attach a fresh PipelineTracer (before start()); returns it.
+        ``detail=True`` also records per-call spans for
+        ``export_chrome_trace``."""
+        recorder = self.tracer.recorder if self.tracer is not None else None
+        self.tracer = PipelineTracer(detail=detail, recorder=recorder)
+        return self.tracer
+
+    def enable_flight_recorder(self, capacity: int = 4096, dump_dir: Optional[str] = None,
+                               min_dump_interval_s: float = 5.0,
+                               profile_incidents: bool = True,
+                               profile_duration_s: float = 0.2):
+        """Attach a flight recorder: a bounded ring of recent per-frame span
+        timelines, dumped (rate-limited, to the log and a JSON file in
+        ``dump_dir``, else ``NNS_FLIGHT_DIR``, else the temp dir) on every
+        :meth:`incident`.  It rides the tracer (one is attached if absent).
+        ``profile_incidents`` adds a thread profile of the named framework
+        threads over ``profile_duration_s`` to every dump.  Returns the
+        recorder."""
+        if self.tracer is None:
+            self.enable_tracing()
+        self._recorder = FlightRecorder(
+            capacity=capacity, dump_dir=dump_dir, min_dump_interval_s=min_dump_interval_s,
+            profile_incidents=profile_incidents, profile_duration_s=profile_duration_s)
+        self.tracer.recorder = self._recorder
+        return self._recorder
+
+    @property
+    def flight_recorder(self):
+        return self._recorder
+
+    @property
+    def telemetry_label(self) -> str:
+        """The ``pipeline=`` label of this pipeline's registry series: the
+        name when it is unique among live pipelines, else ``name#N``.
+        Claimed at start(), released at stop(); a pipeline that is not
+        running reads as its bare name without claiming it."""
+        return self._telemetry_label or self.name
+
+    def metrics_snapshot(self):
+        """Pollable telemetry snapshot of this pipeline: every signal
+        source under its stable dotted name.  Reads host counters only."""
+        return TelemetrySnapshot(collect_pipeline(self)
+                                 + REGISTRY.collect_labeled(pipeline=self.telemetry_label))
+
+    def telemetry_summary(self) -> Dict[str, float]:
+        """Compact {metric_name: value} dump (counters summed across
+        elements, gauges maxed)."""
+        return self.metrics_snapshot().flat()
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1") -> int:
+        """Open the Prometheus text endpoint (the process-wide registry:
+        every running pipeline's series, labeled).  Returns the bound port;
+        ``stop()`` shuts it down.  Also armed by ``NNS_METRICS_PORT`` at
+        start()."""
+        if self._metrics_server is not None:
+            return self._metrics_server.port
+        self._metrics_server = MetricsServer(port=port, host=host, name=self.name)
+        return self._metrics_server.port
+
+    @property
+    def metrics_port(self) -> Optional[int]:
+        srv = self._metrics_server
+        return srv.port if srv is not None else None
+
+    def _register_telemetry(self) -> None:
+        if self._collector is None:
+            self._collector = lambda: collect_pipeline(self)
+            REGISTRY.register_collector(self._collector)
+        env_port = os.environ.get("NNS_METRICS_PORT", "")
+        if env_port and self._metrics_server is None:
+            try:
+                self.serve_metrics(int(env_port))
+            except (OSError, ValueError) as e:
+                # another pipeline already owns the port (its endpoint
+                # serves the shared registry, so nothing is lost)
+                self.log.info("NNS_METRICS_PORT=%s not bound by this pipeline: %s",
+                              env_port, e)
+
+    def _unregister_telemetry(self) -> None:
+        if self._collector is not None:
+            REGISTRY.unregister_collector(self._collector)
+            self._collector = None
+        if self._telemetry_label is not None:
+            REGISTRY.remove_labeled(pipeline=self._telemetry_label)
+            release_pipeline_label(self._telemetry_label)
+            self._telemetry_label = None
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
 
     # -- memory-pressure watermarks (core/liveness.py) -----------------------
     def enable_memory_monitor(self, high: float = 0.90, low: float = 0.75,
@@ -484,6 +614,10 @@ class Pipeline:
     def start(self) -> "Pipeline":
         if self._started:
             return self
+        # the registry label is settled before any element starts, and
+        # claimed here, never at scrape time
+        if self._telemetry_label is None:
+            self._telemetry_label = claim_pipeline_label(self.name)
         started: List[Element] = []
         try:
             # start (open models) BEFORE negotiation so elements can expose
@@ -503,6 +637,8 @@ class Pipeline:
                     el.stop()
                 except Exception:
                     self.log.exception("stop() failed for %s", el.name)
+            release_pipeline_label(self._telemetry_label)
+            self._telemetry_label = None
             raise
         self._seg_of = {}
         self._segments = self._compute_segments()
@@ -545,6 +681,7 @@ class Pipeline:
             self._threads.append(
                 threading.Thread(target=target, args=(seg,), name=head.name, daemon=True))
         self._arm_watchdog()  # after the mailboxes: watches read their depth
+        self._register_telemetry()
         for t in self._threads:
             t.start()
         if self._wd_thread is not None:
@@ -677,6 +814,9 @@ class Pipeline:
             except Exception:
                 self.log.exception("stop() failed for %s", el.name)
             el._mailbox = None
+        # after the elements' stop: a scrape racing the shutdown still sees
+        # consistent health; the endpoint's listener closes here
+        self._unregister_telemetry()
         self._threads.clear()
         self._started = False
 
@@ -1053,6 +1193,9 @@ class Pipeline:
         mailbox never blocks (the box drops a frame instead); events always
         take the blocking path."""
         is_frame = isinstance(item, TensorFrame)
+        if is_frame and self.tracer is not None:
+            # queue-wait origin stamp (host-local, popped at dequeue)
+            item.meta[TL_QPUT_META] = time.perf_counter()
         for dst, sink_pad in el.srcpads[src_pad].links:
             box = dst._mailbox
             if is_frame and isinstance(box, _LeakyMailbox):
@@ -1144,7 +1287,13 @@ class Pipeline:
         QoS, and route the outputs.  A BatchFrame reaching a per-frame
         element is split into logical frames, each supervised alone."""
         el = st.el
+        tracer = self.tracer
         if isinstance(frame, BatchFrame) and not el.BATCH_AWARE:
+            if tracer is not None:
+                # the block is one traced call of batch_size frames
+                t_in = time.perf_counter()
+                nbytes = frame_nbytes(frame)
+                tracer.frame_begin(el.name, frame)
             lfs = self._expire_late(el, frame.split())
             for k, lf in enumerate(lfs):
                 st.in_call = len(lfs) - k
@@ -1156,16 +1305,25 @@ class Pipeline:
                 st.in_call = len(lfs) - k - 1
                 if not self._route_outs(seg, st, outs):
                     return False
+            if tracer is not None:
+                tracer.frame_out(el.name, t_in, time.perf_counter(), frame.batch_size, nbytes,
+                                 frame.meta.get(META_SRC_TS), frame=frame)
             return True
         if not self._expire_late(el, (frame,)):
             return True  # past its deadline: a counted drop
         n = getattr(frame, "batch_size", 1)
         st.in_call = n
+        if tracer is not None:
+            t_in = time.perf_counter()
+            tracer.frame_begin(el.name, frame)
         outs = self._call(el, st, lambda: el.handle_frame(pad, frame) or (), frame)
         if outs is _SUPERVISED_STOPPING:
             return False
         if st.terminal:
             st.delivered += n
+        if tracer is not None:
+            tracer.frame_out(el.name, t_in, time.perf_counter(), n, frame_nbytes(frame),
+                             frame.meta.get(META_SRC_TS), frame=frame)
         st.in_call = 0
         return self._route_outs(seg, st, outs)
 
@@ -1263,6 +1421,8 @@ class Pipeline:
                 continue
             if budget > 0:
                 stamp_deadline(frame, budget)
+            if self.tracer is not None:
+                self.tracer.stamp_source(frame)
             if not self._route_one(seg, st, 0, frame):
                 return
         for i in range(len(el.srcpads)):
@@ -1319,19 +1479,34 @@ class Pipeline:
                     continue
             if item is _STOP:
                 return
+            tracer = self.tracer
+            if tracer is not None:
+                tracer.queue_level(el.name, box.qsize(), getattr(box, "maxsize", 0))
+                if isinstance(item, TensorFrame):
+                    # mailbox wait: the producer's stamp to this dequeue
+                    t_q = item.meta.pop(TL_QPUT_META, None)
+                    if t_q is not None:
+                        tracer.queue_wait(el.name, time.perf_counter() - t_q)
             if batching and isinstance(item, TensorFrame):
                 frames = self._expire_late(
-                    el, self._fill_batch(box, stash, pad, item, want, wait_s))
+                    el, self._fill_batch(box, stash, pad, item, want, wait_s, el.name, tracer))
                 if not frames:
                     continue  # the whole micro-batch expired
-                st.in_call = sum(getattr(f, "batch_size", 1) for f in frames)
+                st.in_call = nlog = sum(getattr(f, "batch_size", 1) for f in frames)
+                if tracer is not None:
+                    t_in = time.perf_counter()
+                    tracer.frame_begin(el.name, frames[0])
                 outs = self._call(
                     el, st, lambda frames=frames, pad=pad: el.handle_frame_batch(pad, frames) or (),
                     frames, per_item=lambda f, pad=pad: el.handle_frame_batch(pad, [f]) or ())
                 if outs is _SUPERVISED_STOPPING:
                     return
                 if st.terminal:
-                    st.delivered += st.in_call
+                    st.delivered += nlog
+                if tracer is not None:
+                    tracer.frame_out(el.name, t_in, time.perf_counter(), nlog,
+                                     sum(frame_nbytes(f) for f in frames),
+                                     frames[0].meta.get(META_SRC_TS), frame=frames[0])
                 st.in_call = 0
                 if not self._route_outs(seg, st, outs):
                     return
@@ -1342,11 +1517,12 @@ class Pipeline:
 
     @staticmethod
     def _fill_batch(box, stash: deque, pad: int, first: TensorFrame,
-                    want: int, wait_s: float) -> List[TensorFrame]:
+                    want: int, wait_s: float, name: str = "", tracer=None) -> List[TensorFrame]:
         """Micro-batch draining: gather queued frames of `pad` behind
         `first` until ``want`` logical frames (a BatchFrame counts as its
         batch_size), waiting up to ``wait_s`` for the batch to fill.  An
-        event or another pad's frame ends the batch and is stashed."""
+        event or another pad's frame ends the batch and is stashed.  With a
+        tracer, each frame taken off the mailbox records its wait."""
         frames = [first]
         nlog = getattr(first, "batch_size", 1)
         deadline = time.monotonic() + wait_s
@@ -1362,6 +1538,10 @@ class Pipeline:
                     p2, nxt = box.get(timeout=wait) if wait > 0 else box.get_nowait()
                 except queue.Empty:
                     break
+                if tracer is not None and isinstance(nxt, TensorFrame):
+                    t_q = nxt.meta.pop(TL_QPUT_META, None)
+                    if t_q is not None:
+                        tracer.queue_wait(name, time.perf_counter() - t_q)
                 if not (isinstance(nxt, TensorFrame) and p2 == pad):
                     stash.append((p2, nxt))
                     break
