@@ -317,8 +317,40 @@ Phases (any failure exits non-zero before the result lines are printed):
       5. GPT-2 small, 8 prompts of 128 tokens, ``slots=4 chunk=16``, 32
          greedy tokens, with and without the three ``slo-*`` objectives:
          equal tokens, 8 streams good, the ``nns.slo.*`` series in a scrape.
-   ``--only i,j,k,l`` runs paths i, j, k and l alone after the kernel build
-   (j with ``PAD_EDGES`` first), each summary a JSON line.
+   m. tensor_query on the card: servers and clients in this process over
+      127.0.0.1, ``port=0``, ``connect-type=tcp``:
+      1. ``QUERY_FRAMES`` (1024) seeded frames through ``appsrc !
+         tensor_query_client wire-batch=32 max-in-flight=8 ! tensor_sink``
+         into ``tensor_query_serversrc block-ingress=true !`` path a's filter
+         and fused labeling decoder ``! tensor_query_serversink``: every frame
+         once and in order, labels equal to the direct call in the server's
+         micro-batch sizes, ``normalize_u8`` and ``top1`` once each a
+         micro-batch, device-to-host copies the labels' bytes only
+         (``torch.profiler``), every answer's span segments adding up to
+         its total exactly, the ``nns.query.*`` series in both ``/metrics``
+         scrapes (client requests = server admissions), and a second client
+         pinned to ``wire-version=1`` on ``QUERY_V1_FRAMES`` (256) frames
+         equal to the direct call; frames/s after the first micro-batch,
+         push-to-sink p50/p99 and the server's stacking ms beside path a's;
+      2. GPT-2 small (path d's custom and seed) behind ``tensor_generator
+         slots=16 chunk=16 prefill-chunk=128 max-new=32``: 8 concurrent ``stream=true`` clients
+         of one 128-token prompt each, tokens equal to the in-process
+         generator's and chunks sized as the unslotted path's; then with
+         ``max-new=768 chunk=1``: a client stopped mid-stream frees its slot
+         (``gen_cancelled`` + 1) within 1 s, and a client budget of
+         ``QUERY_BUDGET_S`` ends in the typed-expiry final chunk whose
+         partial tokens equal the in-process generator's;
+      3. faults while the card serves, two m1 servers behind ``hosts=``:
+         a ``corrupt=bitflip`` fault at ``tcp_query.send`` every
+         ``QUERY_FAULT_EVERY`` requests (fired = detected = retried = refused),
+         one server drained mid-stream (GOAWAY seen as sent, drain ``dropped``
+         0, no breaker trip), and a held card tensor lifting
+         ``memory_reserved`` over a third server's ``mem-high-watermark`` (BUSY
+         replies = memory sheds, released memory ends the shed); every frame
+         once, labels equal to the direct call of the micro-batch that
+         served it.
+   ``--only i,j,k,l,m`` runs paths i, j, k, l and m alone after the kernel
+   build (j with ``PAD_EDGES`` first), each summary a JSON line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -330,7 +362,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    {...}}`` JSON line (path g's numbers), an ``{"int8": {...}}`` JSON line
    (path h's numbers), a ``{"prefix_cache": {...}}`` line (path i's), a
    ``{"model_files": {...}}`` line (path j's), a ``{"supervision": {...}}``
-   line (path k's), an ``{"observability": {...}}`` line (path l's), one
+   line (path k's), an ``{"observability": {...}}`` line (path l's), a
+   ``{"query": {...}}`` line (path m's), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -4772,6 +4805,532 @@ def run_observability(torch, np, lab, counters, seed: int, card: str, work, labe
     return paths, summary
 
 
+QUERY_FRAMES = 1024
+QUERY_V1_FRAMES = 256
+QUERY_PROMPTS, QUERY_TOKENS, QUERY_NEW, QUERY_CHUNK = 8, 128, 32, 16
+#: the in-process reference prefills the same pieces (bf16 sums differ by
+#: piece size, and so would greedy tokens)
+QUERY_PREFILL_CHUNK = 128
+#: m2's long streams: the dead client and the short budget land mid-decode.
+#: Their server decodes one token a call: the engine evicts an expired
+#: stream between calls, 50 ms before its deadline (``EVICT_MARGIN_S``),
+#: and a 16-token call of GPT-2 small at 16 slots outlasts that margin
+QUERY_LONG_NEW, QUERY_LONG_CHUNK = 768, 1
+QUERY_BUDGET_S = 1.0
+#: m3a's corrupt fault: every k-th request gather-send gets one flipped bit
+QUERY_FAULT_EVERY = 5
+#: m3c: seconds the card tensor over the watermark is held
+QUERY_HOLD_S = 0.5
+
+
+def query_server_text(sid: int, seed: int, labels, extra: str = "") -> str:
+    """Path a's labeling pipeline behind a raw-TCP query server."""
+    return (f"tensor_query_serversrc name=ssrc id={sid} host=127.0.0.1 port=0 connect-type=tcp "
+            f"block-ingress=true {extra} ! tensor_filter name=f framework=torch-cuda model=zoo "
+            f"custom={MOBILENET_CUSTOM},seed:{seed} max-batch=128 batch-timeout=20 ! "
+            f"tensor_decoder mode=image_labeling option1={labels} ! "
+            f"tensor_query_serversink id={sid}")
+
+
+def query_client_text(ports, extra: str = "") -> str:
+    hosts = ",".join(f"127.0.0.1:{p}" for p in ports)
+    return (f"appsrc name=src ! tensor_query_client name=q hosts={hosts} connect-type=tcp "
+            f"wire-batch=32 max-in-flight=8 timeout=60 {extra} ! tensor_sink name=out")
+
+
+def drive_client(text: str, name: str, frames, during=None, keep=None) -> dict:
+    """`frames` pushed (pts = index) through a query client pipeline;
+    ``during(pipe, i)`` before frame i, ``keep(pipe)`` after EOS and before
+    ``stop()``.  Fails unless every frame came back once, in order."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(text, name=name)
+    arrived = {}
+    pipe["out"].connect_new_data(
+        lambda f: arrived.setdefault(int(f.pts), []).append(time.perf_counter()))
+    pipe.start()
+    try:
+        pushed = []
+        t0 = time.perf_counter()
+        for i in range(len(frames)):
+            if during is not None:
+                during(pipe, i)
+            pushed.append(time.perf_counter())
+            pipe["src"].push(frames[i], pts=float(i))
+        pipe["src"].end_of_stream()
+        pipe.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        out = list(pipe["out"].frames)
+        health = pipe.health()["q"]
+        kept = keep(pipe) if keep is not None else None
+    finally:
+        pipe.stop()
+    n = len(frames)
+    if [f.pts for f in out] != [float(i) for i in range(n)] or any(
+            len(v) != 1 for v in arrived.values()):
+        raise AssertionError(f"{name}: {len(out)} answers for {n} frames, or some lost, twice or "
+                             "out of order")
+    return {"out": out, "pushed": pushed, "arrived": {k: v[0] for k, v in arrived.items()},
+            "wall": wall, "health": health, "kept": kept}
+
+
+@contextmanager
+def timing(owner, attr: str):
+    """Host ms of every call of ``owner.attr`` while the block runs."""
+    inner, ms = getattr(owner, attr), []
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            ms.append((time.perf_counter() - t) * 1e3)
+
+    with mock.patch.object(owner, attr, timed):
+        yield ms
+
+
+def check_spans(name: str, out) -> float:
+    """Every answer's span: segments >= 0 that add up to its total exactly,
+    the server's device compute decomposed; returns the largest total."""
+    from nnstreamer_tpu_torch.core.telemetry import SPAN_META
+
+    keys = ("client_queue", "wire", "server_queue", "device_dispatch", "device_compute")
+    for f in out:
+        s = f.meta[SPAN_META]
+        total = s["client_queue"] + s["wire"] + s["server_queue"] + s["device_dispatch"] \
+            + s["device_compute"]
+        if total != s["total"] or min(s[k] for k in keys) < 0 or s["device_compute"] <= 0:
+            raise AssertionError(f"{name}: span {s} does not add up to its total")
+    return max(f.meta[SPAN_META]["total"] for f in out)
+
+
+def run_m1(torch, np, lab, counters, seed: int, images, labels, work, beside) -> dict:
+    """m1: MobileNet-v2 labeling served over raw TCP (see the docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.core.telemetry import SPAN_META
+    from nnstreamer_tpu_torch.distributed.service import QueryServerCore
+    from nnstreamer_tpu_torch.elements import filter as filter_mod
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    n = len(images)
+    srv = parse_pipeline(query_server_text(181, seed, labels), name="m1srv")
+    srv.start()
+    try:
+        port = srv["ssrc"].props["port"]
+        mport = srv.serve_metrics(0)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        # the server's stacking: each request's rows into one block at
+        # ingest (np.stack), then blocks into a micro-batch in the filter
+        with recording_io(srv, "f") as (sizes, outs, _), \
+                timing(QueryServerCore, "_ingress_items") as ingest_ms, \
+                timing(filter_mod, "_batched_tensors") as concat_ms:
+            counters.zero()
+            prof.start()
+            time.sleep(0.5)  # margins: see cuda_kernels
+            run = drive_client(query_client_text([port]), "m1cli", images,
+                               keep=lambda pipe: scrape(pipe.serve_metrics(0)))
+            time.sleep(0.5)
+            prof.stop()
+            launches = counters.read()
+        server_metrics = scrape(mport)
+        feed = feed_stats(srv["f"])
+        module = srv["f"].backend._module
+        with recording_io(srv, "f") as (v1_sizes, _, _):
+            v1 = drive_client(query_client_text([port], "wire-version=1"), "m1cli_v1",
+                              images[:QUERY_V1_FRAMES])
+        v1_delivered = v1["health"]["delivered"]
+        srv_health = srv.health()["ssrc"]
+    finally:
+        srv.stop()
+    batches = len(sizes)
+    if not launches["normalize_u8"] == launches["top1"] == batches or launches["flash_attention"]:
+        raise AssertionError(f"m1: launches {launches} for {batches} server micro-batches (want "
+                             "normalize_u8 and top1 once each)")
+    for name, got_run, got_sizes, frames in (("m1", run, sizes, images),
+                                             ("m1 wire-version=1", v1, v1_sizes,
+                                              images[:QUERY_V1_FRAMES])):
+        got = np.array([f.meta["label_index"] for f in got_run["out"]])
+        want = np.concatenate([lab.top1_plain(logits)[0].cpu().numpy() for _, _, logits, _ in
+                               direct_batches(torch, module, frames, got_sizes)])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: {int((got != want).sum())} labels differ from the "
+                                 f"direct call in the server's micro-batch sizes")
+    moved = [b for b in d2h_copies(prof, work / "m1_profile.json") if b]
+    out_bytes = sorted(int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
+                       for call in outs for shape, dt, _ in call)
+    if moved != out_bytes:
+        raise AssertionError(f"m1: device-to-host copies of {moved} bytes; the labels' are "
+                             f"{out_bytes} (one copy a micro-batch, as path a)")
+    longest = check_spans("m1", run["out"])
+    requests = series(run["kept"], "nns_query_rtt_seconds_count", element="q")
+    admitted = series(server_metrics, "nns_query_admitted", element="ssrc")
+    delivered = series(run["kept"], "nns_query_delivered", element="q")
+    tenant = series(server_metrics, "nns_query_tenant_admitted", element="ssrc", tenant="_")
+    if (delivered, requests) != (n, admitted) or tenant != admitted or series(
+            server_metrics, "nns_query_corrupt_requests", element="ssrc"):
+        raise AssertionError(f"m1: /metrics delivered {delivered}, client requests {requests}, "
+                             f"server admitted {admitted} (tenant row {tenant})")
+    if v1_delivered != QUERY_V1_FRAMES:
+        raise AssertionError(f"m1: the wire-version=1 client delivered {v1_delivered}")
+    fps, p50, p99 = stream_numbers(run["pushed"], run["arrived"], sizes[0] - 1)
+    return {"launches": launches, "batches": batches, "sizes": dict(Counter(sizes)),
+            "fps": n / run["wall"], "fps_steady": fps, "latency_ms_p50": p50,
+            "latency_ms_p99": p99, "requests": int(requests), "d2h_copies": len(moved),
+            "d2h_bytes": sum(moved), "ingest_stack_ms_per_request": statistics.median(ingest_ms),
+            "filter_concat_ms_per_batch": statistics.median(concat_ms),
+            "lane_staged": feed["staged"], "longest_span_s": longest,
+            "span": dict(run["out"][-1].meta[SPAN_META]),
+            "server_admitted": srv_health["admitted"], "v1_sizes": dict(Counter(v1_sizes)),
+            "beside_a": None if beside is None else {
+                k: beside[k] for k in ("fps_steady", "latency_ms_p50", "latency_ms_p99")} | {
+                "stack_ms_per_batch": beside["feed"]["stack_ms_per_batch"]}}
+
+
+def generator_server(custom: str, sid: int, max_new: int, chunk: int = QUERY_CHUNK):
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    srv = parse_pipeline(
+        f"tensor_query_serversrc name=ssrc id={sid} host=127.0.0.1 port=0 connect-type=tcp ! "
+        f"tensor_generator name=gen custom={custom} slots=16 chunk={chunk} "
+        f"prefill-chunk={QUERY_PREFILL_CHUNK} max-new={max_new} ! "
+        f"tensor_query_serversink id={sid}", name=f"m2srv{sid}")
+    srv.start()
+    return srv, srv["ssrc"].props["port"]
+
+
+def stream_client(port: int, name: str, extra: str = ""):
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(
+        f"appsrc name=src ! tensor_query_client name=q host=127.0.0.1 port={port} "
+        f"connect-type=tcp stream=true timeout=120 {extra} ! tensor_sink name=out", name=name)
+    pipe.start()
+    return pipe
+
+
+def run_m2(torch, np, counters, seed: int) -> dict:
+    """m2: GPT-2 small generation streamed over raw TCP 'S' messages (see
+    the docstring)."""
+    import threading
+
+    vocab = int(custom_props(LM_CUSTOM)["vocab"])
+    rng = np.random.default_rng(seed + 19)
+    prompts = [rng.integers(0, vocab, QUERY_TOKENS, dtype=np.int32) for _ in range(QUERY_PROMPTS)]
+    custom = f"{LM_CUSTOM},seed:{seed}"
+    want, *_ = run_generator(np, custom, prompts, QUERY_NEW, QUERY_CHUNK, 16,
+                             prefill_chunk=QUERY_PREFILL_CHUNK)
+    unslotted = run_generator(np, custom, prompts[:1], QUERY_NEW, QUERY_CHUNK, 0, keep=lambda p: [
+        f.tensors[0].shape[1] for f in p["out"].frames])[4]
+    srv, port = generator_server(custom, 182, QUERY_NEW)
+    results, errors = {}, []
+
+    def one(i):
+        pipe = stream_client(port, f"m2cli{i}")
+        try:
+            pipe["src"].push(prompts[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=300)
+            results[i] = list(pipe["out"].frames)
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+        finally:
+            pipe.stop()
+
+    try:
+        counters.zero()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,), name=f"m2-client-{i}")
+                   for i in range(QUERY_PROMPTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=330)
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        gen = srv.health()["gen"]
+    finally:
+        srv.stop()
+    if errors or sorted(results) != list(range(QUERY_PROMPTS)):
+        raise AssertionError(f"m2: streams {sorted(results)} came back; errors {errors}")
+    for i in range(QUERY_PROMPTS):
+        sizes = [f.tensors[0].shape[1] for f in results[i]]
+        if sizes != unslotted:
+            raise AssertionError(f"m2: stream {i}'s chunks are {sizes}, the unslotted path's "
+                                 f"{unslotted}")
+        if not np.array_equal(stream_tokens(results[i], QUERY_NEW), want[i]):
+            raise AssertionError(f"m2: stream {i}'s tokens differ from the in-process generator's")
+    if any(launches.values()):
+        raise AssertionError(f"m2: the KV-cache decode launched {launches}")
+    if (gen["gen_joins"], gen["gen_completed"]) != (QUERY_PROMPTS, QUERY_PROMPTS):
+        raise AssertionError(f"m2: joins {gen['gen_joins']}, completed {gen['gen_completed']}")
+    # the long server: a client stopped mid-stream, then a budget shorter
+    # than the decode
+    srv, port = generator_server(custom, 183, QUERY_LONG_NEW, QUERY_LONG_CHUNK)
+    try:
+        victim = stream_client(port, "m2victim")
+        victim["src"].push(prompts[0], pts=0.0)
+        deadline = time.perf_counter() + 60
+        while len(victim["out"].frames) < 2 and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        got_chunks = len(victim["out"].frames)
+        before = srv.health()["gen"]["gen_cancelled"]
+        t_stop = time.perf_counter()
+        victim.stop()
+        while (srv.health()["gen"]["gen_cancelled"] == before
+               and time.perf_counter() - t_stop < 10):
+            time.sleep(0.005)
+        freed_s = time.perf_counter() - t_stop
+        cancelled = srv.health()["gen"]["gen_cancelled"] - before
+        evict = stream_client(port, "m2budget", f"timeout={QUERY_BUDGET_S} retries=0")
+        evict["src"].push(prompts[1], pts=0.0)
+        evict["src"].end_of_stream()
+        try:
+            evict.wait(timeout=60)
+        finally:
+            evict.stop()
+        budget_frames = list(evict["out"].frames)
+        expired = evict.health()["q"]["deadline_expired"]
+        deadline = time.perf_counter() + 10
+        while srv.health()["gen"]["gen_occupied"] and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        gen_long = srv.health()["gen"]
+    finally:
+        srv.stop()
+    if got_chunks < 2 or cancelled != 1 or freed_s >= 1.0:
+        raise AssertionError(f"m2: the stopped client's slot: cancelled {cancelled} after "
+                             f"{freed_s:.3f} s (want 1 within 1 s; {got_chunks} chunks before)")
+    last = budget_frames[-1].meta if budget_frames else {}
+    n_tok = sum(f.tensors[0].shape[1] for f in budget_frames if f.tensors)
+    if not (last.get("final") is True and last.get("deadline_expired") is True
+            and last.get("evicted") == "deadline" and 0 < n_tok < QUERY_LONG_NEW
+            and n_tok == last.get("tokens_done") and expired >= 1):
+        raise AssertionError(f"m2: a {QUERY_BUDGET_S} s budget ended in {last} after {n_tok} "
+                             "tokens (want the typed-expiry final chunk with its partial tokens)")
+    prefix, *_ = run_generator(np, custom, prompts[1:2], n_tok, QUERY_LONG_CHUNK, 16,
+                               prefill_chunk=QUERY_PREFILL_CHUNK)
+    partial = np.concatenate([f.tensors[0] for f in budget_frames if f.tensors], axis=1)[0]
+    if not np.array_equal(partial, prefix[0]):
+        raise AssertionError("m2: the expired stream's partial tokens differ from the "
+                             "in-process generator's")
+    if gen_long["gen_occupied"] or gen_long["gen_evicted"] != 1:
+        raise AssertionError(f"m2: the long server's slots: {gen_long}")
+    return {"launches": launches, "batches": gen["gen_decode_steps"], "seconds": wall,
+            "tokens_per_s": QUERY_PROMPTS * QUERY_NEW / wall, "chunk_sizes": unslotted,
+            "freed_s": freed_s, "budget_tokens": n_tok,
+            "tokens_per_step": gen["gen_tokens_per_step"]}
+
+
+@contextmanager
+def recording_reference(torch, np, lab):
+    """Every ``TorchCuda.invoke_batch`` call's rows, keyed by their first 64
+    bytes, mapped to the direct call's label in that call's size: the
+    reference for frames that any of several servers served in any
+    micro-batch.  (The extra module calls launch the kernels again: a run
+    under this is not counted.)"""
+    from nnstreamer_tpu_torch.backends.torch_cuda import TorchCuda
+
+    inner, ref, served = TorchCuda.invoke_batch, {}, []
+
+    def invoke_batch(self, inputs):
+        out = inner(self, inputs)
+        x = inputs[0]
+        rows = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        (_, n, logits, _), = direct_batches(torch, self._module, rows, [len(rows)])
+        labels = lab.top1_plain(logits)[0].cpu().numpy()
+        for r, label in zip(rows, labels):
+            ref[r.reshape(-1)[:64].tobytes()] = int(label)
+        served.append(n)
+        return out
+
+    with mock.patch.object(TorchCuda, "invoke_batch", invoke_batch):
+        yield ref, served
+
+
+def check_reference(np, name: str, run: dict, images, ref, served) -> None:
+    got = [f.meta["label_index"] for f in run["out"]]
+    want = [ref.get(images[i].reshape(-1)[:64].tobytes()) for i in range(len(images))]
+    if sum(served) != len(images) or got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"{name}: the servers ran {sum(served)} rows for {len(images)} "
+                             f"frames; {len(bad)} labels differ from the direct call of the "
+                             f"micro-batch that served them (first frames {bad[:8]})")
+
+
+def run_m3(torch, np, lab, counters, seed: int, images, labels) -> dict:
+    """m3: faults on the wire while the card serves (see the docstring)."""
+    import threading
+
+    from nnstreamer_tpu_torch.core.resilience import FAULTS
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    n = len(images)
+    out = {}
+    servers = [parse_pipeline(query_server_text(184 + k, seed, labels), name=f"m3srv{k}")
+               for k in range(2)]
+    for s in servers:
+        s.start()
+    ports = [s["ssrc"].props["port"] for s in servers]
+    try:
+        # (a) corrupt=bitflip at tcp_query.send
+        site = "tcp_query.send"
+
+        def arm(pipe, i):
+            if i == 0:
+                FAULTS.arm(site, corrupt="bitflip", every=QUERY_FAULT_EVERY, seed=11)
+
+        try:
+            with recording_reference(torch, np, lab) as (ref, served):
+                run = drive_client(query_client_text(ports, "corrupt-retries=4"), "m3a", images,
+                                   during=arm)
+            fired = FAULTS.stats(site)["fired"]
+        finally:
+            FAULTS.reset()
+        h = run["health"]
+        refused = sum(s.health()["ssrc"]["corrupt_requests"] for s in servers)
+        check_reference(np, "m3a", run, images, ref, served)
+        if not fired or not h["corruption_detected"] == h["retried"] == refused == fired \
+                or h["delivered"] != n:
+            raise AssertionError(f"m3a: {fired} corruptions fired; client detected "
+                                 f"{h['corruption_detected']}, retried {h['retried']}, delivered "
+                                 f"{h['delivered']}; servers refused {refused}")
+        out["a"] = {"fired": fired, "retried": h["retried"], "refused": refused,
+                    "requests": sum(s.health()["ssrc"]["admitted"] for s in servers)}
+        # (b) one server drained mid-stream
+        drained = {}
+
+        def drain(pipe, i):
+            if i == n // 3:
+                t = threading.Thread(target=lambda: drained.update(servers[0].drain(timeout=60)),
+                                     name="m3-drain")
+                t.start()
+                drained["thread"] = t
+
+        before = {k: s.health()["ssrc"]["goaway_sent"] for k, s in enumerate(servers)}
+        with recording_reference(torch, np, lab) as (ref, served):
+            run = drive_client(query_client_text(ports), "m3b", images, during=drain)
+        drained.pop("thread").join(timeout=60)
+        h = run["health"]
+        goaway = servers[0].health()["ssrc"]["goaway_sent"] - before[0]
+        trips = sum(b["trips"] for b in h["breakers"].values())
+        check_reference(np, "m3b", run, images, ref, served)
+        if drained.get("dropped") != 0 or not h["goaway_replies"] == goaway >= 1 or trips:
+            raise AssertionError(f"m3b: drain {drained}, GOAWAY seen {h['goaway_replies']} of "
+                                 f"{goaway} sent, breaker trips {trips}")
+        out["b"] = {"drain": drained, "goaway": goaway, "breaker_trips": trips}
+    finally:
+        for s in servers:
+            s.stop()
+    # (c) a held card tensor over mem-high-watermark sheds BUSY
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    big = total // 4
+    base = torch.cuda.memory_reserved()
+    high, low = (base + 0.6 * big) / total, (base + 0.3 * big) / total
+    srv = parse_pipeline(query_server_text(
+        186, seed, labels, f"mem-high-watermark={high:.6f} mem-low-watermark={low:.6f} "
+        "mem-sustain=60"), name="m3srv_mem")
+    srv.start()
+    held = {}
+
+    def wait_for(pred, what):
+        deadline = time.perf_counter() + 10
+        while not pred():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"m3c: the monitor never {what}: "
+                                     f"{srv.memory_monitor.snapshot()}")
+            time.sleep(0.01)
+
+    def release():
+        del held["x"]
+        torch.cuda.empty_cache()
+        held["s"] = time.perf_counter() - held.pop("t")
+
+    def squeeze(pipe, i):
+        # a push can wait behind the shed (backpressure), so the release
+        # runs on a timer, not at a later frame
+        if i == n * 3 // 10:
+            held["x"] = torch.empty(big, dtype=torch.uint8, device="cuda")
+            wait_for(lambda: srv.memory_monitor.pressured, "entered pressure")
+            held["t"] = time.perf_counter()
+            held["timer"] = threading.Timer(QUERY_HOLD_S, release)
+            held["timer"].start()
+
+    try:
+        with recording_reference(torch, np, lab) as (ref, served):
+            run = drive_client(query_client_text(
+                [srv["ssrc"].props["port"]], "busy-retries=60 retry-backoff=0.02"), "m3c", images,
+                during=squeeze)
+        held.pop("timer").join(timeout=10)
+        wait_for(lambda: not srv.memory_monitor.pressured, "cleared")
+        sh = srv.health()["ssrc"]
+    finally:
+        srv.stop()
+    h = run["health"]
+    check_reference(np, "m3c", run, images, ref, served)
+    if not h["busy_replies"] == sh["memory_shed"] == sh["load_shed"] >= 1 or sh["mem_pressure"]:
+        raise AssertionError(f"m3c: BUSY replies {h['busy_replies']}, memory sheds "
+                             f"{sh['memory_shed']}, sheds {sh['load_shed']}, pressure now "
+                             f"{sh['mem_pressure']}")
+    out["c"] = {"busy_replies": h["busy_replies"], "memory_shed": sh["memory_shed"],
+                "held_s": held["s"], "high": high, "low": low, "tensor_bytes": big}
+    return out
+
+
+def run_query(torch, np, lab, counters, seed: int, card: str, work, labels,
+              beside=None) -> tuple:
+    """Path m: m1-m3 (see their docstrings).  Returns (paths: m1's and m2's
+    launches and micro-batches, the summary line)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 20)
+    size = int(custom_props(MOBILENET_CUSTOM).get("size", "224"))
+    images = rng.integers(0, 256, (QUERY_FRAMES, size, size, 3), dtype=np.uint8)
+    secs = {}
+
+    def timed(key, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        secs[key] = time.perf_counter() - t
+        return r
+
+    m1 = timed("m1", run_m1, torch, np, lab, counters, seed, images, labels, work, beside)
+    torch.cuda.empty_cache()
+    m2 = timed("m2", run_m2, torch, np, counters, seed)
+    torch.cuda.empty_cache()
+    m3 = timed("m3", run_m3, torch, np, lab, counters, seed, images, labels)
+    paths = {"query_m1": {"launches": m1["launches"], "batches": m1["batches"]},
+             "query_m2": {"launches": m2["launches"], "batches": m2["batches"]}}
+    summary = {"card": card, "m1": {k: v for k, v in m1.items() if k != "launches"},
+               "m2": {k: v for k, v in m2.items() if k != "launches"}, "m3": m3,
+               "seconds": {k: round(v, 3) for k, v in secs.items()} | {
+                   "total": round(time.perf_counter() - t0, 3)}}
+    def ms(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    a = m1["beside_a"]
+    beside_text = "not measured (path a did not run)" if a is None else (
+        f"path a's {a['fps_steady']:.1f} frames/s, p50 {a['latency_ms_p50']:.2f} ms p99 "
+        f"{a['latency_ms_p99']:.2f} ms, stacking {ms(a['stack_ms_per_batch'])} a batch")
+    print(f"path m: m1 {QUERY_FRAMES} frames over 127.0.0.1 TCP in {m1['requests']} requests of "
+          f"32, served in {m1['batches']} micro-batches (sizes {m1['sizes']}), labels equal to "
+          f"the direct call, normalize_u8 and top1 once each a micro-batch, {m1['d2h_copies']} "
+          f"device-to-host copies of {m1['d2h_bytes']} bytes (the labels'), spans exact; "
+          f"{m1['fps_steady']:.1f} frames/s after the first micro-batch, push-to-sink p50 "
+          f"{m1['latency_ms_p50']:.2f} ms p99 {m1['latency_ms_p99']:.2f} ms, server stacking "
+          f"{ms(m1['ingest_stack_ms_per_request'])} a request at ingest and "
+          f"{ms(m1['filter_concat_ms_per_batch'])} a micro-batch in the filter (block ingest "
+          f"bypasses the lane: {m1['lane_staged']} staged), beside {beside_text} (host clock, "
+          f"information); wire-version=1 client {QUERY_V1_FRAMES} frames equal; on {card}")
+    print(f"path m: m2 {QUERY_PROMPTS} streams of {QUERY_NEW} tokens over 'S' equal to the "
+          f"in-process generator, chunks {m2['chunk_sizes']}; {m2['tokens_per_s']:.1f} tokens/s; "
+          f"a stopped client's slot freed after {m2['freed_s'] * 1e3:.0f} ms; a "
+          f"{QUERY_BUDGET_S} s budget ended in the typed expiry after {m2['budget_tokens']} "
+          f"tokens; m3 a {m3['a']}, b {m3['b']}, c {m3['c']}; seconds {summary['seconds']}; "
+          f"on {card}")
+    return paths, summary
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -4804,9 +5363,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= {"i", "j", "k", "l"}:
-        raise SystemExit(f"chip_smoke.py: --only takes i, j, k and l, not "
-                         f"{sorted(only - {'i', 'j', 'k', 'l'})}")
+    if not only <= {"i", "j", "k", "l", "m"}:
+        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l and m, not "
+                         f"{sorted(only - {'i', 'j', 'k', 'l', 'm'})}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -4820,6 +5379,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "l" in only:
         print(json.dumps({"observability": run_observability(torch, np, lab, counters,
                                                              args.seed, card, work, labels)[1]}))
+    if "m" in only:
+        print(json.dumps({"query": run_query(torch, np, lab, counters, args.seed, card, work,
+                                             labels)[1]}))
     print(card)
     return 0
 
@@ -4831,7 +5393,7 @@ def main() -> int:
     ap.add_argument("--prompts", type=int, default=16, help="1024-token prompts through GPT-2 small")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
-                    help="comma-separated paths to run alone after the kernel build: i, j, k, l "
+                    help="comma-separated paths to run alone after the kernel build: i, j, k, l, m "
                          "(prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
@@ -4936,6 +5498,10 @@ def main() -> int:
     observability_paths, observability = run_observability(torch, np, lab, counters, args.seed,
                                                            card, work, labels)
     paths.update(observability_paths)
+    torch.cuda.empty_cache()
+    query_paths, query = run_query(torch, np, lab, counters, args.seed, card, work, labels,
+                                   beside=paths["mobilenet_v2"])
+    paths.update(query_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -4951,6 +5517,7 @@ def main() -> int:
     print(json.dumps({"model_files": files}))
     print(json.dumps({"supervision": supervision}))
     print(json.dumps({"observability": observability}))
+    print(json.dumps({"query": query}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

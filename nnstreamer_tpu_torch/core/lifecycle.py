@@ -25,8 +25,9 @@ and restarts, so neither drops a frame:
 
 * **Rolling query-server restart**: a draining query server refuses
   *new* requests with a GOAWAY reply (:class:`ServerGoawayError`) that
-  clients treat as an immediate, resend-safe failover signal.  The
-  transports that send it come with ROADMAP A13.
+  clients treat as an immediate, resend-safe failover signal: 'G' on
+  the raw-TCP transport, UNAVAILABLE with a goaway detail on gRPC
+  (``distributed/``).
 
 Design rules follow core/resilience.py: injectable clocks, zero hot-path
 cost when idle (the coordinator's pending checks are plain attribute

@@ -1,8 +1,10 @@
 """Liveness primitives: stall watchdog, deadline QoS, admission control,
 memory watermarks, and background-thread heartbeats.
 
-Port of ``nnstreamer_tpu/core/liveness.py`` without the query client's
-parts (ROADMAP A13).  The supervision layer (``core/resilience.py``)
+Port of ``nnstreamer_tpu/core/liveness.py``.  The query server core
+(``distributed/service.py``) admits requests through the admission
+controllers here and sheds with :class:`ServerBusyError`; the query client
+reads the deadline helpers.  The supervision layer (``core/resilience.py``)
 handles elements that *crash*; this module covers the failures that never
 raise: an element that silently hangs, a frame that arrives too late to
 matter, a server drowning in more in-flight work than it can serve, and

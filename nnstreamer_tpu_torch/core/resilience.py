@@ -3,8 +3,9 @@ classification, and deterministic fault injection.
 
 Port of ``nnstreamer_tpu/core/resilience.py``.  The pipeline supervisor
 (``pipeline/pipeline.py``), the filter's OOM and device-loss ladder
-(``elements/filter.py``) and the slot engine (``core/slots.py``) share
-these primitives; the transports that come with ROADMAP A13 will too.
+(``elements/filter.py``), the slot engine (``core/slots.py``) and the
+query transports and client (``distributed/``, ``elements/query.py``,
+ROADMAP A13.1) share these primitives.
 
 Design rules:
 
@@ -27,6 +28,7 @@ memory access, an unspecified launch failure, ...) become
 from __future__ import annotations
 
 import random
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -196,9 +198,23 @@ def is_remote_application_error(err: BaseException) -> bool:
     """True when the failure is an application-level reply from a live
     server (transport worked), as opposed to a connectivity/timeout
     fault.  Health machinery (breakers, cooldowns) must ignore these.
-    (The JAX package also reads gRPC status codes here; the port has no
-    gRPC transport yet, ROADMAP A13.)"""
-    return isinstance(err, RemoteApplicationError)
+    A gRPC status is read only where ``grpc`` is already loaded (the
+    query client's gRPC transport imports it; the card machine has none)."""
+    if isinstance(err, RemoteApplicationError):
+        return True
+    grpc = sys.modules.get("grpc")
+    if grpc is not None and isinstance(err, grpc.RpcError):
+        code = getattr(err, "code", lambda: None)()
+        # a status the server DECIDED to send is not a dead server, except
+        # DATA_LOSS: sustained corruption must be able to trip breakers
+        return code not in (
+            None,
+            grpc.StatusCode.UNAVAILABLE,
+            grpc.StatusCode.DEADLINE_EXCEEDED,
+            grpc.StatusCode.CANCELLED,
+            grpc.StatusCode.DATA_LOSS,
+        )
+    return False
 
 
 def register_transient(*types: Type[BaseException]) -> None:
@@ -351,9 +367,8 @@ class CircuitBreaker:
         self.half_open_max = max(1, int(half_open_max))
         self.name = name
         # observability hook: fired (outside the lock) each time the
-        # breaker transitions to OPEN.  Its owner routes it into
-        # ``Pipeline.incident`` (a flight-recorder dump); the JAX package's
-        # owner is the query client, which the port gains with ROADMAP A13
+        # breaker transitions to OPEN.  Its owner (the query client) routes
+        # it into ``Pipeline.incident`` (a flight-recorder dump)
         self._on_trip = on_trip
         self._clock = clock
         self._lock = threading.Lock()

@@ -18,13 +18,17 @@ and collection runs only at scrape or snapshot time.  Nothing here
 synchronizes the card or copies a card tensor to the host: a dump
 ``repr``s its detail.
 
-The catalog holds the JAX package's names for the series the port emits.
-Not ported: the query wire's spans and ``nns.query.*`` series (ROADMAP
-A13), the fleet observatory's ``nns.fleet.*`` and the autoscaler's
-``nns.autoscale.*`` (A13), the serving mesh's ``nns.mesh.*`` (A11), the
-trainer's ``nns.train.*`` (A9), the memory monitor's ``nns.mem.*`` (the
-JAX package exports them through the query server's health row, A13), and
-the frame pool's ``nns.pool.frame_*`` (the port has no ``FramePool``).
+The catalog holds the JAX package's names for the series the port emits,
+the query elements' ``nns.query.*`` (server admission and integrity, the
+per-tenant rows, the client's counters, breakers, per-remote span EWMAs
+and ``nns.query.rtt_seconds``) and the memory monitor's ``nns.mem.*``
+(exported through the query server's health row) among them.  Not
+ported: the query client's stream-resume counters (ROADMAP A7.3), the
+discovery plane's announce, digest and fencing series, the fleet
+observatory's ``nns.fleet.*`` and the autoscaler's ``nns.autoscale.*``
+(A13.2, A13.3), the serving mesh's ``nns.mesh.*`` (A11), the trainer's
+``nns.train.*`` (A9), and the frame pool's ``nns.pool.frame_*`` (the port
+has no ``FramePool``).
 """
 
 from __future__ import annotations
@@ -132,6 +136,56 @@ METRICS: Dict[str, Tuple[str, str]] = {
     # profilers (jax trace session + incident-time thread sampler)
     "nns.profiler.active": ("gauge", "1 while the element holds a jax-profiler trace ref"),
     "nns.profiler.captures": ("counter", "thread-profile captures attached to incident dumps"),
+    # tensor_query server (admission / wire integrity / rolling restart)
+    "nns.lifecycle.server_state": ("gauge", "query-server serving/draining/stopped code"),
+    "nns.query.inflight": ("gauge", "requests admitted and not yet answered"),
+    "nns.query.admitted": ("counter", "requests admitted"),
+    "nns.query.load_shed": ("counter", "requests refused with BUSY"),
+    "nns.query.shedding": ("gauge", "1 while admission hysteresis refuses work"),
+    "nns.query.admission_high": ("gauge", "admission high watermark"),
+    "nns.query.admission_low": ("gauge", "admission low watermark"),
+    "nns.query.ingress_depth": ("gauge", "frames queued for the server pipeline"),
+    "nns.query.corrupt_requests": ("counter", "corrupt requests refused"),
+    "nns.query.goaway_sent": ("counter", "requests refused with GOAWAY"),
+    # per-tenant admission (TenantAdmissionController; tenant= label)
+    "nns.query.tenant_inflight": ("gauge", "requests in flight for the tenant"),
+    "nns.query.tenant_admitted": ("counter", "requests admitted for the tenant"),
+    "nns.query.tenant_shed": ("counter", "requests shed for the tenant (quota/priority/load)"),
+    "nns.query.tenant_quota": ("gauge", "in-flight quota governing the tenant (0 = unlimited)"),
+    # tensor_query client (failover / integrity / degrade / spans)
+    "nns.query.client_inflight": ("gauge", "client requests dispatched and unanswered"),
+    "nns.query.affinity_remaps": ("counter", "consistent-hash affinity owner changes (fleet resizes)"),
+    "nns.query.remote_inflight": ("gauge", "live client requests in flight to the remote"),
+    "nns.query.delivered": ("counter", "logical frames answered by a server"),
+    "nns.query.retried": ("counter", "extra attempts dispatched, all causes"),
+    "nns.query.busy_replies": ("counter", "BUSY sheds seen"),
+    "nns.query.goaway_replies": ("counter", "GOAWAY refusals seen"),
+    "nns.query.deadline_expired": ("counter", "requests abandoned: budget ran out"),
+    "nns.query.corruption_detected": ("counter", "corrupt exchanges detected"),
+    "nns.query.degraded_frames": ("counter", "frames answered by degrade= instead of a server"),
+    "nns.query.breaker_trips_evicted": ("counter", "trips of breakers evicted on pool swaps"),
+    "nns.query.breaker_open": ("gauge", "1 while the remote's breaker is open"),
+    "nns.query.breaker_trips": ("counter", "lifetime breaker trips for the remote"),
+    "nns.query.breaker_failures": ("gauge", "failures in the breaker's rolling window"),
+    "nns.query.rtt_seconds": ("histogram", "client-observed round-trip time"),
+    # per-remote span aggregation (the ewma routing policy's load signal)
+    "nns.query.remote_requests": ("counter", "requests answered by the remote"),
+    "nns.query.remote_e2e_ms": ("gauge", "EWMA end-to-end latency via the remote"),
+    "nns.query.remote_rtt_ms": ("gauge", "EWMA wire round-trip via the remote"),
+    "nns.query.remote_wire_ms": ("gauge", "EWMA wire-only segment via the remote"),
+    "nns.query.remote_server_ms": ("gauge", "EWMA server-side time via the remote"),
+    "nns.query.remote_client_queue_ms": ("gauge", "EWMA client-queue segment"),
+    # -- memory-pressure watermarks (core/liveness.py monitor) -------------
+    "nns.mem.bytes_in_use": ("gauge", "device HBM bytes in use (most-loaded chip)"),
+    "nns.mem.bytes_limit": ("gauge", "device HBM capacity (most-loaded chip; 0 = unreported)"),
+    "nns.mem.host_rss": ("gauge", "process resident set size, bytes"),
+    "nns.mem.fraction": ("gauge", "watermark fraction driving the pressure state"),
+    "nns.mem.pressure": ("gauge", "1 while above the high memory watermark (hysteresis)"),
+    "nns.mem.polls": ("counter", "watermark evaluations (sweeper cadence)"),
+    "nns.mem.trims": ("counter", "pool/cache trim sweeps fired at the high watermark"),
+    "nns.mem.trimmed_entries": ("counter", "entries freed by memory-pressure trims"),
+    "nns.mem.incidents": ("counter", "sustained-pressure flight-recorder incidents"),
+    "nns.query.memory_shed": ("counter", "requests shed with BUSY at the memory watermark"),
     # -- continuous batching (core/slots.py + tensor_generator) ------------
     "nns.gen.slots": ("gauge", "configured slot-batch width"),
     "nns.gen.occupied": ("gauge", "slots held by live generation streams"),
@@ -200,6 +254,7 @@ STATE_CODES = {
     "idle": 0, "running": 1, "restarting": 2, "degraded": 3,
     "failed": 4, "finished": 5, "stalled": 6,
 }
+SERVER_STATE_CODES = {"stopped": 0, "serving": 1, "draining": 2}
 SWAP_STATE_CODES = {"idle": 0, "staging": 1, "staged": 2, "observing": 3}
 
 #: ``health_info()`` keys with an explicit stable metric name; numeric
@@ -253,6 +308,37 @@ HEALTH_KEY_METRICS: Dict[str, str] = {
     "gen_device_lost": "nns.gen.device_lost",
     "gen_device_lost_evicted": "nns.gen.device_lost_evicted",
     "gen_remeshes": "nns.gen.remeshes",
+    # query server (admission, integrity, rolling restart)
+    "inflight": "nns.query.inflight",
+    "admitted": "nns.query.admitted",
+    "load_shed": "nns.query.load_shed",
+    "shedding": "nns.query.shedding",
+    "admission_high": "nns.query.admission_high",
+    "admission_low": "nns.query.admission_low",
+    "ingress_depth": "nns.query.ingress_depth",
+    "corrupt_requests": "nns.query.corrupt_requests",
+    "goaway_sent": "nns.query.goaway_sent",
+    # query client
+    "delivered": "nns.query.delivered",
+    "retried": "nns.query.retried",
+    "busy_replies": "nns.query.busy_replies",
+    "goaway_replies": "nns.query.goaway_replies",
+    "deadline_expired": "nns.query.deadline_expired",
+    "corruption_detected": "nns.query.corruption_detected",
+    "degraded_frames": "nns.query.degraded_frames",
+    "breaker_trips_evicted": "nns.query.breaker_trips_evicted",
+    "affinity_remaps": "nns.query.affinity_remaps",
+    # memory watermarks (the serversrc's health row)
+    "mem_bytes_in_use": "nns.mem.bytes_in_use",
+    "mem_bytes_limit": "nns.mem.bytes_limit",
+    "mem_host_rss": "nns.mem.host_rss",
+    "mem_fraction": "nns.mem.fraction",
+    "mem_pressure": "nns.mem.pressure",
+    "mem_polls": "nns.mem.polls",
+    "mem_trims": "nns.mem.trims",
+    "mem_trimmed_entries": "nns.mem.trimmed_entries",
+    "mem_incidents": "nns.mem.incidents",
+    "memory_shed": "nns.query.memory_shed",
 }
 
 #: non-numeric / structured health keys handled specially (or skipped) by
@@ -260,7 +346,10 @@ HEALTH_KEY_METRICS: Dict[str, str] = {
 #: bytes the filter's OOM trims released) is a health key the JAX package
 #: has no series for, so it stays in ``health()`` only.
 HEALTH_KEYS_SPECIAL = (
-    "state", "policy", "last_error", "model", "swap_state", "swap_last_error",
+    "state", "policy", "last_error", "model", "servers", "breakers",
+    "remotes", "lifecycle", "swap_state", "swap_last_error",
+    # fleet routing / tenancy (dedicated collector branches)
+    "tenants", "remote_inflight", "endpoint_hints", "routing",
     # per-tenant SLO rows ({tenant: SloTracker row}: dedicated branch)
     "slo",
     # background-thread census ({thread name: ThreadBeat.snapshot()})
@@ -1140,9 +1229,49 @@ def collect_pipeline(pipe) -> List[Sample]:
                 out.append(Sample("nns.lifecycle.state", dict(labels),
                                   STATE_CODES.get(val, -1), "gauge"))
                 continue
+            if key == "lifecycle":
+                out.append(Sample("nns.lifecycle.server_state", dict(labels),
+                                  SERVER_STATE_CODES.get(val, -1), "gauge"))
+                continue
             if key == "swap_state":
                 out.append(Sample("nns.lifecycle.swap_state", dict(labels),
                                   SWAP_STATE_CODES.get(val, -1), "gauge"))
+                continue
+            if key == "breakers" and isinstance(val, dict):
+                for remote, snap in val.items():
+                    rl = {**labels, "remote": remote}
+                    out.append(Sample("nns.query.breaker_open", dict(rl),
+                                      1.0 if snap.get("state") == "open" else 0.0, "gauge"))
+                    out.append(Sample("nns.query.breaker_trips", dict(rl),
+                                      snap.get("trips", 0), "counter"))
+                    out.append(Sample("nns.query.breaker_failures", dict(rl),
+                                      snap.get("recent_failures", 0), "gauge"))
+                continue
+            if key == "tenants" and isinstance(val, dict):
+                for tenant, row in val.items():
+                    tl = {**labels, "tenant": tenant or "_"}
+                    for field_, mname, kind in (
+                            ("inflight", "nns.query.tenant_inflight", "gauge"),
+                            ("admitted", "nns.query.tenant_admitted", "counter"),
+                            ("shed", "nns.query.tenant_shed", "counter"),
+                            ("quota", "nns.query.tenant_quota", "gauge")):
+                        out.append(Sample(mname, dict(tl), row.get(field_, 0), kind))
+                continue
+            if key == "remote_inflight" and isinstance(val, dict):
+                for remote, v in val.items():
+                    out.append(Sample("nns.query.remote_inflight",
+                                      {**labels, "remote": remote}, v, "gauge"))
+                continue
+            if key == "remotes" and isinstance(val, dict):
+                # per-remote span EWMAs: each numeric field onto its
+                # catalogued nns.query.remote_* name
+                for remote, agg in val.items():
+                    rl = {**labels, "remote": remote}
+                    for akey, aval in agg.items():
+                        n = _num(aval)
+                        mname = f"nns.query.remote_{akey}"
+                        if n is not None and mname in METRICS:
+                            out.append(Sample(mname, dict(rl), n, metric_kind(mname)))
                 continue
             if key == "slo" and isinstance(val, dict):
                 # per-tenant SLO rows: every numeric field maps onto its

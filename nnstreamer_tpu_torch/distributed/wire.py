@@ -10,14 +10,23 @@ Frame layout (little-endian):
   v2: the same with version=2, and the fixed header grows a trailing u32
       CRC-32 (zlib) over the whole encoded frame with the crc field zeroed.
 
+Batch envelope (wire micro-batching):
+
+  v1: u32 magic 'NNSB' | u16 count | per frame: u64 len | NNSQ bytes
+  v2: u32 magic 'NNSC' | u16 count | u32 crc | per frame: u64 len | bytes
+      The batch crc covers the skeleton (the header with the crc zeroed and
+      every u64 length prefix); each frame carries its own v2 checksum.
+
 Decoding validates every declared size against hard limits and the buffer
 before any allocation, and every malformed input raises a typed
 :class:`WireError`: :class:`WireTruncationError` (the buffer ends before
 its declared data) or :class:`WireCorruptionError` (checksum mismatch,
 implausible or inconsistent fields).  v2 decoders accept v1 frames.
 Payloads on the card come to the host through ``materialize``; decoded
-tensors are read-only host views of the buffer.  The multi-frame
-envelope ('NNSB'/'NNSC') belongs to the transports (ROADMAP A13).
+tensors are read-only host views of the buffer.  Encoders hand out their
+output as a list of buffers (``encode_frame_parts``,
+``encode_frames_parts``) that a transport gather-sends with no payload
+copy.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import numpy as np
 
 from ..core.buffer import TensorFrame, materialize
 from ..core.liveness import DEADLINE_META
+from ..core.telemetry import TL_PREFIX
+from ..core.tracer import META_SRC_TS
 from ..core.types import (
     TENSOR_COUNT_LIMIT,
     FlexHeaderTruncated,
@@ -49,12 +60,6 @@ V2 = 2
 MAX_BODY = 512 * 1024 * 1024
 #: bound on the JSON meta blob inside one frame
 MAX_META = 16 * 1024 * 1024
-
-#: meta keys that are host-local instants and never cross the wire: the
-#: JAX package's trace-local telemetry prefix (``core/telemetry.py``) and
-#: the tracer's source stamp (``core/tracer.py``), besides the deadline
-TL_PREFIX = "_nns_tl_"
-META_SRC_TS = "_nns_trace_src_ts"
 
 _HEAD1 = struct.Struct("<IHQdI")
 _HEAD2 = struct.Struct("<IHQdII")  # v2: + u32 crc32 (over the frame, crc zeroed)
@@ -107,7 +112,8 @@ def get_codec(name: str):
 
 def _clean_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
     """The meta that crosses the wire: JSON-serializable entries that are
-    not host-local instants."""
+    not host-local instants (the deadline stamp, the tracer's source stamp
+    and every trace-local telemetry key; only durations travel)."""
     out = {}
     for k, v in meta.items():
         if k in (DEADLINE_META, META_SRC_TS) or k.startswith(TL_PREFIX):
@@ -125,12 +131,18 @@ def host_arrays(frame: TensorFrame) -> list:
     return [np.ascontiguousarray(a) for a in materialize(frame.tensors)]
 
 
-def encode_frame(frame: TensorFrame, version: int = None) -> bytes:
-    """One frame; v2 (the default) computes its CRC in one pass over the
-    parts, the payloads read in place from the host arrays."""
-    version = default_version() if version is None else int(version)
+def _check_version(version) -> int:
+    version = int(version)
     if version not in (V1, V2):
         raise WireError(f"cannot encode wire version {version} (have 1|2)")
+    return version
+
+
+def encode_frame_parts(frame: TensorFrame, version: int = None) -> list:
+    """One frame as a list of buffers with no payload copy: the payloads
+    ride as memoryviews of the host arrays.  v2 (the default) computes its
+    CRC in one pass over the parts."""
+    version = default_version() if version is None else _check_version(version)
     meta = json.dumps(_clean_meta(frame.meta)).encode()
     pts = frame.pts if frame.pts is not None else math.nan
     head = (_HEAD2.pack(_MAGIC, V2, frame.seq, pts, len(meta), 0) if version == V2
@@ -145,7 +157,56 @@ def encode_frame(frame: TensorFrame, version: int = None) -> bytes:
         for p in parts:
             crc = zlib.crc32(p, crc)
         parts[0] = _HEAD2.pack(_MAGIC, V2, frame.seq, pts, len(meta), crc)
-    return b"".join(parts)
+    return parts
+
+
+def parts_nbytes(parts) -> int:
+    return sum(memoryview(p).nbytes for p in parts)
+
+
+def _join(parts) -> bytes:
+    return b"".join(p if isinstance(p, bytes) else bytes(p) for p in parts)
+
+
+def encode_frame(frame: TensorFrame, version: int = None) -> bytes:
+    return _join(encode_frame_parts(frame, version=version))
+
+
+# -- multi-frame envelope (wire micro-batching) -------------------------------
+_BMAGIC = 0x4E4E5342   # 'NNSB' (v1, no checksum)
+_B2MAGIC = 0x4E4E5343  # 'NNSC' (v2, skeleton crc)
+_BHEAD = struct.Struct("<IH")
+_B2HEAD = struct.Struct("<IHI")
+_BLEN = struct.Struct("<Q")
+
+
+def encode_frames_parts(frames, version: int = None) -> list:
+    """Several frames in ONE envelope, as gather parts with no payload
+    copy.  v2 adds a skeleton CRC-32 (the batch header and every length
+    prefix); the frames inside carry their own v2 checksums."""
+    version = default_version() if version is None else _check_version(version)
+    if version == V1:
+        parts = [_BHEAD.pack(_BMAGIC, len(frames))]
+        for f in frames:
+            fparts = encode_frame_parts(f, version=V1)
+            parts.append(_BLEN.pack(parts_nbytes(fparts)))
+            parts.extend(fparts)
+        return parts
+    head0 = _B2HEAD.pack(_B2MAGIC, len(frames), 0)
+    parts = [head0]
+    crc = zlib.crc32(head0)
+    for f in frames:
+        fparts = encode_frame_parts(f, version=V2)
+        blen = _BLEN.pack(parts_nbytes(fparts))
+        crc = zlib.crc32(blen, crc)
+        parts.append(blen)
+        parts.extend(fparts)
+    parts[0] = _B2HEAD.pack(_B2MAGIC, len(frames), crc)
+    return parts
+
+
+def encode_frames(frames, version: int = None) -> bytes:
+    return _join(encode_frames_parts(frames, version=version))
 
 
 def _need(have: int, off: int, n: int, what: str) -> None:
@@ -153,6 +214,59 @@ def _need(have: int, off: int, n: int, what: str) -> None:
     if off + n > have:
         raise WireTruncationError(
             f"truncated: {what} needs {n} byte(s) at offset {off}, buffer has {have}")
+
+
+def decode_frames(buf, verify: bool = True):
+    """Inverse of :func:`encode_frames`: a list of frames.  Every entry
+    length is checked against :data:`MAX_BODY` and the buffer before any
+    slice; ``verify`` checks a v2 envelope's skeleton CRC first."""
+    mv = memoryview(buf)
+    total = len(mv)
+    _need(total, 0, 4, "batch magic")
+    (magic,) = struct.unpack_from("<I", mv, 0)
+    if magic == _BMAGIC:
+        _need(total, 0, _BHEAD.size, "batch header")
+        _, count = _BHEAD.unpack_from(mv, 0)
+        off = _BHEAD.size
+        crc = None
+    elif magic == _B2MAGIC:
+        _need(total, 0, _B2HEAD.size, "batch header")
+        _, count, crc = _B2HEAD.unpack_from(mv, 0)
+        off = _B2HEAD.size
+    else:
+        raise WireCorruptionError(f"bad batch magic 0x{magic:08x}")
+
+    def entries():
+        """(index, offset of the frame, its length) with the bounds checks."""
+        o = off
+        for i in range(count):
+            _need(total, o, _BLEN.size, f"batch entry {i} length")
+            (blen,) = _BLEN.unpack_from(mv, o)
+            if blen > MAX_BODY:
+                raise WireCorruptionError(f"batch frame {i} declares {blen} bytes (cap {MAX_BODY})")
+            _need(total, o + _BLEN.size, blen, f"batch frame {i}")
+            yield o, o + _BLEN.size, blen
+            o += _BLEN.size + blen
+
+    if crc is not None and verify:
+        actual = zlib.crc32(_B2HEAD.pack(_B2MAGIC, count, 0))
+        for lo, _, _ in entries():
+            actual = zlib.crc32(mv[lo:lo + _BLEN.size], actual)
+        if actual != crc:
+            raise WireCorruptionError(
+                f"batch checksum mismatch (crc32 {actual:#010x} != declared {crc:#010x})")
+    frames = []
+    end = off
+    for _, fo, blen in entries():
+        frames.append(decode_frame(mv[fo:fo + blen], verify=verify))
+        end = fo + blen
+    if end != total:
+        raise WireCorruptionError(f"{total - end} trailing byte(s) after batch envelope")
+    return frames
+
+
+def is_batch_payload(buf) -> bool:
+    return len(buf) >= 4 and struct.unpack_from("<I", memoryview(buf), 0)[0] in (_BMAGIC, _B2MAGIC)
 
 
 def frame_version(buf) -> int:

@@ -12,6 +12,7 @@ from . import (  # noqa: F401
     generator,
     media_src,
     mux,
+    query,
     repo,
     sparse,
     transform,

@@ -46,9 +46,11 @@ status are computed at scrape time and exported per tenant as
 ``nns.slo.*`` (``health_info``'s ``slo`` rows, ``histograms_info``).
 ``health_info`` also carries the engine's counters (``nns.gen.*``) and
 its pump's thread census; a wedged pump is a flight-recorder incident.
+Behind a query server, :meth:`note_stream_cancel` (the serversink's
+client-gone feedback) cancels the dead client's stream, freeing its slot.
 
 Not ported: ``mesh=`` (ROADMAP A11), resume (A7.3: a RESUME request is
-answered with the typed reject), resize (A13).
+answered with the typed reject), resize (A13.3).
 """
 
 from __future__ import annotations
@@ -338,6 +340,16 @@ class TensorGenerator(Element):
                            f"{eng.heartbeat.name} wedged ({eng.heartbeat.age_s():.1f}s, "
                            f"pending={eng.pending()})")
         return eng.pop_ready()
+
+    def note_stream_cancel(self, meta: Dict) -> None:
+        """Downstream feedback (the query serversink): the consumer of this
+        stream is gone; free its slot now instead of decoding tokens nobody
+        will read."""
+        if self._engine is None:
+            return
+        cid = meta.get("client_id")
+        if cid is not None:
+            self._engine.cancel(client_id=cid)
 
     def handle_eos(self, pad):
         """Slotted mode: the stream ends only once every live generation

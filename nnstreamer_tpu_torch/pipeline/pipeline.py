@@ -28,8 +28,13 @@ sweeper thread only when an element arms it; frames past their deadline
 are dropped before the call (``late-policy``) and every upstream
 ``tensor_rate`` hears of it (``_qos_feedback``); the memory watermark
 monitor (:meth:`Pipeline.enable_memory_monitor`) polls on the same
-sweeper; :meth:`Pipeline.drain` flushes in-flight frames to the sinks and
-:meth:`Pipeline.reload_model` hot-swaps a filter's model.
+sweeper; :meth:`Pipeline.drain` flushes in-flight frames to the sinks (a source
+with ``OWNS_DRAIN``, the query serversrc, ends its own stream after its
+GOAWAY drain, and ``pending_frames`` of the query client and serversrc
+count in the drain's accounting) and :meth:`Pipeline.reload_model`
+hot-swaps a filter's model.  :meth:`Pipeline.stream_cancel_feedback`
+tells the generators upstream of a serversink that a stream's client is
+gone.
 
 Observability (ROADMAP A4.4): :meth:`Pipeline.enable_tracing` attaches a
 :class:`~..core.tracer.PipelineTracer` that the scheduler feeds around
@@ -440,6 +445,12 @@ class Pipeline:
                 name=f"{self.name}-watchdog", daemon=True)
             self._wd_thread.start()
         return mon
+
+    @property
+    def memory_monitor(self):
+        """The armed :class:`~..core.liveness.MemoryPressureMonitor`, or
+        None (the query serversrc sheds BUSY while it reads pressure)."""
+        return self._mem_monitor
 
     # -- construction -------------------------------------------------------
     def add(self, *elements: Element) -> Element:
@@ -988,11 +999,9 @@ class Pipeline:
             self._qos_feedback(el, f, lateness)
         return frames if keep is None else keep
 
-    def _qos_feedback(self, el: Element, frame, lateness: float) -> None:
-        """Tell every upstream throttler a deadline was missed (≙ QoS
-        events travelling upstream to tensor_rate): elements exposing
-        ``note_qos(pts, lateness)`` shed earlier, where dropping is
-        cheapest."""
+    def _notify_upstream(self, el: Element, hook: str, *args) -> None:
+        """Call ``hook(*args)`` on every element upstream of `el` that has
+        it (each once; a failing hook is logged)."""
         seen = {el.name}
         stack = [el.name]
         while stack:
@@ -1000,13 +1009,28 @@ class Pipeline:
                 if up.name in seen:
                     continue
                 seen.add(up.name)
-                note = getattr(up, "note_qos", None)
+                note = getattr(up, hook, None)
                 if note is not None:
                     try:
-                        note(frame.pts, lateness)
+                        note(*args)
                     except Exception:
-                        self.log.exception("note_qos failed for %s", up.name)
+                        self.log.exception("%s failed for %s", hook, up.name)
                 stack.append(up.name)
+
+    def _qos_feedback(self, el: Element, frame, lateness: float) -> None:
+        """Tell every upstream throttler a deadline was missed (≙ QoS
+        events travelling upstream to tensor_rate): elements exposing
+        ``note_qos(pts, lateness)`` shed earlier, where dropping is
+        cheapest."""
+        self._notify_upstream(el, "note_qos", frame.pts, lateness)
+
+    def stream_cancel_feedback(self, el: Element, meta: dict) -> None:
+        """A consumer of a generation stream is gone (the serversink's
+        client vanished mid-stream): every upstream element exposing
+        ``note_stream_cancel(meta)`` hears of it, so a slot engine frees
+        the dead stream's slot instead of decoding tokens nobody will
+        read."""
+        self._notify_upstream(el, "note_stream_cancel", meta)
 
     def _dead_letter(self, el: Element, frames, err: BaseException) -> None:
         """skip policy: keep the dropped frame(s) as they are (no host
@@ -1396,8 +1420,13 @@ class Pipeline:
         wd, watch = self._watchdog, self._watches.get(el.name)
         frames_it = iter(el.frames())
         src_pending = getattr(el, "pending_frames", None)
+        # a source with its own drain state machine (the query serversrc:
+        # GOAWAY to new requests, admitted ones still pulled) ends its
+        # stream itself
+        owns_drain = getattr(el, "OWNS_DRAIN", False)
         while True:
-            if self._drain_flag.is_set() and (src_pending is None or src_pending() <= 0):
+            if self._drain_flag.is_set() and not owns_drain and (
+                    src_pending is None or src_pending() <= 0):
                 break  # graceful drain: flush what is in flight via EOS
             if el._interrupted.is_set():
                 el._interrupted.clear()  # stale: the pull completed anyway

@@ -79,3 +79,51 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_the_port_imports_and_serves_without_grpc():
+    """The card machine has no ``grpc``: with it blocked, every port module
+    imports, a connect-type=tcp query round trip runs, and connect-type=grpc
+    (the default) raises a RuntimeError naming the package, on both ends."""
+    code = (
+        "import sys\n"
+        "sys.modules['grpc'] = None  # import grpc raises ImportError\n"
+        "import importlib, pkgutil\n"
+        "import numpy as np\n"
+        "import nnstreamer_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from nnstreamer_tpu_torch.pipeline import parse_pipeline\n"
+        "srv = parse_pipeline('tensor_query_serversrc name=s id=7 host=127.0.0.1 "
+        "connect-type=tcp ! tensor_filter framework=scaler custom=factor:2 accelerator=cpu ! "
+        "tensor_query_serversink id=7')\n"
+        "srv.start()\n"
+        "try:\n"
+        "    cl = parse_pipeline(f\"appsrc name=src ! tensor_query_client host=127.0.0.1 "
+        "port={srv['s'].props['port']} connect-type=tcp wire-batch=2 ! tensor_sink name=out\")\n"
+        "    cl.start()\n"
+        "    for i in range(5):\n"
+        "        cl['src'].push(np.float32([i]))\n"
+        "    cl['src'].end_of_stream(); cl.wait(timeout=30); cl.stop()\n"
+        "    assert [float(f.tensors[0][0]) for f in cl['out'].frames] == [0, 2, 4, 6, 8]\n"
+        "finally:\n"
+        "    srv.stop()\n"
+        "for text in ('tensor_query_serversrc ! tensor_query_serversink',\n"
+        "             'appsrc ! tensor_query_client port=5 ! tensor_sink'):\n"
+        "    pipe = parse_pipeline(text)\n"
+        "    try:\n"
+        "        pipe.start()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'requires the grpc package' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('connect-type=grpc started without grpc')\n"
+        "    finally:\n"
+        "        pipe.stop()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

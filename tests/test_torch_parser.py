@@ -194,14 +194,15 @@ def test_branches_get_their_own_streaming_threads_as_jax(name):
 
 
 def test_element_classes_match_jax():
-    """31 of the JAX package's element classes, each with the JAX class's
-    factory aliases, pad counts and BATCH_AWARE contract."""
+    """34 of the JAX package's element classes (the three tensor_query
+    elements among them), each with the JAX class's factory aliases, pad
+    counts and BATCH_AWARE contract."""
     from nnstreamer_tpu.pipeline.element import ELEMENT_TYPES as JAX_TYPES
     from nnstreamer_tpu_torch.pipeline.element import ELEMENT_TYPES
 
     ours = {f: c for f, c in ELEMENT_TYPES.items()  # not classes other tests register
             if c.__module__.startswith("nnstreamer_tpu_torch.elements.")}
-    assert len(set(ours.values())) == 31
+    assert len(set(ours.values())) == 34
     for factory, cls in ours.items():
         ref = JAX_TYPES[factory]
         assert (cls.FACTORY_NAME, cls.NUM_SINK_PADS, cls.NUM_SRC_PADS, cls.BATCH_AWARE) == \
