@@ -349,8 +349,50 @@ Phases (any failure exits non-zero before the result lines are printed):
          replies = memory sheds, released memory ends the shed); every frame
          once, labels equal to the direct call of the micro-batch that
          served it.
-   ``--only i,j,k,l,m`` runs paths i, j, k, l and m alone after the kernel
-   build (j with ``PAD_EDGES`` first), each summary a JSON line.
+   n. edge pub/sub, MQTT and discovery on the card, everything over
+      127.0.0.1 in this process on the port's own ``MiniBroker``:
+      1. ``DIST_FRAMES`` (1024) seeded frames from ``appsrc ! edgesink
+         connect-type=tcp topic=cam`` into ``edgesrc connect-type=tcp !``
+         path a's filter and fused labeling decoder ``! mqttsink
+         pub-topic=labels qos=1``, read by ``mqttsrc sub-topic=labels qos=1
+         ! tensor_sink``: every label once and equal to the direct call in
+         the server's micro-batch sizes, ``normalize_u8`` and ``top1`` once
+         each a micro-batch, device-to-host copies the labels' bytes only
+         (``torch.profiler``); frames/s after the first micro-batch,
+         push-to-listener p50/p99 and the MQTT leg (the header's sent
+         epoch) beside paths a's and m's; then ``DIST_MQTT_FRAMES`` (256)
+         frames over ``mqttsink qos=1`` into ``mqttsrc qos=1`` and the same
+         filter, every frame once, labels equal; no mqttsrc dropped a message
+         for a full receive queue (``dropped_full`` 0: both size theirs to
+         the stream, ``max-msg-buf-size`` = its frames);
+      2. two m1 servers announcing on ``topic=lab`` (``dest-brokers=`` a
+         standby) and a third that announces and crashes without deleting
+         its announce: a client with ``topic=lab`` and no ``hosts=`` finds
+         the two live servers and skips the stale one, and labels
+         ``DIST_QUERY_FRAMES`` (512) frames equal to the direct call of the
+         micro-batch that served them; mid-stream one server drains (one of
+         its micro-batches held ``DIST_HOLD_S`` so its listener stays open):
+         its announce turns ``draining:true``; from then on the draining
+         server admits no request, the running client fails over on every
+         GOAWAY it sent, and a client that starts then discovers it
+         draining (its endpoint hint), gets no GOAWAY and labels
+         ``DIST_LATE_FRAMES`` (64) frames equal, nothing dropped;
+         ``Pipeline.degraded_feedback``
+         on the other announces ``degraded:true``; then the first broker
+         closes: ``nns.query.reannounces`` and ``plane_reconnects`` 1 per
+         server, and a fresh client discovers both through the standby
+         (the degraded one hinted) and labels ``DIST_FAILOVER_FRAMES``
+         (256) frames equal;
+      3. without ``grpc``, edgesink and edgesrc in ``connect-type=server``,
+         ``client`` and ``hybrid``, ``tensor_sink_grpc`` and
+         ``tensor_src_grpc`` fail at ``start()`` with the typed error and
+         leave no thread; with ``grpc``, n1's edge leg over
+         ``connect-type=hybrid`` on 256 frames, labels equal, ``normalize_u8``
+         and ``top1`` once each a micro-batch, and the gRPC broker dropped
+         nothing (``dropped_full`` 0; the pushes are paced to stay within
+         its subscriber queue of 64).
+   ``--only i,j,k,l,m,n`` runs paths i, j, k, l, m and n alone after the
+   kernel build (j with ``PAD_EDGES`` first), each summary a JSON line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -363,7 +405,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    (path h's numbers), a ``{"prefix_cache": {...}}`` line (path i's), a
    ``{"model_files": {...}}`` line (path j's), a ``{"supervision": {...}}``
    line (path k's), an ``{"observability": {...}}`` line (path l's), a
-   ``{"query": {...}}`` line (path m's), one
+   ``{"query": {...}}`` line (path m's), a ``{"distributed": {...}}`` line
+   (path n's), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -5331,6 +5374,533 @@ def run_query(torch, np, lab, counters, seed: int, card: str, work, labels,
     return paths, summary
 
 
+DIST_FRAMES = 1024
+#: n1b: frames over MQTT itself (mqttsink qos=1 into mqttsrc qos=1)
+DIST_MQTT_FRAMES = 256
+#: n2: frames through the discovered servers, then through the standby broker
+DIST_QUERY_FRAMES, DIST_FAILOVER_FRAMES = 512, 256
+#: n2: frames of the client that discovers the servers during the drain
+DIST_LATE_FRAMES = 64
+#: n2: seconds one of the draining server's micro-batches is held, so its
+#: listener is still open when the late client's discovery probes it
+DIST_HOLD_S = 2.0
+
+
+def dist_model_text(seed: int, labels, name: str = "f") -> str:
+    """Path a's model and fused decoder, between a source and a sink."""
+    return (f"tensor_filter name={name} framework=torch-cuda model=zoo "
+            f"custom={MOBILENET_CUSTOM},seed:{seed} max-batch=128 batch-timeout=20 ! "
+            f"tensor_decoder mode=image_labeling option1={labels}")
+
+
+def wait_for(pred, what: str, timeout: float = 10.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"path n: {what} within {timeout} s")
+        time.sleep(0.005)
+
+
+def retained_announces(port: int, topic_filter: str = "nns/query/#") -> dict:
+    """The retained announces on the broker at 127.0.0.1:`port`, decoded."""
+    from nnstreamer_tpu_torch.distributed.mqtt import MqttClient
+
+    got = {}
+    c = MqttClient("127.0.0.1", port)
+    try:
+        c.subscribe(topic_filter, lambda t, p: got.__setitem__(t, json.loads(p) if p else None))
+        time.sleep(0.1)
+    finally:
+        c.close()
+    return {t: v for t, v in got.items() if v is not None}
+
+
+def numbered(np, images):
+    """Each frame a TensorFrame carrying its index in the meta (MQTT
+    rebases pts into the receiver's clock)."""
+    from nnstreamer_tpu_torch.core.buffer import TensorFrame
+
+    return [TensorFrame([images[i]], pts=float(i), meta={"frame": i})
+            for i in range(len(images))]
+
+
+def batch_labels(torch, np, lab, module, images, sizes) -> "np.ndarray":
+    """The direct call's labels in the given micro-batch sizes."""
+    return np.concatenate([lab.top1_plain(logits)[0].cpu().numpy()
+                           for _, _, logits, _ in direct_batches(torch, module, images, sizes)])
+
+
+def check_once(name: str, out, n: int) -> list:
+    """Every frame index of `out` once: returns the frames by index."""
+    idx = sorted(f.meta["frame"] for f in out)
+    if idx != list(range(n)):
+        raise AssertionError(f"{name}: {len(out)} answers for {n} frames, or some lost or twice")
+    return sorted(out, key=lambda f: f.meta["frame"])
+
+
+def run_n1(torch, np, lab, counters, seed: int, images, labels, work) -> dict:
+    """n1: camera to card over the raw-TCP edge, labels out over MQTT; then
+    frames over MQTT itself (see the docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.distributed.mqtt import MiniBroker
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    n = len(images)
+    frames = numbered(np, images)
+    broker = MiniBroker()
+    pipes = []
+
+    def started(text, name, before=None):
+        pipe = parse_pipeline(text, name=name)
+        pipes.append(pipe)
+        kept = before(pipe) if before is not None else None
+        pipe.start()
+        return pipe if before is None else (pipe, kept)
+
+    try:
+        cam = started("appsrc name=src ! edgesink name=es connect-type=tcp host=127.0.0.1 port=0 "
+                      "topic=cam", "n1cam")
+        listener = parse_pipeline(
+            f"mqttsrc name=ms host=127.0.0.1 port={broker.port} sub-topic=labels qos=1 "
+            f"num-buffers={n} sub-timeout=120000 max-msg-buf-size={n} ! tensor_sink name=out",
+            name="n1listen")
+        arrived = {}
+        listener["out"].connect_new_data(
+            lambda f: arrived.setdefault(f.meta["frame"], []).append(time.perf_counter()))
+        pipes.append(listener)
+        listener.start()
+        srv, emitted = started(f"edgesrc name=esrc connect-type=tcp dest-host=127.0.0.1 "
+                               f"dest-port={cam['es'].props['port']} topic=cam ! "
+                               f"{dist_model_text(seed, labels)} ! mqttsink host=127.0.0.1 "
+                               f"port={broker.port} pub-topic=labels qos=1", "n1srv",
+                               before=lambda pipe: timed_source(pipe, "esrc"))
+        wait_for(lambda: cam["es"]._tcp.subscriber_count("cam") == 1
+                 and broker.has_subscriber("labels"), "n1's subscribers attached")
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        with recording_io(srv, "f") as (sizes, outs, _):
+            counters.zero()
+            prof.start()
+            time.sleep(0.5)  # margins: see cuda_kernels
+            pushed = []
+            t0 = time.perf_counter()
+            epoch_off = time.time() - t0  # the MQTT header's wall clock -> perf_counter
+            for f in frames:
+                pushed.append(time.perf_counter())
+                cam["src"].push(f)
+            listener.wait(timeout=300)
+            wall = time.perf_counter() - t0
+            time.sleep(0.5)
+            prof.stop()
+            launches = counters.read()
+        module = srv["f"].backend._module
+        out = check_once("n1", listener["out"].frames, n)
+        if any(len(v) != 1 for v in arrived.values()):
+            raise AssertionError("n1: a label arrived twice")
+        # n1b: the frames themselves over MQTT, QoS 1 both ways
+        m = DIST_MQTT_FRAMES
+        srv_b = started(f"mqttsrc name=ms host=127.0.0.1 port={broker.port} sub-topic=cam "
+                        f"qos=1 num-buffers={m} sub-timeout=120000 max-msg-buf-size={m} ! "
+                        f"{dist_model_text(seed, labels)} ! tensor_sink name=out", "n1bsrv")
+        wait_for(lambda: broker.has_subscriber("cam"), "n1b's subscriber attached")
+        tx_b = started(f"appsrc name=src ! mqttsink host=127.0.0.1 port={broker.port} "
+                       "pub-topic=cam qos=1", "n1bcam")
+        with recording_io(srv_b, "f") as (sizes_b, _, _):
+            counters.zero()
+            t0 = time.perf_counter()
+            for f in numbered(np, images[:m]):
+                tx_b["src"].push(f)
+            srv_b.wait(timeout=300)
+            wall_b = time.perf_counter() - t0
+            launches_b = counters.read()
+        module_b = srv_b["f"].backend._module
+        out_b = check_once("n1b", srv_b["out"].frames, m)
+        dropped = [p["ms"].health_info()["dropped_full"] for p in (listener, srv_b)]
+    finally:
+        for pipe in reversed(pipes):
+            pipe.stop()
+        broker.close()
+    if dropped != [0, 0]:
+        raise AssertionError(f"n1, n1b: the mqttsrcs dropped {dropped} messages for a full queue")
+    for name, l, s in (("n1", launches, sizes), ("n1b", launches_b, sizes_b)):
+        if not l["normalize_u8"] == l["top1"] == len(s) or l["flash_attention"]:
+            raise AssertionError(f"{name}: launches {l} for {len(s)} micro-batches (want "
+                                 "normalize_u8 and top1 once each)")
+    for name, got, want in (
+            ("n1", [f.meta["label_index"] for f in out],
+             batch_labels(torch, np, lab, module, images, sizes)),
+            ("n1b", [f.meta["label_index"] for f in out_b],
+             batch_labels(torch, np, lab, module_b, images[:m], sizes_b))):
+        if not np.array_equal(np.array(got), want):
+            raise AssertionError(f"{name}: {int((np.array(got) != want).sum())} labels differ from "
+                                 "the direct call in the server's micro-batch sizes")
+    moved = [b for b in d2h_copies(prof, work / "n1_profile.json") if b]
+    out_bytes = sorted(int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
+                       for call in outs for shape, dt, _ in call)
+    if moved != out_bytes:
+        raise AssertionError(f"n1: device-to-host copies of {moved} bytes; the labels' are "
+                             f"{out_bytes} (one copy a micro-batch, as path a)")
+    fps, p50, p99 = stream_numbers(pushed, {i: v[0] for i, v in arrived.items()}, sizes[0] - 1)
+    leg = sorted(f.meta["mqtt-latency-s"] * 1e3 for f in out)
+    # where a frame's time goes (host clock, ms, p50): push to the server's
+    # edgesrc (appsrc queue, edgesink encode, the socket, decode), the
+    # server (filter and decoder to mqttsink's publish: the header's sent
+    # epoch), the MQTT leg
+    sent = [out[i].meta["mqtt-sent-epoch"] - epoch_off for i in range(n)]
+    stages = {"to_server_src": [emitted[i] - pushed[i] for i in range(n)],
+              "server": [sent[i] - emitted[i] for i in range(n)],
+              "mqtt_leg": [arrived[i][0] - sent[i] for i in range(n)]}
+    stages = {k: statistics.median(v) * 1e3 for k, v in stages.items()}
+    return {"launches": launches, "batches": len(sizes), "sizes": dict(Counter(sizes)),
+            "fps": n / wall, "fps_steady": fps, "latency_ms_p50": p50, "latency_ms_p99": p99,
+            "mqtt_leg_ms_p50": leg[n // 2], "mqtt_leg_ms_p99": leg[min(n - 1, int(n * 0.99))],
+            "stage_ms_p50": stages,
+            "d2h_copies": len(moved), "d2h_bytes": sum(moved), "dropped_full": dropped,
+            "b": {"launches": launches_b, "batches": len(sizes_b), "fps": m / wall_b,
+                  "sizes": dict(Counter(sizes_b))}}
+
+
+@contextmanager
+def recording_rows(torch, np):
+    """Every ``TorchCuda.invoke_batch`` call's backend and input rows (on the
+    host), for a reference computed after the launch counters are read."""
+    from nnstreamer_tpu_torch.backends.torch_cuda import TorchCuda
+
+    inner, calls = TorchCuda.invoke_batch, []
+
+    def invoke_batch(self, inputs):
+        x = inputs[0]
+        calls.append((self, x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)))
+        return inner(self, inputs)
+
+    with mock.patch.object(TorchCuda, "invoke_batch", invoke_batch):
+        yield calls
+
+
+def check_served(torch, np, lab, name: str, out, images, calls) -> None:
+    """Each answer's label equals the direct call of the micro-batch that
+    served its frame, on the server that served it."""
+    ref = {}
+    for backend, rows in calls:
+        for r, label in zip(rows, batch_labels(torch, np, lab, backend._module, rows,
+                                                [len(rows)])):
+            ref[r.reshape(-1)[:64].tobytes()] = int(label)
+    got = [f.meta["label_index"] for f in out]
+    want = [ref.get(images[i].reshape(-1)[:64].tobytes()) for i in range(len(images))]
+    if sum(len(rows) for _, rows in calls) != len(images) or got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"{name}: {len(bad)} labels differ from the direct call of the "
+                             f"micro-batch that served them (first frames {bad[:8]})")
+
+
+def crash(pipe) -> None:
+    """Stop a server pipeline as a crash would: its retained announce stays."""
+    src = pipe["ssrc"]
+    ann, src._announcement = src._announcement, None
+    ann._client.close()  # no tombstone
+    pipe.stop()
+
+
+def run_n2(torch, np, lab, counters, seed: int, images, labels) -> dict:
+    """n2: discovery while the card serves (see the docstring)."""
+    import threading
+
+    from nnstreamer_tpu_torch.core.resilience import FAULTS
+    from nnstreamer_tpu_torch.distributed.mqtt import MiniBroker
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    images, late_images = images[:DIST_QUERY_FRAMES], images[DIST_QUERY_FRAMES:]
+    n = len(images)
+    b1, b2 = MiniBroker(), MiniBroker()
+    plane = (f"topic=lab dest-host=127.0.0.1 dest-port={b1.port} "
+             f"dest-brokers=127.0.0.1:{b2.port}")
+
+    def lab_server(k: int):
+        text = query_server_text(190 + k, seed, labels, plane).replace(
+            "name=f ", f"name=f{k} ", 1)
+        pipe = parse_pipeline(text, name=f"n2srv{k}")
+        pipe.start()
+        return pipe
+
+    servers, out = [lab_server(0), lab_server(1)], {}
+    try:
+        ports = [s["ssrc"].props["port"] for s in servers]
+        stale = parse_pipeline(
+            f"tensor_query_serversrc name=ssrc id=192 host=127.0.0.1 port=0 connect-type=tcp "
+            f"{plane} ! tensor_filter framework=scaler custom=factor:2 accelerator=cpu ! "
+            "tensor_query_serversink id=192", name="n2stale")
+        stale.start()
+        stale_port = stale["ssrc"].props["port"]
+        crash(stale)
+        wait_for(lambda: len(retained_announces(b1.port)) == 3, "three announces retained")
+        seen, hold = {}, "element.f0.handle_frame"
+        client = (f"appsrc name=src ! tensor_query_client name=q topic=lab dest-host=127.0.0.1 "
+                  f"dest-port={b1.port} connect-type=tcp wire-batch=32 max-in-flight=8 "
+                  "timeout=60 ! tensor_sink name=out")
+
+        def discover_during_drain():
+            """Server 0 drains while one of its micro-batches is held; a
+            client that starts then discovers it draining and sends it
+            nothing, while the running client meets its GOAWAYs."""
+            wait_for(lambda: FAULTS.stats(hold)["fired"] == 1, "the held micro-batch started")
+            t = threading.Thread(target=lambda: seen.update(drain=servers[0].drain(timeout=60)),
+                                 name="n2-drain")
+            t.start()
+            seen["drain_thread"] = t
+            wait_for(lambda: any(v.get("draining") for v in retained_announces(b1.port).values()),
+                     "the draining announce")
+            seen["admitted_at_drain"] = [s.health()["ssrc"]["admitted"] for s in servers]
+            seen["late"] = drive_client(
+                client, "n2late", numbered(np, late_images),
+                during=lambda pipe, i: i or seen.update(
+                    late_hints=pipe["q"].health_info()["endpoint_hints"]))
+
+        def during(pipe, i):
+            if i == 0:
+                seen["targets"] = sorted(pipe["q"]._pstate.targets)
+            if i == n // 3:
+                FAULTS.arm(hold, delay=DIST_HOLD_S, times=1)
+                t = threading.Thread(target=discover_during_drain, name="n2-late-client")
+                t.start()
+                seen["thread"] = t
+
+        goaway_before = servers[0].health()["ssrc"]["goaway_sent"]
+        try:
+            with recording_rows(torch, np) as calls:
+                counters.zero()
+                t0 = time.perf_counter()
+                run = drive_client(client, "n2cli", numbered(np, images), during=during)
+                wall = time.perf_counter() - t0
+                seen.pop("thread").join(timeout=60)
+                launches = counters.read()
+            seen.pop("drain_thread").join(timeout=60)
+        finally:
+            FAULTS.reset()
+        late = seen["late"]
+        check_served(torch, np, lab, "n2", run["out"] + late["out"],
+                     np.concatenate([images, late_images]), calls)
+        want_targets = sorted(("127.0.0.1", p) for p in ports)
+        if seen["targets"] != want_targets or ("127.0.0.1", stale_port) in seen["targets"]:
+            raise AssertionError(f"n2: discovered {seen['targets']} (want {want_targets}; the "
+                                 f"stale announce of port {stale_port} skipped)")
+        # what the clients did with the draining announce: the late client
+        # ranked server 0 draining and sent it nothing, the running client
+        # failed over on every GOAWAY, and server 0 admitted nothing new
+        draining = f"127.0.0.1:{ports[0]}"
+        h, hl = run["health"], late["health"]
+        admitted = [s.health()["ssrc"]["admitted"] for s in servers]
+        goaway = servers[0].health()["ssrc"]["goaway_sent"] - goaway_before
+        if seen.get("late_hints") != {draining: {"draining": True, "degraded": False}} \
+                or hl["goaway_replies"] or admitted[0] != seen["admitted_at_drain"][0] \
+                or h["goaway_replies"] != goaway or seen["drain"].get("dropped") != 0:
+            raise AssertionError(
+                f"n2: during the drain the late client's hints were {seen.get('late_hints')} "
+                f"(want {draining} draining), its GOAWAY replies {hl['goaway_replies']} (want 0); "
+                f"server 0 admitted {seen['admitted_at_drain'][0]} requests at its draining "
+                f"announce and {admitted[0]} at the end; the running client saw "
+                f"{h['goaway_replies']} GOAWAYs of {goaway} sent; drain {seen.get('drain')}")
+        if not launches["normalize_u8"] == launches["top1"] == len(calls):
+            raise AssertionError(f"n2: launches {launches} for {len(calls)} server micro-batches")
+        out["discovery"] = {"launches": launches, "batches": len(calls),
+                            "fps": n / wall, "goaway_replies": h["goaway_replies"],
+                            "late_client": {"frames": len(late_images),
+                                            "hints": seen["late_hints"],
+                                            "goaway_replies": hl["goaway_replies"],
+                                            "admitted_by_server": [
+                                                a - b for a, b in
+                                                zip(admitted, seen["admitted_at_drain"])]},
+                            "stale_port": stale_port}
+        # degraded feedback on the other server
+        servers[1].degraded_feedback("n2", "device lost (injected)")
+        wait_for(lambda: [v.get("degraded") for v in retained_announces(b1.port).values()
+                          if v["port"] == ports[1]] == [True], "the degraded announce")
+        # broker failover: the drained server restarts, then the first broker dies
+        servers[0].stop()
+        servers[0] = lab_server(0)
+        ports[0] = servers[0]["ssrc"].props["port"]
+        b1.close()
+        wait_for(lambda: all((s.health()["ssrc"]["reannounces"],
+                              s.health()["ssrc"]["plane_reconnects"]) == (1, 1)
+                             for s in servers), "one re-announce per server on the standby")
+        wait_for(lambda: len(retained_announces(b2.port)) == 2, "both announces on the standby")
+        fresh = client.replace(f"dest-port={b1.port}",
+                               f"dest-port={b1.port} dest-brokers=127.0.0.1:{b2.port}")
+        m = DIST_FAILOVER_FRAMES
+        admitted = [s.health()["ssrc"]["admitted"] for s in servers]
+        with recording_rows(torch, np) as calls_f:
+            counters.zero()
+            run_f = drive_client(fresh, "n2fresh", numbered(np, images[:m]),
+                                 during=lambda pipe, i: seen.setdefault(
+                                     "fresh", (sorted(pipe["q"]._pstate.targets),
+                                               pipe["q"].health_info()["endpoint_hints"])))
+            launches_f = counters.read()
+        check_served(torch, np, lab, "n2 failover", run_f["out"], images[:m], calls_f)
+        targets_f, hints_f = seen["fresh"]
+        if targets_f != sorted(("127.0.0.1", p) for p in ports) or hints_f != {
+                f"127.0.0.1:{ports[1]}": {"draining": False, "degraded": True}}:
+            raise AssertionError(f"n2: through the standby the fresh client found {targets_f} "
+                                 f"with hints {hints_f}")
+        if not launches_f["normalize_u8"] == launches_f["top1"] == len(calls_f):
+            raise AssertionError(f"n2 failover: launches {launches_f} for {len(calls_f)} "
+                                 "micro-batches")
+        health = [s.health()["ssrc"] for s in servers]
+        out["failover"] = {"launches": launches_f, "batches": len(calls_f),
+                           "reannounces": [x["reannounces"] for x in health],
+                           "plane_reconnects": [x["plane_reconnects"] for x in health],
+                           "admitted": [x["admitted"] - a for x, a in zip(health, admitted)]}
+    finally:
+        for s in servers:
+            s.stop()
+        b1.close()
+        b2.close()
+    return out
+
+
+def grpc_modes() -> list:
+    """Every element mode that needs ``grpc``."""
+    modes = ["appsrc ! tensor_sink_grpc", "tensor_src_grpc ! tensor_sink"]
+    for ct in ("server", "client", "hybrid"):
+        modes += [f"appsrc ! edgesink connect-type={ct} dest-port=1",
+                  f"edgesrc connect-type={ct} dest-port=1 ! tensor_sink"]
+    return modes
+
+
+def run_n3(torch, np, lab, counters, seed: int, images, labels) -> dict:
+    """n3: no hidden fallback (see the docstring)."""
+    import importlib.util
+    import threading
+
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    if importlib.util.find_spec("grpc") is None:
+        before = {t.name for t in threading.enumerate()}
+        refused = []
+        for text in grpc_modes():
+            pipe = parse_pipeline(text)
+            try:
+                pipe.start()
+            except RuntimeError as e:
+                if "requires the grpc package" not in str(e):
+                    raise
+                refused.append(text)
+            else:
+                raise AssertionError(f"n3: {text!r} started without grpc")
+            finally:
+                pipe.stop()
+        left = {t.name for t in threading.enumerate()} - before
+        if left:
+            raise AssertionError(f"n3: refused starts left threads {sorted(left)}")
+        return {"grpc": False, "refused": len(refused)}
+    from nnstreamer_tpu_torch.distributed.mqtt import MiniBroker
+
+    n = len(images)
+    broker = MiniBroker()
+    cam = parse_pipeline(f"appsrc name=src ! edgesink name=es connect-type=hybrid "
+                         f"dest-host=127.0.0.1 dest-port={broker.port} topic=cam host=127.0.0.1",
+                         name="n3cam")
+    srv = parse_pipeline(f"edgesrc connect-type=hybrid dest-host=127.0.0.1 dest-port={broker.port} "
+                         f"topic=cam ! {dist_model_text(seed, labels)} ! tensor_sink name=out",
+                         name="n3srv")
+    try:
+        cam.start()
+        srv.start()
+        wait_for(lambda: cam["es"]._broker.subscriber_count("cam") == 1, "n3's subscriber")
+        with recording_io(srv, "f") as (sizes, _, _):
+            counters.zero()
+            for i, f in enumerate(numbered(np, images)):
+                # the gRPC broker drops a frame for a full subscriber queue:
+                # stay within its depth
+                wait_for(lambda: i - len(srv["out"].frames) < 48, "n3's frames arriving", 60)
+                cam["src"].push(f)
+            wait_for(lambda: len(srv["out"].frames) == n, "n3's labels", 120)
+            launches = counters.read()
+        module = srv["f"].backend._module
+        out = check_once("n3", srv["out"].frames, n)
+        dropped = cam["es"].health_info()["dropped_full"]
+    finally:
+        srv.stop()
+        cam.stop()
+        broker.close()
+    if dropped:
+        raise AssertionError(f"n3: the gRPC edge broker dropped {dropped} frames")
+    if not launches["normalize_u8"] == launches["top1"] == len(sizes) \
+            or launches["flash_attention"]:
+        raise AssertionError(f"n3: launches {launches} for {len(sizes)} micro-batches (want "
+                             "normalize_u8 and top1 once each)")
+    want = batch_labels(torch, np, lab, module, images, sizes)
+    if not np.array_equal(np.array([f.meta["label_index"] for f in out]), want):
+        raise AssertionError("n3: hybrid labels differ from the direct call")
+    return {"grpc": True, "launches": launches, "batches": len(sizes), "dropped_full": dropped}
+
+
+def run_distributed(torch, np, lab, counters, seed: int, card: str, work, labels,
+                    beside=None) -> tuple:
+    """Path n: n1-n3 (see their docstrings).  Returns (paths: the launches
+    and micro-batches of n1, n1b and n2, the summary line)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 21)
+    size = int(custom_props(MOBILENET_CUSTOM).get("size", "224"))
+    images = rng.integers(0, 256, (DIST_FRAMES, size, size, 3), dtype=np.uint8)
+    secs = {}
+
+    def timed(key, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        secs[key] = time.perf_counter() - t
+        return r
+
+    n1 = timed("n1", run_n1, torch, np, lab, counters, seed, images, labels, work)
+    torch.cuda.empty_cache()
+    n2 = timed("n2", run_n2, torch, np, lab, counters, seed,
+               images[:DIST_QUERY_FRAMES + DIST_LATE_FRAMES], labels)
+    torch.cuda.empty_cache()
+    n3 = timed("n3", run_n3, torch, np, lab, counters, seed, images[:DIST_MQTT_FRAMES], labels)
+    paths = {"distributed_n1": {"launches": n1["launches"], "batches": n1["batches"]},
+             "distributed_n1b": {"launches": n1["b"]["launches"], "batches": n1["b"]["batches"]},
+             "distributed_n2": {"launches": n2["discovery"]["launches"],
+                                "batches": n2["discovery"]["batches"]},
+             "distributed_n2_failover": {"launches": n2["failover"]["launches"],
+                                         "batches": n2["failover"]["batches"]}}
+    if n3.get("grpc"):
+        paths["distributed_n3"] = {"launches": n3["launches"], "batches": n3["batches"]}
+    strip = ("launches",)
+    summary = {"card": card,
+               "n1": {k: v for k, v in n1.items() if k not in strip and k != "b"}
+               | {"b": {k: v for k, v in n1["b"].items() if k not in strip}},
+               "n2": {k: {kk: vv for kk, vv in v.items() if kk not in strip}
+                      for k, v in n2.items()},
+               "n3": {k: v for k, v in n3.items() if k not in strip},
+               "beside": None if beside is None else beside,
+               "seconds": {k: round(v, 3) for k, v in secs.items()} | {
+                   "total": round(time.perf_counter() - t0, 3)}}
+    side = "not measured (paths a and m did not run)" if beside is None else ", ".join(
+        f"path {k}'s {v['fps_steady']:.1f} frames/s, p50 {v['latency_ms_p50']:.2f} ms"
+        for k, v in beside.items())
+    print(f"path n: n1 {DIST_FRAMES} frames camera -> edgesink tcp -> edgesrc -> MobileNet-v2 -> "
+          f"mqttsink qos=1 -> mqttsrc, {n1['batches']} micro-batches (sizes {n1['sizes']}), every "
+          f"label once and equal to the direct call, normalize_u8 and top1 once each a "
+          f"micro-batch, {n1['d2h_copies']} device-to-host copies of {n1['d2h_bytes']} bytes (the "
+          f"labels'); {n1['fps_steady']:.1f} frames/s after the first micro-batch, push-to-listener "
+          f"p50 {n1['latency_ms_p50']:.2f} ms p99 {n1['latency_ms_p99']:.2f} ms, the MQTT leg "
+          f"(header's sent epoch) p50 {n1['mqtt_leg_ms_p50']:.3f} ms p99 "
+          f"{n1['mqtt_leg_ms_p99']:.3f} ms, stage p50s {n1['stage_ms_p50']}, beside {side} "
+          f"(host clock); n1b {DIST_MQTT_FRAMES} "
+          f"frames over mqttsink qos=1 -> mqttsrc qos=1 equal, {n1['b']['fps']:.1f} frames/s; "
+          f"on {card}")
+    d, f = n2["discovery"], n2["failover"]
+    print(f"path n: n2 discovery found the two live servers and skipped the stale announce of "
+          f"port {d['stale_port']}; {DIST_QUERY_FRAMES} frames labeled equal to the direct call "
+          f"in {d['batches']} micro-batches, {d['fps']:.1f} frames/s; during one server's drain "
+          f"the running client failed over on {d['goaway_replies']} GOAWAY replies, nothing "
+          f"dropped, and a client that discovered then ({d['late_client']}) ranked it draining "
+          f"and sent it nothing (its {DIST_LATE_FRAMES} labels equal too); degraded_feedback announced degraded:true; after the first "
+          f"broker closed: reannounces {f['reannounces']}, plane_reconnects "
+          f"{f['plane_reconnects']}, a fresh client discovered both through the standby and "
+          f"labeled {DIST_FAILOVER_FRAMES} frames equal (admitted {f['admitted']}; the degraded "
+          f"server ranked below); n3 {n3}; seconds {summary['seconds']}; on {card}")
+    return paths, summary
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -5363,9 +5933,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= {"i", "j", "k", "l", "m"}:
-        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l and m, not "
-                         f"{sorted(only - {'i', 'j', 'k', 'l', 'm'})}")
+    if not only <= set("ijklmn"):
+        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m and n, not "
+                         f"{sorted(only - set('ijklmn'))}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -5382,6 +5952,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "m" in only:
         print(json.dumps({"query": run_query(torch, np, lab, counters, args.seed, card, work,
                                              labels)[1]}))
+    if "n" in only:
+        print(json.dumps({"distributed": run_distributed(torch, np, lab, counters, args.seed,
+                                                         card, work, labels)[1]}))
     print(card)
     return 0
 
@@ -5393,8 +5966,8 @@ def main() -> int:
     ap.add_argument("--prompts", type=int, default=16, help="1024-token prompts through GPT-2 small")
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
-                    help="comma-separated paths to run alone after the kernel build: i, j, k, l, m "
-                         "(prints their summaries; without it every path runs)")
+                    help="comma-separated paths to run alone after the kernel build: i, j, k, l, "
+                         "m, n (prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
     if not (ROOT / "nnstreamer_tpu_torch" / "csrc").is_dir():
@@ -5502,6 +6075,12 @@ def main() -> int:
     query_paths, query = run_query(torch, np, lab, counters, args.seed, card, work, labels,
                                    beside=paths["mobilenet_v2"])
     paths.update(query_paths)
+    torch.cuda.empty_cache()
+    beside = {k: {"fps_steady": v["fps_steady"], "latency_ms_p50": v["latency_ms_p50"]}
+              for k, v in (("a", paths["mobilenet_v2"]), ("m", query["m1"]))}
+    dist_paths, distributed = run_distributed(torch, np, lab, counters, args.seed, card, work,
+                                              labels, beside=beside)
+    paths.update(dist_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -5518,6 +6097,7 @@ def main() -> int:
     print(json.dumps({"supervision": supervision}))
     print(json.dumps({"observability": observability}))
     print(json.dumps({"query": query}))
+    print(json.dumps({"distributed": distributed}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -22,11 +22,13 @@ The catalog holds the JAX package's names for the series the port emits,
 the query elements' ``nns.query.*`` (server admission and integrity, the
 per-tenant rows, the client's counters, breakers, per-remote span EWMAs
 and ``nns.query.rtt_seconds``) and the memory monitor's ``nns.mem.*``
-(exported through the query server's health row) among them.  Not
-ported: the query client's stream-resume counters (ROADMAP A7.3), the
-discovery plane's announce, digest and fencing series, the fleet
-observatory's ``nns.fleet.*`` and the autoscaler's ``nns.autoscale.*``
-(A13.2, A13.3), the serving mesh's ``nns.mesh.*`` (A11), the trainer's
+(exported through the query server's health row) among them, and
+the discovery plane's announce reconnects (``nns.query.reannounces``,
+``nns.query.plane_reconnects``, on the serversrc's health row while it
+announces).  Not ported: the query client's stream-resume counters
+(ROADMAP A7.3), the digest and fencing series, the fleet observatory's
+``nns.fleet.*`` and the autoscaler's ``nns.autoscale.*`` (A13.3), the
+serving mesh's ``nns.mesh.*`` (A11), the trainer's
 ``nns.train.*`` (A9), and the frame pool's ``nns.pool.frame_*`` (the port
 has no ``FramePool``).
 """
@@ -186,6 +188,11 @@ METRICS: Dict[str, Tuple[str, str]] = {
     "nns.mem.trimmed_entries": ("counter", "entries freed by memory-pressure trims"),
     "nns.mem.incidents": ("counter", "sustained-pressure flight-recorder incidents"),
     "nns.query.memory_shed": ("counter", "requests shed with BUSY at the memory watermark"),
+    # -- the discovery plane (announce client of the query serversrc) -----
+    "nns.query.reannounces": ("counter", "retained announces re-published after a broker reconnect"),
+    "nns.query.plane_reconnects": ("counter", "announce-client broker reconnects (restart or failover)"),
+    # -- pub/sub sources (mqttsrc, edgesrc, tensor_src_grpc) -----------------
+    "nns.wire.corrupt_dropped": ("counter", "undecodable pub/sub frames dropped"),
     # -- continuous batching (core/slots.py + tensor_generator) ------------
     "nns.gen.slots": ("gauge", "configured slot-batch width"),
     "nns.gen.occupied": ("gauge", "slots held by live generation streams"),
@@ -339,6 +346,11 @@ HEALTH_KEY_METRICS: Dict[str, str] = {
     "mem_trimmed_entries": "nns.mem.trimmed_entries",
     "mem_incidents": "nns.mem.incidents",
     "memory_shed": "nns.query.memory_shed",
+    # the discovery plane (the serversrc's health row while announcing)
+    "reannounces": "nns.query.reannounces",
+    "plane_reconnects": "nns.query.plane_reconnects",
+    # pub/sub sources' integrity (mqttsrc, edgesrc, tensor_src_grpc)
+    "corrupt_dropped": "nns.wire.corrupt_dropped",
 }
 
 #: non-numeric / structured health keys handled specially (or skipped) by

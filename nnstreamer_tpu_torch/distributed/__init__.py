@@ -5,10 +5,11 @@
 ``flatbuf_codec`` speak the ``nns_tensors.proto`` and ``nnstreamer.fbs``
 schemas, written with ``struct`` so that no protobuf or flatbuffers
 runtime is needed.  ``tcp_query`` is the raw-TCP query transport and
-``service`` the query server core with the gRPC transport, which imports
-``grpc`` only when it is used (ROADMAP A13.1).  The edge and MQTT
-transports and hybrid discovery (``tcp_edge``, ``mqtt``, ``hybrid``) wait
-for ROADMAP A13.2.
+``service`` the query server core and the edge broker with their gRPC
+transport, which imports ``grpc`` only when it is used.  ``tcp_edge`` is
+the raw-TCP edge pub/sub, ``mqtt`` the MQTT 3.1.1 client and broker, and
+``hybrid`` the control plane that announces and discovers endpoints over
+MQTT.
 """
 
 from .wire import (  # noqa: F401
@@ -19,8 +20,16 @@ from .wire import (  # noqa: F401
     encode_frame,
 )
 from .service import (  # noqa: F401
+    EdgeBroker,
+    EdgePublisher,
+    EdgeSubscriber,
     QueryConnection,
     QueryServerCore,
+    get_edge_broker,
     get_query_server,
+    release_edge_broker,
     release_query_server,
 )
+from .mqtt import MiniBroker, MqttClient, topic_matches  # noqa: F401
+from .hybrid import Announcement, discover_endpoints, probe_endpoint  # noqa: F401
+from .tcp_edge import TcpEdgeServer, TcpEdgeSubscriber  # noqa: F401

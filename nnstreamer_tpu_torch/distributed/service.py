@@ -17,7 +17,13 @@ codegen): ``/nns.Query/Handshake`` (caps string in, caps string out),
 ``grpc`` is imported only by the gRPC half, when it is used: without the
 package everything here loads, the raw-TCP transport works, and
 ``start()`` or ``QueryConnection`` raise a ``RuntimeError`` that names the
-missing package.  The edge pub/sub broker waits for ROADMAP A13.2.
+missing package.
+
+The edge half (:class:`EdgeBroker`, :class:`EdgePublisher`,
+:class:`EdgeSubscriber`; ≙ nnstreamer-edge pub/sub) is a topic broker
+served over gRPC: ``/nns.Edge/Publish`` (u8 topic length, topic, frame)
+and ``/nns.Edge/Subscribe`` (topic in, a stream of frames out).  It too
+needs ``grpc`` only when it is used, behind the same typed error.
 """
 
 from __future__ import annotations
@@ -60,14 +66,14 @@ from .wire import (
 log = get_logger("distributed")
 
 
-def require_grpc():
-    """The ``grpc`` module, or a ``RuntimeError`` naming the package."""
+def require_grpc(what: str = "connect-type=grpc", instead: str = "use connect-type=tcp"):
+    """The ``grpc`` module, or a ``RuntimeError`` naming the package, what
+    needed it and what to use instead."""
     try:
         import grpc
     except ImportError as e:
         raise RuntimeError(
-            "connect-type=grpc requires the grpc package (grpcio) — not installed; "
-            "use connect-type=tcp") from e
+            f"{what} requires the grpc package (grpcio) — not installed; {instead}") from e
     return grpc
 
 
@@ -758,3 +764,165 @@ class QueryConnection:
         self._channel.close()
 
 
+
+
+# ---------------------------------------------------------------------------
+# Edge pub/sub broker (≙ nnstreamer-edge pub/sub), gRPC transport
+# ---------------------------------------------------------------------------
+class EdgeBroker:
+    """In-process topic broker served over gRPC: publishers push frames,
+    each subscriber holds one server-streaming call per topic.  A
+    subscriber whose queue is full misses the frame (pub/sub semantics of
+    the JAX package's broker), counted in ``dropped_full``."""
+
+    QUEUE_DEPTH = 64
+
+    def __init__(self, port: int, host: str = "[::]"):
+        self.port, self.host = port, host
+        self._subs: Dict[str, List[queue.Queue]] = {}
+        self._lock = threading.Lock()
+        self._server = None  # grpc.Server
+        self.refs = 0
+        self.dropped_full = 0
+
+    def publish_local(self, topic: str, data: bytes) -> int:
+        with self._lock:
+            subs = list(self._subs.get(topic, ()))
+        for q in subs:
+            try:
+                q.put_nowait(data)
+            except queue.Full:
+                with self._lock:
+                    self.dropped_full += 1
+        return len(subs)
+
+    def subscriber_count(self, topic: str) -> int:
+        with self._lock:
+            return len(self._subs.get(topic, ()))
+
+    def _publish(self, request: bytes, context) -> bytes:
+        n = request[0]
+        self.publish_local(request[1:1 + n].decode(), request[1 + n:])
+        return b""
+
+    def _subscribe(self, request: bytes, context):
+        topic = request.decode()
+        q: "queue.Queue[bytes]" = queue.Queue(self.QUEUE_DEPTH)
+        with self._lock:
+            self._subs.setdefault(topic, []).append(q)
+        try:
+            while context.is_active():
+                try:
+                    yield q.get(timeout=0.2)
+                except queue.Empty:
+                    continue
+        finally:
+            with self._lock:
+                if q in self._subs.get(topic, ()):
+                    self._subs[topic].remove(q)
+
+    def start(self) -> None:
+        grpc = require_grpc("the gRPC edge transport")
+        if self._server is not None:
+            return
+        handlers = {
+            "Publish": grpc.unary_unary_rpc_method_handler(
+                self._publish, request_deserializer=_ident, response_serializer=_ident),
+            "Subscribe": grpc.unary_stream_rpc_method_handler(
+                self._subscribe, request_deserializer=_ident, response_serializer=_ident),
+        }
+        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=16),
+                                   options=GRPC_OPTS)
+        self._server.add_generic_rpc_handlers(
+            (grpc.method_handlers_generic_handler("nns.Edge", handlers),))
+        bound = self._server.add_insecure_port(f"{self.host}:{self.port}")
+        if bound == 0:
+            self._server = None
+            raise RuntimeError(f"cannot bind edge broker on port {self.port}")
+        self.port = bound
+        # an ephemeral bind enters the registry only now, under its port
+        with _brokers_lock:
+            _brokers.setdefault(self.port, self)
+        self._server.start()
+        log.info("edge broker on :%d", self.port)
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.stop(grace=0.5).wait(5)
+            self._server = None
+
+
+_brokers_lock = threading.Lock()
+_brokers: Dict[int, EdgeBroker] = {}
+
+
+def get_edge_broker(port: int) -> EdgeBroker:
+    """The process's edge broker on ``port`` (a new one for port 0)."""
+    with _brokers_lock:
+        broker = _brokers.get(port) if port else None
+        if broker is None:
+            broker = EdgeBroker(port)
+            if port:
+                _brokers[port] = broker
+        broker.refs += 1
+        return broker
+
+
+def release_edge_broker(broker: EdgeBroker) -> None:
+    """Drop one reference; the last one stops the broker."""
+    with _brokers_lock:
+        broker.refs -= 1
+        if broker.refs > 0:
+            return
+        if _brokers.get(broker.port) is broker:
+            del _brokers[broker.port]
+    broker.stop()
+
+
+class EdgePublisher:
+    """Publishes frames to a (possibly remote) edge broker."""
+
+    def __init__(self, host: str, port: int, topic: str):
+        grpc = require_grpc("the gRPC edge transport")
+        self.topic = topic.encode()
+        if len(self.topic) > 255:
+            raise ValueError(f"edge topic exceeds 255 bytes ({len(self.topic)}): {topic[:40]!r}")
+        self._channel = grpc.insecure_channel(f"{host}:{port}", options=GRPC_OPTS)
+        self._publish = self._channel.unary_unary(
+            "/nns.Edge/Publish", request_serializer=_ident, response_deserializer=_ident)
+
+    def publish_bytes(self, payload: bytes) -> None:
+        self._publish(bytes([len(self.topic)]) + self.topic + payload, timeout=10.0)
+
+    def close(self) -> None:
+        self._channel.close()
+
+
+class EdgeSubscriber:
+    """Holds one Subscribe stream; yields TensorFrames.  A frame that fails
+    its decode or checksum is dropped and counted in ``corrupt_dropped``:
+    one bad transmission is a gap, not the end of the stream."""
+
+    def __init__(self, host: str, port: int, topic: str, verify_checksum: bool = True):
+        grpc = require_grpc("the gRPC edge transport")
+        self.topic = topic
+        self._verify = bool(verify_checksum)
+        self.corrupt_dropped = 0
+        self._channel = grpc.insecure_channel(f"{host}:{port}", options=GRPC_OPTS)
+        self._subscribe = self._channel.unary_stream(
+            "/nns.Edge/Subscribe", request_serializer=_ident, response_deserializer=_ident)
+        self._stream = None
+
+    def frames(self):
+        self._stream = self._subscribe(self.topic.encode())
+        for data in self._stream:
+            try:
+                yield decode_frame(data, verify=self._verify)
+            except WireError as e:
+                self.corrupt_dropped += 1
+                log.warning("undecodable edge frame dropped: %s", e)
+
+    def close(self) -> None:
+        if self._stream is not None:
+            self._stream.cancel()
+        self._channel.close()

@@ -7,10 +7,13 @@ from . import (  # noqa: F401
     converter,
     debug,
     decoder,
+    edge,
     filter,
     flow,
     generator,
+    grpc_io,
     media_src,
+    mqtt,
     mux,
     query,
     repo,

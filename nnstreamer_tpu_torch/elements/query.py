@@ -22,13 +22,27 @@ package's bytes.  The elements never touch the card: the serversink
 brings answers to the host (one copy per tensor of a micro-batch) before
 a transport thread encodes them.
 
+The discovery plane (``distributed/hybrid.py``, ≙ the reference's HYBRID
+connect type): a serversrc with ``topic`` and ``dest-port`` announces its
+endpoint as a retained MQTT message on ``nns/query/<topic>/<instance>``
+(failing over along ``dest-brokers``, announced again after every broker
+reconnect), publishes ``draining:true`` when it drains and
+``degraded:true`` on ``Pipeline.degraded_feedback``, and deletes the
+announce at stop.  A client with ``topic`` and ``dest-port`` and no
+``hosts`` discovers the servers instead, through its own ``dest-brokers``
+standbys when its broker refuses or dies during discovery (a client that
+starts or rediscovers during a broker failover; the JAX package's client
+has no such list): announces of another transport are skipped, every endpoint is probed concurrently (a crashed server never
+deletes its announce), and the announced states become routing hints
+(``TIER_DRAINING``, ``TIER_DEGRADED``) that age out after
+``_HINT_TTL_S``.  A failure wave on a discovered pool rediscovers once and
+swaps the pool, keeping live connections.
+
 Properties that belong to slices not ported raise at ``start()`` when set,
-naming their ROADMAP item: the discovery plane (``topic``, ``dest-host``,
-``dest-port``, ``dest-brokers``, ``discovery-timeout``: A13.2), telemetry
-digests (``digest-interval``) and fenced drains (``request_drain(epoch)``:
-A13.3), and stream resume (``stream-resume``, ``resume-retries``: A7.3; a
-broken stream surfaces as an error, the JAX package's
-``stream-resume=false`` semantics).
+naming their ROADMAP item: telemetry digests (``digest-interval``) and
+fenced drains (``request_drain(epoch)``: A13.3), and stream resume
+(``stream-resume``, ``resume-retries``: A7.3; a broken stream surfaces as
+an error, the JAX package's ``stream-resume=false`` semantics).
 """
 
 from __future__ import annotations
@@ -60,7 +74,15 @@ from ..core.resilience import (
     RetryPolicy,
     is_remote_application_error,
 )
-from ..core.routing import TIER_DOWN, TIER_OK, ewma_scores, order_remotes, rendezvous_owner
+from ..core.routing import (
+    TIER_DEGRADED,
+    TIER_DOWN,
+    TIER_DRAINING,
+    TIER_OK,
+    ewma_scores,
+    order_remotes,
+    rendezvous_owner,
+)
 from ..core.telemetry import (
     REGISTRY,
     SPAN_META,
@@ -81,18 +103,12 @@ from ..pipeline.element import (
     SourceElement,
     element,
     enum_prop_check,
+    parse_host_list,
 )
 
 #: properties of slices not ported yet -> the ROADMAP item that brings them
-_DISCOVERY = "the discovery plane (ROADMAP A13.2)"
-_SERVER_LATER = {
-    "topic": _DISCOVERY, "dest-host": _DISCOVERY, "dest-port": _DISCOVERY,
-    "dest-brokers": _DISCOVERY,
-    "digest-interval": "telemetry digests (ROADMAP A13.3)",
-}
+_SERVER_LATER = {"digest-interval": "telemetry digests (ROADMAP A13.3)"}
 _CLIENT_LATER = {
-    "topic": _DISCOVERY, "dest-host": _DISCOVERY, "dest-port": _DISCOVERY,
-    "discovery-timeout": _DISCOVERY,
     "stream-resume": "stream resume (ROADMAP A7.3)",
     "resume-retries": "stream resume (ROADMAP A7.3)",
 }
@@ -111,22 +127,6 @@ def _check_connect_type(el: Element) -> str:
     if ct not in ("grpc", "tcp"):
         raise ElementError(f"{el.name}: connect-type={ct!r} (want grpc|tcp)")
     return ct
-
-
-def parse_host_list(raw: str, owner: str, prop: str) -> List[Tuple[str, int]]:
-    """A 'h1:p1,h2:p2' property value as [(host, port), ...]."""
-    targets: List[Tuple[str, int]] = []
-    for part in raw.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        h, sep, p = part.rpartition(":")
-        if not sep or not h or not p.isdigit():
-            raise ElementError(f"{owner}: bad {prop} entry {part!r} (want host:port)")
-        targets.append((h, int(p)))
-    if not targets:
-        raise ElementError(f"{owner}: {prop} parsed to nothing")
-    return targets
 
 
 @element("tensor_query_serversrc")
@@ -148,10 +148,15 @@ class TensorQueryServerSrc(SourceElement):
             "transport: grpc (interop default; needs the grpc package) | tcp (copy-free "
             "raw TCP, ≙ reference nns-edge TCP)"),
         "caps": Property(str, "", "announced input schema for the handshake"),
-        "topic": Property(str, "", "announce endpoint under this topic (ROADMAP A13.2)"),
-        "dest-host": Property(str, "localhost", "MQTT broker host (ROADMAP A13.2)"),
-        "dest-port": Property(int, 0, "MQTT broker port (ROADMAP A13.2)"),
-        "dest-brokers": Property(str, "", "failover broker list (ROADMAP A13.2)"),
+        # hybrid discovery (≙ reference connect-type=HYBRID): a RETAINED
+        # announce on nns/query/<topic>/<instance> lets clients resolve
+        # servers from the broker instead of a static host list
+        "topic": Property(str, "", "announce endpoint under this topic"),
+        "dest-host": Property(str, "localhost", "MQTT broker host (discovery)"),
+        "dest-port": Property(int, 0, "MQTT broker port (0 = announcing disabled)"),
+        "dest-brokers": Property(
+            str, "", "failover broker list 'host:port,host:port' tried in order after "
+            "dest-host:dest-port; the announce is published again on every reconnect"),
         "block-ingress": Property(
             bool, False,
             "inject each wire micro-batch as ONE BatchFrame so the server pipeline pays "
@@ -201,8 +206,12 @@ class TensorQueryServerSrc(SourceElement):
     def __init__(self, name=None):
         super().__init__(name)
         self._core = None
+        self._announcement = None
         self._drain_requested = threading.Event()
         self._lc_state = "serving"  # serving | draining | stopped
+        # a serving element of this pipeline lost a device and re-sharded:
+        # the announce carries it (fleet routing: TIER_DEGRADED)
+        self._degraded = False
 
     def request_drain(self, epoch=None) -> None:
         """Begin the rolling-restart drain of this server: GOAWAY to new
@@ -229,12 +238,63 @@ class TensorQueryServerSrc(SourceElement):
         self._core = core = get_query_server(self.props["id"], self.props["port"])
         try:
             self._configure(core, ct)
+            self.props["port"] = core.port  # the bound port (ephemeral binds)
+            if self.props["topic"] and self.props["dest-port"] > 0:
+                self._announce()
         except Exception:
             # the pipeline's rollback stops only elements whose start()
             # succeeded: release the core here or its listener leaks
             self.stop()
             raise
-        self.props["port"] = core.port  # the bound port (ephemeral binds)
+
+    def _announce(self) -> None:
+        """The retained per-instance endpoint announce on the MQTT control
+        plane (``distributed/hybrid.py``)."""
+        import os
+        import uuid
+
+        from ..distributed.hybrid import Announcement
+
+        host = self.props["host"]
+        if host in ("[::]", "0.0.0.0", ""):
+            # a bind-all address is not dialable: announce loopback (a
+            # multi-host deployment sets host= to a reachable address)
+            host = "127.0.0.1"
+        brokers = (parse_host_list(self.props["dest-brokers"], self.name, "dest-brokers")
+                   if self.props["dest-brokers"].strip() else None)
+        # element names repeat across pipelines: pid + uuid make the
+        # instance unique across the pod
+        self._announcement = Announcement(
+            self.props["dest-host"], self.props["dest-port"],
+            f"nns/query/{self.props['topic']}/{self.name}-{os.getpid()}-{uuid.uuid4().hex[:8]}",
+            {"host": host, "port": self._core.port, "connect_type": self.props["connect-type"],
+             "draining": False, "degraded": self._degraded, "inflight": 0},
+            logger=self.log, brokers=brokers)
+
+    def _announce_state(self, draining: bool) -> None:
+        """Publish the announce again with this server's live state.  Runs
+        on the request pump, so it never waits for the broker's ack: a
+        slow broker must not stall the requests a drain protects."""
+        if self._announcement is None:
+            return
+        try:
+            self._announcement.update({
+                "draining": bool(draining), "degraded": bool(self._degraded),
+                "inflight": self._core.admission.inflight if self._core is not None else 0,
+            }, wait_ack=False)
+        except Exception as e:  # noqa: BLE001 — broker I/O is best-effort
+            self.log.warning("announce state update failed: %s", e)
+
+    def note_degraded(self, detail: str = "") -> None:
+        """``Pipeline.degraded_feedback``: an element of this pipeline lost
+        a device and re-sharded onto survivors.  The announce turns
+        ``degraded:true``, so fleet routing ranks this server below whole
+        ones (``TIER_DEGRADED``) while it keeps serving."""
+        if self._degraded:
+            return
+        self._degraded = True
+        self.log.warning("server degraded (%s); announcing degraded:true", detail)
+        self._announce_state(draining=self._lc_state == "draining")
 
     def _configure(self, core, ct: str) -> None:
         core.draining = False  # a restart after a drain serves again
@@ -290,6 +350,9 @@ class TensorQueryServerSrc(SourceElement):
             p.incident("tenant_shed", self.name, f"tenant={tenant}")
 
     def stop(self):
+        if self._announcement is not None:
+            self._announcement.clear()
+            self._announcement = None
         if self._core is not None:
             release_query_server(self.props["id"])
             self._core = None
@@ -305,9 +368,15 @@ class TensorQueryServerSrc(SourceElement):
         return core.ingress.qsize() if core is not None else 0
 
     def health_info(self) -> dict:
-        """Admission, integrity and drain counters, and the memory
+        """Admission, integrity and drain counters, the announce's
+        reconnect counters (``nns.query.reannounces``,
+        ``nns.query.plane_reconnects``) while announcing, and the memory
         monitor's watermark gauges (``nns.mem.*``) when one is armed."""
-        info = {"lifecycle": self._lc_state}
+        info = {"lifecycle": self._lc_state, "degraded": 1 if self._degraded else 0}
+        ann = self._announcement
+        if ann is not None:
+            info["reannounces"] = ann.reannounces
+            info["plane_reconnects"] = ann.reconnects
         if self._core is not None:
             info.update(self._core.liveness_snapshot())
         p = self._pipeline
@@ -330,6 +399,9 @@ class TensorQueryServerSrc(SourceElement):
                     self._drain_requested.is_set() or (p is not None and p.draining)):
                 self._lc_state = "draining"
                 core.begin_drain()
+                # the discovery plane first: clients that rank remotes from
+                # the broker stop picking this server without a GOAWAY each
+                self._announce_state(draining=True)
                 drain_deadline = time.monotonic() + max(0.0, float(self.props["drain-deadline"]))
             try:
                 _client_id, frame = core.ingress.get(timeout=0.05)
@@ -402,14 +474,17 @@ class TensorQueryServerSink(SinkElement):
 class _PoolState:
     """One generation of the client's connection pool: index-aligned
     ``conns``/``targets``/``addrs`` and this generation's ``down_until``
-    health map (cooldowns), captured once per request by each worker."""
+    health map (cooldowns), captured once per request by each worker.
+    ``gen`` counts rediscovery swaps; ``epoch`` names the ``start()`` run,
+    so a worker left over from an earlier run never swaps the new pool."""
 
-    __slots__ = ("conns", "targets", "addrs", "down_until")
+    __slots__ = ("conns", "targets", "addrs", "gen", "epoch", "down_until")
 
-    def __init__(self, conns, targets):
+    def __init__(self, conns, targets, gen: int = 0, epoch: int = -1):
         self.conns = tuple(conns)
         self.targets = tuple(targets)
         self.addrs = tuple(f"{h}:{p}" for h, p in targets)
+        self.gen, self.epoch = gen, epoch
         self.down_until: dict = {}
 
 
@@ -431,11 +506,15 @@ class TensorQueryClient(Element):
         "host": Property(str, "localhost", "server host"),
         "port": Property(int, 0, "server port"),
         "hosts": Property(str, "", "multi-server fan-out 'h1:p1,h2:p2'"),
-        "topic": Property(str, "", "discover servers under this topic (ROADMAP A13.2)"),
-        "dest-host": Property(str, "localhost", "MQTT broker host (ROADMAP A13.2)"),
-        "dest-port": Property(int, 0, "MQTT broker port (ROADMAP A13.2)"),
-        "discovery-timeout": Property(
-            float, 5.0, "s to wait for an announced server (ROADMAP A13.2)"),
+        # hybrid discovery (≙ reference connect-type=HYBRID): the server set
+        # from the retained announces on nns/query/<topic>/#
+        "topic": Property(str, "", "discover servers under this topic"),
+        "dest-host": Property(str, "localhost", "MQTT broker host (discovery)"),
+        "dest-port": Property(int, 0, "MQTT broker port (0 = discovery disabled)"),
+        "dest-brokers": Property(
+            str, "", "standby brokers 'host:port,host:port' that discovery fails over to, in "
+            "order, when dest-host:dest-port refuses or dies before an announce came"),
+        "discovery-timeout": Property(float, 5.0, "s to wait for at least one announced server"),
         "timeout": Property(float, 10.0, "per-request timeout, seconds"),
         "max-in-flight": Property(int, 8, "pipelined outstanding requests"),
         "routing": Property(
@@ -509,6 +588,10 @@ class TensorQueryClient(Element):
 
     _SPAN_EWMA = 0.2  # smoothing of the per-remote load signal
     _AFFINITY_MAP_MAX = 4096  # LRU bound on tracked affinity keys
+    #: seconds a generation of discovery hints stays authoritative: past a
+    #: drain (drain-deadline 10 s by default), short enough that a server
+    #: that restarted and announced itself healthy regains traffic
+    _HINT_TTL_S = 30.0
 
     def __init__(self, name=None):
         super().__init__(name)
@@ -516,6 +599,12 @@ class TensorQueryClient(Element):
         self._pool: Optional[ThreadPoolExecutor] = None
         self._inflight: Deque[Future] = deque()
         self._rr = 0
+        # rediscovery: the pointer swap shares a lock with stop(); one
+        # leader per failure wave does the broker I/O
+        self._rediscover_lock = threading.Lock()
+        self._discover_leader = threading.Lock()
+        self._last_discovery_ts = float("-inf")
+        self._run_epoch = 0
         self._stopped = True
         # per-remote breakers keyed by "host:port", shared by every worker
         # (CircuitBreaker is thread-safe); the counters below are raced by
@@ -523,6 +612,7 @@ class TensorQueryClient(Element):
         self._breakers: dict = {}
         self._breakers_lock = threading.Lock()
         self._degraded = 0
+        self._evicted_breaker_trips = 0  # trips of breakers evicted on pool swaps
         self._busy_replies = 0
         self._goaway_replies = 0
         self._deadline_expired = 0
@@ -535,6 +625,10 @@ class TensorQueryClient(Element):
         self._remote_inflight: dict = {}
         self._affinity_map: "OrderedDict[str, str]" = OrderedDict()
         self._affinity_remaps = 0
+        # the draining/degraded hints of the last discovery, by "host:port"
+        # (only such rows; absent = healthy), aging out as one generation
+        self._endpoint_hints: dict = {}
+        self._hints_ts = float("-inf")
         # ewma-score cache: (spans revision, addrs) -> {idx: score}
         self._spans_rev = 0
         self._scores_cache = None
@@ -551,11 +645,13 @@ class TensorQueryClient(Element):
                 "answers make frame attribution ambiguous); use degrade=passthrough|skip",
                 self.props["error-policy"])
         _refuse_later(self, _CLIENT_LATER)
-        _check_connect_type(self)
+        _check_connect_type(self)  # before discovery: a typo is not a timeout
         if not 0 <= int(self.props["priority"]) <= PRIORITY_MAX:
             raise ElementError(
                 f"{self.name}: priority={self.props['priority']} (want 0..{PRIORITY_MAX})")
-        if self.props["hosts"]:
+        if self._discovering():
+            targets = self._discover_targets()
+        elif self.props["hosts"]:
             targets = parse_host_list(self.props["hosts"], self.name, "hosts")
         else:
             targets = [(self.props["host"], self.props["port"])]
@@ -570,7 +666,8 @@ class TensorQueryClient(Element):
         except ValueError as e:
             raise ElementError(f"{self.name}: {e}") from None
         self._slo = slo if slo.armed else None
-        self._pstate = _PoolState(self._make_conns(targets), targets)
+        self._run_epoch += 1
+        self._pstate = _PoolState(self._make_conns(targets), targets, 0, self._run_epoch)
         self._stopped = False
         # failover pacing: capped exponential backoff with unseeded jitter
         # (a fixed seed would re-synchronize a fleet of clients)
@@ -583,6 +680,166 @@ class TensorQueryClient(Element):
         pname = self._pipeline.telemetry_label if self._pipeline is not None else ""
         self._rtt_hist = REGISTRY.histogram(
             "nns.query.rtt_seconds", labels={"pipeline": pname, "element": self.name})
+
+    # -- discovery ----------------------------------------------------------
+    def _discovering(self) -> bool:
+        return bool(self.props["topic"]) and self.props["dest-port"] > 0
+
+    def _discover_targets(self) -> List[Tuple[str, int]]:
+        """The server set from the retained announces under
+        ``nns/query/<topic>/#``: announces of another transport skipped,
+        endpoints deduplicated and probed concurrently (N stale announces
+        cost one probe timeout), the draining/degraded hints of the live
+        ones kept (``core/fleet.hint_from_announce``), replacing the last
+        generation's wholesale."""
+        from ..core.fleet import hint_from_announce
+        from ..distributed.hybrid import discover_endpoints, probe_endpoint
+
+        want_ct = self.props["connect-type"]
+        hints: dict = {}
+
+        def validate(topic: str, info: dict) -> bool:
+            got_ct = info.get("connect_type", want_ct)
+            if got_ct != want_ct:
+                self.log.warning("announce %s speaks %s, client wants %s (skipped)",
+                                 topic, got_ct, want_ct)
+                return False
+            # per endpoint, always overwritten: a restarted server's fresh
+            # announce (new instance topic, same host:port) must override
+            # its dead instance's retained draining=true
+            try:
+                hints[(str(info["host"]), int(info["port"]))] = hint_from_announce(info)
+            except (KeyError, TypeError, ValueError):
+                pass
+            return True
+
+        brokers = (parse_host_list(self.props["dest-brokers"], self.name, "dest-brokers")
+                   if self.props["dest-brokers"].strip() else [])
+        try:
+            found = discover_endpoints(self.props["dest-host"], self.props["dest-port"],
+                                       f"nns/query/{self.props['topic']}/#",
+                                       timeout_s=self.props["discovery-timeout"],
+                                       validate=validate, logger=self.log, brokers=brokers)
+        except OSError as e:
+            raise ElementError(f"{self.name}: no discovery broker answered: {e}") from None
+        candidates = sorted(set(found.values()))
+        with ThreadPoolExecutor(max_workers=max(1, len(candidates)),
+                                thread_name_prefix=f"{self.name}-probe") as ex:
+            alive = list(ex.map(lambda hp: probe_endpoint(*hp), candidates))
+        targets = []
+        for (host, port), ok in zip(candidates, alive):
+            if ok:
+                targets.append((host, port))
+            else:
+                self.log.warning("announced endpoint %s:%d not accepting (stale announce from "
+                                 "a crashed server?); skipped", host, port)
+        if not targets:
+            raise ElementError(f"{self.name}: no live server announced on topic "
+                               f"{self.props['topic']!r} within "
+                               f"{self.props['discovery-timeout']}s")
+        with self._breakers_lock:
+            self._endpoint_hints = {
+                f"{h}:{p}": hints[(h, p)] for h, p in targets
+                if hints.get((h, p), {}).get("draining") or hints.get((h, p), {}).get("degraded")}
+            self._hints_ts = time.monotonic()
+        return targets
+
+    def _rediscover(self, failed_ps: _PoolState) -> bool:
+        """Discovery mode's recovery: the server set read again from the
+        broker and the pool swapped, once per failure wave.  Workers whose
+        failure predates a swap ride on it; a worker of an earlier run never
+        swaps.  The broker I/O, connections and handshakes run outside the
+        swap lock, so stop() never waits out a discovery; endpoints in both
+        sets keep their live connection.  True when the caller may resend
+        on the (new) pool."""
+        if not self._discovering() or self._stopped:
+            return False
+        cur = self._pstate
+        if cur.epoch != failed_ps.epoch:
+            return False
+        if cur.gen != failed_ps.gen:
+            return True  # another worker swapped already
+        with self._discover_leader:
+            cur = self._pstate
+            if self._stopped or cur.epoch != failed_ps.epoch:
+                return False
+            if cur.gen != failed_ps.gen:
+                return True  # the leader swapped while this worker waited
+            now = time.monotonic()
+            if now - self._last_discovery_ts < max(1.0, float(self.props["discovery-timeout"])):
+                return False  # a persistently bad pool: no discovery per frame
+            self._last_discovery_ts = now
+            try:
+                targets = self._discover_targets()
+            except (ElementError, OSError) as e:
+                self.log.warning("re-discovery failed: %s", e)
+                return False
+            by_ep = dict(zip(cur.targets, cur.conns))
+            spec = self.sink_specs.get(0)
+            conns, kept, created = [], [], []
+            for ep in targets:
+                conn = by_ep.get(ep)
+                if conn is None:
+                    try:
+                        conn = self._make_conns([ep])[0]
+                        if spec is not None and spec.tensors:
+                            conn.handshake(spec.to_string())
+                    except Exception as e:  # noqa: BLE001 — transport boundary
+                        self.log.warning("replacement endpoint %s:%d unusable: %s (skipped)",
+                                         ep[0], ep[1], e)
+                        continue
+                    created.append(conn)
+                conns.append(conn)
+                kept.append(ep)
+            if not conns:
+                self.log.warning("re-discovery found no usable server")
+                return False
+            with self._rediscover_lock:
+                swapped = not self._stopped
+                if swapped:
+                    retired = [c for c in cur.conns if c not in conns]
+                    self._pstate = _PoolState(conns, kept, cur.gen + 1, cur.epoch)
+                else:
+                    retired = created
+        if swapped:
+            self.log.info("re-discovered %d server(s): %s", len(kept),
+                          ",".join(f"{h}:{p}" for h, p in kept))
+            keep = {f"{h}:{p}" for h, p in kept}
+            with self._breakers_lock:
+                # breakers and span EWMAs of vanished endpoints go with them
+                for key in [k for k in self._breakers if k not in keep]:
+                    self._evicted_breaker_trips += self._breakers.pop(key).trip_count
+                for key in [k for k in self._remote_spans if k not in keep]:
+                    del self._remote_spans[key]
+                self._spans_rev += 1
+        for c in retired:
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001 — teardown of a dead connection
+                pass
+        return swapped
+
+    @staticmethod
+    def _provably_unsent(err: BaseException) -> bool:
+        """True when the failure proves the request never reached a server
+        (a refused dial; gRPC's UNAVAILABLE for a failed connect), so a
+        resend is safe even at most once."""
+        if isinstance(err, ConnectionRefusedError):
+            return True
+        code = getattr(err, "code", None)
+        if callable(code) and type(err).__module__.startswith("grpc"):
+            detail = str(getattr(err, "details", lambda: "")()).lower()
+            return getattr(code(), "name", "") == "UNAVAILABLE" and (
+                "connection refused" in detail or "failed to connect" in detail)
+        return False
+
+    def _resend_safe(self, err: BaseException) -> bool:
+        """A request may go again after a rediscovery: retries are on, the
+        request provably never left, or it was refused before execution
+        (breaker-open, BUSY, GOAWAY, detected corruption)."""
+        return (self.props["retries"] > 0 or self._provably_unsent(err)
+                or isinstance(err, (CircuitOpenError, ServerBusyError, ServerGoawayError,
+                                    WireError)))
 
     def _make_conns(self, targets: List[Tuple[str, int]]) -> list:
         verify = bool(self.props["verify-checksum"])
@@ -601,8 +858,11 @@ class TensorQueryClient(Element):
         if self._pool is not None:
             self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = None
+        # the flag first, without the lock: a rediscovery re-checks it
+        # before its swap, so stop() never waits out a discovery
         self._stopped = True
-        ps, self._pstate = self._pstate, _PoolState((), ())
+        with self._rediscover_lock:
+            ps, self._pstate = self._pstate, _PoolState((), ())
         for c in ps.conns:
             c.close()
         self._inflight.clear()
@@ -704,12 +964,15 @@ class TensorQueryClient(Element):
                            for kk, vv in agg.items()}
                        for k, agg in self._remote_spans.items()}
             remote_inflight = dict(self._remote_inflight)
+            hints = {k: dict(v) for k, v in self._endpoint_hints.items() if v}
         return {
             "breakers": breakers,
             "remotes": remotes,
             "remote_inflight": remote_inflight,
+            "endpoint_hints": hints,
             "routing": self.props["routing"],
             "affinity_remaps": self._affinity_remaps,
+            "breaker_trips_evicted": self._evicted_breaker_trips,
             "degraded_frames": self._degraded,
             "busy_replies": self._busy_replies,
             "goaway_replies": self._goaway_replies,
@@ -799,18 +1062,26 @@ class TensorQueryClient(Element):
 
     def _tiers_and_signals(self, ps: _PoolState, n: int, policy: str, now: float):
         """The availability tier of every remote (cooled-down or
-        breaker-open = TIER_DOWN, else TIER_OK) and the load signals the
-        policy needs.  Lock-free reads: a stale value costs one suboptimal
-        ranking, never a crash.  Breakers are peeked, never ``allow()``ed."""
+        breaker-open = TIER_DOWN; announced draining = TIER_DRAINING,
+        announced degraded = TIER_DEGRADED, while the discovery hints are
+        fresh; else TIER_OK) and the load signals the policy needs.
+        Lock-free reads: a stale value costs one suboptimal ranking, never a
+        crash.  Breakers are peeked, never ``allow()``ed."""
         down = ps.down_until
         addrs = ps.addrs
         peek_breakers = int(self.props["breaker-threshold"]) > 0
         breakers = self._breakers
+        hints = self._endpoint_hints if now - self._hints_ts < self._HINT_TTL_S else {}
         tiers = {}
         for i in range(n):
             b = breakers.get(addrs[i]) if peek_breakers else None
+            h = hints.get(addrs[i])
             if down.get(i, 0) > now or (b is not None and b.state == CircuitBreaker.OPEN):
                 tiers[i] = TIER_DOWN
+            elif h and h.get("draining"):
+                tiers[i] = TIER_DRAINING
+            elif h and h.get("degraded"):
+                tiers[i] = TIER_DEGRADED
             else:
                 tiers[i] = TIER_OK
         inflight = scores = None
@@ -913,7 +1184,7 @@ class TensorQueryClient(Element):
             time.sleep(delay)
 
     # -- unary path ---------------------------------------------------------
-    def _invoke_failover(self, frame, first: int):
+    def _invoke_failover(self, frame, first: int, rediscovered: bool = False):
         """One request (a list = a wire micro-batch): the best remote first,
         then the others, ``retries`` extra attempts.  BUSY (admission shed),
         GOAWAY (draining) and detected corruption are resend-safe and get
@@ -1030,6 +1301,8 @@ class TensorQueryClient(Element):
             if open_err is None:
                 raise RuntimeError(f"{self.name}: stopped mid-request")
             err = open_err  # every remote breaker-open, nothing tried
+        if not rediscovered and self._rediscover(ps) and self._resend_safe(err):
+            return self._invoke_failover(frame, first, rediscovered=True)
         raise err  # degrade= decides from here
 
     def _invoke_or_degrade(self, frame_or_batch, first: int):
@@ -1187,7 +1460,7 @@ class TensorQueryClient(Element):
             raise
         slo.note_stream(tenant, "expired" if expired else "good")
 
-    def _stream_attempt(self, frame):
+    def _stream_attempt(self, frame, rediscovered: bool = False):
         """One server-streaming request: the best remote first; whole
         streams fail over only BEFORE the first answer (``retries`` extra
         attempts, BUSY and GOAWAY on their own budgets).  A break after the
@@ -1264,7 +1537,12 @@ class TensorQueryClient(Element):
                     self._pace(max(e.retry_after, self._retry_policy.delay_for(tried)))
             except Exception as e:  # noqa: BLE001 — transport boundary
                 err = self._stream_failure(e, started, breaker, ps, i, conn, timeout)
-        raise err if err is not None else (open_err or RuntimeError("no servers"))
+        err = err if err is not None else open_err
+        if err is not None and not rediscovered and self._rediscover(ps) \
+                and self._resend_safe(err):
+            yield from self._stream_attempt(frame, rediscovered=True)
+            return
+        raise err if err is not None else RuntimeError("no servers")
 
     def _stopping(self) -> bool:
         """True once the element or its pipeline is stopping: a stream

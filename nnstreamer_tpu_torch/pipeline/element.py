@@ -50,6 +50,24 @@ class Property:
         return self.convert(value) if self.convert else value
 
 
+def parse_host_list(raw: str, owner: str, prop: str) -> List[Tuple[str, int]]:
+    """A 'h1:p1,h2:p2' property value as [(host, port), ...]: one parser for
+    every multi-remote list (the query client's ``hosts``, edgesrc's
+    ``dest-hosts``, the ``dest-brokers`` failover lists)."""
+    targets: List[Tuple[str, int]] = []
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        h, sep, p = part.rpartition(":")
+        if not sep or not h or not p.isdigit():
+            raise ElementError(f"{owner}: bad {prop} entry {part!r} (want host:port)")
+        targets.append((h, int(p)))
+    if not targets:
+        raise ElementError(f"{owner}: {prop} parsed to nothing")
+    return targets
+
+
 def enum_prop_check(prop: str, *choices: str):
     """Converter for enum-valued properties: a typo fails at set time."""
     def convert(v: str) -> str:

@@ -1024,6 +1024,22 @@ class Pipeline:
         cheapest."""
         self._notify_upstream(el, "note_qos", frame.pts, lateness)
 
+    def degraded_feedback(self, source: str, detail: str = "") -> None:
+        """An element of THIS pipeline lost a device and re-sharded onto
+        survivors: every element exposing ``note_degraded`` (the query
+        serversrc) hears of it, so the discovery plane announces
+        ``degraded:true`` and fleet routing ranks this server below whole
+        ones before its next failure.  Also posted on the bus."""
+        self.post(BusMessage("warning", source, {"degraded": detail}))
+        for el in self.elements.values():
+            note = getattr(el, "note_degraded", None)
+            if note is None:
+                continue
+            try:
+                note(detail)
+            except Exception:
+                self.log.exception("note_degraded failed for %s", el.name)
+
     def stream_cancel_feedback(self, el: Element, meta: dict) -> None:
         """A consumer of a generation stream is gone (the serversink's
         client vanished mid-stream): every upstream element exposing

@@ -83,8 +83,12 @@ def test_importing_the_port_loads_no_jax():
 
 def test_the_port_imports_and_serves_without_grpc():
     """The card machine has no ``grpc``: with it blocked, every port module
-    imports, a connect-type=tcp query round trip runs, and connect-type=grpc
-    (the default) raises a RuntimeError naming the package, on both ends."""
+    imports (the MQTT, edge, hybrid and gRPC-stream modules among them), a
+    connect-type=tcp query round trip and a tcp edge stream run, and every
+    gRPC mode raises a RuntimeError naming the package at ``start()``:
+    connect-type=grpc of the query elements (the default), edgesink and
+    edgesrc in connect-type=server, client and hybrid, tensor_sink_grpc and
+    tensor_src_grpc.  Nothing falls back to TCP."""
     code = (
         "import sys\n"
         "sys.modules['grpc'] = None  # import grpc raises ImportError\n"
@@ -108,15 +112,35 @@ def test_the_port_imports_and_serves_without_grpc():
         "    assert [float(f.tensors[0][0]) for f in cl['out'].frames] == [0, 2, 4, 6, 8]\n"
         "finally:\n"
         "    srv.stop()\n"
-        "for text in ('tensor_query_serversrc ! tensor_query_serversink',\n"
-        "             'appsrc ! tensor_query_client port=5 ! tensor_sink'):\n"
+        "import time\n"
+        "tx = parse_pipeline('appsrc name=src ! edgesink name=es connect-type=tcp host=127.0.0.1')\n"
+        "tx.start()\n"
+        "rx = parse_pipeline(f\"edgesrc connect-type=tcp dest-host=127.0.0.1 "
+        "dest-port={tx['es'].props['port']} topic=nns ! tensor_sink name=out\")\n"
+        "rx.start()\n"
+        "t0 = time.monotonic()\n"
+        "while tx['es']._tcp.subscriber_count('nns') < 1 and time.monotonic() - t0 < 5:\n"
+        "    time.sleep(0.01)\n"
+        "tx['src'].push(np.float32([4]))\n"
+        "while not rx['out'].frames and time.monotonic() - t0 < 10:\n"
+        "    time.sleep(0.01)\n"
+        "rx.stop(); tx['src'].end_of_stream(); tx.wait(timeout=10); tx.stop()\n"
+        "assert [float(f.tensors[0][0]) for f in rx['out'].frames] == [4.0]\n"
+        "grpc_modes = ['tensor_query_serversrc ! tensor_query_serversink',\n"
+        "              'appsrc ! tensor_query_client port=5 ! tensor_sink',\n"
+        "              'appsrc ! tensor_sink_grpc', 'tensor_src_grpc ! tensor_sink']\n"
+        "for ct in ('server', 'client', 'hybrid'):\n"
+        "    grpc_modes.append(f'appsrc ! edgesink connect-type={ct} dest-port=1')\n"
+        "    grpc_modes.append(f'edgesrc connect-type={ct} dest-port=1 ! tensor_sink')\n"
+        "grpc_modes.append('edgesrc dest-port=1 ! tensor_sink')  # direct, the default\n"
+        "for text in grpc_modes:\n"
         "    pipe = parse_pipeline(text)\n"
         "    try:\n"
         "        pipe.start()\n"
         "    except RuntimeError as e:\n"
         "        assert 'requires the grpc package' in str(e), e\n"
         "    else:\n"
-        "        raise AssertionError('connect-type=grpc started without grpc')\n"
+        "        raise AssertionError(f'{text!r} started without grpc')\n"
         "    finally:\n"
         "        pipe.stop()\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r}]\n"

@@ -193,17 +193,25 @@ def test_branches_get_their_own_streaming_threads_as_jax(name):
     assert segs(parse_pipeline(TEXTS[name])) == segs(jax_parse(TEXTS[name]))
 
 
+#: sinks that take a micro-batch whole where the JAX ones take its frames: a
+#: card micro-batch reaches the host in one copy per tensor before a
+#: transport thread sees it (ROADMAP C5)
+WHOLE_BATCH_SINKS = {"edgesink", "mqttsink", "tensor_sink_grpc"}
+
+
 def test_element_classes_match_jax():
-    """34 of the JAX package's element classes (the three tensor_query
-    elements among them), each with the JAX class's factory aliases, pad
-    counts and BATCH_AWARE contract."""
+    """40 of the JAX package's element classes (the three tensor_query
+    elements, the edge, MQTT and gRPC-stream pairs among them), each with
+    the JAX class's factory aliases, pad counts and BATCH_AWARE contract
+    (the pub/sub sinks take a micro-batch whole)."""
     from nnstreamer_tpu.pipeline.element import ELEMENT_TYPES as JAX_TYPES
     from nnstreamer_tpu_torch.pipeline.element import ELEMENT_TYPES
 
     ours = {f: c for f, c in ELEMENT_TYPES.items()  # not classes other tests register
             if c.__module__.startswith("nnstreamer_tpu_torch.elements.")}
-    assert len(set(ours.values())) == 34
+    assert len(set(ours.values())) == 40
     for factory, cls in ours.items():
         ref = JAX_TYPES[factory]
+        batch_aware = ref.BATCH_AWARE or factory in WHOLE_BATCH_SINKS
         assert (cls.FACTORY_NAME, cls.NUM_SINK_PADS, cls.NUM_SRC_PADS, cls.BATCH_AWARE) == \
-            (ref.FACTORY_NAME, ref.NUM_SINK_PADS, ref.NUM_SRC_PADS, ref.BATCH_AWARE), factory
+            (ref.FACTORY_NAME, ref.NUM_SINK_PADS, ref.NUM_SRC_PADS, batch_aware), factory

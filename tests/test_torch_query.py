@@ -344,14 +344,76 @@ def test_spans_add_up_and_query_series_scraped(ct):
         srv.stop()
 
 
+def _discovery_case(case: str, broker, standby) -> None:
+    """One discovery property, set as the refused cases once set it, doing
+    what it does now."""
+    from nnstreamer_tpu_torch.distributed.hybrid import discover_endpoints
+
+    def announced():
+        return discover_endpoints("127.0.0.1", broker.port, "nns/query/#", timeout_s=0.3)
+
+    if case in ("serversrc topic", "serversrc dest-port"):
+        # one of topic/dest-port alone announces nothing; both announce
+        key = "topic=t" if case == "serversrc topic" else f"dest-port={broker.port}"
+        for props, want in ((key, 0), (f"topic=t dest-port={broker.port}", 1)):
+            srv, port = server(90, extra=f"{props} dest-host=127.0.0.1")
+            try:
+                found = announced()
+                assert len(found) == want and all(hp[1] == port for hp in found.values())
+            finally:
+                srv.stop()
+        assert announced() == {}  # the stop deleted the announce
+        return
+    if case == "serversrc dest-brokers":
+        srv, port = server(91, extra=f"topic=t dest-host=127.0.0.1 dest-port={broker.port} "
+                                     f"dest-brokers=127.0.0.1:{standby.port}")
+        try:
+            assert srv.health()["ssrc"]["plane_reconnects"] == 0
+            assert list(announced().values()) == [("127.0.0.1", port)]
+        finally:
+            srv.stop()
+        return
+    srv, port = server(92, extra=f"topic=t dest-host=127.0.0.1 dest-port={broker.port}")
+    try:
+        if case == "client topic":
+            frames, health = run_client(0, [np.float32([3])], extra=(
+                f"topic=t dest-host=127.0.0.1 dest-port={broker.port}"))
+            assert float(frames[0].tensors[0][0]) == 6.0
+            assert health["servers"] == [f"127.0.0.1:{port}"]
+        else:  # client discovery-timeout: waits that long for an announce
+            el_text = (f"appsrc ! tensor_query_client topic=none dest-host=127.0.0.1 "
+                       f"dest-port={broker.port} discovery-timeout=0.3 connect-type=tcp ! "
+                       "tensor_sink")
+            pipe = parse_pipeline(el_text)
+            t0 = time.monotonic()
+            with pytest.raises(ElementError, match="no live server announced on topic 'none' "
+                                                   r"within 0\.3s"):
+                pipe.start()
+            pipe.stop()
+            assert time.monotonic() - t0 < 3.0
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("case", ["serversrc topic", "serversrc dest-port",
+                                  "serversrc dest-brokers", "client topic",
+                                  "client discovery-timeout"])
+def test_discovery_properties_work_now(case):
+    """The five discovery properties that once raised naming their slice:
+    each now does what the JAX package's does."""
+    from nnstreamer_tpu_torch.distributed.mqtt import MiniBroker
+
+    broker, standby = MiniBroker(), MiniBroker()
+    try:
+        _discovery_case(case, broker, standby)
+    finally:
+        broker.close()
+        standby.close()
+
+
 def test_later_slices_raise_naming_their_item():
     cases = [
-        ("tensor_query_serversrc connect-type=tcp topic=t", "A13.2"),
-        ("tensor_query_serversrc connect-type=tcp dest-port=1883", "A13.2"),
-        ("tensor_query_serversrc connect-type=tcp dest-brokers=h:1", "A13.2"),
         ("tensor_query_serversrc connect-type=tcp digest-interval=1", "A13.3"),
-        ("tensor_query_client port=5 topic=t", "A13.2"),
-        ("tensor_query_client port=5 discovery-timeout=1", "A13.2"),
         ("tensor_query_client port=5 stream-resume=true", "A7.3"),
         ("tensor_query_client port=5 resume-retries=1", "A7.3"),
     ]

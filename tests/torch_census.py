@@ -13,7 +13,10 @@ import pytest
 
 #: thread-name prefixes outside the framework's control (library pools,
 #: pytest internals); framework threads are named ("tcpq-*", "<element>-rpc",
-#: segment workers, "-watchdog", pumps)
+#: segment workers, "-watchdog", pumps, the MQTT broker's "mqtt-broker*" and
+#: client's "mqtt-client"/"mqtt-ping", the raw-TCP edge's "tcp-edge-*",
+#: "<element>-pump", "<element>-pull", "<element>-probe*"), so every one of
+#: them is counted
 _IGNORE = ("MainThread", "Thread-", "ThreadPool", "Dummy", "asyncio", "pydevd",
            "raylet", "grpc")
 
