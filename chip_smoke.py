@@ -391,7 +391,56 @@ Phases (any failure exits non-zero before the result lines are printed):
          and ``top1`` once each a micro-batch, and the gRPC broker dropped
          nothing (``dropped_full`` 0; the pushes are paced to stay within
          its subscriber queue of 64).
-   ``--only i,j,k,l,m,n`` runs paths i, j, k, l, m and n alone after the
+   o. stream continuity and the fleet's control loop, everything over
+      127.0.0.1 in this process; GPT-2 small in float32 (path d's widths,
+      ``--seed``), its tokens held against an uninterrupted in-process run
+      (``slots=8 chunk=8``): every stream ``FLEET_NEW`` (64) tokens once,
+      chunk indices contiguous, one final chunk, equal up to the first
+      divergence, which must fall where the uninterrupted run's top-2 logit
+      gap (a full forward of the same weights) is at most ``FLEET_GAP``
+      (1e-2); every stream's divergence and gap are printed:
+      1. two servers ``tensor_query_serversrc ! tensor_generator slots=8 !
+         tensor_query_serversink``, 16 stream clients (``stream-resume`` on)
+         of 128-token prompts, eight trying each server first; once 16
+         tokens of every stream arrived, ``request_drain()`` on A: A's
+         ``gen_goaway_evicted`` = the streams live on A = B's ``gen_resumes``
+         = the clients' ``stream_migrations``; then A restarted on its port,
+         a stream on B, and B stopped without a drain: the stream resumes
+         on A (``stream_resumes`` 1, A's ``gen_resumes`` 1);
+      2. ``request_resize(16)`` on a serving ``slots=8`` generator with 8
+         streams: they hand off and resume on the same server at the new
+         width (hand-offs = resumes = migrations), ``gen_resizes`` 1, no
+         ``_LEDGER_ATTRS`` counter below its value before, and the card's
+         peak allocated bytes over the resize below the bytes before it plus
+         the new cache less the old one (plus 256 MiB): the old cache goes
+         before the new one is allocated; the bytes are printed;
+      3. two MobileNet-v2 labeling servers (path m1's) and a GPT-2 server
+         (``slots=8 max-new=256``) announcing with ``digest-interval=0.5``
+         on a ``MiniBroker``, a ``FleetObservatory`` over them:
+         ``FLEET_FRAMES`` (512) frames over both MobileNet-v2 servers, labels
+         equal to the direct call of the micro-batch that served them,
+         ``normalize_u8`` and ``top1`` once each a micro-batch, 4 streams on
+         the GPT-2 server; the rollup's ``admitted`` and ``tokens`` equal the
+         sums of the servers' own ledgers, and still after one MobileNet-v2
+         server stops (tombstoned, retired); ``nns.fleet.*`` in a scrape;
+      4. two ``FleetController``s contending for a ``LeaderLease`` over a
+         ``LeaseChannel`` (TTL 2 s, ticked every 0.1 s), their actuator in
+         this process: drain -> ``serversrc.request_drain(epoch)`` (then the
+         drained pipeline stopped), resize ->
+         ``generator.request_resize(slots, epoch)``, spawn -> one more
+         MobileNet-v2 server.  The first takes the lease (the standby is
+         refused), spawns a server for a floor of 3, then, with
+         ``min_servers=1``, drains an idle MobileNet-v2 server while a client
+         sends ``FLEET_DRAIN_FRAMES`` (512) frames to both: every frame once,
+         labels equal, ``normalize_u8`` and ``top1`` once each a micro-batch.
+         The leader stops; the standby takes the lease at a higher epoch,
+         drains the other MobileNet-v2 server and widens the busy GPT-2
+         server to 16 slots (its streams hand off and resume, every one
+         whole); the deposed leader's drain and resize raise
+         ``StaleEpochError`` with nothing touched (``stale_epoch_rejects`` 1
+         on each target); ``nns.autoscale.*`` in a scrape.
+      The KV-cache decode launches no kernel (o1, o2).
+   ``--only i,j,k,l,m,n,o`` runs paths i, j, k, l, m, n and o alone after the
    kernel build (j with ``PAD_EDGES`` first), each summary a JSON line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
@@ -406,7 +455,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``{"model_files": {...}}`` line (path j's), a ``{"supervision": {...}}``
    line (path k's), an ``{"observability": {...}}`` line (path l's), a
    ``{"query": {...}}`` line (path m's), a ``{"distributed": {...}}`` line
-   (path n's), one
+   (path n's), a ``{"fleet": {...}}`` line (path o's: o1-o4's counts, times
+   and peaks), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -5562,15 +5612,17 @@ def run_n1(torch, np, lab, counters, seed: int, images, labels, work) -> dict:
 
 @contextmanager
 def recording_rows(torch, np):
-    """Every ``TorchCuda.invoke_batch`` call's backend and input rows (on the
-    host), for a reference computed after the launch counters are read."""
+    """Every ``TorchCuda.invoke_batch`` call's module and input rows (on the
+    host), for a reference computed after the launch counters are read (the
+    module is kept: a server stopped since drops its backend's)."""
     from nnstreamer_tpu_torch.backends.torch_cuda import TorchCuda
 
     inner, calls = TorchCuda.invoke_batch, []
 
     def invoke_batch(self, inputs):
         x = inputs[0]
-        calls.append((self, x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)))
+        calls.append((self._module,
+                      x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)))
         return inner(self, inputs)
 
     with mock.patch.object(TorchCuda, "invoke_batch", invoke_batch):
@@ -5581,9 +5633,8 @@ def check_served(torch, np, lab, name: str, out, images, calls) -> None:
     """Each answer's label equals the direct call of the micro-batch that
     served its frame, on the server that served it."""
     ref = {}
-    for backend, rows in calls:
-        for r, label in zip(rows, batch_labels(torch, np, lab, backend._module, rows,
-                                                [len(rows)])):
+    for module, rows in calls:
+        for r, label in zip(rows, batch_labels(torch, np, lab, module, rows, [len(rows)])):
             ref[r.reshape(-1)[:64].tobytes()] = int(label)
     got = [f.meta["label_index"] for f in out]
     want = [ref.get(images[i].reshape(-1)[:64].tobytes()) for i in range(len(images))]
@@ -5901,6 +5952,592 @@ def run_distributed(torch, np, lab, counters, seed: int, card: str, work, labels
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# path o: stream continuity and the fleet's control loop
+# ---------------------------------------------------------------------------
+#: GPT-2 small in float32 (its float32 logits differ in the last bits between
+#: an uninterrupted decode and a resume's prefill, where bfloat16 would
+#: round whole ulps of the logits apart)
+FLEET_LM_CUSTOM = LM_CUSTOM.replace("dtype:bfloat16", "dtype:float32")
+FLEET_PROMPTS, FLEET_TOKENS, FLEET_NEW, FLEET_CHUNK, FLEET_SLOTS = 16, 128, 64, 8, 8
+#: a divergence from the uninterrupted run is excused only where that run's
+#: top-2 logit gap is at most this
+FLEET_GAP = 1e-2
+FLEET_FRAMES = 512         # o3's frames over the two MobileNet-v2 servers
+FLEET_DRAIN_FRAMES = 512   # o4's frames while the leader drains one of them
+FLEET_GEN_NEW = 256        # the fleet's GPT-2 server's max-new
+FLEET_DIGEST_S = 0.5
+FLEET_LEASE_TTL = 2.0
+FLEET_TICK_S = 0.1
+
+
+def fleet_gen_text(sid: int, custom: str, slots: int = FLEET_SLOTS, max_new: int = FLEET_NEW,
+                   chunk: int = FLEET_CHUNK, extra: str = "") -> str:
+    return (f"tensor_query_serversrc name=ssrc id={sid} host=127.0.0.1 port=0 connect-type=tcp "
+            f"{extra} ! tensor_generator name=gen custom={custom} slots={slots} chunk={chunk} "
+            f"prefill-chunk=128 prefill-priority={slots} max-new={max_new} ! "
+            f"tensor_query_serversink id={sid}")
+
+
+def start_pipeline(text: str, name: str):
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(text, name=name)
+    pipe.start()
+    return pipe
+
+
+class StreamClients:
+    """One stream client pipeline a prompt (a client streams its requests
+    one after another), each pushing its prompt and ending on its own
+    thread; ``frames[i]`` is stream i's chunks in arrival order."""
+
+    def __init__(self, np, prompts, hosts_of, name: str, extra: str = ""):
+        import threading
+
+        self.frames = {i: [] for i in range(len(prompts))}
+        self.errors, self.health, self.pipes = [], {}, []
+        for i in range(len(prompts)):
+            hosts = ",".join(f"127.0.0.1:{p}" for p in hosts_of(i))
+            pipe = start_pipeline(
+                f"appsrc name=src ! tensor_query_client name=q hosts={hosts} connect-type=tcp "
+                f"stream=true timeout=120 retry-backoff=0.01 resume-retries=8 {extra} ! "
+                f"tensor_sink name=out", f"{name}{i}")
+            pipe["out"].connect_new_data(lambda f, i=i: self.frames[i].append(f))
+            self.pipes.append(pipe)
+        self.threads = [threading.Thread(target=self._one, args=(i, prompts[i]),
+                                         name=f"{name}-{i}") for i in range(len(prompts))]
+        for t in self.threads:
+            t.start()
+
+    def _one(self, i, prompt):
+        pipe = self.pipes[i]
+        try:
+            pipe["src"].push(prompt, pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=300)
+            self.health[i] = pipe.health()["q"]
+        except BaseException as e:  # surfaced by join()
+            self.errors.append((i, e))
+
+    def tokens_seen(self) -> list:
+        return [sum(f.tensors[0].shape[1] for f in self.frames[i] if f.tensors)
+                for i in sorted(self.frames)]
+
+    def join(self, what: str) -> None:
+        for t in self.threads:
+            t.join(timeout=330)
+        for pipe in self.pipes:
+            pipe.stop()
+        if self.errors or any(t.is_alive() for t in self.threads):
+            raise AssertionError(f"{what}: streams failed: {self.errors}")
+
+    def counter(self, key: str) -> int:
+        return sum(int(h[key]) for h in self.health.values())
+
+
+def check_streams(torch, np, name: str, clients, want, prompts, lm) -> list:
+    """Every stream: ``FLEET_NEW`` tokens once each, chunk indices contiguous in
+    arrival order with one final chunk (``stream_tokens``), and tokens equal
+    to the uninterrupted run's up to the first divergence, which must fall
+    where that run's top-2 logit gap (full forward of the same weights) is
+    at most ``FLEET_GAP``.  Returns per stream (first divergence or None,
+    the gap there)."""
+    out = []
+    for i in sorted(clients.frames):
+        frames = clients.frames[i]
+        if [f.meta["chunk_index"] for f in frames] != list(range(len(frames))):
+            raise AssertionError(f"{name}: stream {i}'s chunks arrived as "
+                                 f"{[f.meta['chunk_index'] for f in frames]}")
+        got = stream_tokens(frames, FLEET_NEW)
+        diff = np.flatnonzero(got != want[i])
+        if not diff.size:
+            out.append((None, None))
+            continue
+        j = int(diff[0])
+        seq = torch.from_numpy(np.concatenate([prompts[i], want[i]])[None].astype(np.int32))
+        gap = float(full_forward_margins(torch, lm, seq.to(lm.lm_head.weight.device),
+                                         len(prompts[i]))[j])
+        out.append((j, gap))
+        if gap > FLEET_GAP:
+            raise AssertionError(f"{name}: stream {i} diverges from the uninterrupted run at "
+                                 f"token {j}, where that run's top-2 gap is {gap:.4g} > "
+                                 f"{FLEET_GAP}")
+    return out
+
+
+def divergence_line(divs) -> str:
+    hit = [(i, j, g) for i, (j, g) in enumerate(divs) if j is not None]
+    if not hit:
+        return f"all {len(divs)} streams equal to the uninterrupted run"
+    return (f"{len(divs) - len(hit)} of {len(divs)} equal; diverged (stream, token, top-2 gap): "
+            + ", ".join(f"({i}, {j}, {g:.3g})" for i, j, g in hit))
+
+
+def run_o1(torch, np, custom: str, prompts, want, lm) -> dict:
+    """o1: a drain hands 8 live streams off to the other server; then one
+    crash resume (see the docstring)."""
+    srv_a = start_pipeline(fleet_gen_text(191, custom), "o1a")
+    srv_b = start_pipeline(fleet_gen_text(192, custom), "o1b")
+    pa, pb = srv_a["ssrc"].props["port"], srv_b["ssrc"].props["port"]
+    try:
+        # even streams try A first, odd ones B: 8 live streams on each
+        clients = StreamClients(np, prompts, lambda i: (pa, pb) if i % 2 == 0 else (pb, pa),
+                                "o1cli")
+        wait_for(lambda: min(clients.tokens_seen()) >= 16, "o1: 16 tokens of every stream", 120)
+        row_a = srv_a.health()["gen"]
+        live_a = row_a["gen_occupied"] + row_a["gen_waiting"]
+        t_drain = time.perf_counter()
+        srv_a["ssrc"].request_drain()
+        clients.join("o1")
+        wall_drain = time.perf_counter() - t_drain
+        gen_a, gen_b = srv_a.health()["gen"], srv_b.health()["gen"]
+        migrations = clients.counter("stream_migrations")
+        dups = clients.counter("duplicate_tokens_dropped")
+        # every stream A took finished there or was handed off live, and
+        # every hand-off resumed on B and was one client migration
+        if not (gen_a["gen_goaway_evicted"] == gen_b["gen_resumes"] == migrations > 0
+                and gen_a["gen_joins"] == gen_a["gen_completed"] + gen_a["gen_goaway_evicted"]):
+            raise AssertionError(
+                f"o1: A took {gen_a['gen_joins']} streams ({live_a} live just before the "
+                f"drain), completed {gen_a['gen_completed']}, handed off "
+                f"{gen_a['gen_goaway_evicted']}; B resumed {gen_b['gen_resumes']}, the clients "
+                f"migrated {migrations}")
+        if clients.counter("stream_resumes") or clients.counter("resume_failures"):
+            raise AssertionError(f"o1: clients {clients.health}")
+        divs = check_streams(torch, np, "o1", clients, want, prompts, lm)
+        # the crash: A restarted (same port), a stream on B, B stopped without
+        # a drain while the stream is on it; it resumes on A
+        srv_a.stop()
+        srv_a.start()
+        crash_cli = StreamClients(np, prompts[:1], lambda i: (pb, pa), "o1crash")
+        wait_for(lambda: crash_cli.tokens_seen()[0] >= 16, "o1: 16 tokens of the crash stream", 60)
+        srv_b.stop()
+        crash_cli.join("o1 crash")
+        gen_a2 = srv_a.health()["gen"]
+        crash = crash_cli.health[0]
+        if (crash["stream_resumes"], crash["stream_migrations"], crash["resume_failures"],
+                gen_a2["gen_resumes"]) != (1, 0, 0, 1):
+            raise AssertionError(f"o1: the crash stream's client {crash}, restarted A's resumes "
+                                 f"{gen_a2['gen_resumes']}")
+        crash_div = check_streams(torch, np, "o1 crash", crash_cli, want, prompts, lm)
+    finally:
+        srv_a.stop()
+        srv_b.stop()
+    return {"live_on_a": live_a, "joins_a": gen_a["gen_joins"],
+            "completed_on_a": gen_a["gen_completed"],
+            "goaway_evicted": gen_a["gen_goaway_evicted"],
+            "resumed_on_b": gen_b["gen_resumes"], "migrations": migrations,
+            "duplicate_tokens_dropped": dups, "drain_to_last_token_s": wall_drain,
+            "divergences": [j for j, _ in divs], "gaps": [g for _, g in divs],
+            "crash": {"stream_resumes": crash["stream_resumes"],
+                      "duplicate_tokens_dropped": crash["duplicate_tokens_dropped"],
+                      "divergence": crash_div[0][0], "gap": crash_div[0][1]}}
+
+
+def run_o2(torch, np, custom: str, prompts, want, lm) -> dict:
+    """o2: ``request_resize(16)`` on a serving generator mid-stream (see the
+    docstring)."""
+    from nnstreamer_tpu_torch.core.slots import SlotEngine
+
+    n = FLEET_SLOTS
+    srv = start_pipeline(fleet_gen_text(193, custom), "o2srv")
+    gen = srv["gen"]
+    port = srv["ssrc"].props["port"]
+    try:
+        clients = StreamClients(np, prompts[:n], lambda i: (port,), "o2cli")
+        wait_for(lambda: min(clients.tokens_seen()) >= 16, "o2: 16 tokens of every stream", 120)
+        before = {a: getattr(gen._engine, a) for a in SlotEngine._LEDGER_ATTRS}
+        row0 = srv.health()["gen"]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen.request_resize(2 * n)
+        wait_for(lambda: not gen.resize_pending, "o2: the resize to land", 60)
+        swap_s = time.perf_counter() - t0
+        clients.join("o2")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        after = torch.cuda.memory_allocated()
+        row = srv.health()["gen"]
+        engine = gen._engine
+    finally:
+        srv.stop()
+    migrations = clients.counter("stream_migrations")
+    if (row["gen_slots"], row["gen_resizes"]) != (2 * n, 1) or not (
+            row["gen_goaway_evicted"] == row["gen_resumes"] == migrations > 0):
+        raise AssertionError(f"o2: slots {row['gen_slots']}, resizes {row['gen_resizes']}, "
+                             f"handed off {row['gen_goaway_evicted']}, resumed "
+                             f"{row['gen_resumes']}, migrations {migrations}")
+    back = [a for a in SlotEngine._LEDGER_ATTRS if getattr(engine, a) < before[a]]
+    if back:
+        raise AssertionError(f"o2: the ledger went backwards across the resize: {back}")
+    layers = int(custom_props(custom)["layers"])
+    width = int(custom_props(custom)["d_model"])
+    seq = int(custom_props(custom)["seq"])
+    cache_b = {s: 2 * layers * s * seq * width * 4 for s in (n, 2 * n)}
+    # the old width's cache is freed before the new one's is allocated: the
+    # peak stays below base + the new cache (both at once would add it whole)
+    if peak - base > cache_b[2 * n] - cache_b[n] + (256 << 20):
+        raise AssertionError(f"o2: peak {peak} B is {peak - base} B over the {base} B before the "
+                             f"resize; the caches are {cache_b} B (both held at once?)")
+    divs = check_streams(torch, np, "o2", clients, want, prompts, lm)
+    return {"migrations": migrations, "goaway_evicted": row["gen_goaway_evicted"],
+            "resumes": row["gen_resumes"], "joins": [row0["gen_joins"], row["gen_joins"]],
+            "tokens": [row0["gen_tokens"], row["gen_tokens"]], "swap_s": swap_s,
+            "mem_before_b": base, "mem_peak_b": peak, "mem_after_b": after,
+            "cache_b": {str(k): v for k, v in cache_b.items()},
+            "divergences": [j for j, _ in divs], "gaps": [g for _, g in divs]}
+
+
+class InProcessActuator:
+    """o4's actuator (``core/autoscale.py``'s three verbs, each returning a
+    ticket at once): drain -> ``serversrc.request_drain(epoch)``, and the
+    drained pipeline stopped once the drain completes (its announce
+    tombstoned); resize -> ``generator.request_resize(slots, epoch)``;
+    spawn -> one more MobileNet-v2 server on the card.  A stale epoch raises
+    at the call, before the target is touched."""
+
+    def __init__(self, servers: dict, spawn_text):
+        self.servers, self.spawn_text = servers, spawn_text
+        self.threads, self.spawned = [], []
+
+    def _in_thread(self, work):
+        import threading
+
+        from nnstreamer_tpu_torch.core.autoscale import ActionTicket
+
+        ticket = ActionTicket()
+
+        def run():
+            try:
+                work()
+                ticket.resolve(True)
+            except BaseException as e:  # the ticket carries it
+                ticket.resolve(False, repr(e))
+
+        t = threading.Thread(target=run, name="o4-actuation", daemon=True)
+        self.threads.append(t)
+        t.start()
+        return ticket
+
+    def spawn(self, epoch: int = 0):
+        def start():
+            pipe = start_pipeline(self.spawn_text(), f"o4spawn{len(self.spawned)}")
+            self.spawned.append(pipe)
+            self.servers[pipe["ssrc"]._announcement.topic] = pipe
+
+        return self._in_thread(start)
+
+    def drain(self, target: str, epoch: int = 0):
+        pipe = self.servers[target]
+        pipe["ssrc"].request_drain(epoch)
+
+        def finish():
+            wait_for(lambda: pipe["ssrc"].drain_complete, "o4: the drain to complete", 60)
+            pipe.stop()
+
+        return self._in_thread(finish)
+
+    def resize(self, target: str, slots: int, epoch: int = 0):
+        gen = self.servers[target]["gen"]
+        gen.request_resize(slots, epoch)
+        return self._in_thread(
+            lambda: wait_for(lambda: not gen.resize_pending, "o4: the resize to land", 60))
+
+    def join(self) -> None:
+        for t in self.threads:
+            t.join(timeout=60)
+
+
+class Ticker:
+    """Ticks a controller every ``FLEET_TICK_S`` on a thread of its own (the
+    lease renews in the tick) until stopped."""
+
+    def __init__(self, ctl, name: str):
+        import threading
+
+        self.ctl, self.stop_ev = ctl, threading.Event()
+        self.thread = threading.Thread(target=self._run, name=name, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop_ev.wait(FLEET_TICK_S):
+            self.ctl.tick()
+
+    def stop(self):
+        self.stop_ev.set()
+        self.thread.join(timeout=10)
+
+
+def run_o3_o4(torch, np, lab, counters, seed: int, labels, custom: str, images, prompts) -> dict:
+    """o3, the observatory over three announcing servers, and o4, two
+    controllers contending for the lease (see the docstring)."""
+    from nnstreamer_tpu_torch.core import autoscale as asc
+    from nnstreamer_tpu_torch.core.fleet import FleetObservatory
+    from nnstreamer_tpu_torch.distributed.mqtt import MiniBroker
+
+    broker = MiniBroker()
+    bp = broker.port
+    announce = (f"topic=fleet dest-host=127.0.0.1 dest-port={bp} "
+                f"digest-interval={FLEET_DIGEST_S}")
+    sid = iter(range(194, 210))
+
+    def mobilenet():
+        return query_server_text(next(sid), seed, labels, announce)
+
+
+    pipes, obs, ctls, chans, acts, tickers, gen_clis = [], None, [], [], [], [], []
+    try:
+        obs = FleetObservatory(topic="fleet", stale_fraction=0.9).start("127.0.0.1", bp)
+        mport = obs.serve_metrics(0)
+        m1 = start_pipeline(mobilenet(), "o3m1")
+        m2 = start_pipeline(mobilenet(), "o3m2")
+        g = start_pipeline(fleet_gen_text(next(sid), custom, max_new=FLEET_GEN_NEW, chunk=16,
+                                          extra=announce), "o3g")
+        pipes += [m1, m2, g]
+        wait_for(lambda: len(obs.servers()) == 3, "o3: the observatory to see three servers")
+        # ---- o3: traffic, exact rollups, a tombstone
+        n = FLEET_FRAMES
+        with recording_rows(torch, np) as calls:
+            counters.zero()
+            t0 = time.perf_counter()
+            run = drive_client(query_client_text([m1["ssrc"].props["port"],
+                                                  m2["ssrc"].props["port"]]), "o3cli",
+                               images[:n])
+            launches = counters.read()
+            o3_fps = n / (time.perf_counter() - t0)
+        check_served(torch, np, lab, "o3", run["out"], images[:n], calls)
+        if not launches["normalize_u8"] == launches["top1"] == len(calls) or \
+                launches["flash_attention"]:
+            raise AssertionError(f"o3: launches {launches} for {len(calls)} micro-batches")
+        gcli = StreamClients(np, prompts[:4], lambda i: (g["ssrc"].props["port"],), "o3gen")
+        gcli.join("o3 generation")
+
+        def ledgers():
+            rows = [p.health() for p in (m1, m2, g)]
+            return (sum(r["ssrc"]["admitted"] for r in rows), rows[2]["gen"]["gen_tokens"])
+
+        admitted, tokens = ledgers()
+        wait_for(lambda: (obs.rollup()["admitted"], obs.rollup()["tokens"]) == (admitted, tokens),
+                 "o3: the rollup to reach the servers' ledgers", 10)
+        m2.stop()  # a last digest, then the tombstone
+        wait_for(lambda: obs.rollup()["retired"] == 1, "o3: the stopped server retired", 10)
+        roll = obs.rollup()
+        if (roll["servers"], roll["admitted"], roll["tokens"]) != (2, admitted, tokens):
+            raise AssertionError(f"o3: rollup {roll} against the ledgers admitted {admitted}, "
+                                 f"tokens {tokens}")
+        metrics = scrape(mport)
+        scraped = {k: series(metrics, f"nns_fleet_{k}", fleet="fleet")
+                   for k in ("admitted", "tokens", "retired", "servers")}
+        if scraped != {"admitted": admitted, "tokens": tokens, "retired": 1, "servers": 2}:
+            raise AssertionError(f"o3: /metrics nns.fleet.* {scraped}")
+        o3 = {"frames": n, "batches": len(calls), "launches": launches, "fps": o3_fps,
+              "admitted": admitted, "tokens": tokens, "rollup": {
+                  k: roll[k] for k in ("servers", "retired", "digests", "admitted", "tokens",
+                                       "tokens_per_s", "slots", "plane_connected")}}
+        # ---- o4: two controllers, one lease
+        servers = {p["ssrc"]._announcement.topic: p for p in (m1, g)}
+        g_topic = g["ssrc"]._announcement.topic
+        leases = [asc.LeaderLease(f"ctl-{c}", ttl_s=FLEET_LEASE_TTL) for c in "ab"]
+        chans = [asc.LeaseChannel("127.0.0.1", bp, "fleet", ls) for ls in leases]
+        acts = [InProcessActuator(servers, mobilenet) for _ in leases]
+        # stale rows never freeze this run's plane (its sweepers are busy)
+        knobs = dict(max_servers=4, plane_stale_fraction_max=1.0)
+        floor = asc.FleetPolicy(min_servers=3, up_streak=1, cooldown_up_s=0.0, **knobs)
+        hold = asc.FleetPolicy(min_servers=1, down_streak=10 ** 6, **knobs)
+        drain_once = asc.FleetPolicy(min_servers=1, down_streak=2, cooldown_down_s=600.0,
+                                     **knobs)
+        ctls = [asc.FleetController(obs, act, pol, lease=ls).start()
+                for act, ls, pol in zip(acts, leases, (floor, drain_once))]
+        ctl_a, ctl_b = ctls
+        lease_a, lease_b = leases
+        wait_for(lambda: all(c.connected for c in chans), "o4: the lease channels to connect")
+        # a busy generator is never the least loaded, so the drains pick a
+        # MobileNet-v2 server
+        gen_clis.append(StreamClients(np, prompts[4:6], lambda i: (g["ssrc"].props["port"],),
+                                      "o4gen"))
+        t0 = time.perf_counter()
+        tickers.append(Ticker(ctl_a, "o4-ctl-a"))
+        wait_for(lambda: lease_a.held, "o4: controller a to take the lease", 20)
+        wait_for(lambda: lease_b._seen is not None, "o4: the standby to see the lease")
+        tickers.append(Ticker(ctl_b, "o4-ctl-b"))
+        # the floor (3 servers) spawns one more MobileNet-v2 server
+        wait_for(lambda: ctl_a.scale_ups == 1, "o4: the floor to spawn a server", 20)
+        ctl_a.policy = hold
+        wait_for(lambda: len(acts[0].spawned) == 1 and not ctl_a.inflight(),
+                 "o4: the spawned server to start", 60)
+        m3 = acts[0].spawned[0]
+        pipes.append(m3)
+        wait_for(lambda: len(obs.servers()) == 3, "o4: the observatory to see the spawned server")
+        if lease_b.held or ctl_b.scale_ups or lease_b.refusals < 1:
+            raise AssertionError(f"o4: the standby took the held lease or acted "
+                                 f"(refusals {lease_b.refusals})")
+        # the leader drains an idle MobileNet-v2 server while a client sends
+        # frames to both
+        def during(pipe, i):
+            if i == FLEET_DRAIN_FRAMES // 4:
+                ctl_a.policy = drain_once
+                wait_for(lambda: ctl_a.scale_downs == 1, "o4: the leader to drain a server", 20)
+
+        mports = [m1["ssrc"].props["port"], m3["ssrc"].props["port"]]
+        with recording_rows(torch, np) as calls4:
+            counters.zero()
+            run4 = drive_client(query_client_text(mports), "o4cli",
+                                images[:FLEET_DRAIN_FRAMES], during=during)
+            launches4 = counters.read()
+        check_served(torch, np, lab, "o4", run4["out"], images[:FLEET_DRAIN_FRAMES], calls4)
+        if not launches4["normalize_u8"] == launches4["top1"] == len(calls4):
+            raise AssertionError(f"o4: launches {launches4} for {len(calls4)} micro-batches")
+        wait_for(lambda: not ctl_a.inflight(), "o4: the drain ticket to complete", 60)
+        drained = [a for _, a, status in ctl_a.recent if a.kind == asc.SCALE_DOWN]
+        drained_pipe = servers[drained[0].target]
+        if drained_pipe is g or not drained_pipe["ssrc"].drain_complete or ctl_a.actions_failed:
+            raise AssertionError(f"o4: drained {drained}, failed actions {ctl_a.actions_failed}")
+        survivor = m3 if drained_pipe is m1 else m1
+        s_topic = survivor["ssrc"]._announcement.topic
+        # the leader stops; the standby takes the lease at a higher epoch and
+        # drains the survivor, then widens the generator under live streams
+        gen_cli2 = StreamClients(np, prompts[6:8], lambda i: (g["ssrc"].props["port"],),
+                                 "o4gen2")
+        gen_clis.append(gen_cli2)
+        tickers[0].stop()
+        ctl_a.stop()
+        chans[0].close()
+        t_stop = time.perf_counter()
+        wait_for(lambda: ctl_b.scale_downs == 1, "o4: the standby to take over and drain", 30)
+        takeover_s = time.perf_counter() - t_stop
+        targets_b = [a.target for _, a, _ in ctl_b.recent if a.kind == asc.SCALE_DOWN]
+        if targets_b != [s_topic] or lease_b.epoch <= lease_a.epoch or not lease_b.held:
+            raise AssertionError(f"o4: the new leader drained {targets_b}; epochs a "
+                                 f"{lease_a.epoch} b {lease_b.epoch}")
+        t_rs = acts[1].resize(g_topic, 2 * FLEET_SLOTS, epoch=lease_b.epoch)
+        if not t_rs.wait(60) or not t_rs.ok:
+            raise AssertionError(f"o4: the new leader's resize failed: {t_rs.detail}")
+        # the deposed leader's commands, refused before anything is touched
+        state = lambda: (g.health()["gen"]["gen_goaway_evicted"],  # noqa: E731
+                         g["gen"].resize_pending, survivor["ssrc"]._drain_requested.is_set(),
+                         g.health()["gen"]["gen_slots"])
+        before = state()
+        stale = []
+        for verb, args in (("drain", (s_topic,)), ("resize", (g_topic, FLEET_SLOTS))):
+            try:
+                getattr(acts[0], verb)(*args, epoch=lease_a.epoch)
+            except asc.StaleEpochError as e:
+                stale.append(str(e))
+        after = state()
+        rejects = (survivor.health()["ssrc"]["stale_epoch_rejects"],
+                   g.health()["gen"]["gen_stale_epoch_rejects"])
+        if len(stale) != 2 or rejects != (1, 1) or before != after:
+            raise AssertionError(f"o4: deposed commands: {stale}, rejects {rejects}, state "
+                                 f"{before} -> {after}")
+        wait_for(lambda: not ctl_b.inflight(), "o4: the new leader's drain to complete", 60)
+        for cli in gen_clis:
+            cli.join("o4 generation")
+            for i in cli.frames:
+                stream_tokens(cli.frames[i], FLEET_GEN_NEW)
+        gen_row = g.health()["gen"]
+        migrations = sum(cli.counter("stream_migrations") for cli in gen_clis)
+        if gen_row["gen_goaway_evicted"] != migrations or gen_row["gen_resumes"] != migrations:
+            raise AssertionError(f"o4: the resize handed off {gen_row['gen_goaway_evicted']}, "
+                                 f"resumed {gen_row['gen_resumes']}, migrations {migrations}")
+        metrics = scrape(mport)
+        auto = {k: series(metrics, f"nns_autoscale_{k}", fleet="fleet")
+                for k in ("lease_epoch", "lease_held", "scale_downs", "ticks")}
+        if (auto["lease_epoch"], auto["lease_held"], auto["scale_downs"]) != (lease_b.epoch, 1, 1):
+            raise AssertionError(f"o4: /metrics nns.autoscale.* {auto}")
+        o4 = {"frames": FLEET_DRAIN_FRAMES, "batches": len(calls4), "launches": launches4,
+              "epochs": [lease_a.epoch, lease_b.epoch], "spawned": len(acts[0].spawned),
+              "standby_refusals": lease_b.refusals, "takeover_s": takeover_s,
+              "stale_rejects": list(rejects), "gen_slots": gen_row["gen_slots"],
+              "gen_resizes": gen_row["gen_resizes"], "gen_migrations": migrations,
+              "autoscale_scrape": auto,
+              "goaway_replies": run4["health"]["goaway_replies"],
+              "seconds": time.perf_counter() - t0}
+    finally:
+        for tk in tickers:
+            tk.stop()
+        for cli in gen_clis:
+            for pipe in cli.pipes:
+                pipe.stop()
+        for c in ctls:
+            c.stop()
+        for c in chans:
+            c.close()
+        for act in acts:
+            act.join()
+            pipes += [p for p in act.spawned if p not in pipes]
+        for p in pipes:
+            p.stop()
+        if obs is not None:
+            obs.stop()
+        broker.close()
+    return o3, o4
+
+
+def run_fleet(torch, np, lab, counters, seed: int, card: str, labels) -> tuple:
+    """Path o: o1-o4 (see their docstrings).  Returns (paths: o3's and o4's
+    launches and micro-batches, the summary line)."""
+    from nnstreamer_tpu_torch.models import transformer as tr
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    custom = f"{FLEET_LM_CUSTOM},seed:{seed}"
+    vocab = int(custom_props(custom)["vocab"])
+    prompts = [rng.integers(0, vocab, FLEET_TOKENS, dtype=np.int32) for _ in range(FLEET_PROMPTS)]
+    size = int(custom_props(MOBILENET_CUSTOM).get("size", "224"))
+    images = rng.integers(0, 256, (max(FLEET_FRAMES, FLEET_DRAIN_FRAMES), size, size, 3),
+                          dtype=np.uint8)
+    secs = {}
+    t = time.perf_counter()
+    counters.zero()
+    want, *_ = run_generator(np, custom, prompts, FLEET_NEW, FLEET_CHUNK, FLEET_SLOTS)
+    secs["reference"] = time.perf_counter() - t
+    props = custom_props(custom)
+    props["attn"] = "xla"
+    lm = tr.lm_from_props(props, "cuda")
+    t = time.perf_counter()
+    o1 = run_o1(torch, np, custom, prompts, want, lm)
+    secs["o1"] = time.perf_counter() - t
+    print(f"path o: o1 {FLEET_PROMPTS} GPT-2-small float32 streams of {FLEET_NEW} tokens over two "
+          f"slots={FLEET_SLOTS} servers; A drained with {o1['live_on_a']} live: handed off "
+          f"{o1['goaway_evicted']}, resumed on B {o1['resumed_on_b']}, client migrations "
+          f"{o1['migrations']}, duplicate tokens dropped {o1['duplicate_tokens_dropped']}; "
+          f"{divergence_line(list(zip(o1['divergences'], o1['gaps'])))}; crash resume on the "
+          f"restarted A {o1['crash']}; on {card}")
+    t = time.perf_counter()
+    o2 = run_o2(torch, np, custom, prompts, want, lm)
+    secs["o2"] = time.perf_counter() - t
+    print(f"path o: o2 request_resize({2 * FLEET_SLOTS}) mid-stream: {o2['migrations']} "
+          f"migrations = {o2['goaway_evicted']} hand-offs = {o2['resumes']} resumes, swap "
+          f"{o2['swap_s']:.3f} s, card memory before {o2['mem_before_b']} B, peak "
+          f"{o2['mem_peak_b']} B, after {o2['mem_after_b']} B (KV caches {o2['cache_b']} B); "
+          f"{divergence_line(list(zip(o2['divergences'], o2['gaps'])))}; on {card}")
+    gen_launches = counters.read()
+    if any(gen_launches.values()):
+        raise AssertionError(f"o1/o2: the KV-cache decode launched {gen_launches}")
+    del lm
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    o3, o4 = run_o3_o4(torch, np, lab, counters, seed, labels, custom, images, prompts)
+    secs["o3_o4"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    paths = {"fleet_o3": {"launches": o3.pop("launches"), "batches": o3["batches"]},
+             "fleet_o4": {"launches": o4.pop("launches"), "batches": o4["batches"]}}
+    summary = {"card": card, "o1": o1, "o2": o2, "o3": o3, "o4": o4,
+               "seconds": {k: round(v, 3) for k, v in secs.items()} | {
+                   "total": round(time.perf_counter() - t0, 3)}}
+    print(f"path o: o3 {o3['frames']} frames over two MobileNet-v2 servers in {o3['batches']} "
+          f"micro-batches, labels equal, normalize_u8 and top1 once each a micro-batch, "
+          f"{o3['fps']:.1f} frames/s; rollup after a tombstone {o3['rollup']} = the ledgers; "
+          f"o4 epochs {o4['epochs']}, spawned {o4['spawned']}, {o4['frames']} frames labeled "
+          f"through the leader's drain, takeover {o4['takeover_s']:.3f} s, stale rejects "
+          f"{o4['stale_rejects']}, generator slots {o4['gen_slots']}; seconds "
+          f"{summary['seconds']}; on {card}")
+    return paths, summary
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -5933,9 +6570,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= set("ijklmn"):
-        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m and n, not "
-                         f"{sorted(only - set('ijklmn'))}")
+    if not only <= set("ijklmno"):
+        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m, n and o, not "
+                         f"{sorted(only - set('ijklmno'))}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -5955,6 +6592,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "n" in only:
         print(json.dumps({"distributed": run_distributed(torch, np, lab, counters, args.seed,
                                                          card, work, labels)[1]}))
+    if "o" in only:
+        print(json.dumps({"fleet": run_fleet(torch, np, lab, counters, args.seed, card,
+                                             labels)[1]}))
     print(card)
     return 0
 
@@ -5967,7 +6607,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
                     help="comma-separated paths to run alone after the kernel build: i, j, k, l, "
-                         "m, n (prints their summaries; without it every path runs)")
+                         "m, n, o (prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
     if not (ROOT / "nnstreamer_tpu_torch" / "csrc").is_dir():
@@ -6081,6 +6721,9 @@ def main() -> int:
     dist_paths, distributed = run_distributed(torch, np, lab, counters, args.seed, card, work,
                                               labels, beside=beside)
     paths.update(dist_paths)
+    torch.cuda.empty_cache()
+    fleet_paths, fleet = run_fleet(torch, np, lab, counters, args.seed, card, labels)
+    paths.update(fleet_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -6098,6 +6741,7 @@ def main() -> int:
     print(json.dumps({"observability": observability}))
     print(json.dumps({"query": query}))
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"fleet": fleet}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -52,10 +52,17 @@ and a token oracle, for driving the scheduler without a transformer; its
 chaos twins (``fail_next``, ``oom_at_step``, ``lost_at_step``) raise the
 typed device errors.
 
-Not ported (ROADMAP A7.3): GOAWAY hand-off with resume state (a shed or
-handed-off stream's final chunk carries no resume state, as a JAX engine
-without a resume signature sends), resume and ledger adoption, SLO
-tracking.
+* **stream continuity** (``core/continuity.py``): with a resume signature
+  armed, every chunk carries resume state, and a shed, device-lost or
+  drained stream's final chunk is a resumable hand-off (``goaway`` meta)
+  the client migrates.  :meth:`SlotEngine.begin_goaway` hands every live
+  stream off at the next token boundary (a drain, or a slot-width resize,
+  which :meth:`SlotEngine.end_goaway` rescinds when the rebuild fails).  A
+  RESUME join prefills prompt + prefix[:-1] (the prefix comes to the card
+  once, on the pump thread, with the prompt) and decodes on from the
+  prefix's last token at the absolute step R, so the remaining tokens are
+  an uninterrupted run's.  :meth:`SlotEngine.adopt_ledger` carries the
+  cumulative counters into a rebuilt engine.
 """
 
 from __future__ import annotations
@@ -68,7 +75,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .continuity import PREFIX_GRAIN, prefix_digests
+from .continuity import GOAWAY_META, PREFIX_GRAIN, RESUME_META, prefix_digests, prompt_digest
 from .liveness import DEADLINE_META, ThreadBeat
 from .log import get_logger
 from .resilience import DeviceLostError, DeviceOomError, device_call
@@ -276,6 +283,10 @@ class GenStream:
         # chunks, the pinned entries it attached (released with the slot),
         # and the next chunk index to publish as prefill crosses a boundary
         "prefix_digests", "prefix_entries", "prefix_pub_i",
+        # stream continuity: what the prefill runs over (the prompt, or the
+        # prompt + prefix[:-1] of a resume), the checkpoint a resume decodes
+        # on from, and the resume state stamped into emitted meta
+        "prefill_src", "resume_tok", "resume_gen", "resume_info",
     )
 
     def __init__(self, sid: int, frame, prompt, max_new: int, chunk: int,
@@ -307,6 +318,10 @@ class GenStream:
         self.prefix_digests: List[str] = []
         self.prefix_entries: List[PrefixEntry] = []
         self.prefix_pub_i = 0
+        self.prefill_src = prompt         # prompt (+ prefix[:-1] on resume)
+        self.resume_tok = 0               # the prefix's last token (resume)
+        self.resume_gen = 0               # tokens already delivered (resume)
+        self.resume_info: Optional[Dict[str, Any]] = None
 
     @property
     def finished(self) -> bool:
@@ -452,7 +467,7 @@ class SlotEngine:
                  name: str = "slots",
                  prefix_cache: Optional[PrefixCache] = None,
                  on_device_lost: Optional[Callable[..., Any]] = None,
-                 slo=None):
+                 slo=None, resume_sig: Optional[str] = None):
         self.model = model
         self.slots = int(model.slots)
         self.device = torch.device(model.device)
@@ -483,6 +498,11 @@ class SlotEngine:
         # finished stream, all on the pump thread (the tracker's single
         # writer); None costs nothing
         self.slo = slo
+        # stream continuity: with a signature, every chunk carries resume
+        # state and a drain hands live streams off resumably; None: no
+        # stamping, and a drain lets streams finish in place
+        self.resume_sig = resume_sig
+        self._goaway = False
 
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)       # pump wakeups
@@ -516,6 +536,8 @@ class SlotEngine:
         self.prefill_chunks = 0
         self.tokens_total = 0
         self.tokens_per_step = 0.0  # EWMA of active slots per decode call
+        self.resumes = 0              # streams joined by a RESUME request
+        self.goaway_evicted = 0       # live streams handed off on a drain
         self.oom_retries = 0          # device steps retried after an OOM
         self.oom_sheds = 0            # slots shed to relieve card memory
         self.device_lost = 0          # device-loss events seen
@@ -526,6 +548,7 @@ class SlotEngine:
     def start(self) -> None:
         self._stop.clear()
         self._error = None
+        self._goaway = False
         self._cache = self.model.init_cache()
         with torch.inference_mode():
             self._tok_vec = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
@@ -563,9 +586,17 @@ class SlotEngine:
     # -- submission / cancellation -----------------------------------------
     def submit(self, frame, prompt, max_new: int, chunk: int,
                tenant: str = "", priority: int = 3,
-               deadline_ts: Optional[float] = None) -> GenStream:
+               deadline_ts: Optional[float] = None,
+               resume: Optional[Dict[str, Any]] = None) -> GenStream:
         """Queue one prompt for a slot.  ``prompt`` is host int32 (1, Tp),
-        already validated against ``max_seq`` by the caller."""
+        already validated against ``max_seq`` by the caller.
+
+        ``resume`` = ``{"prefix": (1, R) host int32, "tokens_done": R}``
+        joins a checkpointed stream: the prefill runs over prompt +
+        prefix[:-1], decode goes on from the prefix's last token at the
+        absolute step R, and emitted ``tokens_done`` and ``chunk_index``
+        continue from R.  The caller validated signature, digest and
+        shape; R = 0 is a fresh join (the client drops the overlap)."""
         with self._lock:
             if self._error is not None:
                 raise self._error
@@ -575,10 +606,63 @@ class SlotEngine:
                 tenant=tenant, priority=priority, deadline_ts=deadline_ts,
                 token_budget_s=self.token_budget_s, now=self.clock(),
             )
+            if self.resume_sig is not None:
+                s.resume_info = {"v": 1, "sig": self.resume_sig,
+                                 "digest": prompt_digest(prompt), "chunk": int(s.chunk)}
+            if resume is not None:
+                self.resumes += 1
+                r = int(resume.get("tokens_done", 0))
+                if r > 0:
+                    prefix = np.asarray(resume["prefix"], dtype=np.int32)
+                    s.prefill_src = (np.concatenate([prompt, prefix[:, :r - 1]], axis=1)
+                                     .astype(np.int32) if r > 1 else prompt)
+                    s.resume_tok = int(prefix[0, r - 1])
+                    s.resume_gen = r
+                    s.tokens_out = r
+                    s.chunk_index = r // s.chunk
             self._streams[s.sid] = s
             self._waiting.append(s)
             self._work.notify_all()
             return s
+
+    def begin_goaway(self) -> None:
+        """Drain hand-off: from the next token boundary on, every live
+        stream (decoding, prefilling or waiting) ends with a resumable final
+        chunk (partial tokens, resume state, the ``goaway`` marker) and
+        frees its slot, so its client migrates it.  Without a resume
+        signature this only warns: a hand-off the client cannot resume
+        would cut the stream short."""
+        if self.resume_sig is None:
+            log.warning("%s: drain without resume state armed: live streams finish in "
+                        "place instead of migrating", self.name)
+            return
+        with self._work:
+            self._goaway = True
+            self._work.notify_all()
+
+    def end_goaway(self) -> None:
+        """Rescind a hand-off (a resize whose rebuild failed keeps this
+        engine serving): streams already handed off resume here or
+        elsewhere; new joins are no longer swept."""
+        with self._work:
+            self._goaway = False
+
+    #: the cumulative counters that survive a rebuild in place (a slot-width
+    #: resize): a server's digests and the fleet's exact totals read them,
+    #: so they never move backwards
+    _LEDGER_ATTRS = (
+        "joins", "completions", "evictions", "cancellations",
+        "decode_steps", "prefill_chunks", "tokens_total", "resumes",
+        "goaway_evicted", "oom_retries", "oom_sheds", "device_lost",
+        "device_lost_evicted", "remeshes",
+    )
+
+    def adopt_ledger(self, other: "SlotEngine") -> None:
+        """Carry ``other``'s cumulative counters into this engine (before
+        :meth:`start`): a resize replaces the engine, not the server."""
+        for attr in self._LEDGER_ATTRS:
+            setattr(self, attr, getattr(other, attr))
+        self.tokens_per_step = other.tokens_per_step
 
     def cancel(self, sid: Optional[int] = None,
                client_id: Optional[int] = None) -> bool:
@@ -641,6 +725,8 @@ class SlotEngine:
                 "gen_prefill_chunks": self.prefill_chunks,
                 "gen_tokens_per_step": round(self.tokens_per_step, 3),
                 "gen_jit_buckets": len(self._prefill_lru) + len(self._decode_lru),
+                "gen_resumes": self.resumes,
+                "gen_goaway_evicted": self.goaway_evicted,
                 "gen_oom_retries": self.oom_retries,
                 "gen_oom_sheds": self.oom_sheds,
                 "gen_device_lost": self.device_lost,
@@ -691,6 +777,10 @@ class SlotEngine:
             stream_seq=s.frame.seq, chunk_index=s.chunk_index,
             tokens_done=s.tokens_out, final=bool(final),
         )
+        if s.resume_info is not None:
+            # every chunk is a checkpoint: its tokens so far plus this state
+            # rebuild the stream on any server with the same signature
+            out.meta[RESUME_META] = s.resume_info
         if extra_meta:
             out.meta.update(extra_meta)
             if extra_meta.get("deadline_expired"):
@@ -725,16 +815,17 @@ class SlotEngine:
 
     def _attach_prefix(self, s: GenStream) -> None:
         """First-touch lookup (pump thread, after the slot reset): digest
-        the prompt at grain boundaries, pin the longest cached run and
-        write its pages into the slot, so prefill starts at the first
+        the prefill source at grain boundaries, pin the longest cached run
+        and write its pages into the slot, so prefill starts at the first
         uncached token.  At most ``(tp - 1) // grain`` chunks: the last
-        prompt token always prefills (its logits pick token 1).  A prompt
-        with no such chunk is neither a hit nor a miss."""
+        token always prefills (its logits pick token 1).  A source with no
+        such chunk is neither a hit nor a miss.  A resume's source starts
+        with the prompt's bytes, so it attaches the same pages."""
         pc = self.prefix
-        max_chunks = (int(s.prompt.shape[1]) - 1) // pc.grain
+        max_chunks = (int(s.prefill_src.shape[1]) - 1) // pc.grain
         if max_chunks <= 0:
             return
-        s.prefix_digests = prefix_digests(s.prompt, pc.grain)[:max_chunks]
+        s.prefix_digests = prefix_digests(s.prefill_src, pc.grain)[:max_chunks]
         entries = pc.acquire(s.prefix_digests)
         s.prefix_pub_i = len(entries)
         if not entries:
@@ -816,10 +907,12 @@ class SlotEngine:
                     self.name, s.sid, reason, s.tokens_out)
 
     def _handoff_one(self, s: GenStream, reason: str) -> None:
-        """Close ONE live stream with a typed final chunk and free its slot
-        (lock held): partial tokens ride the chunk with ``evicted: reason``
-        and no ``deadline_expired`` marker.  (With resume, ROADMAP A7.3,
-        the chunk would also carry the state to continue elsewhere.)"""
+        """Close ONE live stream with a resumable final chunk and free its
+        slot (lock held): a migration, not a failure, so no
+        ``deadline_expired`` marker; partial tokens ride the chunk with
+        ``evicted: reason``, and with a resume signature the ``goaway``
+        marker and the resume state let the client continue elsewhere.
+        Without one the chunk still closes the stream typed."""
         if s.state == "waiting":
             try:
                 self._waiting.remove(s)
@@ -827,8 +920,24 @@ class SlotEngine:
                 pass
         s.state = "evicted"
         s.evict_reason = reason
-        self._emit_terminal(s, extra_meta={"evicted": reason})
+        extra: Dict[str, Any] = {"evicted": reason}
+        if self.resume_sig is not None:
+            extra[GOAWAY_META] = True  # the client migrates; tokens survive
+        self._emit_terminal(s, extra_meta=extra)
         self._free_slot(s)
+
+    def _sweep_goaway(self) -> None:
+        """Drain hand-off (lock held): every live stream ends with a
+        resumable GOAWAY final chunk and frees its slot.  Runs at every
+        boundary while draining, so streams admitted during the drain hand
+        off too."""
+        for s in list(self._streams.values()):
+            if s.finished:
+                continue
+            self._handoff_one(s, "goaway")
+            self.goaway_evicted += 1
+            log.info("%s: stream %d handed off on drain after %d token(s)",
+                     self.name, s.sid, s.tokens_out)
 
     # -- device-resource resilience (degrade, don't die) ---------------------
     def _device_step(self, fn, *args):
@@ -961,6 +1070,8 @@ class SlotEngine:
             self.heartbeat.beat()
             with self._work:
                 self._reap_cancelled()
+                if self._goaway:
+                    self._sweep_goaway()
                 self._sweep_deadlines(self.clock())
                 joined = self._join_waiting(self.clock())
                 have_prefill = any(
@@ -1067,13 +1178,17 @@ class SlotEngine:
         """One chunked-prefill step for a joining stream: reset its slot and
         attach its cached prefix on first touch, run one piece, publish the
         grain chunks it completed, pick token 1 when the prompt is done.
-        Device work runs OUTSIDE the lock."""
+        Device work runs OUTSIDE the lock.
+
+        A RESUME join prefills ``prefill_src`` (prompt + prefix[:-1]) on the
+        same chunk grid, then skips the pick: the next decode input is the
+        prefix's last token at the absolute step ``resume_gen``."""
         if s.prompt_dev is None:
             self._cache = self.model.reset_slot(self._cache, s.slot)
-            s.prompt_dev = self._upload(s.prompt)
+            s.prompt_dev = self._upload(s.prefill_src)
             if self.prefix is not None:
                 self._attach_prefix(s)
-        tp = s.prompt.shape[1]
+        tp = s.prefill_src.shape[1]
         n = min(self.prefill_chunk, tp - s.prefill_pos)
         toks = s.prompt_dev[:, s.prefill_pos:s.prefill_pos + n]
         saved = self._save_positions()
@@ -1089,6 +1204,23 @@ class SlotEngine:
         with self._lock:
             self.prefill_chunks += 1
         if s.prefill_pos < tp:
+            return
+        if s.resume_gen:
+            # a checkpointed restart: no pick and no token-1 chunk, the
+            # client holds tokens 1..resume_gen already
+            self._tok_vec[s.slot] = s.resume_tok
+            self._gen_vec[s.slot] = s.resume_gen
+            now = self.clock()
+            with self._lock:
+                s.prompt_dev = None
+                if s.finished:  # cancelled or handed off during prefill
+                    return
+                s.gen = s.resume_gen
+                s.last_token_ts = now
+                if s.resume_gen >= s.max_new:
+                    self._finish(s, "done")  # nothing left to decode
+                else:
+                    s.state = "decoding"
             return
         # prompt fully prefilled: token 1 (the raw gen_seed key, as the
         # unslotted prefill picks it)

@@ -25,10 +25,11 @@ and ``nns.query.rtt_seconds``) and the memory monitor's ``nns.mem.*``
 (exported through the query server's health row) among them, and
 the discovery plane's announce reconnects (``nns.query.reannounces``,
 ``nns.query.plane_reconnects``, on the serversrc's health row while it
-announces).  Not ported: the query client's stream-resume counters
-(ROADMAP A7.3), the digest and fencing series, the fleet observatory's
-``nns.fleet.*`` and the autoscaler's ``nns.autoscale.*`` (A13.3), the
-serving mesh's ``nns.mesh.*`` (A11), the trainer's
+announces), the query client's stream-resume counters, the slot engine's
+resume, hand-off and resize counters, the digest and fencing series, the
+fleet observatory's ``nns.fleet.*`` and the autoscaler's
+``nns.autoscale.*``.  Not ported: the serving mesh's ``nns.mesh.*``
+(ROADMAP A11), the trainer's
 ``nns.train.*`` (A9), and the frame pool's ``nns.pool.frame_*`` (the port
 has no ``FramePool``).
 """
@@ -165,6 +166,10 @@ METRICS: Dict[str, Tuple[str, str]] = {
     "nns.query.deadline_expired": ("counter", "requests abandoned: budget ran out"),
     "nns.query.corruption_detected": ("counter", "corrupt exchanges detected"),
     "nns.query.degraded_frames": ("counter", "frames answered by degrade= instead of a server"),
+    "nns.query.stream_resumes": ("counter", "generation streams resumed after a mid-stream break"),
+    "nns.query.stream_migrations": ("counter", "generation streams migrated off a draining server"),
+    "nns.query.duplicate_tokens_dropped": ("counter", "post-resume overlap tokens deduped (exactly-once)"),
+    "nns.query.resume_failures": ("counter", "stream resume attempts that failed (reject/no-progress/exhaustion)"),
     "nns.query.breaker_trips_evicted": ("counter", "trips of breakers evicted on pool swaps"),
     "nns.query.breaker_open": ("gauge", "1 while the remote's breaker is open"),
     "nns.query.breaker_trips": ("counter", "lifetime breaker trips for the remote"),
@@ -191,6 +196,72 @@ METRICS: Dict[str, Tuple[str, str]] = {
     # -- the discovery plane (announce client of the query serversrc) -----
     "nns.query.reannounces": ("counter", "retained announces re-published after a broker reconnect"),
     "nns.query.plane_reconnects": ("counter", "announce-client broker reconnects (restart or failover)"),
+    # -- fenced actuation and telemetry digests (the serversrc, the generator)
+    "nns.query.digests": ("counter", "telemetry digests published on the discovery plane"),
+    "nns.query.digest_publish_failures": ("counter", "digest publishes refused while the broker was unreachable"),
+    "nns.query.stale_epoch_rejects": ("counter", "fenced drain commands refused for a stale lease epoch"),
+    "nns.query.fence_epoch": ("gauge", "highest lease epoch this server has accepted"),
+    "nns.gen.stale_epoch_rejects": ("counter", "fenced resize commands refused for a stale lease epoch"),
+    "nns.gen.fence_epoch": ("gauge", "highest lease epoch this generator has accepted"),
+    # -- the fleet observatory (core/fleet.py; fleet= label) ---------------
+    "nns.fleet.prefix_hits": ("counter", "prefix-cache hits fleet-wide (retired servers included)"),
+    "nns.fleet.prefix_misses": ("counter", "prefix-cache misses fleet-wide (retired servers included)"),
+    "nns.fleet.prefix_hit_ratio": ("gauge", "fleet prefix-cache hit ratio (hits / eligible lookups)"),
+    "nns.fleet.prefix_entries": ("gauge", "cached prefix entries fleet-wide (live servers)"),
+    "nns.fleet.servers": ("gauge", "live servers with a fresh digest"),
+    "nns.fleet.draining": ("gauge", "live servers announcing draining"),
+    "nns.fleet.degraded": ("gauge", "live servers announcing degraded"),
+    "nns.fleet.swapping": ("gauge", "live servers mid hot-swap"),
+    "nns.fleet.mem_pressured": ("gauge", "live servers above their memory watermark"),
+    "nns.fleet.inflight": ("gauge", "requests in flight fleet-wide"),
+    "nns.fleet.slots": ("gauge", "generation slots fleet-wide"),
+    "nns.fleet.occupied": ("gauge", "occupied generation slots fleet-wide"),
+    "nns.fleet.waiting": ("gauge", "prompts queued for a slot fleet-wide"),
+    "nns.fleet.occupancy": ("gauge", "fleet slot occupancy (occupied / slots)"),
+    "nns.fleet.tokens_per_s": ("gauge", "aggregate decode throughput, tokens/s (sum of live EWMAs)"),
+    "nns.fleet.slot_headroom": ("gauge", "admittable free slots on unpressured servers"),
+    "nns.fleet.mem_headroom_bytes": ("gauge", "bytes until the memory high watermark, fleet-wide"),
+    "nns.fleet.tokens": ("counter", "tokens decoded fleet-wide (retired servers included)"),
+    "nns.fleet.admitted": ("counter", "requests admitted fleet-wide (retired servers included)"),
+    "nns.fleet.shed": ("counter", "requests shed fleet-wide (retired servers included)"),
+    "nns.fleet.tenant_admitted": ("counter", "requests admitted for the tenant, fleet-wide"),
+    "nns.fleet.tenant_shed": ("counter", "requests shed for the tenant, fleet-wide"),
+    "nns.fleet.slo_burn": ("gauge", "worst per-tenant SLO burn rate across live servers"),
+    "nns.fleet.digests": ("counter", "digests ingested by the observatory"),
+    "nns.fleet.retired": ("counter", "server rows retired on announce tombstone"),
+    "nns.fleet.stale_evicted": ("counter", "server rows retired on digest TTL expiry"),
+    "nns.fleet.stale": ("gauge", "live-but-stale servers (digest older than the stale threshold; excluded from headroom)"),
+    "nns.fleet.retired_evicted": ("counter", "retired-server snapshots evicted by the ledger cap (aggregates preserved)"),
+    "nns.fleet.ttft_p95_ms": ("gauge", "worst per-server p95 time to first token across fresh digests, ms"),
+    "nns.fleet.plane_connected": ("gauge", "1 while the observatory's broker connection is up"),
+    "nns.fleet.plane_ingest_age_s": ("gauge", "seconds since the observatory last ingested any digest"),
+    "nns.fleet.plane_reconnects": ("counter", "observatory broker reconnects (restart/failover dials that succeeded)"),
+    # -- fleet autoscaling (core/autoscale.py FleetController) -------------
+    "nns.autoscale.ticks": ("counter", "controller decision-loop evaluations"),
+    "nns.autoscale.decisions": ("counter", "actions emitted by the planner"),
+    "nns.autoscale.scale_ups": ("counter", "spawn actions dispatched to the actuator"),
+    "nns.autoscale.scale_downs": ("counter", "zero-loss drain actions dispatched to the actuator"),
+    "nns.autoscale.resizes": ("counter", "slot-width resize actions dispatched to the actuator"),
+    "nns.autoscale.actions_failed": ("counter", "actuator tickets that completed unsuccessfully"),
+    "nns.autoscale.actions_inflight": ("gauge", "actuator tickets dispatched but not yet complete"),
+    "nns.autoscale.cooldown_skips": ("counter", "wanted actions suppressed by a per-kind cooldown"),
+    "nns.autoscale.hysteresis_holds": ("counter", "pressure ticks held below the hysteresis streak"),
+    "nns.autoscale.envelope_clamps": ("counter", "wanted actions clamped by the min/max fleet envelope"),
+    "nns.autoscale.inflight_skips": ("counter", "targets skipped because an action is already in flight"),
+    "nns.autoscale.predictive_decisions": ("counter", "decisions driven by the fitted performance model"),
+    "nns.autoscale.reactive_decisions": ("counter", "decisions driven by the reactive (observed) path"),
+    "nns.autoscale.model_samples": ("gauge", "observations banked by the performance model"),
+    "nns.autoscale.model_ready": ("gauge", "1 when the predictive model has enough samples to act"),
+    "nns.autoscale.target_servers": ("gauge", "fleet size the controller is steering toward"),
+    "nns.autoscale.frozen": ("counter", "actions the fail-static ladder froze instead of dispatching (reason= label breaks down the cause)"),
+    "nns.autoscale.plane_level": ("gauge", "assessed control-plane view: 0 ok / 1 degraded / 2 blind"),
+    "nns.autoscale.standby_ticks": ("counter", "ticks spent standby (leader lease not held)"),
+    "nns.autoscale.lease_held": ("gauge", "1 while this controller holds the leader lease"),
+    "nns.autoscale.lease_epoch": ("gauge", "this controller's lease epoch (monotonic across takeovers)"),
+    "nns.autoscale.lease_acquires": ("counter", "leader-lease acquisitions (vacant grant or expiry takeover)"),
+    "nns.autoscale.lease_steals": ("counter", "expired foreign leases taken over"),
+    "nns.autoscale.lease_losses": ("counter", "leaderships lost (superseding epoch, split-lease resolution, or self-fence)"),
+    "nns.autoscale.lease_refusals": ("counter", "acquire attempts refused because a fresh foreign lease exists"),
     # -- pub/sub sources (mqttsrc, edgesrc, tensor_src_grpc) -----------------
     "nns.wire.corrupt_dropped": ("counter", "undecodable pub/sub frames dropped"),
     # -- continuous batching (core/slots.py + tensor_generator) ------------
@@ -206,7 +277,10 @@ METRICS: Dict[str, Tuple[str, str]] = {
     "nns.gen.prefill_chunks": ("counter", "chunked-prefill pieces interleaved"),
     "nns.gen.tokens_per_step": ("gauge", "EWMA active slots per decode step"),
     "nns.gen.jit_buckets": ("gauge", "live decode/prefill compile buckets (LRU-bounded)"),
+    "nns.gen.resumes": ("counter", "streams joined from a RESUME checkpoint"),
+    "nns.gen.goaway_evicted": ("counter", "live streams handed off as resumable GOAWAY chunks on drain"),
     "nns.gen.resume_rejects": ("counter", "RESUME requests refused (signature/digest/shape mismatch)"),
+    "nns.gen.resizes": ("counter", "zero-loss slot-width rebuilds (autoscale resize actuation)"),
     # -- shared-prefix KV cache (core/slots.py PrefixCache) ----------------
     "nns.prefix.hits": ("counter", "eligible prompts that attached cached prefix pages"),
     "nns.prefix.misses": ("counter", "eligible prompts that found no cached prefix chunk"),
@@ -293,6 +367,11 @@ HEALTH_KEY_METRICS: Dict[str, str] = {
     "gen_tokens_per_step": "nns.gen.tokens_per_step",
     "gen_jit_buckets": "nns.gen.jit_buckets",
     "gen_resume_rejects": "nns.gen.resume_rejects",
+    "gen_resumes": "nns.gen.resumes",
+    "gen_goaway_evicted": "nns.gen.goaway_evicted",
+    "gen_resizes": "nns.gen.resizes",
+    "gen_stale_epoch_rejects": "nns.gen.stale_epoch_rejects",
+    "gen_fence_epoch": "nns.gen.fence_epoch",
     # shared-prefix KV cache (engine.snapshot carries these only when armed)
     "prefix_hits": "nns.prefix.hits",
     "prefix_misses": "nns.prefix.misses",
@@ -335,6 +414,10 @@ HEALTH_KEY_METRICS: Dict[str, str] = {
     "degraded_frames": "nns.query.degraded_frames",
     "breaker_trips_evicted": "nns.query.breaker_trips_evicted",
     "affinity_remaps": "nns.query.affinity_remaps",
+    "stream_resumes": "nns.query.stream_resumes",
+    "stream_migrations": "nns.query.stream_migrations",
+    "duplicate_tokens_dropped": "nns.query.duplicate_tokens_dropped",
+    "resume_failures": "nns.query.resume_failures",
     # memory watermarks (the serversrc's health row)
     "mem_bytes_in_use": "nns.mem.bytes_in_use",
     "mem_bytes_limit": "nns.mem.bytes_limit",
@@ -349,6 +432,11 @@ HEALTH_KEY_METRICS: Dict[str, str] = {
     # the discovery plane (the serversrc's health row while announcing)
     "reannounces": "nns.query.reannounces",
     "plane_reconnects": "nns.query.plane_reconnects",
+    # telemetry digests and fencing (the serversrc's health row)
+    "digests_published": "nns.query.digests",
+    "digest_publish_failures": "nns.query.digest_publish_failures",
+    "stale_epoch_rejects": "nns.query.stale_epoch_rejects",
+    "fence_epoch": "nns.query.fence_epoch",
     # pub/sub sources' integrity (mqttsrc, edgesrc, tensor_src_grpc)
     "corrupt_dropped": "nns.wire.corrupt_dropped",
 }

@@ -49,13 +49,32 @@ its pump's thread census; a wedged pump is a flight-recorder incident.
 Behind a query server, :meth:`note_stream_cancel` (the serversink's
 client-gone feedback) cancels the dead client's stream, freeing its slot.
 
-Not ported: ``mesh=`` (ROADMAP A11), resume (A7.3: a RESUME request is
-answered with the typed reject), resize (A13.3).
+Stream continuity (slotted, ``core/continuity.py``): ``start()`` arms a
+resume signature of everything that decides the tokens (the model's
+dialect, seeds and dtype, the sampling rule, ``max-new``), signed with
+this package's own kinds, ``torch-transformer`` and ``torch-sim``: the
+JAX package's sampled tokens may differ at near-ties, so neither package
+resumes the other's streams.  Every chunk then carries resume state; a
+RESUME request is checked against the signature, the prompt's digest and
+the prefix's shape (:meth:`_check_resume`) and joins from its checkpoint,
+or gets the typed reject (``gen_resume_rejects``).  The unslotted path
+refuses every RESUME request.  :meth:`note_stream_drain` (the serversrc's
+drain, ``Pipeline.stream_drain_feedback``) hands the live streams off as
+resumable GOAWAY chunks.  :meth:`request_resize` (the autoscaler's
+resize, fenced by the controller's lease epoch) hands them off the same
+way and rebuilds the engine at the new width on the dispatch thread once
+it is idle, the old cache freed before the new one is allocated, the
+weights and the prefix pool shared and the counters carried over
+(``adopt_ledger``); a failed build rolls back (``end_goaway``) and keeps
+the old width.  :meth:`prefix_digest_info` is the prefix pool's line of
+the server's telemetry digest (``core/fleet.py``).
+
+Not ported: ``mesh=`` (ROADMAP A11).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -63,7 +82,14 @@ import torch
 from ..backends.base import parse_accelerator
 from ..backends.torch_cuda import pick_device
 from ..core.buffer import BatchFrame
-from ..core.continuity import PREFIX_GRAIN
+from ..core.autoscale import FencingToken
+from ..core.continuity import (
+    PREFIX_GRAIN,
+    RESUME_REJECT_META,
+    RESUME_REQ_META,
+    prompt_digest,
+    resume_signature,
+)
 from ..core.liveness import (
     DEADLINE_META,
     PRIORITY_MAX,
@@ -77,10 +103,10 @@ from ..core.types import FORMAT_FLEXIBLE, StreamSpec
 from ..models import transformer
 from ..pipeline.element import Element, ElementError, Property, element, enum_prop_check
 
-#: frame.meta key of a RESUME request and of the typed refusal it gets
-#: (``nnstreamer_tpu/core/continuity.py``)
-RESUME_REQ_META = "_nns_resume_req"
-RESUME_REJECT_META = "resume_reject"
+#: the zoo dialect's keys that decide a stream's tokens (the resume
+#: signature's; chunk size and timing knobs shape latency, not tokens)
+_SIG_KEYS = ("vocab", "d_model", "heads", "layers", "d_ff", "seq", "seed", "dtype",
+             "gen_seed", "temperature", "top_k")
 
 
 def _custom_props(text: str) -> Dict[str, str]:
@@ -170,7 +196,16 @@ class TensorGenerator(Element):
         self._prefix_pool = None
         self._sim = False
         self._slo = None  # SloTracker (slo-* properties; slotted only)
+        self._resume_sig = None  # token-sequence signature (slotted)
         self._resume_rejects = 0
+        self._props: Dict[str, str] = {}  # the parsed custom (resize rebuilds)
+        self._slots = 0
+        # autoscale resize: the requested width, applied on the dispatch
+        # thread at the next idle boundary after every live stream handed off
+        self._resize_target = 0
+        self._resizes = 0
+        # fenced actuation: a resize carrying a stale lease epoch is refused
+        self._fence = FencingToken()
 
     def start(self):
         props = _custom_props(self.props["custom"])
@@ -182,13 +217,23 @@ class TensorGenerator(Element):
                 f"{self.name}: mesh= is not ported to nnstreamer_tpu_torch yet (ROADMAP A11)")
         sim = props.get("sim", "") not in ("", "0", "false")
         self._sim = sim
+        self._props = props
+        self._resize_target = 0
         # slotted mode needs its OWN mailbox and thread: the scheduler's
         # idle hook and pending_frames poll, which release the engine's
         # chunks between input frames, run for chain heads only
         self.THREAD_BOUNDARY = slots > 0
         if slots > 0:
-            from ..core.slots import SimSlotModel, SlotEngine
+            from ..core.slots import SimSlotModel
 
+            max_new = int(self.props["max-new"])
+            if sim:
+                self._resume_sig = resume_signature(
+                    "torch-sim", vocab=int(props.get("vocab", "997")), max_new=max_new)
+            else:
+                self._resume_sig = resume_signature(
+                    "torch-transformer", max_new=max_new,
+                    **{k: props.get(k, "") for k in _SIG_KEYS})
             if sim:  # host-only: no card, no transformer
                 model = SimSlotModel(
                     slots, vocab=int(props.get("vocab", "997")),
@@ -207,18 +252,8 @@ class TensorGenerator(Element):
                 model, self._max_seq = transformer.build_slot_stream(props, slots, self._device)
             self._prefix_pool = self._build_prefix_pool()
             self._slo = self._build_slo()
-            self._engine = SlotEngine(
-                model,
-                max_seq=self._max_seq,
-                chunk=max(1, int(self.props["chunk"])),
-                prefill_chunk=int(self.props["prefill-chunk"]),
-                prefill_priority=int(self.props["prefill-priority"]),
-                token_budget_s=float(self.props["token-budget-s"]),
-                name=self.name,
-                prefix_cache=self._prefix_pool,
-                on_device_lost=self._rebuild_on_device_loss,
-                slo=self._slo,
-            )
+            self._slots = slots
+            self._engine = self._new_engine(model)
             self._engine.start()
             return
         if self.props["prefix-cache"] == "on":
@@ -233,6 +268,25 @@ class TensorGenerator(Element):
         self._device = pick_device(wishes if enabled else ["cpu"])
         self._prefill, self._decode, self._max_seq = transformer.build_stream(
             props, self._device)
+
+    def _new_engine(self, model):
+        """A slot engine over ``model`` with this element's knobs, its resume
+        signature, SLO tracker and prefix pool."""
+        from ..core.slots import SlotEngine
+
+        return SlotEngine(
+            model,
+            max_seq=self._max_seq,
+            chunk=max(1, int(self.props["chunk"])),
+            prefill_chunk=int(self.props["prefill-chunk"]),
+            prefill_priority=int(self.props["prefill-priority"]),
+            token_budget_s=float(self.props["token-budget-s"]),
+            name=self.name,
+            prefix_cache=self._prefix_pool,
+            on_device_lost=self._rebuild_on_device_loss,
+            slo=self._slo,
+            resume_sig=self._resume_sig,
+        )
 
     def _rebuild_on_device_loss(self, err):
         """The engine's ``on_device_lost`` hook (pump thread, after every
@@ -284,6 +338,95 @@ class TensorGenerator(Element):
         pool = self._prefix_pool
         return pool.trim() if pool is not None else 0
 
+    def prefix_digest_info(self) -> Optional[Dict[str, Any]]:
+        """The prefix pool's part of the server's telemetry digest
+        (``core/fleet.py``): exact hit and miss counters for the fleet
+        rollup and the hottest entries' digests.  None with the cache
+        off."""
+        pool = self._prefix_pool
+        if pool is None:
+            return None
+        snap = pool.snapshot()
+        return {"hits": snap["prefix_hits"], "misses": snap["prefix_misses"],
+                "entries": snap["prefix_entries"], "hot": pool.hot_digests()}
+
+    # -- autoscale resize ----------------------------------------------------
+    def request_resize(self, slots: int, epoch: Optional[int] = None) -> None:
+        """Arm a zero-loss slot-width resize (any thread): live streams are
+        handed off as resumable GOAWAY chunks (their clients resume them
+        here or elsewhere; the signature leaves the width out), then the
+        engine is rebuilt at the new width on the dispatch thread's next
+        idle boundary.  :attr:`resize_pending` and ``gen_resizes`` tell
+        when it landed.  A stale lease ``epoch`` raises
+        :class:`~..core.autoscale.StaleEpochError` before any stream is
+        touched (None: an operator's command, never fenced)."""
+        self._fence.check(epoch)
+        slots = int(slots)
+        if slots < 1:
+            raise ElementError(f"{self.name}: resize slots must be >= 1")
+        if self._engine is None:
+            raise ElementError(f"{self.name}: resize needs the slotted path (slots >= 1)")
+        if slots == self._slots:
+            return
+        self._resize_target = slots
+        self._engine.begin_goaway()
+
+    @property
+    def resize_pending(self) -> bool:
+        """True while a requested resize has not landed."""
+        return bool(self._resize_target)
+
+    def _build_slot_model(self, slots: int):
+        """The slot model at the requested width: the same transformer (its
+        weights stay where they are) or a fresh simulated model without the
+        one-shot chaos knobs (a resize must not replay a scripted fault)."""
+        if self._sim:
+            from ..core.slots import SimSlotModel
+
+            props = self._props
+            return SimSlotModel(
+                slots, vocab=int(props.get("vocab", "997")),
+                step_base_ms=float(props.get("sim_step_ms", "1.0")),
+                step_per_slot_ms=float(props.get("sim_per_slot_ms", "0.05")),
+                prefill_ms_per_token=float(props.get("sim_prefill_ms", "0.02")))
+        return self._engine.model.at_width(slots)
+
+    def _apply_resize(self) -> None:
+        """On the dispatch thread with the engine idle: build the model
+        first (a failed build rolls back to the old width), stop the old
+        engine (its cache goes before the new width's is allocated), start
+        the new one with the old one's counters.  ``resize_pending`` stays
+        set until the swap or the rollback has landed."""
+        target = self._resize_target
+        old = self._engine
+        try:
+            model = self._build_slot_model(target)
+        except Exception:  # noqa: BLE001 — roll back to the old width
+            self.log.exception("resize to %d slots failed building the model; keeping %d",
+                               target, self._slots)
+            old.end_goaway()
+            p = self._pipeline
+            if p is not None:
+                p.incident("resize_failed", self.name,
+                           f"slot resize {self._slots}->{target} model build failed; serving "
+                           "at the old width")
+            if self._resize_target == target:
+                self._resize_target = 0
+            return
+        old.stop()
+        new = self._new_engine(model)
+        new.adopt_ledger(old)
+        new.start()
+        self._engine = new
+        self.log.info("slot width resized %d -> %d (live streams handed off resumably)",
+                      self._slots, target)
+        self._slots = target
+        # a supervision restart rebuilds at the actuated width
+        self.props["slots"] = target
+        self._resizes += 1
+        if self._resize_target == target:  # a newer request may have raced the swap
+            self._resize_target = 0
+
     def stop(self):
         if self._engine is not None:
             self._engine.stop()
@@ -304,7 +447,10 @@ class TensorGenerator(Element):
         """The slot engine's counters (exported as ``nns.gen.*`` and
         ``nns.prefix.*``), the pump's thread census and the per-tenant SLO
         rows (``nns.slo.*``), merged into ``Pipeline.health()``."""
-        info: Dict = {"gen_resume_rejects": self._resume_rejects}
+        info: Dict = {"gen_resume_rejects": self._resume_rejects,
+                      "gen_resizes": self._resizes,
+                      "gen_stale_epoch_rejects": self._fence.rejects,
+                      "gen_fence_epoch": self._fence.epoch}
         eng = self._engine
         if eng is not None:
             info.update(eng.snapshot())
@@ -339,7 +485,19 @@ class TensorGenerator(Element):
                 p.incident("thread_stall", self.name,
                            f"{eng.heartbeat.name} wedged ({eng.heartbeat.age_s():.1f}s, "
                            f"pending={eng.pending()})")
-        return eng.pop_ready()
+        chunks = eng.pop_ready()
+        if self._resize_target and eng.idle():
+            # the idle boundary: every live stream handed off and every
+            # ready chunk drained; on this thread no frame races the swap
+            self._apply_resize()
+        return chunks
+
+    def note_stream_drain(self) -> None:
+        """The query serversrc of this pipeline began its drain: hand the
+        live streams off as resumable GOAWAY chunks, so their clients
+        migrate them instead of the drain waiting out whole generations."""
+        if self._engine is not None:
+            self._engine.begin_goaway()
 
     def note_stream_cancel(self, meta: Dict) -> None:
         """Downstream feedback (the query serversink): the consumer of this
@@ -422,18 +580,49 @@ class TensorGenerator(Element):
                     "prompts instead")
             if max_new <= 0:
                 continue
-            if lf.meta.get(RESUME_REQ_META) is not None:
-                rejects.append(self._resume_reject(
-                    lf, "resume is not ported to nnstreamer_tpu_torch (ROADMAP A7)"))
-                continue
             meta = lf.meta
+            resume = None
+            rs = meta.get(RESUME_REQ_META)
+            if rs is not None:
+                resume, reason = self._check_resume(lf, prompt, max_new, rs)
+                if resume is None:
+                    rejects.append(self._resume_reject(lf, reason))
+                    continue
             self._engine.submit(
                 lf, prompt.astype(np.int32), max_new, chunk,
                 tenant=str(meta.get(TENANT_META, "") or ""),
                 priority=clamp_priority(meta.get(PRIORITY_META, PRIORITY_MAX)),
                 deadline_ts=meta.get(DEADLINE_META),
+                resume=resume,
             )
         return rejects + self._engine.pop_ready()
+
+    def _check_resume(self, lf, prompt, max_new: int, rs):
+        """Check one RESUME request against this server's signature and the
+        prompt it came with: ``(engine resume dict, None)`` or ``(None,
+        reason)``; a mismatch refuses the one stream, never the pipeline.
+        The prefix stays a host array here (the pump thread uploads it)."""
+        try:
+            sig = str(rs["sig"])
+            r = int(rs["tokens_done"])
+        except (KeyError, TypeError, ValueError):
+            return None, "malformed resume state"
+        if sig != self._resume_sig:
+            return None, "model/sampling signature mismatch"
+        if str(rs.get("digest", "")) != prompt_digest(prompt.astype(np.int32)):
+            return None, "prompt digest mismatch"
+        if not 0 <= r < max_new:
+            return None, f"tokens_done {r} outside [0, {max_new})"
+        if r == 0:
+            return {"tokens_done": 0}, None
+        if len(lf.tensors) < 2:
+            return None, "resume request lacks the prefix tensor"
+        prefix = np.asarray(lf.tensors[1])
+        if prefix.ndim == 1:
+            prefix = prefix[None]
+        if prefix.ndim != 2 or prefix.shape != (1, r) or prefix.dtype.kind not in "iu":
+            return None, f"prefix {prefix.shape} {prefix.dtype} != (1, {r}) int"
+        return {"tokens_done": r, "prefix": prefix.astype(np.int32)}, None
 
     def _resume_reject(self, lf, reason: str):
         """Typed terminal refusal of one RESUME request: a tensor-less final

@@ -38,11 +38,29 @@ deletes its announce), and the announced states become routing hints
 ``_HINT_TTL_S``.  A failure wave on a discovered pool rediscovers once and
 swaps the pool, keeping live connections.
 
-Properties that belong to slices not ported raise at ``start()`` when set,
-naming their ROADMAP item: telemetry digests (``digest-interval``) and
-fenced drains (``request_drain(epoch)``: A13.3), and stream resume
-(``stream-resume``, ``resume-retries``: A7.3; a broken stream surfaces as
-an error, the JAX package's ``stream-resume=false`` semantics).
+The fleet's control loop (``core/fleet.py``, ``core/autoscale.py``): an
+announcing serversrc publishes a telemetry digest every
+``digest-interval`` seconds on the pipeline's watchdog sweeper, through
+the retained announce (host counters only: admission, the slot engines'
+``health()`` rows, the memory monitor), and once more on every state
+change and at stop.  ``request_drain(epoch)`` is fenced: an epoch older
+than one already accepted raises ``StaleEpochError`` before anything is
+touched (``stale_epoch_rejects``).  A drain first tells the pipeline
+(``Pipeline.stream_drain_feedback``), so a slotted generator hands its
+live streams off as resumable GOAWAY chunks.
+
+Stream continuity (``core/continuity.py``): with ``stream-resume=true``
+(the default) a stream whose chunks carry resume state outlives its
+server.  A break mid-stream, a draining server's hand-off chunk or a
+resume refusal makes the client's ledger build a RESUME request (prompt +
+delivered prefix, snapped to a chunk boundary) for the healthiest server;
+the ledger drops the re-decoded overlap, so every token is delivered once
+and in order, with contiguous ``chunk_index``.  ``resume-retries``
+attempts without progress end it (each delivered chunk refills them).
+The counters ``stream_resumes`` (breaks), ``stream_migrations``
+(hand-offs), ``duplicate_tokens_dropped`` and ``resume_failures`` are
+exact.  ``stream-resume=false`` keeps the no-replay semantics: a break
+after the first answer surfaces as an error.
 """
 
 from __future__ import annotations
@@ -55,8 +73,9 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Deque, Iterator, List, Optional, Tuple
 
+from ..core.autoscale import FencingToken
 from ..core.buffer import BatchFrame, TensorFrame
-from ..core.continuity import prefix_route_key
+from ..core.continuity import StreamContinuity, prefix_route_key
 from ..core.lifecycle import ServerGoawayError
 from ..core.liveness import (
     DEADLINE_META,
@@ -71,6 +90,7 @@ from ..core.liveness import (
 from ..core.resilience import (
     CircuitBreaker,
     CircuitOpenError,
+    RemoteApplicationError,
     RetryPolicy,
     is_remote_application_error,
 )
@@ -105,22 +125,6 @@ from ..pipeline.element import (
     enum_prop_check,
     parse_host_list,
 )
-
-#: properties of slices not ported yet -> the ROADMAP item that brings them
-_SERVER_LATER = {"digest-interval": "telemetry digests (ROADMAP A13.3)"}
-_CLIENT_LATER = {
-    "stream-resume": "stream resume (ROADMAP A7.3)",
-    "resume-retries": "stream resume (ROADMAP A7.3)",
-}
-
-
-def _refuse_later(el: Element, later: dict) -> None:
-    """Raise on the first explicitly set property of a slice not ported."""
-    for key, what in later.items():
-        if key in el._explicit_props:
-            raise ElementError(
-                f"{el.name}: {key}= belongs to {what}, not ported to nnstreamer_tpu_torch yet")
-
 
 def _check_connect_type(el: Element) -> str:
     ct = el.props["connect-type"]
@@ -200,7 +204,8 @@ class TensorQueryServerSrc(SourceElement):
             float, 10.0, "max seconds a drain waits for in-flight requests to finish "
             "before closing the listeners anyway"),
         "digest-interval": Property(
-            float, 2.0, "seconds between telemetry digests (ROADMAP A13.3)"),
+            float, 2.0, "seconds between telemetry-digest publishes on the discovery plane "
+            "(0 = digests off; state changes and stop still force a final publish)"),
     }
 
     def __init__(self, name=None):
@@ -212,16 +217,22 @@ class TensorQueryServerSrc(SourceElement):
         # a serving element of this pipeline lost a device and re-sharded:
         # the announce carries it (fleet routing: TIER_DEGRADED)
         self._degraded = False
+        # the telemetry-digest publisher (armed in start() when announcing,
+        # polled on the watchdog sweeper)
+        self._digest = None
+        # lease fencing: the highest controller epoch accepted; an older
+        # one's drain is refused before it touches anything
+        self._fence = FencingToken()
 
     def request_drain(self, epoch=None) -> None:
         """Begin the rolling-restart drain of this server: GOAWAY to new
-        requests, finish in-flight ones (bounded by ``drain-deadline``),
-        close the listeners, end the stream.  A controller's lease
-        ``epoch`` (fenced drains) belongs to ROADMAP A13.3."""
-        if epoch is not None:
-            raise ElementError(
-                f"{self.name}: fenced drains (epoch=) belong to the autoscaler "
-                "(ROADMAP A13.3), not ported to nnstreamer_tpu_torch yet")
+        requests, hand live generation streams off, finish in-flight ones
+        (bounded by ``drain-deadline``), close the listeners, end the
+        stream.  ``epoch`` is the commanding controller's lease epoch: one
+        older than an epoch already accepted raises
+        :class:`~..core.autoscale.StaleEpochError` and the server serves on
+        untouched (None: an operator's command, never fenced)."""
+        self._fence.check(epoch)
         self._drain_requested.set()
 
     @property
@@ -231,7 +242,6 @@ class TensorQueryServerSrc(SourceElement):
         return self._lc_state == "stopped"
 
     def start(self):
-        _refuse_later(self, _SERVER_LATER)
         ct = _check_connect_type(self)
         self._drain_requested.clear()
         self._lc_state = "serving"
@@ -241,11 +251,65 @@ class TensorQueryServerSrc(SourceElement):
             self.props["port"] = core.port  # the bound port (ephemeral binds)
             if self.props["topic"] and self.props["dest-port"] > 0:
                 self._announce()
+                self._arm_digest()
         except Exception:
             # the pipeline's rollback stops only elements whose start()
             # succeeded: release the core here or its listener leaks
             self.stop()
             raise
+
+    def _arm_digest(self) -> None:
+        """The digest publisher, polled on the pipeline's watchdog sweeper
+        (registered before the sweeper is armed): no per-frame cost."""
+        interval = float(self.props["digest-interval"])
+        if interval <= 0:
+            return
+        from ..core.fleet import DigestPublisher
+
+        self._digest = DigestPublisher(self._digest_stats, self._publish_digest,
+                                       interval_s=interval, name=self.name)
+        p = self._pipeline
+        if p is not None:
+            p.register_sweep(self._digest.poll, min(interval, 1.0))
+
+    def _digest_stats(self) -> dict:
+        """One digest's raw numbers: this server's admission ledger and the
+        pipeline-wide scan (``core/fleet.pipeline_digest_stats``).  Any
+        state but serving reads as draining: a drained server's sweeper
+        runs on until its pipeline stops, and no digest may flip the
+        announce back to draining=false while its listeners are closed."""
+        from ..core.fleet import pipeline_digest_stats
+
+        stats: dict = {"draining": self._lc_state != "serving", "degraded": self._degraded}
+        core = self._core
+        if core is not None:
+            snap = core.admission.snapshot()
+            stats.update(inflight=snap["inflight"], admitted=snap["admitted"],
+                         shed=snap["shed"], tenants=snap.get("tenants", {}))
+        p = self._pipeline
+        if p is not None:
+            stats.update(pipeline_digest_stats(p))
+        return stats
+
+    def _publish_digest(self, digest: dict) -> None:
+        """Ship one digest through the retained announce without waiting for
+        the broker's ack (the sweeper must not stall).  The top-level
+        draining/degraded keys ride along for clients that read no digest.
+        During a broker outage the update raises (``require_connected``),
+        so the publisher counts one failure per missed interval."""
+        ann = self._announcement
+        if ann is None:
+            return
+        ann.update({"digest": digest, "draining": bool(digest.get("draining", False)),
+                    "degraded": bool(digest.get("degraded", False))},
+                   wait_ack=False, require_connected=True)
+
+    def publish_digest(self, force: bool = True):
+        """Publish a digest now (an operator's or a test's hook; the
+        periodic path is the sweeper's poll)."""
+        if self._digest is None:
+            return None
+        return self._digest.poll(force=force)
 
     def _announce(self) -> None:
         """The retained per-instance endpoint announce on the MQTT control
@@ -276,6 +340,11 @@ class TensorQueryServerSrc(SourceElement):
         on the request pump, so it never waits for the broker's ack: a
         slow broker must not stall the requests a drain protects."""
         if self._announcement is None:
+            return
+        if self._digest is not None:
+            # one publish carries the state flags and a fresh digest, so the
+            # digest's own draining/degraded never lag the announce's
+            self._digest.poll(force=True)
             return
         try:
             self._announcement.update({
@@ -351,8 +420,14 @@ class TensorQueryServerSrc(SourceElement):
 
     def stop(self):
         if self._announcement is not None:
+            if self._digest is not None:
+                # a last digest before the tombstone: sources stop first, so
+                # the slot engines and the admission ledger are still live,
+                # and the observatory retires this server's final counters
+                self._digest.poll(force=True)
             self._announcement.clear()
             self._announcement = None
+        self._digest = None
         if self._core is not None:
             release_query_server(self.props["id"])
             self._core = None
@@ -372,11 +447,15 @@ class TensorQueryServerSrc(SourceElement):
         reconnect counters (``nns.query.reannounces``,
         ``nns.query.plane_reconnects``) while announcing, and the memory
         monitor's watermark gauges (``nns.mem.*``) when one is armed."""
-        info = {"lifecycle": self._lc_state, "degraded": 1 if self._degraded else 0}
+        info = {"lifecycle": self._lc_state, "degraded": 1 if self._degraded else 0,
+                "stale_epoch_rejects": self._fence.rejects, "fence_epoch": self._fence.epoch}
         ann = self._announcement
         if ann is not None:
             info["reannounces"] = ann.reannounces
             info["plane_reconnects"] = ann.reconnects
+        if self._digest is not None:
+            info["digests_published"] = self._digest.published
+            info["digest_publish_failures"] = self._digest.publish_failures
         if self._core is not None:
             info.update(self._core.liveness_snapshot())
         p = self._pipeline
@@ -399,6 +478,11 @@ class TensorQueryServerSrc(SourceElement):
                     self._drain_requested.is_set() or (p is not None and p.draining)):
                 self._lc_state = "draining"
                 core.begin_drain()
+                # live generation streams hand off as resumable GOAWAY
+                # chunks and their clients migrate them; each hand-off holds
+                # its admission slot until its final chunk is out
+                if p is not None:
+                    p.stream_drain_feedback()
                 # the discovery plane first: clients that rank remotes from
                 # the broker stop picking this server without a GOAWAY each
                 self._announce_state(draining=True)
@@ -488,6 +572,19 @@ class _PoolState:
         self.down_until: dict = {}
 
 
+class _StreamInterrupt(Exception):
+    """One transport attempt of a resumable stream ended before the stream
+    did: ``kind`` is ``"break"`` (a crash, breaker and cooldown recorded),
+    ``"handoff"`` (a draining server's planned hand-off) or ``"reject"``
+    (the server refused the resume); ``cause`` surfaces when the budget
+    runs out."""
+
+    def __init__(self, cause: BaseException, kind: str):
+        super().__init__(str(cause))
+        self.cause = cause
+        self.kind = kind
+
+
 @element("tensor_query_client")
 class TensorQueryClient(Element):
     """Looks like a local filter; round-trips frames through remote server
@@ -569,8 +666,16 @@ class TensorQueryClient(Element):
             "frames are emitted as the remote pipeline produces them until a "
             "final-flagged one arrives; wire-batch must be 1"),
         "stream-resume": Property(
-            bool, True, "resume a broken generation stream elsewhere (ROADMAP A7.3)"),
-        "resume-retries": Property(int, 3, "resume attempts without progress (ROADMAP A7.3)"),
+            bool, True,
+            "resume a broken generation stream on another server from its delivered-token "
+            "checkpoint, and migrate streams a draining server hands off with resumable "
+            "GOAWAY chunks; false = no replay (a mid-stream break surfaces as an error).  "
+            "Only streams whose chunks carry resume state take part"),
+        "resume-retries": Property(
+            int, 3,
+            "consecutive resume attempts without progress before a stream gives up (each "
+            "delivered chunk refills the budget); exhaustion records an incident and "
+            "surfaces the break"),
         "slo-ttft-p95": Property(
             float, 0.0, "client-observed TTFT objective: 95% of streams must see their "
             "first chunk within this many seconds (0 = off)"),
@@ -619,6 +724,12 @@ class TensorQueryClient(Element):
         self._corruption_detected = 0
         self._delivered = 0
         self._retried = 0
+        # stream continuity, exact: crash resumes and planned migrations
+        # apart, the dropped overlap visible, failures loud
+        self._stream_resumes = 0
+        self._stream_migrations = 0
+        self._duplicate_tokens_dropped = 0
+        self._resume_failures = 0
         self._retry_policy = RetryPolicy()  # rebuilt from props in start()
         self._remote_spans: dict = {}
         self._rtt_hist = None
@@ -644,7 +755,6 @@ class TensorQueryClient(Element):
                 "error-policy=%s is ignored on the query client (pipelined in-flight "
                 "answers make frame attribution ambiguous); use degrade=passthrough|skip",
                 self.props["error-policy"])
-        _refuse_later(self, _CLIENT_LATER)
         _check_connect_type(self)  # before discovery: a typo is not a timeout
         if not 0 <= int(self.props["priority"]) <= PRIORITY_MAX:
             raise ElementError(
@@ -980,6 +1090,10 @@ class TensorQueryClient(Element):
             "corruption_detected": self._corruption_detected,
             "delivered": self._delivered,
             "retried": self._retried,
+            "stream_resumes": self._stream_resumes,
+            "stream_migrations": self._stream_migrations,
+            "duplicate_tokens_dropped": self._duplicate_tokens_dropped,
+            "resume_failures": self._resume_failures,
             "servers": list(self._pstate.addrs),
             **({"slo": self._slo.snapshot()} if self._slo is not None else {}),
         }
@@ -1417,8 +1531,82 @@ class TensorQueryClient(Element):
                     yield (0, f)
 
     def _stream_invoke(self, frame):
-        gen = self._stream_attempt(frame)
+        gen = self._stream_resume_loop(frame)
         return gen if self._slo is None else self._slo_wrap_stream(frame, gen)
+
+    def _resume_armed(self, cont) -> bool:
+        """The continuity layer owns this stream's failures: resume is on and
+        its chunks so far carried resume state."""
+        return bool(self.props["stream-resume"]) and cont.capable
+
+    def _stream_resume_loop(self, frame):
+        """One logical server-streaming request across any number of servers.
+
+        Transport attempts run in :meth:`_stream_attempt`.  When an attempt
+        of a resumable stream ends early (a crash mid-stream, a draining
+        server's hand-off, a resume refusal), the ledger builds a RESUME
+        request from the prompt and the delivered prefix and routes it like
+        any request, healthiest server first; the overlap is dropped, so
+        every token is delivered once and equals an uninterrupted run's.
+        Progress refills the budget; exhaustion records an incident and
+        surfaces the break."""
+        cont = StreamContinuity(frame)
+        budget = max(0, int(self.props["resume-retries"]))
+        left = budget
+        resuming = False
+        last_delivered = 0
+        req = frame
+        while True:
+            try:
+                yield from self._stream_attempt(req, cont)
+                return
+            except _StreamInterrupt as si:
+                if not self._resume_armed(cont) or self._stopping():
+                    # stream-resume=false: no replay; a stopping client
+                    # abandoned the stream: nothing to resume for
+                    raise si.cause
+                progressed = cont.delivered > last_delivered
+                last_delivered = cont.delivered
+                counted = False
+                if si.kind == "reject" or (resuming and not progressed and si.kind == "break"):
+                    # a refusal, or a resume that restored nothing before it
+                    # broke again: that attempt failed (a hand-off without
+                    # progress is a migration, not a failure)
+                    self._count("_resume_failures")
+                    counted = True
+                if progressed:
+                    left = budget
+                if left <= 0:
+                    if not counted:
+                        self._count("_resume_failures")
+                    self.log.warning("stream resume budget exhausted after %d delivered "
+                                     "token(s); surfacing: %s", cont.delivered, si.cause)
+                    p = self._pipeline
+                    if p is not None:
+                        p.incident("resume_exhausted", self.name,
+                                   f"{cont.delivered} token(s) delivered; cause: {si.cause}")
+                    raise si.cause
+                left -= 1
+                if si.kind == "break":
+                    # crash resumes are paced like failover attempts; a
+                    # planned hand-off migrates at once
+                    self._pace(self._retry_policy.delay_for(budget - left))
+                fresh_break = not resuming or progressed
+                resuming = True
+                try:
+                    req = cont.build_resume_frame()
+                except RuntimeError as e:
+                    self._count("_resume_failures")
+                    self.log.warning("cannot build resume request: %s", e)
+                    raise si.cause from e
+                # one count per logical recovery, so that with no failures
+                # client resumes + migrations == the servers' gen_resumes: a
+                # retry after a refusal, or after a resume that broke without
+                # progress, continues the recovery already counted
+                if si.kind == "handoff":
+                    self._count("_stream_migrations")
+                elif si.kind == "break" and fresh_break:
+                    self._count("_stream_resumes")
 
     def _slo_wrap_stream(self, frame, gen):
         """Client-observed SLO accounting of one stream: TTFT on the first
@@ -1460,12 +1648,16 @@ class TensorQueryClient(Element):
             raise
         slo.note_stream(tenant, "expired" if expired else "good")
 
-    def _stream_attempt(self, frame, rediscovered: bool = False):
-        """One server-streaming request: the best remote first; whole
-        streams fail over only BEFORE the first answer (``retries`` extra
-        attempts, BUSY and GOAWAY on their own budgets).  A break after the
-        first answer records ill-health (breaker + cooldown) and surfaces:
-        replaying half a generation could duplicate tokens."""
+    def _stream_attempt(self, frame, cont, rediscovered: bool = False):
+        """One transport attempt of a server-streaming request: the best
+        remote first; whole streams fail over only BEFORE the first answer
+        (``retries`` extra attempts, BUSY and GOAWAY on their own budgets).
+        Every chunk goes through the continuity ledger ``cont``.  A break
+        after the first answer records ill-health (breaker + cooldown); a
+        resumable stream then hands it to :meth:`_stream_resume_loop` as a
+        :class:`_StreamInterrupt`, any other surfaces (replaying half a
+        generation blind could duplicate tokens).  A hand-off chunk is a
+        planned migration: no breaker failure, a short deprioritization."""
         ps = self._pstate
         if not ps.conns:
             raise RuntimeError(f"{self.name}: no connections (stopped?)")
@@ -1493,6 +1685,7 @@ class TensorQueryClient(Element):
             req_timeout, expired = self._request_timeout(frame, timeout)
             if expired:
                 raise self._note_expired()  # no answer can matter any more
+            reject = None
             try:
                 self._inflight_delta(ps.addrs[i], 1)
                 try:
@@ -1506,13 +1699,40 @@ class TensorQueryClient(Element):
                             # the server's typed expiry: answered with the
                             # partial tokens, budget blown
                             self._note_expired()
-                        yield (0, ans)
+                        v = cont.accept(ans)
+                        if v.dup:
+                            self._count("_duplicate_tokens_dropped", v.dup)
+                        if v.reject is not None:
+                            reject = v.reject
+                            break
+                        if v.emit is not None:
+                            yield (0, v.emit)
                 finally:
                     self._inflight_delta(ps.addrs[i], -1)
+                if reject is not None:
+                    # the server refused the resume with a typed chunk: it is
+                    # healthy and another server may match.  Always through
+                    # the resume loop, which surfaces it when resume is off
+                    if breaker is not None:
+                        breaker.record_success()
+                    raise _StreamInterrupt(RemoteApplicationError(
+                        f"resume refused by {conn.addr}: {reject}"), "reject")
+                if cont.take_handoff():
+                    # a draining server handed the stream off: a planned
+                    # restart, so the breaker records health and the host is
+                    # only briefly deprioritized
+                    if breaker is not None:
+                        breaker.record_success()
+                    ps.down_until[i] = time.monotonic() + min(float(timeout), 5.0)
+                    raise _StreamInterrupt(ServerGoawayError(
+                        f"{conn.addr} handed the stream off mid-generation (draining)"),
+                        "handoff")
                 if breaker is not None:
                     breaker.record_success()  # on clean completion only
                 self._count("_delivered")
                 return
+            except _StreamInterrupt:
+                raise  # continuity control flow, classified above
             except ServerGoawayError as e:
                 err = e
                 self._count("_goaway_replies")
@@ -1536,22 +1756,30 @@ class TensorQueryClient(Element):
                 elif tried < attempts and not self._stopped:
                     self._pace(max(e.retry_after, self._retry_policy.delay_for(tried)))
             except Exception as e:  # noqa: BLE001 — transport boundary
-                err = self._stream_failure(e, started, breaker, ps, i, conn, timeout)
+                err = self._stream_failure(e, started, breaker, ps, i, conn, timeout, cont)
         err = err if err is not None else open_err
         if err is not None and not rediscovered and self._rediscover(ps) \
                 and self._resend_safe(err):
-            yield from self._stream_attempt(frame, rediscovered=True)
+            yield from self._stream_attempt(frame, cont, rediscovered=True)
             return
-        raise err if err is not None else RuntimeError("no servers")
+        if err is None:
+            raise RuntimeError("no servers")
+        if self._resume_armed(cont) and cont.delivered > 0:
+            # a RESUME attempt died before its first answer: the stream holds
+            # delivered tokens, so the paced resume loop goes on with it
+            raise _StreamInterrupt(err, "break")
+        raise err
 
     def _stopping(self) -> bool:
         """True once the element or its pipeline is stopping: a stream
         awaiting its next chunk then ends and closes its socket."""
         return self._stopped or self.interrupted
 
-    def _stream_failure(self, e, started, breaker, ps, i, conn, timeout):
-        """A failed stream attempt: re-raised after the first answer, else
-        recorded (short cooldown) and returned for the next attempt."""
+    def _stream_failure(self, e, started, breaker, ps, i, conn, timeout, cont):
+        """A failed stream attempt: after the first answer a resumable
+        stream's break goes to the resume loop and any other is re-raised;
+        before it, the failure is recorded (short cooldown) and returned for
+        the next attempt."""
         if isinstance(e, WireError):
             self._count("_corruption_detected")
         if started:
@@ -1559,6 +1787,8 @@ class TensorQueryClient(Element):
                 if breaker is not None:
                     breaker.record_failure()
                 ps.down_until[i] = time.monotonic() + min(float(timeout), 10.0)
+            if self._resume_armed(cont):
+                raise _StreamInterrupt(e, "break") from e
             raise e
         self._record_remote_failure(breaker, ps, i, e, min(float(timeout), 10.0))
         self.log.warning("stream to %s failed before first answer: %s", conn.addr, e)

@@ -373,6 +373,13 @@ class SlotModel:
         self._greedy = temperature <= 0.0
         self._pick = make_pick(temperature, top_k)
         self._key0 = prng_key(seed)
+        self._sampling = {"temperature": temperature, "top_k": top_k, "seed": seed}
+
+    def at_width(self, slots: int) -> "SlotModel":
+        """The same weights and sampling rule at another slot width (a
+        resize): the transformer is shared, only the cache ``init_cache``
+        makes is sized anew."""
+        return SlotModel(self.model, slots, **self._sampling)
 
     @torch.inference_mode()
     def init_cache(self) -> KVCache:

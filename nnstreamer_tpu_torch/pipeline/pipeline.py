@@ -34,7 +34,10 @@ GOAWAY drain, and ``pending_frames`` of the query client and serversrc
 count in the drain's accounting) and :meth:`Pipeline.reload_model`
 hot-swaps a filter's model.  :meth:`Pipeline.stream_cancel_feedback`
 tells the generators upstream of a serversink that a stream's client is
-gone.
+gone, and :meth:`Pipeline.stream_drain_feedback` (a serversrc's drain)
+that their live streams hand off.  :meth:`Pipeline.register_sweep` puts a
+slow-cadence poller (a telemetry-digest publisher, an autoscale
+controller) on the watchdog's sweeper thread.
 
 Observability (ROADMAP A4.4): :meth:`Pipeline.enable_tracing` attaches a
 :class:`~..core.tracer.PipelineTracer` that the scheduler feeds around
@@ -59,7 +62,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from ..core.buffer import EOS, BatchFrame, CapsEvent, Event, Flush, TensorFrame
 from ..core.liveness import DEADLINE_META, StallError, Watchdog, stamp_deadline
@@ -261,6 +264,9 @@ class Pipeline:
         self._upstream: Dict[str, List[Element]] = {}  # QoS feedback routing
         self._qos_warn_ts: Dict[str, float] = {}  # per-element warn throttle
         self._mem_monitor = None
+        # slow-cadence pollers on the watchdog sweeper (register_sweep: the
+        # serversrc's digest publisher, an autoscale controller)
+        self._sweep_hooks: List[Tuple[Callable[[], Any], float]] = []
         self._seg_of: Dict[str, _Seg] = {}
         self._halt_discarded = 0
         # GstShark-analog tracing (core/tracer.py): None = off, one branch
@@ -390,6 +396,13 @@ class Pipeline:
         if self._metrics_server is not None:
             self._metrics_server.close()
             self._metrics_server = None
+
+    def register_sweep(self, fn: Callable[[], Any], min_poll_s: float = 1.0) -> None:
+        """Register a slow-cadence poller on the watchdog sweeper thread
+        (from an element's ``start()``, before the sweeper is armed).
+        ``fn`` limits its own rate; ``min_poll_s`` bounds the sweeper's
+        wake-up interval.  The hooks end with the run."""
+        self._sweep_hooks.append((fn, max(0.05, float(min_poll_s))))
 
     # -- memory-pressure watermarks (core/liveness.py) -----------------------
     def enable_memory_monitor(self, high: float = 0.90, low: float = 0.75,
@@ -709,14 +722,16 @@ class Pipeline:
     def _arm_watchdog(self) -> None:
         """Build the watchdog for every element that armed stall-timeout or
         frame-deadline; no thread and no hot-path cost when nothing is
-        armed and no memory monitor wants the cadence."""
+        armed and no memory monitor or sweep hook wants the cadence."""
         self._watchdog = None
         self._watches = {}
         self._wd_thread = None
         armed = [el for el in self.elements.values()
                  if float(el.props.get("stall-timeout") or 0.0) > 0
                  or float(el.props.get("frame-deadline") or 0.0) > 0]
-        extra = [] if self._mem_monitor is None else [self._mem_monitor.min_poll_s]
+        extra = [s for _, s in self._sweep_hooks]
+        if self._mem_monitor is not None:
+            extra.append(self._mem_monitor.min_poll_s)
         if not armed:
             if extra:
                 self._wd_thread = threading.Thread(
@@ -757,6 +772,11 @@ class Pipeline:
                     mon.poll()  # rate-limited internally
                 except Exception:
                     self.log.exception("memory-pressure poll failed")
+            for fn, _ in list(self._sweep_hooks):
+                try:
+                    fn()  # rate-limited internally (register_sweep)
+                except Exception:
+                    self.log.exception("sweep hook %r failed", fn)
 
     def _on_liveness(self, el: Element, kind: str, elapsed: float) -> None:
         """Watchdog escalation (sweeper thread): a bus warning always;
@@ -829,6 +849,9 @@ class Pipeline:
         # consistent health; the endpoint's listener closes here
         self._unregister_telemetry()
         self._threads.clear()
+        # sweep hooks end with the run: elements register them again at the
+        # next start(), so a restart never piles up stale pollers
+        self._sweep_hooks = []
         self._started = False
 
     def run(self, timeout: Optional[float] = None) -> None:
@@ -1047,6 +1070,22 @@ class Pipeline:
         the dead stream's slot instead of decoding tokens nobody will
         read."""
         self._notify_upstream(el, "note_stream_cancel", meta)
+
+    def stream_drain_feedback(self) -> None:
+        """A query serversrc of this pipeline entered its drain: every
+        element exposing ``note_stream_drain()`` (the slotted generator)
+        hands its live generation streams off as resumable GOAWAY chunks,
+        so clients migrate them instead of the drain waiting out whole
+        generations.  A plain ``drain()`` without a serversrc never fires
+        it: local streams flush, they do not migrate."""
+        for el in self.elements.values():
+            note = getattr(el, "note_stream_drain", None)
+            if note is None:
+                continue
+            try:
+                note()
+            except Exception:
+                self.log.exception("note_stream_drain failed for %s", el.name)
 
     def _dead_letter(self, el: Element, frames, err: BaseException) -> None:
         """skip policy: keep the dropped frame(s) as they are (no host

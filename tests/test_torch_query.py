@@ -9,7 +9,8 @@ EOS, BUSY admission and tenant quotas counted exactly, a GOAWAY drain with
 failover and nothing lost, deadline expiry, generation streams (tokens
 equal to the slot model's oracle, a dead client's slot freed, the typed
 expiry), span segments that add up to their total, the ``nns.query.*``
-series in a scrape, and the properties of slices not ported raising.  The
+series in a scrape, and the properties that once raised naming their slice
+(telemetry digests, stream resume, the fenced drain) taking effect.  The
 gRPC cases run where ``grpc`` imports.  Servers bind port 0 and stop in a
 ``finally``; the module's census checks that nothing outlives it.
 """
@@ -411,29 +412,86 @@ def test_discovery_properties_work_now(case):
         standby.close()
 
 
-def test_later_slices_raise_naming_their_item():
-    cases = [
-        ("tensor_query_serversrc connect-type=tcp digest-interval=1", "A13.3"),
-        ("tensor_query_client port=5 stream-resume=true", "A7.3"),
-        ("tensor_query_client port=5 resume-retries=1", "A7.3"),
-    ]
-    for text, item in cases:
-        el_text = text.split()[0]
-        if el_text == "tensor_query_serversrc":
-            pipe = parse_pipeline(f"{text} ! tensor_query_serversink")
-        else:
-            pipe = parse_pipeline(f"appsrc ! {text} ! tensor_sink")
-        with pytest.raises(ElementError, match=item.replace(".", r"\.")):
-            pipe.start()
-        pipe.stop()
-    pipe = parse_pipeline("tensor_query_serversrc name=s connect-type=tcp host=127.0.0.1 ! "
-                          "tensor_query_serversink")
+def _sim_gen_server(sid, extra=""):
+    pipe = parse_pipeline(
+        f"tensor_query_serversrc name=ssrc id={sid} host=127.0.0.1 port=0 connect-type=tcp "
+        f"{extra} ! tensor_generator name=gen slots=2 custom=sim:1,sim_step_ms:2,vocab:997 "
+        f"max-new=40 chunk=4 ! tensor_query_serversink id={sid}", name=f"gsrv{sid}")
     pipe.start()
+    return pipe, pipe["ssrc"].props["port"]
+
+
+def test_later_slices_raise_naming_their_item():
+    """The properties that once raised naming their slice now start and take
+    effect: ``digest-interval`` publishes digests on the announce, a fenced
+    ``request_drain(epoch)`` hands the live stream off (and a stale epoch
+    is refused), ``stream-resume=true`` with ``resume-retries=1`` migrates
+    it with every token once, and ``stream-resume=false`` surfaces the
+    hand-off instead."""
+    from nnstreamer_tpu_torch.core.autoscale import StaleEpochError
+    from nnstreamer_tpu_torch.distributed.mqtt import MiniBroker
+
+    broker = MiniBroker()
     try:
-        with pytest.raises(ElementError, match=r"A13\.3"):
-            pipe["s"].request_drain(epoch=3)
+        s1, p1 = _sim_gen_server(1831, f"topic=dg dest-host=127.0.0.1 dest-port={broker.port} "
+                                       "digest-interval=0.1")
+        s2, p2 = _sim_gen_server(1832)
+        try:
+            deadline = time.monotonic() + 10
+            while not s1.health()["ssrc"].get("digests_published"):
+                assert time.monotonic() < deadline, "no digest published"
+                time.sleep(0.02)
+            prompt = np.arange(1, 6, dtype=np.int32)
+            runs = {}
+            for resume, hosts in (("true resume-retries=1", f"127.0.0.1:{p1},127.0.0.1:{p2}"),
+                                  ("false", f"127.0.0.1:{p2}")):
+                cl = client(p1, extra=f"hosts={hosts} stream=true "
+                                      f"retry-backoff=0.01 stream-resume={resume}",
+                            name=f"cli-{resume[:4]}")
+                try:
+                    cl["src"].push(prompt)
+                    deadline = time.monotonic() + 10
+                    while not cl["out"].frames:
+                        assert time.monotonic() < deadline, "no chunk"
+                        time.sleep(0.002)
+                    if resume == "false":
+                        s2["gen"].note_stream_drain()  # the hand-off, with no drain
+                    else:
+                        s1["ssrc"].request_drain(epoch=3)
+                        with pytest.raises(StaleEpochError):
+                            s1["ssrc"].request_drain(epoch=2)
+                    cl["src"].end_of_stream()
+                    try:
+                        cl.wait(timeout=30)
+                        runs[resume] = None
+                    except Exception as e:  # noqa: BLE001 — the surfaced hand-off
+                        runs[resume] = e
+                    frames, health = list(cl["out"].frames), cl.health()["q"]
+                finally:
+                    cl.stop()
+                toks = [t for f in frames if f.tensors for t in np.asarray(f.tensors[0])[0]]
+                if resume == "false":
+                    assert runs[resume] is not None and health["stream_migrations"] == 0
+                    assert 0 < len(toks) < 40
+                    continue
+                assert runs[resume] is None
+                t, want = int(prompt.sum()) % 997, []
+                for _ in range(40):
+                    want.append(t)
+                    t = (31 * t + 17) % 997
+                assert toks == want
+                assert [f.meta["chunk_index"] for f in frames] == list(range(len(frames)))
+                assert (health["stream_migrations"], health["stream_resumes"],
+                        health["resume_failures"]) == (1, 0, 0)
+                srv = s1.health()
+                assert srv["gen"]["gen_goaway_evicted"] == 1
+                assert (srv["ssrc"]["stale_epoch_rejects"], srv["ssrc"]["fence_epoch"]) == (1, 3)
+                assert s2.health()["gen"]["gen_resumes"] == 1
+        finally:
+            s1.stop()
+            s2.stop()
     finally:
-        pipe.stop()
+        broker.close()
     with pytest.raises(ElementError, match="connect-type"):
         bad = parse_pipeline("appsrc ! tensor_query_client port=5 connect-type=udp ! tensor_sink")
         try:

@@ -1,10 +1,11 @@
 """Port parity for the slot engine's device-resource resilience.
 
 ``SimSlotModel``'s chaos twins (``oom_at_step``, ``lost_at_step``,
-``fail_next``) drive the port's ``SlotEngine`` and the JAX package's (the
-JAX engine without a resume signature: the port's hand-off carries no
-resume state yet, ROADMAP A7.3) through the same script: the shed
-stream, every stream's tokens and chunk meta, and the counters are equal,
+``fail_next``) drive the port's ``SlotEngine`` and the JAX package's, both
+with a resume signature, through the same script: the shed stream, every
+stream's tokens and chunk meta (the resume state on every chunk and the
+``goaway`` marker on a shed or handed-off stream's resumable final chunk
+among them), and the counters are equal,
 with the shared-prefix cache on as well (the JAX package's chaos smoke,
 ``tests/test_prefix_cache.py:517``, needs the query fleet; its in-process
 part is held here), and through ``tensor_generator custom=sim:1`` with the
@@ -34,10 +35,11 @@ FAST = dict(step_base_ms=0.0, step_per_slot_ms=0.0, prefill_ms_per_token=0.0)
 def _engine(pkg, slots, model_kw, engine_kw):
     if pkg == "port":
         model = tslots.SimSlotModel(slots, **FAST, **model_kw)
-        return tslots.SlotEngine(model, max_seq=1 << 20, chunk=4, prefill_chunk=4, **engine_kw)
+        return tslots.SlotEngine(model, max_seq=1 << 20, chunk=4, prefill_chunk=4,
+                                 resume_sig="SIG", **engine_kw)
     model = jslots.SimSlotModel(slots, **FAST, **model_kw)
     return jslots.SlotEngine(model, None, max_seq=1 << 20, chunk=4, prefill_chunk=4,
-                             resume_sig=None, **engine_kw)
+                             resume_sig="SIG", **engine_kw)
 
 
 def _run_engine(pkg, prompts, priorities, slots=2, model_kw=None, engine_kw=None, max_new=24,
@@ -45,7 +47,8 @@ def _run_engine(pkg, prompts, priorities, slots=2, model_kw=None, engine_kw=None
     """Submit every prompt before the pump starts (a deterministic
     schedule), drain until every stream ended; returns per stream its
     chunks (tokens, chunk_index, tokens_done, final, evicted, deadline
-    marker), the snapshot and the pump error's type, if any."""
+    marker, goaway marker, resume state), the snapshot and the pump error's
+    type, if any."""
     frame_cls = TFrame if pkg == "port" else JFrame
     eng = _engine(pkg, slots, model_kw or {}, engine_kw or {})
     streams = []
@@ -77,7 +80,8 @@ def _run_engine(pkg, prompts, priorities, slots=2, model_kw=None, engine_kw=None
     for sq in seqs:
         by.append([(np.asarray(f.tensors[0]).tolist() if f.tensors else [],
                     f.meta["chunk_index"], f.meta["tokens_done"], f.meta["final"],
-                    f.meta.get("evicted"), "deadline_expired" in f.meta)
+                    f.meta.get("evicted"), "deadline_expired" in f.meta,
+                    f.meta.get("goaway"), f.meta.get("_nns_resume"))
                    for _, f in out if f.meta["stream_seq"] == sq])
     return by, snap, err
 
@@ -114,6 +118,11 @@ def test_oom_sheds_the_lowest_priority_equal_to_jax(step, priorities):
         want_toks = _oracle(PROMPTS[i], 24)
         assert toks == want_toks[:len(toks)] and chunks[-1][3]
         assert not any(c[5] for c in chunks)  # a shed is no deadline expiry
+        # every chunk carries the resume state; only the shed stream's final
+        # chunk is a resumable hand-off
+        assert all(c[7]["sig"] == "SIG" for c in chunks)
+        assert [c[6] for c in chunks] == [None] * (len(chunks) - 1) + [
+            True if i in shed else None]
         if i not in shed:
             assert toks == want_toks
 
@@ -128,6 +137,7 @@ def test_device_loss_hands_off_every_live_stream_equal_to_jax():
     assert (got[1]["gen_device_lost"], got[1]["gen_device_lost_evicted"],
             got[1]["gen_remeshes"]) == (1, 4, 1)
     assert [chunks[-1][4] for chunks in got[0]] == ["device_lost"] * 4
+    assert [chunks[-1][6] for chunks in got[0]] == [True] * 4  # resumable hand-offs
 
 
 def test_device_loss_without_a_hook_is_sticky_like_jax():
