@@ -336,10 +336,12 @@ Phases (any failure exits non-zero before the result lines are printed):
          slots=16 chunk=16 prefill-chunk=128 max-new=32``: 8 concurrent ``stream=true`` clients
          of one 128-token prompt each, tokens equal to the in-process
          generator's and chunks sized as the unslotted path's; then with
-         ``max-new=768 chunk=1``: a client stopped mid-stream frees its slot
-         (``gen_cancelled`` + 1) within 1 s, and a client budget of
-         ``QUERY_BUDGET_S`` ends in the typed-expiry final chunk whose
-         partial tokens equal the in-process generator's;
+         ``max-new=768`` (the same ``chunk=16``): a client stopped
+         mid-stream frees its slot (``gen_cancelled`` + 1) within 1 s, and a
+         client budget of ``QUERY_BUDGET_S`` ends in the typed-expiry final
+         chunk, which must reach the client before its budget ends (the
+         engine cuts decode calls short for the deadline), whose partial
+         tokens equal the in-process generator's;
       3. faults while the card serves, two m1 servers behind ``hosts=``:
          a ``corrupt=bitflip`` fault at ``tcp_query.send`` every
          ``QUERY_FAULT_EVERY`` requests (fired = detected = retried = refused),
@@ -440,8 +442,43 @@ Phases (any failure exits non-zero before the result lines are printed):
          ``StaleEpochError`` with nothing touched (``stale_epoch_rejects`` 1
          on each target); ``nns.autoscale.*`` in a scrape.
       The KV-cache decode launches no kernel (o1, o2).
-   ``--only i,j,k,l,m,n,o`` runs paths i, j, k, l, m, n and o alone after the
-   kernel build (j with ``PAD_EDGES`` first), each summary a JSON line.
+   p. user filters, ``framework=auto``, the native mailbox core and the
+      launch CLI (the entry points a user starts a pipeline from):
+      1. ``framework=auto`` on path j's uint8 ``.tflite`` (``custom=int8:true``)
+         and ``.onnx`` (written again under ``--only p``), 256 frames each in
+         blocks of 128: the framework resolved, labels and every launch
+         count equal to the same frames through ``framework=tflite`` /
+         ``framework=onnx``;
+      2. path a's MobileNet-v2 (224, width 1.0, 1001 classes, bf16) as a
+         batched ``custom-easy`` callable (the micro-batch to the card,
+         ``normalize_u8``, the body), the decoder on the host: 512 frames
+         at ``max-batch=128``, labels equal to the module called directly
+         in the same micro-batch sizes, ``normalize_u8`` once per invoke;
+      3. the same body traced on the card (float input, after
+         normalization) and saved as TorchScript, served by
+         ``framework=auto model=<x>.pt`` (the ``torch`` backend): 256 frames,
+         logits equal bit for bit to the traced module called directly;
+      4. ``framework=custom`` on ``libscaler.so`` (g++ from the port's
+         ``native/examples/scaler_custom.cc``, ``custom=mult:2.0``) and
+         ``framework=python3`` on a doubling script, 256 float32 frames of
+         (224, 224, 3): every output ``2 * x`` exactly; a missing g++ fails;
+      5. path a's pipeline, 2048 frames at ``max-batch=128``, on the port's
+         ``queue.Queue`` mailboxes and, swapped in by the script, on the
+         port's ``NativeMailbox`` (the JAX package's default; the core built
+         with g++, a missing g++ fails), in 5 alternating pairs: labels
+         equal across the runs and to path a's, ``normalize_u8`` and
+         ``top1`` once per micro-batch, frames/s of each run and the pairs'
+         ratios;
+      6. ``cli.launch.main`` in process on ``videotestsrc`` (256 random
+         frames) ``! tensor_converter ! tensor_filter framework=torch-cuda``
+         (path a's model) ``! tensor_decoder ! tensor_sink``: exit 0, both
+         kernels once per invoke; the same text through ``python -m
+         nnstreamer_tpu_torch.cli.launch`` exits 0; ``tensor_src_iio`` on
+         a fake sysfs tree (``le:s12/16>>4`` and ``be:u16/16``, 64 frames)
+         equal to a numpy decode of its bytes.
+   ``--only i,j,k,l,m,n,o,p`` runs paths i, j, k, l, m, n, o and p alone
+   after the kernel build (j with ``PAD_EDGES`` first), each summary a JSON
+   line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -456,7 +493,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    line (path k's), an ``{"observability": {...}}`` line (path l's), a
    ``{"query": {...}}`` line (path m's), a ``{"distributed": {...}}`` line
    (path n's), a ``{"fleet": {...}}`` line (path o's: o1-o4's counts, times
-   and peaks), one
+   and peaks), a ``{"user_filters": {...}}`` line (path p's), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -471,7 +508,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from unittest import mock
 
@@ -1084,13 +1121,13 @@ def labeling_text(custom: str, seed: int, labels, extra: str = "", sink: str = "
 
 
 def run_labeling_path(torch, np, lab, counters, name, custom, kernels_per_batch, frames, seed,
-                      card, labels, extra: str = "", busy: bool = False) -> dict:
+                      card, labels, extra: str = "", busy: bool = False, on_start=None) -> dict:
     """One image-labeling path: `frames` seeded 224x224 frames pushed one by
     one, the filter's feed set by `extra` (the defaults when empty); checks
     labels, launches and the direct call; returns the path's launches,
     micro-batches, labels, feed statistics and module.  With `busy`, a
     second pipeline of the same configuration measures the card's busy
-    share over a steady window."""
+    share over a steady window.  `on_start` gets the started pipeline."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
     rng = np.random.default_rng(seed)
@@ -1102,6 +1139,8 @@ def run_labeling_path(torch, np, lab, counters, name, custom, kernels_per_batch,
     counters.zero()
     pipe.start()
     try:
+        if on_start is not None:
+            on_start(pipe)
         with recording_batches(pipe, "f") as sizes:
             pushed = []
             t0 = time.perf_counter()
@@ -3872,21 +3911,15 @@ def run_onnx_path(torch, np, lab, counters, path, frames, zoo, card: str, labels
     return {"launches": r["launches"], "batches": b, "summary": summary}
 
 
-def run_files(torch, np, lab, counters, seed: int, card: str, work, labels) -> tuple:
-    """Path j: the zoo MobileNet-v2 (224, width 1.0, 1001 classes, seed `seed`,
-    float32, BatchNorm folded) written by ``tests/torch_model_files.py`` as
-    j1 a uint8 per-tensor ``.tflite`` (the hosted quantized file's op set
-    and scheme), j2 the same to TFLite's int8 spec, j3 a float32 ``.onnx``,
-    the activation ranges from a float forward over CALIBRATION_FRAMES
-    seeded frames; each file served on the card.  Returns ({path: launches
-    and micro-batches}, the summary)."""
+def write_model_files(torch, np, seed: int, work) -> tuple:
+    """Path j's three files of the zoo MobileNet-v2 (224, width 1.0, 1001
+    classes, seed `seed`, float32, BatchNorm folded) under ``work/models``:
+    ({"uint8", "int8", "onnx": path}, the float32 module on the card, the
+    seeded generator after the calibration frames)."""
     from nnstreamer_tpu_torch.models import build
-    from nnstreamer_tpu_torch.ops import quantize as q
 
-    t0 = time.perf_counter()
     mf = model_files()
-    props = {"dtype": "float32", "seed": str(seed)}
-    float32 = build("mobilenet_v2", props)[0].cuda().eval()
+    float32 = build("mobilenet_v2", {"dtype": "float32", "seed": str(seed)})[0].cuda().eval()
     rng = np.random.default_rng(seed + 21)
     calib = rng.integers(0, 256, (CALIBRATION_FRAMES, 224, 224, 3), dtype=np.uint8)
     files = work / "models"
@@ -3899,6 +3932,27 @@ def run_files(torch, np, lab, counters, seed: int, card: str, work, labels) -> t
             paths[spec].write_bytes(mf.mobilenet_v2_tflite(
                 float32, calib, spec, device=next(float32.parameters()).device))
     paths["onnx"].write_bytes(mf.mobilenet_v2_onnx(float32))
+    _MODEL_FILES[seed] = paths
+    return paths, float32, rng
+
+
+#: path j's files by seed, for path p's framework=auto (written once a run)
+_MODEL_FILES: dict = {}
+
+
+def run_files(torch, np, lab, counters, seed: int, card: str, work, labels) -> tuple:
+    """Path j: the zoo MobileNet-v2 (224, width 1.0, 1001 classes, seed `seed`,
+    float32, BatchNorm folded) written by ``tests/torch_model_files.py`` as
+    j1 a uint8 per-tensor ``.tflite`` (the hosted quantized file's op set
+    and scheme), j2 the same to TFLite's int8 spec, j3 a float32 ``.onnx``,
+    the activation ranges from a float forward over CALIBRATION_FRAMES
+    seeded frames; each file served on the card.  Returns ({path: launches
+    and micro-batches}, the summary)."""
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.ops import quantize as q
+
+    t0 = time.perf_counter()
+    paths, float32, rng = write_model_files(torch, np, seed, work)
     print(f"path j: wrote {', '.join(f'{p.name} ({p.stat().st_size / 2**20:.1f} MiB)' for p in paths.values())} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     zoo_int8 = build("mobilenet_v2", {"quantize": "int8", "seed": str(seed)})[0].cuda().eval()
@@ -4904,11 +4958,11 @@ QUERY_PROMPTS, QUERY_TOKENS, QUERY_NEW, QUERY_CHUNK = 8, 128, 32, 16
 #: the in-process reference prefills the same pieces (bf16 sums differ by
 #: piece size, and so would greedy tokens)
 QUERY_PREFILL_CHUNK = 128
-#: m2's long streams: the dead client and the short budget land mid-decode.
-#: Their server decodes one token a call: the engine evicts an expired
-#: stream between calls, 50 ms before its deadline (``EVICT_MARGIN_S``),
-#: and a 16-token call of GPT-2 small at 16 slots outlasts that margin
-QUERY_LONG_NEW, QUERY_LONG_CHUNK = 768, 1
+#: m2's long streams: the dead client and the short budget land mid-decode,
+#: at the path's chunk: the engine cuts a decode call short so it ends
+#: before the nearest deadline less ``EVICT_MARGIN_S`` (a 16-token call of
+#: GPT-2 small at 16 slots outlasts that 50 ms margin)
+QUERY_LONG_NEW = 768
 QUERY_BUDGET_S = 1.0
 #: m3a's corrupt fault: every k-th request gather-send gets one flipped bit
 QUERY_FAULT_EVERY = 5
@@ -5160,7 +5214,7 @@ def run_m2(torch, np, counters, seed: int) -> dict:
         raise AssertionError(f"m2: joins {gen['gen_joins']}, completed {gen['gen_completed']}")
     # the long server: a client stopped mid-stream, then a budget shorter
     # than the decode
-    srv, port = generator_server(custom, 183, QUERY_LONG_NEW, QUERY_LONG_CHUNK)
+    srv, port = generator_server(custom, 183, QUERY_LONG_NEW)
     try:
         victim = stream_client(port, "m2victim")
         victim["src"].push(prompts[0], pts=0.0)
@@ -5177,6 +5231,10 @@ def run_m2(torch, np, counters, seed: int) -> dict:
         freed_s = time.perf_counter() - t_stop
         cancelled = srv.health()["gen"]["gen_cancelled"] - before
         evict = stream_client(port, "m2budget", f"timeout={QUERY_BUDGET_S} retries=0")
+        arrived = []
+        evict["out"].connect_new_data(lambda f: arrived.append(time.perf_counter()))
+        cuts_before = srv["gen"]._engine.deadline_cut_calls
+        t_push = time.perf_counter()
         evict["src"].push(prompts[1], pts=0.0)
         evict["src"].end_of_stream()
         try:
@@ -5184,6 +5242,8 @@ def run_m2(torch, np, counters, seed: int) -> dict:
         finally:
             evict.stop()
         budget_frames = list(evict["out"].frames)
+        expiry_s = arrived[-1] - t_push if arrived else float("nan")
+        cut_calls = srv["gen"]._engine.deadline_cut_calls - cuts_before
         expired = evict.health()["q"]["deadline_expired"]
         deadline = time.perf_counter() + 10
         while srv.health()["gen"]["gen_occupied"] and time.perf_counter() < deadline:
@@ -5201,7 +5261,10 @@ def run_m2(torch, np, counters, seed: int) -> dict:
             and n_tok == last.get("tokens_done") and expired >= 1):
         raise AssertionError(f"m2: a {QUERY_BUDGET_S} s budget ended in {last} after {n_tok} "
                              "tokens (want the typed-expiry final chunk with its partial tokens)")
-    prefix, *_ = run_generator(np, custom, prompts[1:2], n_tok, QUERY_LONG_CHUNK, 16,
+    if not expiry_s < QUERY_BUDGET_S:
+        raise AssertionError(f"m2: the typed expiry reached the client {expiry_s:.3f} s after the "
+                             f"push ({QUERY_BUDGET_S} s budget; {cut_calls} calls cut short)")
+    prefix, *_ = run_generator(np, custom, prompts[1:2], n_tok, QUERY_CHUNK, 16,
                                prefill_chunk=QUERY_PREFILL_CHUNK)
     partial = np.concatenate([f.tensors[0] for f in budget_frames if f.tensors], axis=1)[0]
     if not np.array_equal(partial, prefix[0]):
@@ -5211,7 +5274,8 @@ def run_m2(torch, np, counters, seed: int) -> dict:
         raise AssertionError(f"m2: the long server's slots: {gen_long}")
     return {"launches": launches, "batches": gen["gen_decode_steps"], "seconds": wall,
             "tokens_per_s": QUERY_PROMPTS * QUERY_NEW / wall, "chunk_sizes": unslotted,
-            "freed_s": freed_s, "budget_tokens": n_tok,
+            "freed_s": freed_s, "budget_tokens": n_tok, "expiry_s": expiry_s,
+            "deadline_cut_calls": cut_calls,
             "tokens_per_step": gen["gen_tokens_per_step"]}
 
 
@@ -5419,7 +5483,8 @@ def run_query(torch, np, lab, counters, seed: int, card: str, work, labels,
           f"in-process generator, chunks {m2['chunk_sizes']}; {m2['tokens_per_s']:.1f} tokens/s; "
           f"a stopped client's slot freed after {m2['freed_s'] * 1e3:.0f} ms; a "
           f"{QUERY_BUDGET_S} s budget ended in the typed expiry after {m2['budget_tokens']} "
-          f"tokens; m3 a {m3['a']}, b {m3['b']}, c {m3['c']}; seconds {summary['seconds']}; "
+          f"tokens, {m2['expiry_s']:.3f} s after the push ({m2['deadline_cut_calls']} decode calls "
+          f"cut short for the deadline); m3 a {m3['a']}, b {m3['b']}, c {m3['c']}; seconds {summary['seconds']}; "
           f"on {card}")
     return paths, summary
 
@@ -6454,6 +6519,7 @@ def run_o3_o4(torch, np, lab, counters, seed: int, labels, custom: str, images, 
               "gen_resizes": gen_row["gen_resizes"], "gen_migrations": migrations,
               "autoscale_scrape": auto,
               "goaway_replies": run4["health"]["goaway_replies"],
+              "retried": run4["health"]["retried"],
               "seconds": time.perf_counter() - t0}
     finally:
         for tk in tickers:
@@ -6532,9 +6598,499 @@ def run_fleet(torch, np, lab, counters, seed: int, card: str, labels) -> tuple:
           f"micro-batches, labels equal, normalize_u8 and top1 once each a micro-batch, "
           f"{o3['fps']:.1f} frames/s; rollup after a tombstone {o3['rollup']} = the ledgers; "
           f"o4 epochs {o4['epochs']}, spawned {o4['spawned']}, {o4['frames']} frames labeled "
-          f"through the leader's drain, takeover {o4['takeover_s']:.3f} s, stale rejects "
+          f"through the leader's drain (client GOAWAY replies {o4['goaway_replies']}, resends "
+          f"{o4['retried']}), takeover {o4['takeover_s']:.3f} s, stale rejects "
           f"{o4['stale_rejects']}, generator slots {o4['gen_slots']}; seconds "
           f"{summary['seconds']}; on {card}")
+    return paths, summary
+
+
+# -- path p: user filters, framework=auto, native mailboxes, the launch CLI ----------------
+
+USER_FRAMES = 256          # p1's frames per file, p3's, p4's and p6's
+USER_EASY_FRAMES = 512     # p2's
+MAILBOX_AB_FRAMES = 2048   # p5's runs (path a's frames)
+MAILBOX_AB_PAIRS = 5       # p5's alternating queue.Queue / NativeMailbox pairs
+IIO_FRAMES, IIO_SAMPLES = 64, 4
+
+
+def block_run(np, counters, text: str, frames, block: int = 128) -> dict:
+    """`frames` pushed as blocks of `block` (so every run hands its filter
+    ``f`` the same micro-batches) through `text` (sink ``out``): labels,
+    launches, micro-batch sizes, the framework ``auto`` resolved."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    pipe = parse_pipeline(text)
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            for k in range(0, len(frames), block):
+                pipe["src"].push_block(frames[k:k + block],
+                                       pts=[float(i) for i in range(k, min(k + block,
+                                                                          len(frames)))])
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+        launches = counters.read()
+        framework = pipe["f"]._framework
+        out = pipe["out"].frames
+    finally:
+        pipe.stop()
+    if [f.pts for f in out] != [float(i) for i in range(len(frames))]:
+        raise AssertionError(f"{len(out)} of {len(frames)} frames came back, or out of order")
+    return {"labels": np.array([f.meta["label_index"] for f in out]), "launches": launches,
+            "sizes": list(sizes), "framework": framework}
+
+
+def run_p1(torch, np, counters, seed: int, card: str, work, labels) -> dict:
+    """p1: ``framework=auto`` on path j1's uint8 ``.tflite`` (``custom=int8:true``)
+    and path j3's ``.onnx``, USER_FRAMES frames each in blocks of 128, after
+    the same frames through the explicit framework: the framework resolved,
+    labels and every launch count equal to the explicit run's."""
+    paths = _MODEL_FILES.get(seed) or write_model_files(torch, np, seed, work)[0]
+    torch.cuda.empty_cache()
+    frames = np.random.default_rng(seed + 29).integers(0, 256, (USER_FRAMES, 1, 224, 224, 3),
+                                                       dtype=np.uint8)
+    out = {}
+    for kind, path, custom in (("tflite", paths["uint8"], "custom=int8:true"),
+                               ("onnx", paths["onnx"], "")):
+        runs = [(fw, block_run(np, counters, (
+            f"appsrc name=src ! tensor_filter name=f framework={fw} model={path} {custom} "
+            f"max-batch=128 ! tensor_decoder mode=image_labeling option1={labels} ! "
+            f"tensor_sink name=out"), frames)) for fw in (kind, "auto")]
+        explicit, auto = runs[0][1], runs[1][1]
+        b = len(auto["sizes"])
+        for fw, r in runs:
+            if r["framework"] != kind:
+                raise AssertionError(f"p1: framework={fw} on {path.name} resolved {r['framework']}")
+            if not np.array_equal(r["labels"], explicit["labels"]):
+                bad = np.flatnonzero(r["labels"] != explicit["labels"])
+                raise AssertionError(f"p1 {kind}: {len(bad)} labels of framework={fw} differ from "
+                                     f"framework={kind}'s (first frames {bad[:8]})")
+            if r["launches"] != explicit["launches"] or r["sizes"] != explicit["sizes"]:
+                raise AssertionError(f"p1 {kind}: framework={fw}'s launches {r['launches']} in "
+                                     f"{r['sizes']} vs {explicit['launches']} in "
+                                     f"{explicit['sizes']}")
+        if auto["launches"]["top1"] != b or (kind == "tflite" and not auto["launches"]["int8_conv"]):
+            raise AssertionError(f"p1 {kind}: launches {auto['launches']} for {b} micro-batches")
+        out[kind] = {"launches": auto["launches"], "batches": b}
+        print(f"path p: p1 framework=auto on {path.name} resolved {kind}: {USER_FRAMES} frames "
+              f"in {b} micro-batches, labels and launches equal to framework={kind}'s "
+              f"({ {k: v for k, v in auto['launches'].items() if v} }); on {card}", flush=True)
+    return out
+
+
+def run_p2(torch, np, lab, counters, seed: int, card: str, labels) -> dict:
+    """p2: path a's MobileNet-v2 (224, width 1.0, 1001 classes, bf16) as a
+    batched ``custom-easy`` callable that moves each micro-batch to the card
+    and runs the module (``normalize_u8``, then the body), the labeling
+    decoder on the host (custom-easy fuses no device half); USER_EASY_FRAMES
+    frames pushed one by one at ``max-batch=128``: labels equal to the
+    module called directly in the same micro-batch sizes, then
+    ``top1_plain``; ``normalize_u8`` once per invoke, ``top1`` never."""
+    from nnstreamer_tpu_torch.backends import register_custom_easy, unregister_custom_easy
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    module, in_spec, out_spec = build("mobilenet_v2", custom_props(f"{MOBILENET_CUSTOM},seed:{seed}"))
+    module = module.cuda().eval()
+
+    def fn(inputs):
+        with torch.inference_mode():
+            return [module(torch.from_numpy(inputs[0]).to("cuda"))]
+
+    register_custom_easy("p2_mobilenet_v2", fn, in_spec, out_spec, batched=True)
+    images = np.random.default_rng(seed).integers(0, 256, (USER_EASY_FRAMES, 224, 224, 3),
+                                                  dtype=np.uint8)
+    pipe = parse_pipeline(
+        "appsrc name=src ! tensor_filter name=f framework=custom-easy model=p2_mobilenet_v2 "
+        f"max-batch=128 batch-timeout=20 ! tensor_decoder mode=image_labeling option1={labels} "
+        "! tensor_sink name=out")
+    counters.zero()
+    pipe.start()
+    try:
+        with recording_batches(pipe, "f") as sizes:
+            for i in range(USER_EASY_FRAMES):
+                pipe["src"].push(images[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+        launches = counters.read()
+        out = pipe["out"].frames
+    finally:
+        pipe.stop()
+        unregister_custom_easy("p2_mobilenet_v2")
+    b = len(sizes)
+    if [f.pts for f in out] != [float(i) for i in range(USER_EASY_FRAMES)]:
+        raise AssertionError(f"p2: {len(out)} of {USER_EASY_FRAMES} frames back, or out of order")
+    if launches["normalize_u8"] != b or launches["top1"] != 0:
+        raise AssertionError(f"p2: launches {launches} for {b} invokes (want normalize_u8 once "
+                             "each and no top1: the decoder runs on the host)")
+    got = np.array([f.meta["label_index"] for f in out])
+    want, k = [], 0
+    with torch.inference_mode():
+        for n in sizes:
+            want.append(lab.top1_plain(module(torch.from_numpy(images[k:k + n]).cuda()))[0]
+                        .cpu().numpy())
+            k += n
+    if not np.array_equal(got, np.concatenate(want)):
+        raise AssertionError("p2: the custom-easy pipeline's labels differ from the module called "
+                             "directly in the same micro-batch sizes")
+    print(f"path p: p2 custom-easy MobileNet-v2 {USER_EASY_FRAMES} frames in {b} invokes (sizes "
+          f"{sorted(set(sizes))}), labels equal to the direct call; normalize_u8 launched "
+          f"{launches['normalize_u8']} times ({launches['normalize_u8'] / b:g} per invoke), top1 "
+          f"{launches['top1']} (the decoder on the host); on {card}", flush=True)
+    return {"launches": launches, "batches": b}
+
+
+def run_p3(torch, np, counters, seed: int, card: str, work) -> dict:
+    """p3: path a's model body traced on the card with ``torch.jit.trace`` on
+    float input (the frames already normalized, so ``normalize_u8`` is not
+    in the graph), saved, and served by ``framework=auto model=<x>.pt``
+    (TorchScript: the ``torch`` backend, on the card): USER_FRAMES frames,
+    outputs equal bit for bit to the loaded module called directly in the
+    same micro-batch sizes.  TorchScript's fusers are off for the phase, so
+    the profiling executor cannot change the arithmetic between calls."""
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    module = build("mobilenet_v2", custom_props(f"{MOBILENET_CUSTOM},seed:{seed}"))[0]
+    module = module.cuda().eval()
+    u8 = np.random.default_rng(seed + 31).integers(0, 256, (USER_FRAMES, 224, 224, 3),
+                                                  dtype=np.uint8)
+    x = u8.astype(np.float32) * np.float32(2.0 / 255.0) - np.float32(1.0)
+    path = work / "mobilenet_v2_body.pt"
+    with torch.no_grad():
+        traced = torch.jit.trace(module, torch.from_numpy(x[:8]).cuda(), check_trace=False)
+    torch.jit.save(traced, str(path))
+    del traced, module
+    prev = torch.jit.set_fusion_strategy([("STATIC", 0), ("DYNAMIC", 0)])
+    try:
+        pipe = parse_pipeline(f"appsrc name=src ! tensor_filter name=f framework=auto "
+                              f"model={path} max-batch=128 batch-timeout=20 ! tensor_sink "
+                              "name=out")
+        counters.zero()
+        pipe.start()
+        try:
+            loaded, framework = pipe["f"].backend._module, pipe["f"]._framework
+            with recording_batches(pipe, "f") as sizes:
+                for i in range(USER_FRAMES):
+                    pipe["src"].push(x[i], pts=float(i))
+                pipe["src"].end_of_stream()
+                pipe.wait(timeout=600)
+            launches = counters.read()
+            out = pipe["out"].frames
+        finally:
+            pipe.stop()
+        if framework != "torch" or len(out) != USER_FRAMES:
+            raise AssertionError(f"p3: framework=auto resolved {framework}; {len(out)} frames")
+        got = np.stack([np.asarray(f.tensors[0]) for f in out])
+        want, k = [], 0
+        with torch.inference_mode():
+            for n in sizes:
+                want.append(loaded(torch.from_numpy(x[k:k + n]).cuda()).cpu().numpy())
+                k += n
+        want = np.concatenate(want)
+    finally:
+        torch.jit.set_fusion_strategy(prev)
+    if got.dtype != want.dtype or not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError("p3: the TorchScript pipeline's logits differ from the traced "
+                             "module called directly (bit for bit)")
+    print(f"path p: p3 TorchScript {path.name} ({path.stat().st_size / 2**20:.1f} MiB) through "
+          f"framework=auto -> torch: {USER_FRAMES} frames in {len(sizes)} micro-batches, logits "
+          f"bit-equal to the traced module called directly; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; on {card}", flush=True)
+    return {"batches": len(sizes)}
+
+
+def run_p4(np, seed: int, card: str, work) -> dict:
+    """p4: ``framework=custom`` on ``libscaler.so`` (g++ from the port's copy of
+    ``native/examples/scaler_custom.cc``, ``custom=mult:2.0``) and
+    ``framework=python3`` on a doubling script, USER_FRAMES float32 frames
+    of (224, 224, 3) each: every output equal to ``2 * x`` exactly.  A
+    missing g++ fails the phase."""
+    import shutil
+
+    from nnstreamer_tpu_torch.native import runtime
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    gxx = shutil.which("g++")
+    print(f"path p: p4 g++ {'found: ' + gxx if gxx else 'NOT found'}", flush=True)
+    if gxx is None:
+        raise AssertionError("p4: g++ not found: the custom filter's subplugin cannot be built")
+    t = time.perf_counter()
+    so = runtime.build_example("scaler_custom")
+    build_s = time.perf_counter() - t
+    script = work / "double_filter.py"
+    script.write_text("def invoke(inputs):\n    return [x * 2 for x in inputs]\n")
+    frames = np.random.default_rng(seed + 37).standard_normal((USER_FRAMES, 224, 224, 3),
+                                                              dtype=np.float32)
+    out = {"build_s": build_s}
+    for fw, model, custom in (("custom", so, "custom=mult:2.0"), ("python3", script, "")):
+        pipe = parse_pipeline(f"appsrc name=src ! tensor_filter name=f framework={fw} "
+                              f"model={model} {custom} ! tensor_sink name=out")
+        pipe.start()
+        try:
+            for i in range(USER_FRAMES):
+                pipe["src"].push(frames[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+            got = pipe["out"].frames
+        finally:
+            pipe.stop()
+        if len(got) != USER_FRAMES or not all(
+                np.array_equal(np.asarray(f.tensors[0]), 2 * frames[i]) for i, f in enumerate(got)):
+            raise AssertionError(f"p4: framework={fw}'s outputs are not 2 * x exactly")
+    print(f"path p: p4 framework=custom on {so.name} (g++ {build_s:.1f} s) and framework=python3 "
+          f"on {script.name}: {USER_FRAMES} float32 frames of (224, 224, 3) each equal to 2 * x "
+          f"exactly; on {card}", flush=True)
+    return out
+
+
+def mailbox_kinds(pipe) -> dict:
+    """Every non-leaky mailbox's type name (and the appsrc queues')."""
+    kinds = {el.name: type(el._mailbox).__name__ for el in pipe.elements.values()
+             if el._mailbox is not None and not getattr(el, "leaky_policy", "")}
+    kinds.update({el.name: type(el._q).__name__ for el in pipe.elements.values()
+                  if hasattr(el, "_q")})
+    return kinds
+
+
+@contextmanager
+def native_mailboxes():
+    """While open, the pipelines built and started take ``NativeMailbox``
+    where the port's scheduler and ``appsrc`` take ``queue.Queue`` (the
+    JAX package's default): both modules' ``queue`` name is swapped for one
+    whose ``Queue`` is the native class (the exceptions stay the
+    stdlib's).  A measurement's switch, nothing of the program."""
+    import queue
+    from types import SimpleNamespace
+
+    from nnstreamer_tpu_torch.elements import basic
+    from nnstreamer_tpu_torch.native.runtime import NativeMailbox
+    from nnstreamer_tpu_torch.pipeline import pipeline
+
+    native = SimpleNamespace(Queue=NativeMailbox, Empty=queue.Empty, Full=queue.Full)
+    with mock.patch.object(pipeline, "queue", native), mock.patch.object(basic, "_queue", native):
+        yield
+
+
+def mailbox_run(np, counters, text: str, images, native: bool) -> dict:
+    """One run of path a's pipeline `text` on `images` (pushed one by one),
+    its non-leaky mailboxes ``queue.Queue`` (the port's) or, with `native`,
+    ``NativeMailbox``: labels, launches, micro-batches, the mailbox types,
+    frames/s after the first micro-batch."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    with (native_mailboxes() if native else nullcontext()):
+        pipe = parse_pipeline(text)
+        arrived = {}
+        pipe["out"].connect_new_data(lambda f: arrived.__setitem__(int(f.pts),
+                                                                   time.perf_counter()))
+        counters.zero()
+        pipe.start()
+    try:
+        kinds = mailbox_kinds(pipe)
+        with recording_batches(pipe, "f") as sizes:
+            for i in range(len(images)):
+                pipe["src"].push(images[i], pts=float(i))
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=600)
+        launches = counters.read()
+        out = pipe["out"].frames
+    finally:
+        pipe.stop()
+    if [f.pts for f in out] != [float(i) for i in range(len(images))]:
+        raise AssertionError(f"p5: {len(out)} of {len(images)} frames came back, or out of order")
+    first = sizes[0] - 1
+    span = max(arrived.values()) - arrived[first]
+    return {"labels": np.array([f.meta["label_index"] for f in out]), "launches": launches,
+            "batches": len(sizes), "kinds": kinds,
+            "fps_steady": (len(images) - first - 1) / span if span > 0 else float("nan")}
+
+
+def run_p5(np, counters, seed: int, card: str, labels, beside=None) -> dict:
+    """p5: path a's pipeline (MAILBOX_AB_FRAMES frames, ``max-batch=128``, the
+    decoder's device half fused) on the port's ``queue.Queue`` mailboxes and
+    on the port's ``NativeMailbox`` (the JAX package's default, the core
+    built with g++ here: a missing g++ fails), in MAILBOX_AB_PAIRS
+    alternating pairs in this process (native first in even pairs,
+    ``queue.Queue`` first in odd ones): labels equal across the runs (and to
+    path a's on the same frames where it ran), ``normalize_u8`` and
+    ``top1`` once per micro-batch in each; frames/s after the first
+    micro-batch of each run, and the pairs' ratios."""
+    from nnstreamer_tpu_torch.native import runtime
+
+    t = time.perf_counter()
+    if not runtime.available():
+        raise AssertionError("p5: the native core did not build (g++)")
+    build_s = time.perf_counter() - t
+    text = labeling_text(MOBILENET_CUSTOM, seed, labels)
+    images = np.random.default_rng(seed).integers(0, 256, (MAILBOX_AB_FRAMES, 224, 224, 3),
+                                                  dtype=np.uint8)
+    runs = {"native": [], "queue": []}
+    for pair in range(MAILBOX_AB_PAIRS):
+        for kind in (("native", "queue") if pair % 2 == 0 else ("queue", "native")):
+            runs[kind].append(mailbox_run(np, counters, text, images, kind == "native"))
+    ref = runs["queue"][0]
+    if beside is not None and len(beside["labels"]) >= MAILBOX_AB_FRAMES and not np.array_equal(
+            ref["labels"], beside["labels"][:MAILBOX_AB_FRAMES]):
+        raise AssertionError("p5: labels differ from path a's on the same frames")
+    for kind, want in (("native", {"NativeMailbox"}), ("queue", {"Queue"})):
+        for r in runs[kind]:
+            if set(r["kinds"].values()) != want:
+                raise AssertionError(f"p5 {kind}: mailboxes {r['kinds']} (want {want})")
+            if not np.array_equal(r["labels"], ref["labels"]):
+                raise AssertionError(f"p5 {kind}: labels differ from the first queue.Queue run's")
+            b = r["batches"]
+            if r["launches"]["normalize_u8"] != b or r["launches"]["top1"] != b:
+                raise AssertionError(f"p5 {kind}: launches {r['launches']} for {b} micro-batches")
+    fps = {k: [r["fps_steady"] for r in v] for k, v in runs.items()}
+    ratios = [n / q for n, q in zip(fps["native"], fps["queue"])]
+    print(f"path p: p5 MobileNet-v2 {MAILBOX_AB_FRAMES} frames, {MAILBOX_AB_PAIRS} alternating "
+          f"pairs in this process (core built in {build_s:.1f} s; {len(ref['kinds'])} "
+          f"mailboxes): frames/s after the first micro-batch on queue.Queue "
+          f"{[round(v, 1) for v in fps['queue']]}, on NativeMailbox "
+          f"{[round(v, 1) for v in fps['native']]}; native / queue.Queue per pair "
+          f"{[round(v, 4) for v in ratios]}, median {statistics.median(ratios):.4f}; labels "
+          f"equal{' and equal to path a' if beside is not None else ''}; normalize_u8 and top1 "
+          f"once per micro-batch in every run (host clock, findings only); on {card}",
+          flush=True)
+    return {"launches": ref["launches"], "batches": ref["batches"],
+            "fps_steady_native": fps["native"], "fps_steady_queue": fps["queue"],
+            "ratio_median": statistics.median(ratios)}
+
+
+def iio_tree(np, root: Path, seed: int):
+    """A fake sysfs IIO tree under `root`: channel 0 ``le:s12/16>>4`` (scale
+    0.5, offset 2), channel 1 ``be:u16/16``, IIO_FRAMES x IIO_SAMPLES seeded
+    records; returns (base dir, dev dir, the float32 (frames, 2, samples)
+    a numpy decode of the bytes gives)."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    dev = root / "sys" / "iio:device0"
+    (dev / "scan_elements").mkdir(parents=True)
+    (dev / "buffer").mkdir()
+    (dev / "name").write_text("card_accel\n")
+    (dev / "in_accel_x_scale").write_text("0.5")
+    (dev / "in_accel_x_offset").write_text("2")
+    for name, idx, spec in (("in_accel_x", 0, "le:s12/16>>4"), ("in_accel_y", 1, "be:u16/16")):
+        (dev / "scan_elements" / f"{name}_en").write_text("1")
+        (dev / "scan_elements" / f"{name}_index").write_text(str(idx))
+        (dev / "scan_elements" / f"{name}_type").write_text(spec)
+    (dev / "buffer" / "enable").write_text("0")
+    n = IIO_FRAMES * IIO_SAMPLES
+    raw = np.zeros(n, np.dtype([("x", "<u2"), ("y", ">u2")]))
+    rng = np.random.default_rng(seed + 41)
+    raw["x"], raw["y"] = rng.integers(0, 1 << 16, n), rng.integers(0, 1 << 16, n)
+    (root / "dev").mkdir()
+    (root / "dev" / "iio:device0").write_bytes(raw.tobytes())
+    x = (raw["x"].astype(np.int64) >> 4) & 0xFFF
+    x = np.where(x >= 2048, x - 4096, x)
+    xs = ((x.astype(np.float64) + 2.0) * 0.5).astype(np.float32).reshape(IIO_FRAMES, IIO_SAMPLES)
+    ys = raw["y"].astype(np.float32).reshape(IIO_FRAMES, IIO_SAMPLES)
+    return root / "sys", root / "dev", np.stack([xs, ys], axis=1)
+
+
+def run_p6(torch, np, counters, seed: int, card: str, work, labels) -> dict:
+    """p6: ``cli.launch.main`` in process on ``videotestsrc`` (USER_FRAMES random
+    frames) ``! tensor_converter ! tensor_filter framework=torch-cuda`` (path
+    a's MobileNet-v2) ``! tensor_decoder ! tensor_sink``: exit 0, launches
+    once per invoke; then the same text through ``python -m
+    nnstreamer_tpu_torch.cli.launch`` in a child process, exiting 0 in its
+    timeout; then
+    ``tensor_src_iio`` on a fake sysfs tree in the work directory, its
+    values equal to a numpy decode of the bytes."""
+    import nnstreamer_tpu_torch.pipeline as pipeline_pkg
+    from nnstreamer_tpu_torch.cli import launch
+
+    text = (f"videotestsrc num-buffers={USER_FRAMES} pattern=random seed={seed} ! "
+            f"tensor_converter ! tensor_filter name=f framework=torch-cuda model=mobilenet_v2 "
+            f"custom={MOBILENET_CUSTOM},seed:{seed} max-batch=128 batch-timeout=20 ! "
+            f"tensor_decoder mode=image_labeling option1={labels} ! tensor_sink name=out "
+            f"max-stored=1")
+    made = []
+    parse = pipeline_pkg.parse_pipeline
+    counters.zero()
+    t0 = time.perf_counter()
+    with mock.patch.object(pipeline_pkg, "parse_pipeline",
+                           lambda *a, **k: made.append(parse(*a, **k)) or made[-1]):
+        rc = launch.main(["-q", "--timeout", "300", text])
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    b = made[0]["f"].invokes if made else 0
+    if rc != 0 or not b or launches["normalize_u8"] != b or launches["top1"] != b:
+        raise AssertionError(f"p6: launch.main returned {rc}; launches {launches} for {b} invokes")
+    t = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "nnstreamer_tpu_torch.cli.launch", "-q",
+                            "--timeout", "300", text], cwd=ROOT, timeout=400,
+                           capture_output=True, text=True)
+    child_s = time.perf_counter() - t
+    if child.returncode != 0:
+        raise AssertionError(f"p6: python -m nnstreamer_tpu_torch.cli.launch exited "
+                             f"{child.returncode}:\n{child.stderr[-3000:]}")
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    base, dev, want = iio_tree(np, work / "iio", seed)
+    pipe = parse_pipeline(f"tensor_src_iio device=card_accel iio-base-dir={base} dev-dir={dev} "
+                          f"buffer-capacity={IIO_SAMPLES} num-buffers={IIO_FRAMES} "
+                          "poll-timeout=500 ! tensor_sink name=out")
+    pipe.start()
+    try:
+        pipe.wait(timeout=60)
+    finally:
+        pipe.stop()
+    got = [np.asarray(f.tensors[0]) for f in pipe["out"].frames]
+    if len(got) != IIO_FRAMES or not np.array_equal(np.stack(got), want):
+        raise AssertionError(f"p6: tensor_src_iio gave {len(got)} frames, or values that differ "
+                             "from the numpy decode")
+    print(f"path p: p6 cli.launch in process: {USER_FRAMES} videotestsrc frames in {b} invokes, "
+          f"exit 0, normalize_u8 and top1 {launches['top1']} each, {wall:.1f} s; python -m "
+          f"nnstreamer_tpu_torch.cli.launch exit 0 in {child_s:.1f} s; tensor_src_iio "
+          f"{IIO_FRAMES} frames of 2 x {IIO_SAMPLES} (le:s12/16>>4, be:u16/16) equal to the "
+          f"numpy decode; on {card}", flush=True)
+    return {"launches": launches, "batches": b, "seconds": wall, "child_s": child_s}
+
+
+def run_user_filters(torch, np, lab, counters, seed: int, card: str, work, labels,
+                     beside=None) -> tuple:
+    """Path p: p1-p6 (see their docstrings).  Returns (paths: the launches
+    and micro-batches of p1's two auto runs, p2, p5 and p6; the summary)."""
+    t0 = time.perf_counter()
+    secs = {}
+    t = time.perf_counter()
+    p1 = run_p1(torch, np, counters, seed, card, work, labels)
+    secs["p1"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p2 = run_p2(torch, np, lab, counters, seed, card, labels)
+    secs["p2"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p3 = run_p3(torch, np, counters, seed, card, work)
+    secs["p3"] = time.perf_counter() - t
+    t = time.perf_counter()
+    p4 = run_p4(np, seed, card, work)
+    secs["p4"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p5 = run_p5(np, counters, seed, card, labels, beside=beside)
+    secs["p5"] = time.perf_counter() - t
+    t = time.perf_counter()
+    p6 = run_p6(torch, np, counters, seed, card, work, labels)
+    secs["p6"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    paths = {"auto_tflite_p1": {"launches": p1["tflite"].pop("launches"),
+                                "batches": p1["tflite"]["batches"]},
+             "auto_onnx_p1": {"launches": p1["onnx"].pop("launches"),
+                              "batches": p1["onnx"]["batches"]},
+             "custom_easy_p2": {"launches": p2.pop("launches"), "batches": p2["batches"]},
+             "native_mailbox_p5": {"launches": p5.pop("launches"), "batches": p5["batches"]},
+             "launch_cli_p6": {"launches": p6.pop("launches"), "batches": p6["batches"]}}
+    summary = {"card": card, "p1": p1, "p2": p2, "p3": p3, "p4": p4, "p5": p5, "p6": p6,
+               "seconds": {k: round(v, 3) for k, v in secs.items()} | {
+                   "total": round(time.perf_counter() - t0, 3)}}
+    print(f"path p: seconds {summary['seconds']}; on {card}", flush=True)
     return paths, summary
 
 
@@ -6570,9 +7126,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= set("ijklmno"):
-        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m, n and o, not "
-                         f"{sorted(only - set('ijklmno'))}")
+    if not only <= set("ijklmnop"):
+        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m, n, o and p, not "
+                         f"{sorted(only - set('ijklmnop'))}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -6595,6 +7151,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "o" in only:
         print(json.dumps({"fleet": run_fleet(torch, np, lab, counters, args.seed, card,
                                              labels)[1]}))
+    if "p" in only:
+        print(json.dumps({"user_filters": run_user_filters(torch, np, lab, counters, args.seed,
+                                                           card, work, labels)[1]}))
     print(card)
     return 0
 
@@ -6607,7 +7166,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
                     help="comma-separated paths to run alone after the kernel build: i, j, k, l, "
-                         "m, n, o (prints their summaries; without it every path runs)")
+                         "m, n, o, p (prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
     if not (ROOT / "nnstreamer_tpu_torch" / "csrc").is_dir():
@@ -6724,6 +7283,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_paths, fleet = run_fleet(torch, np, lab, counters, args.seed, card, labels)
     paths.update(fleet_paths)
+    torch.cuda.empty_cache()
+    user_paths, user = run_user_filters(
+        torch, np, lab, counters, args.seed, card, work, labels,
+        beside=paths["mobilenet_v2"] if args.frames >= MAILBOX_AB_FRAMES else None)
+    paths.update(user_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -6742,6 +7306,7 @@ def main() -> int:
     print(json.dumps({"query": query}))
     print(json.dumps({"distributed": distributed}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"user_filters": user}))
 
     for k in kernels:
         by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}

@@ -5,8 +5,10 @@ A reduced copy of ``nnstreamer_tpu/core/config.py`` (the reference's
 (``$NNS_TPU_CONF``, ``./nnstreamer_tpu.ini``,
 ``~/.config/nnstreamer_tpu.ini``), the first existing one read, and
 ``NNS_TPU_<SECTION>_<KEY>`` overrides unless ``[common] enable_envvar`` is
-false.  The port reads ``[model-repo] path`` (``core/model_uri.py``); the
-framework priorities and the filter's module list wait for ROADMAP A12.
+false.  The port reads ``[model-repo] path`` (``core/model_uri.py``) and
+``[framework-priority] <ext>`` (``framework_priority``, which
+``framework=auto`` consults); the filter's module list waits for ROADMAP
+A12.2.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import configparser
 import os
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 _ENV_PREFIX = "NNS_TPU_"
 _lock = threading.RLock()
@@ -64,3 +66,33 @@ def get_value(section: str, key: str, default: Optional[str] = None) -> Optional
             if env is not None:
                 return env
         return _parser.get(section, key, fallback=default)
+
+
+def get_list(section: str, key: str) -> List[str]:
+    """A comma- or semicolon-separated config value as a list."""
+    v = get_value(section, key, None)
+    if not v:
+        return []
+    return [s.strip() for s in v.replace(";", ",").split(",") if s.strip()]
+
+
+def framework_priority(model_ext: str) -> List[str]:
+    """Backend priority for a model file extension: ``[framework-priority]
+    <ext>`` (or ``NNS_TPU_FRAMEWORK_PRIORITY_<EXT>``) when set, else the
+    port's defaults (reference: the ini's ``framework_priority_<ext>``,
+    ``tensor_filter_common.c:1171-1196``).  ``torch-cuda`` loads a ``.pt``
+    only as a zoo family's state_dict (``framework=auto`` skips it without
+    ``custom=arch:``), so a bare TorchScript archive goes to ``torch``."""
+    ext = model_ext.lstrip(".").lower()
+    pri = get_list("framework-priority", ext)
+    if pri:
+        return pri
+    defaults: Dict[str, List[str]] = {
+        "tflite": ["tflite"],
+        "onnx": ["onnx"],
+        "py": ["python3"],
+        "so": ["custom"],
+        "pt": ["torch-cuda", "torch"],
+        "pth": ["torch-cuda", "torch"],
+    }
+    return defaults.get(ext, [])

@@ -457,7 +457,12 @@ class SlotEngine:
     BUCKET_MAX = 16
     #: deadline evictions fire this far BEFORE the request deadline, so the
     #: typed-expiry answer still reaches a client whose own timeout fires
-    #: at the deadline
+    #: at the deadline.  Evictions happen between decode calls, so a call
+    #: is cut (fewer tokens, :meth:`_deadline_k`) to end before the nearest
+    #: deadline less this margin, reckoned by :meth:`decode_call_s`; a
+    #: stream that a one-token call would carry past it is evicted at this
+    #: boundary.  Before the first measurement the margin is this constant
+    #: alone, as in the JAX engine.
     EVICT_MARGIN_S = 0.05
 
     def __init__(self, model, *, max_seq: int, chunk: int = 8,
@@ -536,6 +541,9 @@ class SlotEngine:
         self.prefill_chunks = 0
         self.tokens_total = 0
         self.tokens_per_step = 0.0  # EWMA of active slots per decode call
+        # EWMA of a decode call's wall seconds, by its token count k
+        self.decode_call_wall: Dict[int, float] = {}
+        self.deadline_cut_calls = 0    # decode calls cut short for a deadline
         self.resumes = 0              # streams joined by a RESUME request
         self.goaway_evicted = 0       # live streams handed off on a drain
         self.oom_retries = 0          # device steps retried after an OOM
@@ -663,6 +671,7 @@ class SlotEngine:
         for attr in self._LEDGER_ATTRS:
             setattr(self, attr, getattr(other, attr))
         self.tokens_per_step = other.tokens_per_step
+        self.decode_call_wall = dict(other.decode_call_wall)
 
     def cancel(self, sid: Optional[int] = None,
                client_id: Optional[int] = None) -> bool:
@@ -878,6 +887,45 @@ class SlotEngine:
         # cancelled: the consumer is gone — nothing to emit
         self._free_slot(s)
 
+    def decode_call_s(self, k: int) -> float:
+        """The reckoned wall seconds of a ``k``-token decode call (lock
+        held): ``a + b*k``, a fixed cost per call (the host's loop and
+        sync) plus a cost per token, fitted by least squares over the
+        measured wall of each k the engine has run (:attr:`decode_call_wall`).
+        With one k measured the two cannot be told apart, so the whole wall
+        counts as fixed below that k and as per-token above it: a bound no
+        call of the linear model exceeds.  0.0 before any measurement."""
+        pts = self.decode_call_wall
+        if len(pts) < 2:
+            if not pts:
+                return 0.0
+            (k0, t0), = pts.items()
+            return t0 * max(1.0, k / k0)
+        ks, ts = np.array(list(pts.keys()), np.float64), np.array(list(pts.values()))
+        dk = ks - ks.mean()
+        b = max(0.0, float(dk @ (ts - ts.mean()) / (dk @ dk)))
+        a = float(ts.mean()) - b * float(ks.mean())
+        if a < 0.0:  # through the origin: no call is free
+            a, b = 0.0, float(ks @ ts / (ks @ ks))
+        return a + b * k
+
+    def _deadline_k(self, k: int, now: float) -> int:
+        """``k`` decode tokens, cut so the call (reckoned by
+        :meth:`decode_call_s`) ends before the nearest live deadline less
+        :attr:`EVICT_MARGIN_S`; at least 1 (lock held).  The tokens are the
+        same: a stream's chunks are cut by its own grain, not by the call."""
+        nearest = min((s.deadline_ts for s in self._streams.values()
+                       if not s.finished and s.deadline_ts is not None), default=None)
+        if nearest is None or not self.decode_call_wall:
+            return k
+        end = nearest - self.EVICT_MARGIN_S - now
+        fit = k
+        while fit > 1 and self.decode_call_s(fit) > end:
+            fit -= 1
+        if fit < k:
+            self.deadline_cut_calls += 1
+        return fit
+
     def _slo_stream(self, s: GenStream, outcome: str) -> None:
         if self.slo is not None:
             self.slo.note_stream(s.tenant, outcome)
@@ -889,8 +937,9 @@ class SlotEngine:
         for s in list(self._streams.values()):
             if s.finished:
                 continue
+            # a one-token call must still end inside the margin
             if not (s.deadline_ts is not None
-                    and now >= s.deadline_ts - self.EVICT_MARGIN_S):
+                    and now + self.decode_call_s(1) >= s.deadline_ts - self.EVICT_MARGIN_S):
                 continue
             if s.state == "waiting":
                 self._waiting.remove(s)
@@ -1109,19 +1158,25 @@ class SlotEngine:
             # (k = min(chunk, min remaining): every stream completes
             # exactly at a call boundary)
             with self._lock:
+                # the prefill pieces above took time: a deadline they
+                # brought within one token is answered now
+                self._sweep_deadlines(self.clock())
                 decoding = [
                     s for s in self._occupants
                     if s is not None and s.state == "decoding" and not s.finished
                 ]
-            if not decoding:
-                continue
-            k = max(1, min(self.chunk, min(s.max_new - s.gen for s in decoding)))
+                if not decoding:
+                    continue
+                k = self._deadline_k(
+                    max(1, min(self.chunk, min(s.max_new - s.gen for s in decoding))),
+                    self.clock())
             active = np.zeros((self.slots,), np.int32)
             for s in decoding:
                 active[s.slot] = 1
             if self._active_host is None or not np.array_equal(active, self._active_host):
                 self._active_host, self._active = active, self._upload(active)
             saved = self._save_positions()
+            t_call = self.clock()
             try:
                 self._cache, self._tok_vec, self._gen_vec, toks = self._device_step(
                     self._decode_fn(k), self._cache, self._tok_vec, self._gen_vec,
@@ -1141,9 +1196,11 @@ class SlotEngine:
             toks_host = toks.cpu().numpy()  # (slots, k)
             now = self.clock()
             with self._lock:
+                a = 0.2  # EWMA horizon ~ last 5 calls
+                wall, prev = max(0.0, now - t_call), self.decode_call_wall.get(k)
+                self.decode_call_wall[k] = wall if prev is None else (1 - a) * prev + a * wall
                 self.decode_steps += 1
                 self.tokens_total += k * len(decoding)
-                a = 0.2  # EWMA horizon ~ last 5 calls
                 self.tokens_per_step = (
                     len(decoding) if self.decode_steps == 1
                     else (1 - a) * self.tokens_per_step + a * len(decoding)

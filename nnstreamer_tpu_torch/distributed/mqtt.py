@@ -231,11 +231,11 @@ class MiniBroker:
         self._retained: Dict[str, bytes] = {}
         self._retransmit_s = retransmit_s
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._accept_loop, name="mqtt-broker",
+        self._thread = threading.Thread(target=self._accept_loop, name="torch-mqtt-broker",
                                         daemon=True)
         self._thread.start()
         self._redeliver = threading.Thread(target=self._redeliver_loop,
-                                           name="mqtt-broker-qos1", daemon=True)
+                                           name="torch-mqtt-broker-qos1", daemon=True)
         self._redeliver.start()
 
     def has_subscriber(self, topic: str) -> bool:
@@ -293,7 +293,7 @@ class MiniBroker:
             except OSError:
                 return
             threading.Thread(target=self._client_loop, args=(sock,),
-                             name="mqtt-broker-conn", daemon=True).start()
+                             name="torch-mqtt-broker-conn", daemon=True).start()
 
     @staticmethod
     def _parse_connect(body: bytes) -> Tuple[str, bool]:
@@ -339,7 +339,9 @@ class MiniBroker:
             if ptype != CONNECT:
                 sock.close()
                 return
-            sock.settimeout(None)  # close() shuts the socket down: recv can end
+            # allow-blocking: post-handshake reads are stream semantics;
+            # close() shuts the socket down, so a blocked recv always ends
+            sock.settimeout(None)
             sess, present = self._open_session(sock, body)
             sock.sendall(bytes([CONNACK << 4, 2, 1 if present else 0, 0]))
             if present:
@@ -571,11 +573,11 @@ class MqttClient:
         if err is not None:
             raise err
         self.connected.set()
-        self._reader = threading.Thread(target=self._read_loop, name="mqtt-client", daemon=True)
+        self._reader = threading.Thread(target=self._read_loop, name="torch-mqtt-client", daemon=True)
         self._reader.start()
         # keep-alive: ping within every keep-alive window; the same timer
         # retransmits unacknowledged QoS-1 publishes
-        self._pinger = threading.Thread(target=self._ping_loop, name="mqtt-ping", daemon=True)
+        self._pinger = threading.Thread(target=self._ping_loop, name="torch-mqtt-ping", daemon=True)
         self._pinger.start()
 
     # -- connection -----------------------------------------------------------

@@ -84,8 +84,9 @@ class TcpEdgeServer:
             if tlen > _MAX_TOPIC:
                 raise ConnectionError("absurd topic length")
             topic = _read_exact(sock, tlen).decode()
-            # this socket is only written to: bound each send, so a wedged
-            # subscriber cannot stall the publisher for good
+            # allow-blocking: this socket is only written to, and each send
+            # is bounded by SO_SNDTIMEO below, so a wedged subscriber cannot
+            # stall the publisher for good
             sock.settimeout(None)
             sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO, struct.pack("ll", 5, 0))
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
@@ -165,8 +166,8 @@ class TcpEdgeSubscriber:
         self._sock = socket.create_connection((host, port), timeout=timeout)
         t = topic.encode()
         self._sock.sendall(_LEN.pack(len(t)) + t)
-        # a stream may idle as long as its publisher is quiet; close()
-        # shuts the socket down, so a blocked recv always ends
+        # allow-blocking: a stream may idle as long as its publisher is
+        # quiet; close() shuts the socket down, so a blocked recv always ends
         self._sock.settimeout(None)
         self._closed = False
 

@@ -145,6 +145,18 @@ def _sendmsg_all(sock: socket.socket, parts: List) -> None:
             bufs[0] = bufs[0][sent:]
 
 
+def _peer_closed(sock: socket.socket) -> bool:
+    """True when an idle client socket has something to read: between
+    replies that is only the peer's EOF or reset (or bytes of no request,
+    which desync the framing), so the socket must not carry a request."""
+    try:
+        poller = select.poll()  # no fd ceiling, unlike select.select
+        poller.register(sock, select.POLLIN)
+        return bool(poller.poll(0))
+    except (OSError, ValueError):  # closed: no fd left to poll
+        return True
+
+
 def _recv_exact(sock: socket.socket, n: int) -> memoryview:
     buf = bytearray(n)
     view = memoryview(buf)
@@ -401,6 +413,18 @@ class TcpQueryConnection:
                             pass
                 elif self._free:
                     sock = self._free.pop()
+                    if _peer_closed(sock):
+                        # the server closed it while parked (stopped after
+                        # a drain): a request sent on it would reach no
+                        # server, so dial afresh, where a stopped server
+                        # refuses before anything is sent
+                        self._live -= 1
+                        self._sock_ver.pop(sock, None)
+                        try:
+                            sock.close()
+                        except OSError:
+                            pass
+                        continue
                     self._held.add(sock)
                     return sock, True
                 if self._live < self._nconns:

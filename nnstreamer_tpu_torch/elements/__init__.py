@@ -18,5 +18,6 @@ from . import (  # noqa: F401
     query,
     repo,
     sparse,
+    src_iio,
     transform,
 )

@@ -322,7 +322,7 @@ class EdgeSrc(SourceElement):
             for frame in sub.frames():
                 if not put(frame):
                     return
-        except Exception:  # noqa: BLE001 — a cancelled stream: the None says it
+        except Exception:  # allow-silent: stream cancelled / peer gone; the None says it
             pass
         finally:
             put(None)

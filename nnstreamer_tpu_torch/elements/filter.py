@@ -1,8 +1,13 @@
 """tensor_filter: run a model on every frame or micro-batch of a stream.
 
 Port of ``nnstreamer_tpu/elements/filter.py`` for the serving path: the
-backend is resolved from ``framework=`` and opened with the element's
-properties; ``max-batch`` > 1 makes the scheduler hand micro-batches
+backend is resolved from ``framework=`` at ``start()`` and opened with the
+element's properties.  ``framework=auto`` picks it from the model file's
+extension after ``model://`` resolution (``detect_framework``), and
+restarts and hot swaps keep the framework resolved at start.  The
+property's default is ``torch-cuda``, where the JAX filter's is ``auto``:
+every port pipeline names no framework and means the card.
+``max-batch`` > 1 makes the scheduler hand micro-batches
 (``handle_frame_batch``) that run as one ``invoke_batch``; a decoder's
 device half can be folded into the backend (``fuse_device_postprocess``),
 after which the filter emits each micro-batch as ONE device-resident
@@ -65,6 +70,7 @@ A11.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -74,6 +80,8 @@ import numpy as np
 
 from ..backends import find_backend, parse_accelerator
 from ..backends.base import FilterBackend
+from ..core import config as nns_config
+from ..core import registry
 from ..core.buffer import (
     BatchFrame,
     Flush,
@@ -178,12 +186,36 @@ def _logical_infos(frames: Sequence[TensorFrame]) -> List[Tuple[Any, Any, Dict[s
     return infos
 
 
+def detect_framework(model_path: str, custom: str = "") -> str:
+    """``framework=auto``: the first registered backend of the model
+    extension's priority list (``core.config.framework_priority``).
+
+    Port of the JAX ``detect_framework`` (reference:
+    ``_detect_framework_from_config``, tensor_filter_common.c:1171), with
+    ``torch-cuda`` in the place of ``jax-xla``: it wins a file only when the
+    pipeline supplies ``custom=arch:<zoo-family>`` (it loads a ``.pt`` as
+    that family's state_dict, and cannot load a bare file), so a TorchScript
+    ``.pt`` goes to ``torch`` and ``.tflite``/``.onnx`` to the importers."""
+    ext = os.path.splitext(model_path)[1]
+    has_arch = any(part.partition(":")[0].strip() == "arch"
+                   for part in str(custom or "").split(",") if ":" in part)
+    for cand in nns_config.framework_priority(ext):
+        if not registry.exists(registry.KIND_FILTER, cand):
+            continue
+        if cand == "torch-cuda" and ext not in ("", ".py") and not has_arch:
+            continue
+        return cand
+    raise ElementError(f"cannot auto-detect a backend for model {model_path!r} (ext {ext!r})")
+
+
 @element("tensor_filter")
 class TensorFilter(TransformElement):
     BATCH_AWARE = True  # consumes the batch axis (micro-batching)
 
     PROPERTIES = {
-        "framework": Property(str, "torch-cuda", "backend name"),
+        "framework": Property(
+            str, "torch-cuda", "backend name, or auto (from the model file's extension: "
+            "core.config.framework_priority)"),
         "model": Property(str, "", "registry key, .py file, file://, model://<name>[/<version>], "
                           "or with custom=arch:<zoo-name> a zoo name or state_dict file"),
         "custom": Property(str, "", "backend-specific options 'k1:v1,k2:v2'"),
@@ -269,6 +301,10 @@ class TensorFilter(TransformElement):
         # do the backend's outputs support the async copy? latched per backend
         self._win_async: Optional[bool] = None
         self._owns_backend = True
+        # the backend class and framework resolved at start() (auto
+        # resolved): restarts and hot swaps keep them
+        self._backend_cls: Optional[type] = None
+        self._framework = ""
         # the decoder device halves the fusion pass folded in: re-applied to
         # every backend this element opens (a restart, a hot swap)
         self._fused_posts: List[Any] = []
@@ -345,21 +381,30 @@ class TensorFilter(TransformElement):
         """Open a fresh backend for ``model`` (``model://`` and ``file://``
         resolved) on the element's accelerator, never on a card found dead,
         with the run's fused device halves appended."""
-        fw = self.props["framework"]
-        try:
-            backend_cls = find_backend(fw)
-        except KeyError:
-            raise ElementError(f"{self.name}: unknown framework {fw!r}") from None
         props = dict(self.props)
         enabled, wishes = parse_accelerator(self.props["accelerator"])
         props["accelerators"] = wishes if enabled else ["cpu"]
         if self._exclude:
             props["exclude_ordinals"] = tuple(self._exclude)
-        be = backend_cls()
+        be = self._backend_cls()
         be.open(resolve_model_uri(model) if model else None, props)
         for fn in self._fused_posts:
             be.append_postprocess(fn)
         return be
+
+    def _resolve_framework(self, model: Optional[str]) -> None:
+        """Latch the backend class for this run: ``framework=auto`` detected
+        from the model file after ``model://`` resolution."""
+        fw = self.props["framework"]
+        if fw == "auto":
+            if not model:
+                raise ElementError(f"{self.name}: framework=auto requires a model")
+            fw = detect_framework(resolve_model_uri(model), self.props["custom"])
+        try:
+            self._backend_cls = find_backend(fw)
+        except KeyError:
+            raise ElementError(f"{self.name}: unknown framework {fw!r}") from None
+        self._framework = fw
 
     # -- manual model info ---------------------------------------------------
     @staticmethod
@@ -437,7 +482,7 @@ class TensorFilter(TransformElement):
         override declares or must match the model's output."""
         in_override = self._manual_spec("input")
         out_override = self._manual_spec("output")
-        fw = self.props["framework"]
+        fw = self._framework
         if in_override is not None:
             if not self._owns_backend:
                 raise ElementError(
@@ -495,8 +540,9 @@ class TensorFilter(TransformElement):
         lane_mode = str(self.props["ingest-lane"] or "auto").lower()
         if lane_mode not in ("auto", "on", "off"):
             raise ElementError(f"{self.name}: ingest-lane={lane_mode!r} (want auto|on|off)")
-        fw = self.props["framework"]
         model = self.props["model"] or None
+        self._resolve_framework(model)
+        fw = self._framework
         key = self.props["shared-tensor-filter-key"]
         if key:
             be = _shared_acquire(key, lambda: self._make_backend(model))
@@ -809,7 +855,7 @@ class TensorFilter(TransformElement):
                 self.log.info(
                     "dispatch-depth=%d requested but %r outputs are host-resident: "
                     "the dispatch window degrades to the synchronous path",
-                    depth, self.props["framework"])
+                    depth, self._framework)
         if depth > 1 and self._win_async:
             self._inflight.park(start_host_copies(out_b), frames)
             results = self._pop_ready()
@@ -881,6 +927,7 @@ class TensorFilter(TransformElement):
         lane's error here, on the dispatch thread."""
         while not job.wait(timeout=0.05):
             self._check_stopping("the ingest lane")
+        # allow-blocking: the job is done (waited above in bounded steps)
         return job.result()
 
     def _discard_staged(self) -> None:

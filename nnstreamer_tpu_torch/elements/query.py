@@ -925,7 +925,7 @@ class TensorQueryClient(Element):
         for c in retired:
             try:
                 c.close()
-            except Exception:  # noqa: BLE001 — teardown of a dead connection
+            except Exception:  # allow-silent: teardown of a dead connection
                 pass
         return swapped
 
@@ -1303,8 +1303,10 @@ class TensorQueryClient(Element):
         then the others, ``retries`` extra attempts.  BUSY (admission shed),
         GOAWAY (draining) and detected corruption are resend-safe and get
         budgets of their own: BUSY and GOAWAY never touch the breaker,
-        corruption counts against it.  A request whose deadline budget ran
-        out stops retrying."""
+        corruption counts against it.  A refused dial (nothing sent) moves
+        on to each other remote once without spending an attempt, but counts
+        against the refusing remote (the JAX client spends an attempt on
+        it).  A request whose deadline budget ran out stops retrying."""
         ps = self._pstate  # ONE snapshot per request
         if not ps.conns:
             raise RuntimeError(f"{self.name}: no connections (stopped?)")
@@ -1316,7 +1318,7 @@ class TensorQueryClient(Element):
         order = self._route_order(ps, frame, first)
         err: Optional[BaseException] = None
         open_err: Optional[BaseException] = None
-        cursor = k = busy_used = corrupt_used = goaway_used = 0
+        cursor = k = busy_used = corrupt_used = goaway_used = unsent_used = 0
         while k < attempts and not self._stopped:
             req_timeout, expired = self._request_timeout(frame, timeout)
             if expired:
@@ -1407,6 +1409,14 @@ class TensorQueryClient(Element):
                 self._record_remote_failure(breaker, ps, i, e, timeout)
                 self.log.warning("query to %s failed (attempt %d/%d): %s",
                                  conn.addr, k + 1, attempts, e)
+                if (self._provably_unsent(e) and unsent_used < len(order) - 1
+                        and not self._stopped):
+                    # a refused dial (a server stopped after its drain):
+                    # nothing was sent, so the next remote takes it at
+                    # once, as after a GOAWAY
+                    unsent_used += 1
+                    self._count("_retried")
+                    continue
                 k += 1
                 if k < attempts:
                     self._count("_retried")

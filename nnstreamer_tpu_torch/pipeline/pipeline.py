@@ -79,7 +79,7 @@ from ..core.telemetry import (
     release_pipeline_label,
 )
 from ..core.tracer import META_SRC_TS, PipelineTracer, frame_nbytes
-from .element import Element, ElementError, SourceElement
+from .element import Element, ElementError, SinkElement, SourceElement
 
 _STOP = object()  # mailbox sentinel: the worker exits
 _SUPERVISED_STOPPING = object()  # _supervised's answer: the worker exits quietly
@@ -291,6 +291,33 @@ class Pipeline:
 
     def add_bus_watcher(self, cb: Callable[[BusMessage], None]) -> None:
         self._bus_watchers.append(cb)
+
+    def to_dot(self) -> str:
+        """Graphviz DOT of the element graph (≙ GStreamer's
+        GST_DEBUG_DUMP_DOT_DIR dumps): one node per element (shape by
+        role), one edge per pad link, negotiated schemas as edge labels
+        when known."""
+        def esc(s: str) -> str:  # DOT quoted strings: no raw double quotes
+            return str(s).replace('"', "'")
+
+        lines = ["digraph pipeline {", "  rankdir=LR;",
+                 "  node [fontsize=10 shape=box style=rounded];"]
+        for el in self.elements.values():
+            shape = ("invhouse" if isinstance(el, SourceElement)
+                     else "house" if isinstance(el, SinkElement) else "box")
+            lines.append(f'  "{esc(el.name)}" [label="{esc(el.name)}\\n({type(el).__name__})" '
+                         f'shape={shape}];')
+        for el in self.elements.values():
+            for sp_i, sp in enumerate(el.srcpads):
+                for dst, sink_pad in sp.links:
+                    spec = dst.sink_specs.get(sink_pad)
+                    label = (esc(spec.to_string())
+                             if spec is not None and getattr(spec, "tensors", None) else "")
+                    lines.append(f'  "{esc(el.name)}" -> "{esc(dst.name)}" '
+                                 f'[taillabel="{sp_i}" headlabel="{sink_pad}" '
+                                 f'label="{label}" fontsize=8];')
+        lines.append("}")
+        return "\n".join(lines)
 
     def incident(self, kind: str, source: str, detail: Any = None) -> Optional[str]:
         """Incident hook (watchdog stall, dead letter, swap rollback, memory
@@ -1301,13 +1328,35 @@ class Pipeline:
             return True  # an unlinked src pad: dropped, as _push drops it
         return self._push(st.el, sp, item)
 
-    def _route_outs(self, seg: _Seg, st: _ElemState, outs) -> bool:
+    def _route_outs(self, seg: _Seg, st: _ElemState, outs, keep: int = 0) -> bool:
         """Route a call's outputs (a list, or a lazy iterable forwarded as
-        it produces them)."""
+        it produces them).  Drain accounting, as the JAX scheduler keeps
+        it: the call's input frames are gone (emitted as these outputs,
+        parked behind ``pending_frames`` or delivered), so ``st.in_call``
+        becomes `keep` (inputs still to come) plus the unrouted output
+        frames, less each one as it is handed off: into a mailbox once the
+        put succeeded, inline before the fused downstream element takes
+        it over.  A halt mid-route so counts every frame once."""
+        st.in_call = keep + self._outs_logical(outs)
+        inline = st.next_state is not None
         for sp, out in outs:
+            n = getattr(out, "batch_size", 1) if isinstance(out, TensorFrame) else 0
+            if inline:
+                st.in_call = max(0, st.in_call - n)
             if not self._route_one(seg, st, sp, out):
                 return False
+            if not inline:
+                st.in_call = max(0, st.in_call - n)
         return True
+
+    @staticmethod
+    def _outs_logical(outs) -> int:
+        """Logical frames in a materialized outputs list (0 for a lazy
+        iterable, which makes its frames on demand)."""
+        if not isinstance(outs, (list, tuple)):
+            return 0
+        return sum(getattr(out, "batch_size", 1) for _, out in outs
+                   if isinstance(out, TensorFrame))
 
     def _finish_eos(self, seg: _Seg, st: _ElemState) -> bool:
         """``st.el`` consumed EOS on every connected pad: propagate it, or
@@ -1381,8 +1430,7 @@ class Pipeline:
                     return False
                 if st.terminal:
                     st.delivered += 1
-                st.in_call = len(lfs) - k - 1
-                if not self._route_outs(seg, st, outs):
+                if not self._route_outs(seg, st, outs, keep=len(lfs) - k - 1):
                     return False
             if tracer is not None:
                 tracer.frame_out(el.name, t_in, time.perf_counter(), frame.batch_size, nbytes,
@@ -1403,7 +1451,6 @@ class Pipeline:
         if tracer is not None:
             tracer.frame_out(el.name, t_in, time.perf_counter(), n, frame_nbytes(frame),
                              frame.meta.get(META_SRC_TS), frame=frame)
-        st.in_call = 0
         return self._route_outs(seg, st, outs)
 
     def _flush_mailbox(self, box, stash: deque) -> None:
@@ -1591,7 +1638,6 @@ class Pipeline:
                     tracer.frame_out(el.name, t_in, time.perf_counter(), nlog,
                                      sum(frame_nbytes(f) for f in frames),
                                      frames[0].meta.get(META_SRC_TS), frame=frames[0])
-                st.in_call = 0
                 if not self._route_outs(seg, st, outs):
                     return
             elif not self._dispatch(seg, st, pad, item):

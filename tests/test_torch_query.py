@@ -265,6 +265,39 @@ def test_drain_goaway_failover_nothing_lost():
     assert h1["lifecycle"] == "stopped" and h1["draining"]
 
 
+def test_server_stopped_after_its_drain_fails_over_at_once():
+    """A server drained while idle (no request meets its GOAWAY) and then
+    stopped: the client's parked sockets to it are closed, so the next
+    request to it dials afresh, is refused before anything is sent and
+    goes to the other server at once, with ``retries=0``.  Exact values:
+    every frame once, in order."""
+    s1, p1 = server(1830)
+    s2, p2 = server(1831)
+    cl = client(p1, extra=f"hosts=127.0.0.1:{p1},127.0.0.1:{p2} max-in-flight=4 wire-batch=4")
+    try:
+        for i in range(32):
+            cl["src"].push(np.float32([i]))
+        deadline = time.monotonic() + 10
+        while len(cl["out"].frames) < 32 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert s1.health()["ssrc"]["admitted"] >= 1  # the pool holds sockets to s1
+        s1["ssrc"].request_drain()
+        while not s1["ssrc"].drain_complete and time.monotonic() < deadline:
+            time.sleep(0.01)
+        s1.stop()
+        for i in range(32, 64):
+            cl["src"].push(np.float32([i]))
+        cl["src"].end_of_stream()
+        cl.wait(timeout=30)
+        got, h = vals(cl["out"].frames), cl.health()["q"]
+    finally:
+        cl.stop()
+        s1.stop()
+        s2.stop()
+    assert got == [2.0 * i for i in range(64)]
+    assert h["delivered"] == 64 and h["degraded_frames"] == 0 and h["retried"] >= 1
+
+
 def test_pipeline_drain_of_server_counts_nothing_dropped():
     srv, port = server(1823, mid="identity sleep=0.01 ! ")
     cl = client(port, extra="max-in-flight=4")

@@ -2,7 +2,12 @@
 starts query servers and clients must leave no framework thread, no
 socket and no metrics endpoint behind (the census of the JAX package's
 ``tests/conftest.py`` ``module_leak_check``, kept here so the port's test
-files carry their own)."""
+files carry their own).
+
+Threads are reported by name and by the package whose code they run
+(``name [nnstreamer_tpu_torch]``, ``name [nnstreamer_tpu]``): the port's
+threads carry names of their own (``torch-mqtt-client``), and a thread of
+the JAX package that a parity test started is never blamed on the port."""
 
 import os
 import sys
@@ -14,15 +19,31 @@ import pytest
 #: thread-name prefixes outside the framework's control (library pools,
 #: pytest internals); framework threads are named ("tcpq-*", "<element>-rpc",
 #: segment workers, "-watchdog", pumps, the MQTT broker's "mqtt-broker*" and
-#: client's "mqtt-client"/"mqtt-ping", the raw-TCP edge's "tcp-edge-*",
+#: client's "mqtt-client"/"mqtt-ping" (the port's: "torch-mqtt-*"), the
+#: raw-TCP edge's "tcp-edge-*",
 #: "<element>-pump", "<element>-pull", "<element>-probe*"), so every one of
 #: them is counted
 _IGNORE = ("MainThread", "Thread-", "ThreadPool", "Dummy", "asyncio", "pydevd",
            "raylet", "grpc")
 
 
+_PACKAGES = ("nnstreamer_tpu_torch", "nnstreamer_tpu")
+
+
+def thread_package(t: threading.Thread) -> str:
+    """The package whose code `t` runs: its target's module, else its
+    class's (a ``Thread`` subclass)."""
+    target = getattr(t, "_target", None)
+    mod = getattr(target, "__module__", None) or type(t).__module__ or "?"
+    for pkg in _PACKAGES:
+        if mod == pkg or mod.startswith(pkg + "."):
+            return pkg
+    return mod
+
+
 def framework_threads() -> set:
-    return {t.name for t in threading.enumerate()
+    """Live framework threads as ``"<name> [<package>]"``."""
+    return {f"{t.name} [{thread_package(t)}]" for t in threading.enumerate()
             if t.is_alive() and not t.name.startswith(_IGNORE)}
 
 
