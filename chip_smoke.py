@@ -476,7 +476,34 @@ Phases (any failure exits non-zero before the result lines are printed):
          nnstreamer_tpu_torch.cli.launch`` exits 0; ``tensor_src_iio`` on
          a fake sysfs tree (``le:s12/16>>4`` and ``be:u16/16``, 64 frames)
          equal to a numpy decode of its bytes.
-   ``--only i,j,k,l,m,n,o,p`` runs paths i, j, k, l, m, n, o and p alone
+   q. converted and exported models as ``.pt2`` ``torch.export`` programs,
+      the rest of the CLI and the kernel build cache:
+      1. path j's uint8 ``.tflite`` converted with ``--int8`` and its
+         ``.onnx``, each by ``python -m nnstreamer_tpu_torch.cli.convert``
+         in a child process; each program through ``framework=auto`` and
+         ``framework=torch-cuda``, 512 frames in blocks of 128 with the
+         labeling decoder: labels equal to path j's graph called directly
+         (the ``.onnx``: except at counted near-ties), the int8 kernels'
+         and ``top1``'s launches per micro-batch as path j1's; ms per 128
+         frames beside the eager graph;
+      2. ``export_model`` of path a's MobileNet-v2 (bf16), its
+         ``quantize:int8`` build and path b's ViT-B/16 (``attn:flash``),
+         traced on the CPU, served on the card: labels equal to the module's,
+         ``normalize_u8`` once and flash 12 times a call from inside the
+         program; the eager host ms of a kernel through its operator;
+      3. the ``--int8`` program at 1, 7 and 128 frames in one call each, the
+         ``.onnx``'s ``--fixed`` conversion at 7 frames a call a frame:
+         bit-equal to path j's graphs;
+      4. ``confchk`` names the card and the six kernel libraries built,
+         ``inspect`` lists 41 element classes, path a's text round-trips
+         through ``pbtxt`` and labels alike, ``codegen`` C (g++) and Python
+         filters pass frames through;
+      5. a child process on a fresh ``NNS_TPU_CUDA_CACHE_DIR`` runs nvcc six
+         times, a second on the same directory none; both times to the
+         first micro-batch.
+      Under ``--only q`` the kernel checks and ``time_int8`` run first, and
+      the kernels line and the ok line close the output as in a whole run.
+   ``--only i,j,k,l,m,n,o,p,q`` runs paths i, j, k, l, m, n, o, p and q alone
    after the kernel build (j with ``PAD_EDGES`` first), each summary a JSON
    line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
@@ -493,7 +520,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    line (path k's), an ``{"observability": {...}}`` line (path l's), a
    ``{"query": {...}}`` line (path m's), a ``{"distributed": {...}}`` line
    (path n's), a ``{"fleet": {...}}`` line (path o's: o1-o4's counts, times
-   and peaks), a ``{"user_filters": {...}}`` line (path p's), one
+   and peaks), a ``{"user_filters": {...}}`` line (path p's), an
+   ``{"exported": {...}}`` line (path q's), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -503,6 +531,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -6617,7 +6646,8 @@ IIO_FRAMES, IIO_SAMPLES = 64, 4
 def block_run(np, counters, text: str, frames, block: int = 128) -> dict:
     """`frames` pushed as blocks of `block` (so every run hands its filter
     ``f`` the same micro-batches) through `text` (sink ``out``): labels,
-    launches, micro-batch sizes, the framework ``auto`` resolved."""
+    launches, micro-batch sizes, the framework ``auto`` resolved, the
+    backend's module."""
     from nnstreamer_tpu_torch.pipeline import parse_pipeline
 
     pipe = parse_pipeline(text)
@@ -6633,13 +6663,14 @@ def block_run(np, counters, text: str, frames, block: int = 128) -> dict:
             pipe.wait(timeout=600)
         launches = counters.read()
         framework = pipe["f"]._framework
+        module = pipe["f"].backend._module
         out = pipe["out"].frames
     finally:
         pipe.stop()
     if [f.pts for f in out] != [float(i) for i in range(len(frames))]:
         raise AssertionError(f"{len(out)} of {len(frames)} frames came back, or out of order")
     return {"labels": np.array([f.meta["label_index"] for f in out]), "launches": launches,
-            "sizes": list(sizes), "framework": framework}
+            "sizes": list(sizes), "framework": framework, "module": module}
 
 
 def run_p1(torch, np, counters, seed: int, card: str, work, labels) -> dict:
@@ -7094,6 +7125,502 @@ def run_user_filters(torch, np, lab, counters, seed: int, card: str, work, label
     return paths, summary
 
 
+# -- path q: converted and exported models as .pt2 programs --------------------------
+
+EXPORT_FILE_FRAMES = 512      # q1's frames through each program and framework
+EXPORT_ZOO_FRAMES = 512       # q2's MobileNet-v2 frames
+EXPORT_VIT_FRAMES = 256       # q2's ViT-B/16 frames
+EXPORT_INT8_FRAMES = 128      # q2's MobileNet-v2 quantize:int8 frames
+EXPORT_SIZES = (1, 7, 128)    # q3's micro-batches of the batch-polymorphic program
+EXPORT_FIXED_FRAMES = 7       # q3's micro-batch against the --fixed program
+CLI_FRAMES = 16               # q4's frames through each generated filter
+ALL_KERNELS = ("normalize_u8", "top1", "flash_attention", "quantize_i8", "int8_conv",
+               "int8_dwconv")
+
+#: q5's child: every kernel built into (or found in) NNS_TPU_CUDA_CACHE_DIR,
+#: then one micro-batch of 128 frames through a program; prints the nvcc
+#: runs and the seconds from its start
+CACHE_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from nnstreamer_tpu_torch.backends.torch_cuda import TorchCuda
+from nnstreamer_tpu_torch.ops import _build
+imported = time.perf_counter() - t0
+_build.build({kernels!r})
+built = time.perf_counter() - t0
+be = TorchCuda()
+be.open({program!r}, {{}})
+opened = time.perf_counter() - t0
+shape = be.get_model_info()[0].tensors[0].shape
+x = np.random.default_rng(0).integers(0, 256, (128, *shape), dtype=np.uint8)
+out = be.invoke_batch([x])
+torch.cuda.synchronize()
+print("Q5 " + json.dumps({{"compiles": _build.COMPILES, "import_s": imported, "build_s": built,
+                          "open_s": opened, "first_batch_s": time.perf_counter() - t0,
+                          "dir": str(_build._lib_path("top1").parent),
+                          "shape": list(out[0].shape)}}))
+"""
+
+
+def start_child(args, env=None) -> subprocess.Popen:
+    """A child ``python`` of this checkout, its output captured."""
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def finish_child(proc, what: str, timeout: float) -> str:
+    """The child's standard output once it exited 0; raises otherwise."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: no exit in {timeout:.0f} s") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{err[-3000:]}")
+    return out
+
+
+def program_text(framework: str, program, labels) -> str:
+    return (f"appsrc name=src ! tensor_filter name=f framework={framework} model={program} "
+            f"max-batch=128 ! tensor_decoder mode=image_labeling option1={labels} ! "
+            f"tensor_sink name=out")
+
+
+def near_tie_labels(np, name: str, got, want, logits) -> int:
+    """`got` labels equal `want` except where the reference's top two logits
+    lie within 1e-4 of its largest magnitude (counted); returns the count
+    of labels off at near-ties."""
+    top = logits.topk(2, dim=1).values
+    ties = ((top[:, 0] - top[:, 1]) < 1e-4 * logits.abs().amax(dim=1)).cpu().numpy()
+    bad = np.flatnonzero(got != want)
+    if not ties[bad].all():
+        raise AssertionError(f"{name}: {len(bad)} labels differ from the direct call, "
+                             f"{int((~ties[bad]).sum())} of them away from a near-tie")
+    return len(bad)
+
+
+def run_q1(torch, np, lab, q, counters, seed: int, card: str, labels, files, programs,
+           graphs) -> dict:
+    """q1: path j's uint8 ``.tflite`` converted with ``--int8`` and its
+    ``.onnx``, each ``.pt2`` served at ``max-batch=128`` on EXPORT_FILE_FRAMES
+    frames pushed in blocks of 128 through ``framework=auto`` and
+    ``framework=torch-cuda``: the framework resolved to ``torch-cuda``;
+    labels equal to path j's eager graph called directly in the same
+    micro-batch sizes (the ``.onnx``: except at counted near-ties); the int8
+    kernels' and ``top1``'s launches per micro-batch as path j1's
+    (``reckon_file_int8``: the file's reckoning); both frameworks' runs equal;
+    ms per 128 frames of each program beside its eager graph (CUDA events)."""
+    from nnstreamer_tpu_torch.backends.torch_cuda import ExportedModule
+
+    frames = np.random.default_rng(seed + 31).integers(
+        0, 256, (EXPORT_FILE_FRAMES, 1, 224, 224, 3), dtype=np.uint8)
+    out, summary = {}, {}
+    for kind in ("tflite", "onnx"):
+        graph = graphs[kind]
+        per_batch = (reckon_file_int8(q, graph.lowering) if kind == "tflite" else
+                     {"int8_conv": 0, "int8_dwconv": 0})
+        runs = {}
+        for fw in ("auto", "torch-cuda"):
+            t = time.perf_counter()
+            r = block_run(np, counters, program_text(fw, programs[kind], labels), frames)
+            r["wall_s"] = time.perf_counter() - t
+            if r["framework"] != "torch-cuda":
+                raise AssertionError(f"q1 {kind}: framework={fw} resolved {r['framework']}")
+            b = len(r["sizes"])
+            want, logits = direct_labels(torch, np, lab, graph, frames, r["sizes"])
+            if kind == "tflite" and not np.array_equal(r["labels"], want):
+                bad = np.flatnonzero(r["labels"] != want)
+                raise AssertionError(f"q1 tflite framework={fw}: {len(bad)} labels differ from "
+                                     f"path j's graph called directly (first frames {bad[:8]})")
+            r["off_at_ties"] = (0 if kind == "tflite" else
+                                near_tie_labels(np, f"q1 onnx framework={fw}", r["labels"],
+                                                want, logits))
+            want_launches = {k: v * b for k, v in per_batch.items()} | {
+                "top1": b, "normalize_u8": 0, "quantize_i8": 0, "flash_attention": 0}
+            got = {k: r["launches"][k] for k in want_launches}
+            if got != want_launches:
+                raise AssertionError(f"q1 {kind} framework={fw}: launches {got} in {b} "
+                                     f"micro-batches (want {want_launches}: path j1's)")
+            runs[fw] = r
+        auto, explicit = runs["auto"], runs["torch-cuda"]
+        if not np.array_equal(auto["labels"], explicit["labels"]) or \
+                auto["launches"] != explicit["launches"] or auto["sizes"] != explicit["sizes"]:
+            raise AssertionError(f"q1 {kind}: framework=auto and framework=torch-cuda differ")
+        program = auto.pop("module")
+        explicit.pop("module")
+        if not isinstance(program, ExportedModule):
+            raise AssertionError(f"q1 {kind}: the filter runs {type(program).__name__}")
+        x = torch.from_numpy(frames[:128]).cuda()
+        with torch.inference_mode():
+            ms = {"program": time_ms(lambda: program(x), reps=7, inner=3),
+                  "eager_graph": time_ms(lambda: graph(x), reps=7, inner=3)}
+        del program
+        b = len(auto["sizes"])
+        out[f"exported_{kind}_q1"] = {"launches": auto["launches"], "batches": b}
+        summary[kind] = {"frames": len(frames), "micro_batches": b,
+                         "launches_per_micro_batch": {
+                             k: auto["launches"][k] // b for k in ("int8_conv", "int8_dwconv",
+                                                                   "quantize_i8", "top1")},
+                         "wall_s": {fw: r["wall_s"] for fw, r in runs.items()},
+                         "labels_off_at_near_ties": auto["off_at_ties"],
+                         "ms_per_128": ms, "program_bytes": programs[kind].stat().st_size}
+        print(f"path q: q1 {programs[kind].name} ({programs[kind].stat().st_size / 2**20:.1f} "
+              f"MiB): framework=auto and torch-cuda, {len(frames)} frames in {b} micro-batches "
+              f"each, labels equal to path j's graph"
+              + ("" if kind == "tflite" else f" but {auto['off_at_ties']} at near-ties")
+              + f"; launches per micro-batch {summary[kind]['launches_per_micro_batch']} as "
+              f"path j1's; ms per 128 frames (direct, "
+              f"CUDA events) program {ms['program']:.3f}, eager graph {ms['eager_graph']:.3f}; "
+              f"wall of each run (start-up included) {runs['auto']['wall_s']:.2f} and "
+              f"{runs['torch-cuda']['wall_s']:.2f} s; on {card}", flush=True)
+    return {"paths": out, "summary": summary}
+
+
+def run_q2(torch, np, lab, counters, seed: int, card: str, labels, exported) -> dict:
+    """q2: the zoo's MobileNet-v2 (bf16; uint8 frames through ``normalize_u8``,
+    the port's counterpart of the JAX zoo's ``pallas:1``), its
+    ``quantize:int8`` build (path h1's) and ViT-B/16 (``attn:flash``) saved
+    by ``export_model`` (traced on the CPU, loaded onto the card), served
+    through ``framework=torch-cuda model=<x>.pt2`` with the labeling decoder
+    (EXPORT_ZOO_FRAMES / EXPORT_INT8_FRAMES / EXPORT_VIT_FRAMES frames in
+    blocks of 128): labels equal to the module called directly in the same
+    micro-batch sizes; ``normalize_u8`` once a call, flash 12 times a call
+    (all on the tensor cores), the int8 build's kernels as h1's a call but
+    ``quantize_i8`` also once a layer for its weight (a program has no
+    weight version to cache on), ``top1`` once, counted from inside the
+    program; ms per 128 frames beside the module's; the eager host ms of a
+    kernel call through its registered operator beside the wrapper."""
+    from nnstreamer_tpu_torch.ops import labeling, preprocess
+
+    out, summary = {}, {}
+    layers = int(custom_props(VIT_CUSTOM)["layers"])
+    for name, (module, path, export_s, n, per_call) in exported.items():
+        frames = np.random.default_rng(seed + 37).integers(0, 256, (n, 224, 224, 3),
+                                                           dtype=np.uint8)
+        t = time.perf_counter()
+        r = block_run(np, counters, program_text("torch-cuda", path, labels), frames)
+        wall = time.perf_counter() - t
+        b = len(r["sizes"])
+        want, _ = direct_labels(torch, np, lab, module, frames, r["sizes"])
+        if not np.array_equal(r["labels"], want):
+            bad = np.flatnonzero(r["labels"] != want)
+            raise AssertionError(f"q2 {name}: {len(bad)} labels differ from the module called "
+                                 f"directly (first frames {bad[:8]})")
+        want_launches = {k: v * b for k, v in per_call.items()}
+        got = {k: r["launches"][k] for k in want_launches}
+        if got != want_launches:
+            raise AssertionError(f"q2 {name}: launches {got} in {b} micro-batches (want "
+                                 f"{want_launches})")
+        x = torch.from_numpy(frames[:128]).cuda()
+        program = r.pop("module")
+        with torch.inference_mode():
+            ms = {"program": time_ms(lambda: program(x), reps=7, inner=3),
+                  "module": time_ms(lambda: module(x), reps=7, inner=3)}
+        del program
+        out[f"exported_{name}_q2"] = {"launches": r["launches"], "batches": b}
+        summary[name] = {"frames": n, "micro_batches": b, "export_s": export_s,
+                         "launches_per_call": per_call, "wall_s": wall, "ms_per_128": ms,
+                         "program_bytes": path.stat().st_size}
+        print(f"path q: q2 {name} exported in {export_s:.1f} s ({path.stat().st_size / 2**20:.1f} "
+              f"MiB): {n} frames in {b} micro-batches, labels equal to the module's, launches "
+              f"per call {per_call}; ms per 128 frames (direct, CUDA events) program "
+              f"{ms['program']:.3f}, module {ms['module']:.3f}; on {card}", flush=True)
+    del layers
+    # the eager host cost of the operator's dispatch, beside the wrapper
+    x1 = torch.zeros((1, 224, 224, 3), dtype=torch.uint8).cuda()
+    logits = torch.zeros((128, 1001), dtype=torch.float32).cuda()
+    scale, bias = 2.0 / 255.0, -1.0
+    host = {
+        "normalize_u8": host_ms(torch, lambda: preprocess.normalize_u8(x1, scale, bias)),
+        "normalize_u8_op": host_ms(torch, lambda: torch.ops.nns_torch.normalize_u8(
+            x1, scale, bias, torch.bfloat16)),
+        "top1_packed": host_ms(torch, lambda: labeling.top1_packed(logits)),
+        "top1_packed_op": host_ms(torch, lambda: torch.ops.nns_torch.top1_packed(logits)),
+    }
+    summary["host_ms_per_call"] = host
+    print("path q: q2 eager host ms per call (100 calls behind a device sleep, median of 7): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host.items()) + f"; on {card}", flush=True)
+    return {"paths": out, "summary": summary}
+
+
+def run_q3(torch, np, q, counters, seed: int, card: str, programs, graphs) -> dict:
+    """q3: the ``--int8`` batch-polymorphic program through the backend
+    (``TorchCuda.invoke_batch``, which pads a micro-batch to a power of two)
+    at EXPORT_SIZES frames, and the ``.onnx``'s ``--fixed`` program at
+    EXPORT_FIXED_FRAMES: outputs bit-equal to path j's eager graphs on the
+    same padded rows; the program called once a micro-batch (the int8
+    launches of one call), the fixed one once a (padded) frame, the calls
+    counted around the loaded program."""
+    from nnstreamer_tpu_torch.backends.torch_cuda import TorchCuda
+
+    per_call = reckon_file_int8(q, graphs["tflite"].lowering)
+    frames = np.random.default_rng(seed + 41).integers(0, 256, (128, 1, 224, 224, 3),
+                                                       dtype=np.uint8)
+    summary = {}
+    for kind, sizes in (("polymorphic", EXPORT_SIZES), ("fixed", (EXPORT_FIXED_FRAMES,))):
+        graph = graphs["tflite" if kind == "polymorphic" else "onnx"]
+        be = TorchCuda()
+        be.open(str(programs["tflite" if kind == "polymorphic" else "fixed"]), {})
+        program = be._module.__dict__["_gm"]
+        seen = []
+        be._module.__dict__["_gm"] = lambda *xs: seen.append(1) or program(*xs)
+        try:
+            for n in sizes:
+                bucket = 1 << (n - 1).bit_length()
+                counters.zero()
+                seen.clear()
+                with torch.inference_mode():
+                    (got,) = be.invoke_batch([frames[:n]])
+                    launches = counters.read()
+                    x = torch.from_numpy(frames[:n]).cuda()
+                    x = torch.cat([x, x[-1:].expand((bucket - n,) + tuple(x.shape[1:]))])
+                    want = (graph(x)[0] if kind == "polymorphic" else
+                            torch.stack([graph(x[i])[0] for i in range(bucket)]))[:n]
+                if not torch.equal(got, want):
+                    raise AssertionError(f"q3 {kind} program at {n} frames differs from path j's "
+                                         "graph on the same rows")
+                calls = len(seen)
+                if calls != (1 if kind == "polymorphic" else bucket):
+                    raise AssertionError(f"q3 {kind} at {n} frames: {calls} program calls")
+                if kind == "polymorphic" and (launches["int8_conv"] != per_call["int8_conv"]
+                                              or launches["int8_dwconv"] != per_call["int8_dwconv"]):
+                    raise AssertionError(f"q3 at {n} frames: launches {launches} (want one call "
+                                         f"of {per_call})")
+                summary[f"{kind}_{n}"] = {"calls": calls, "shape": list(got.shape)}
+        finally:
+            be.close()
+    print(f"path q: q3 the --int8 program at {', '.join(map(str, EXPORT_SIZES))} frames in one "
+          f"call each, the .onnx's --fixed one at {EXPORT_FIXED_FRAMES} frames in "
+          f"{summary[f'fixed_{EXPORT_FIXED_FRAMES}']['calls']} calls: outputs bit-equal to path "
+          f"j's graph; on {card}", flush=True)
+    return summary
+
+
+def run_q4(torch, np, counters, seed: int, card: str, work, labels) -> dict:
+    """q4: the port's command-line tools on the card: ``confchk``'s report names
+    the card and every kernel library built; ``inspect`` lists 41 element
+    classes; path a's text through ``pbtxt`` and back, both texts labeling
+    128 frames alike with the same launches; ``codegen --lang c`` built with
+    g++ against the port's header and run as ``framework=custom``,
+    ``codegen --lang python`` as ``framework=python3``, CLI_FRAMES frames
+    each passed through unchanged."""
+    import contextlib
+    import io
+
+    from nnstreamer_tpu_torch.cli import codegen, confchk, pbtxt
+    from nnstreamer_tpu_torch.cli import inspect as inspect_cli
+    from nnstreamer_tpu_torch.native import runtime
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+    from nnstreamer_tpu_torch.pipeline.element import ELEMENT_TYPES
+
+    report = confchk.report()
+    name = torch.cuda.get_device_name(0)
+    missing = [k for k in ALL_KERNELS if f"  {k:<16} built lib{k}-" not in report]
+    if name not in report or missing:
+        raise AssertionError(f"q4: confchk's report lacks the card {name!r} or the built "
+                             f"libraries of {missing}:\n{report[:3000]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = inspect_cli.main([])
+    first = buf.getvalue().splitlines()[0]
+    classes = len({c for c in ELEMENT_TYPES.values()
+                   if c.__module__.startswith("nnstreamer_tpu_torch.")})
+    if rc != 0 or classes != 41 or f"({len(set(ELEMENT_TYPES.values()))} classes)" not in first:
+        raise AssertionError(f"q4: inspect returned {rc}, listed {first!r} ({classes} classes)")
+    text = labeling_text(MOBILENET_CUSTOM, seed, labels)
+    pb = pbtxt.pipeline_text_to_pbtxt(text)
+    back = pbtxt.pbtxt_to_pipeline_text(pb)
+    if pbtxt.pipeline_text_to_pbtxt(back) != pb:
+        raise AssertionError("q4: path a's text through pbtxt and back gives another pbtxt")
+    frames = np.random.default_rng(seed + 43).integers(0, 256, (128, 224, 224, 3),
+                                                       dtype=np.uint8)
+    a, b = (block_run(np, counters, t.replace(" max-batch=128 batch-timeout=20", " max-batch=128"),
+                      frames) for t in (text, back))
+    if not np.array_equal(a["labels"], b["labels"]) or a["launches"] != b["launches"]:
+        raise AssertionError("q4: path a's text and its pbtxt round trip label or launch apart")
+    gen = work / "codegen"
+    shutil.rmtree(gen, ignore_errors=True)
+    cfile, _ = codegen.generate("q_native", "c", str(gen))
+    so = gen / "q_native.so"
+    cc = subprocess.run(["g++", "-O2", "-fPIC", "-Wall", f"-I{runtime.INCLUDE_DIR}", "-shared",
+                         "-o", str(so), cfile], capture_output=True, text=True, timeout=120)
+    if cc.returncode != 0:
+        raise AssertionError(f"q4: g++ failed on the generated C filter:\n{cc.stderr[-3000:]}")
+    (pyfile,) = codegen.generate("q_python", "python", str(gen))
+    x = np.random.default_rng(seed + 47).integers(0, 256, (CLI_FRAMES, 3, 224, 224),
+                                                  dtype=np.uint8)
+    for fw, model in (("custom", so), ("python3", pyfile)):
+        pipe = parse_pipeline(f"appsrc name=src ! tensor_filter framework={fw} model={model} ! "
+                              "tensor_sink name=out")
+        pipe.start()
+        try:
+            for f in x:
+                pipe["src"].push(f)
+            pipe["src"].end_of_stream()
+            pipe.wait(timeout=120)
+        finally:
+            pipe.stop()
+        got = [np.asarray(f.tensors[0]) for f in pipe["out"].frames]
+        if len(got) != CLI_FRAMES or not np.array_equal(np.stack(got), x):
+            raise AssertionError(f"q4: the generated {fw} filter did not pass {CLI_FRAMES} "
+                                 "frames through unchanged")
+    print(f"path q: q4 confchk names {name} and the {len(ALL_KERNELS)} kernel libraries built; "
+          f"inspect: {first}; path a's text through pbtxt and back labels 128 frames alike "
+          f"({ {k: v for k, v in a['launches'].items() if v} }); codegen C (g++) and Python "
+          f"filters pass {CLI_FRAMES} frames through; on {card}", flush=True)
+    return {"elements": first, "launches": a["launches"], "batches": len(a["sizes"])}
+
+
+def check_cache_children(cold: dict, warm: dict, where: Path) -> None:
+    if cold["compiles"] != len(ALL_KERNELS) or warm["compiles"] != 0:
+        raise AssertionError(f"q5: nvcc ran {cold['compiles']} times in the first child and "
+                             f"{warm['compiles']} in the second (want {len(ALL_KERNELS)} and 0)")
+    if not cold["dir"] == warm["dir"] == str(where / "kernels"):
+        raise AssertionError(f"q5: the children built into {cold['dir']} and {warm['dir']}, not "
+                             f"{where / 'kernels'}")
+
+
+def run_exported(torch, np, lab, counters, seed: int, card: str, work, labels) -> tuple:
+    """Path q: q1-q5 (see their docstrings; q5: a child process with a fresh
+    ``NNS_TPU_CUDA_CACHE_DIR`` builds every kernel and runs a micro-batch of
+    128 frames through the ``--int8`` program, a second child on the same
+    directory runs no ``nvcc``; both times to the first micro-batch).  The
+    two conversions of q1 run in child processes beside this process's
+    exports and its ``--fixed`` conversion.
+    Returns (paths: launches and micro-batches of q1, q2 and q4; the summary)."""
+    from nnstreamer_tpu_torch.backends._importer_common import ImportedGraph
+    from nnstreamer_tpu_torch.backends.torch_cuda import export_model
+    from nnstreamer_tpu_torch.importers.onnx_lower import _Lowering as OnnxLowering
+    from nnstreamer_tpu_torch.importers.onnx_reader import read_onnx
+    from nnstreamer_tpu_torch.importers.tflite_lower import _Lowering
+    from nnstreamer_tpu_torch.importers.tflite_reader import read_tflite
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.ops import quantize as q
+
+    t0 = time.perf_counter()
+    secs = {}
+    files = _MODEL_FILES.get(seed) or write_model_files(torch, np, seed, work)[0]
+    qdir = work / "exported"
+    shutil.rmtree(qdir, ignore_errors=True)
+    qdir.mkdir(parents=True)
+    programs = {"tflite": qdir / "mobilenet_v2_uint8_int8.pt2",
+                "onnx": qdir / "mobilenet_v2_float32.pt2",
+                "fixed": qdir / "mobilenet_v2_float32_fixed.pt2"}
+    convert = ["-m", "nnstreamer_tpu_torch.cli.convert"]
+    children = {
+        "tflite": start_child(convert + [str(files["uint8"]), str(programs["tflite"]), "--int8"]),
+        "onnx": start_child(convert + [str(files["onnx"]), str(programs["onnx"])]),
+    }
+    # q2's exports (on the CPU) while the converters run
+    exported = {}
+    t = time.perf_counter()
+    for name, custom, n, per_call in (
+            ("mobilenet_v2", MOBILENET_CUSTOM, EXPORT_ZOO_FRAMES, {"normalize_u8": 1, "top1": 1}),
+            ("mobilenet_v2_int8", INT8_CUSTOM, EXPORT_INT8_FRAMES, {
+                "normalize_u8": 1, "top1": 1, "int8_conv": MOBILENET_INT8["int8_conv"],
+                "int8_dwconv": MOBILENET_INT8["int8_dwconv"],
+                "quantize_i8": MOBILENET_INT8["quantize_i8"]}),
+            ("vit", VIT_CUSTOM, EXPORT_VIT_FRAMES, {
+                "flash_attention": int(custom_props(VIT_CUSTOM)["layers"]),
+                "flash_attention_tensor_cores": int(custom_props(VIT_CUSTOM)["layers"]),
+                "top1": 1, "normalize_u8": 0})):
+        props = custom_props(custom) | {"seed": str(seed)}
+        module, in_spec, _ = build(props.pop("arch"), props)
+        module.eval()
+        if "quantize_i8" in per_call:  # the program quantizes each layer's weight a call
+            per_call["quantize_i8"] += len(quant_layers(module))
+        te = time.perf_counter()
+        path = qdir / f"{name}.pt2"
+        export_model(module, [(s.shape, s.dtype) for s in in_spec.tensors], str(path))
+        exported[name] = (module.cuda(), path, time.perf_counter() - te, n, per_call)
+    secs["q2_exports"] = time.perf_counter() - t
+    # q3's --fixed program: the same CLI, in this process, while the
+    # children convert; of the .onnx, whose float graph traces in a fraction
+    # of the int8 one's time
+    from nnstreamer_tpu_torch.cli import convert as convert_cli
+
+    t = time.perf_counter()
+    if convert_cli.main([str(files["onnx"]), str(programs["fixed"]), "--fixed"]):
+        raise AssertionError("q3: nns-tpu-torch-convert --fixed returned non-zero")
+    secs["q3_convert"] = time.perf_counter() - t
+    # path j's eager graphs on the card: q1's and q3's reference
+    low = _Lowering(read_tflite(str(files["uint8"])), int8_compute=True)
+    graphs = {"tflite": ImportedGraph(low, low.params(), [4], low.int8_params()).cuda().eval()}
+    olow = OnnxLowering(read_onnx(str(files["onnx"])))
+    graphs["onnx"] = ImportedGraph(olow, olow.params(), [4]).cuda().eval()
+    for kind, proc in children.items():
+        finish_child(proc, f"q1 nns-tpu-torch-convert ({kind})", timeout=600)
+    secs["q1_converts"] = time.perf_counter() - t0
+    cache = qdir / "kernel_cache"
+    cache_env = dict(os.environ, NNS_TPU_CUDA_CACHE_DIR=str(cache))
+    child_src = CACHE_CHILD.format(root=str(ROOT), kernels=list(ALL_KERNELS),
+                                   program=str(programs["tflite"]))
+    t_cold = time.perf_counter()
+    cold_proc = start_child(["-c", child_src], env=cache_env)
+    t = time.perf_counter()
+    q1 = run_q1(torch, np, lab, q, counters, seed, card, labels, files, programs, graphs)
+    secs["q1"] = time.perf_counter() - t
+    cold = json.loads(finish_child(cold_proc, "q5 first child", 900).split("Q5 ", 1)[1])
+    cold["wall_s"] = time.perf_counter() - t_cold
+    t_warm = time.perf_counter()
+    warm_proc = start_child(["-c", child_src], env=cache_env)
+    t = time.perf_counter()
+    q2 = run_q2(torch, np, lab, counters, seed, card, labels, exported)
+    del exported
+    torch.cuda.empty_cache()
+    secs["q2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    q3 = run_q3(torch, np, q, counters, seed, card, programs, graphs)
+    secs["q3"] = time.perf_counter() - t
+    del graphs
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    q4 = run_q4(torch, np, counters, seed, card, work, labels)
+    secs["q4"] = time.perf_counter() - t
+    warm = json.loads(finish_child(warm_proc, "q5 second child", 600).split("Q5 ", 1)[1])
+    warm["wall_s"] = time.perf_counter() - t_warm
+    check_cache_children(cold, warm, cache)
+    print(f"path q: q5 a child with a fresh NNS_TPU_CUDA_CACHE_DIR ran nvcc {cold['compiles']} "
+          f"times, a second on the same directory {warm['compiles']}; seconds from each one's "
+          f"start (imports, kernels built or found, {programs['tflite'].name} opened, first "
+          "micro-batch of 128 done): "
+          + "; ".join(f"{n} " + ", ".join(f"{r[k]:.2f}" for k in (
+              "import_s", "build_s", "open_s", "first_batch_s")) for n, r in (("cold", cold),
+                                                                             ("warm", warm)))
+          + f"; the first while q1 ran, the second while q2-q4 ran; on {card}", flush=True)
+    paths = q1["paths"] | q2["paths"] | {"pbtxt_q4": {"launches": q4.pop("launches"),
+                                                      "batches": q4.pop("batches")}}
+    summary = {"card": card, "q1": q1["summary"], "q2": q2["summary"], "q3": q3, "q4": q4,
+               "q5": {"cold": cold, "warm": warm},
+               "seconds": {k: round(v, 3) for k, v in secs.items()} | {
+                   "total": round(time.perf_counter() - t0, 3)}}
+    print(f"path q: seconds {summary['seconds']}; on {card}", flush=True)
+    return paths, summary
+
+
+def fill_launches(kernels: list, paths: dict) -> None:
+    """Each kernel entry's launches from the paths' counted runs: the total,
+    by path, by route, the micro-batches of the paths that launched it."""
+    for k in kernels:
+        by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
+        k["microbatches_by_path"] = {name: p["batches"] for name, p in paths.items()
+                                     if by_path[name]}
+        k["kernel_ms"] = k["ms"]
+        routes = {"quantize_i8": ("onepass", "twopass"), "int8_conv": ("gemm", "gather")}
+        for route in routes.get(k["name"], ()):
+            k.setdefault("launches_by_route", {})[route] = sum(
+                p["launches"][f"{k['name']}_{route}"] for p in paths.values())
+        if k["name"] == "flash_attention":
+            k["launches_tensor_cores_by_path"] = {
+                name: p["launches"]["flash_attention_tensor_cores"] for name, p in paths.items()}
+
+
 def kernel_counters() -> Counters:
     """Every kernel wrapper's launch counter."""
     from nnstreamer_tpu_torch.ops import flash_attention as fa
@@ -7126,9 +7653,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= set("ijklmnop"):
-        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m, n, o and p, not "
-                         f"{sorted(only - set('ijklmnop'))}")
+    if not only <= set("ijklmnopq"):
+        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m, n, o, p and q, not "
+                         f"{sorted(only - set('ijklmnopq'))}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -7154,6 +7681,23 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "p" in only:
         print(json.dumps({"user_filters": run_user_filters(torch, np, lab, counters, args.seed,
                                                            card, work, labels)[1]}))
+    if "q" in only:
+        # every kernel checked and timed as the whole run does, its launches
+        # those of path q
+        from nnstreamer_tpu_torch.ops import flash_attention as fa
+        from nnstreamer_tpu_torch.ops import preprocess as pre
+
+        kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa),
+                   *time_int8(torch, q)]
+        paths, exported = run_exported(torch, np, lab, counters, args.seed, card, work, labels)
+        print(json.dumps({"exported": exported}))
+        fill_launches(kernels, paths)
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     print(card)
     return 0
 
@@ -7166,7 +7710,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
                     help="comma-separated paths to run alone after the kernel build: i, j, k, l, "
-                         "m, n, o, p (prints their summaries; without it every path runs)")
+                         "m, n, o, p, q (prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
     if not (ROOT / "nnstreamer_tpu_torch" / "csrc").is_dir():
@@ -7288,6 +7832,10 @@ def main() -> int:
         torch, np, lab, counters, args.seed, card, work, labels,
         beside=paths["mobilenet_v2"] if args.frames >= MAILBOX_AB_FRAMES else None)
     paths.update(user_paths)
+    torch.cuda.empty_cache()
+    exported_paths, exported = run_exported(torch, np, lab, counters, args.seed, card, work,
+                                            labels)
+    paths.update(exported_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -7307,21 +7855,9 @@ def main() -> int:
     print(json.dumps({"distributed": distributed}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"user_filters": user}))
+    print(json.dumps({"exported": exported}))
 
-    for k in kernels:
-        by_path = {name: p["launches"][k["name"]] for name, p in paths.items()}
-        k["launches"] = sum(by_path.values())
-        k["launches_by_path"] = by_path
-        k["microbatches_by_path"] = {name: p["batches"] for name, p in paths.items()
-                                     if by_path[name]}
-        k["kernel_ms"] = k["ms"]
-    for k in kernels:
-        routes = {"quantize_i8": ("onepass", "twopass"), "int8_conv": ("gemm", "gather")}
-        for route in routes.get(k["name"], ()):
-            k.setdefault("launches_by_route", {})[route] = sum(
-                p["launches"][f"{k['name']}_{route}"] for p in paths.values())
-    kernels[2]["launches_tensor_cores_by_path"] = {
-        name: p["launches"]["flash_attention_tensor_cores"] for name, p in paths.items()}
+    fill_launches(kernels, paths)
     flash = kernels[2]["launches_by_path"]
     print("flash_attention launches per model call: " + ", ".join(
         f"{name} {flash[name]} in {paths[name]['batches']} = {flash[name] / paths[name]['batches']:g}"

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
+from ..ops import _oplib
 from ..importers.tflite_lower import Unfoldable
 
 #: graph calls made frame by frame, because an op of the graph mixes the
@@ -56,21 +57,25 @@ class ImportedGraph(torch.nn.Module):
         w8 = {i: getattr(self, name) for i, name in self._int8}
         return self.lowering.run(consts, *xs, int8_weights=w8, fold=fold)
 
+    def _folded(self, xs, n):
+        outs = self._run([x.reshape((-1,) + tuple(x.shape[2:])) for x in xs], fold=n)
+        batched = self.lowering.batched
+        return [o.reshape((n, -1) + tuple(o.shape[1:])) if i in batched
+                else o.unsqueeze(0).expand((n,) + tuple(o.shape))
+                for o, i in zip(outs, self.lowering.output_keys())]
+
     def forward(self, *xs):
         global FRAME_CALLS
         if not all(r >= 0 and x.dim() == r + 1 for x, r in zip(xs, self.in_ranks)):
             return list(self._run(xs))
+        if _oplib.tracing():
+            return self._folded(xs, xs[0].shape[0])
         n = int(xs[0].shape[0])
         if self.foldable:
             try:
-                outs = self._run([x.reshape((-1,) + tuple(x.shape[2:])) for x in xs], fold=n)
+                return self._folded(xs, n)
             except Unfoldable:
                 self.foldable = False
-            else:
-                batched = self.lowering.batched
-                return [o.reshape((n, -1) + tuple(o.shape[1:])) if i in batched
-                        else o.unsqueeze(0).expand((n,) + tuple(o.shape))
-                        for o, i in zip(outs, self.lowering.output_keys())]
         FRAME_CALLS += n
         frames = [self._run([x[b] for x in xs]) for b in range(n)]
         return [torch.stack(parts) for parts in zip(*frames)]

@@ -7,6 +7,9 @@ resolution (the ``model=`` property, after the filter resolved
 * a name registered in-process via :func:`register_torch_model`;
 * a ``.py`` file whose ``get_model()`` returns ``(module[, in_spec,
   out_spec])``;
+* a ``.pt2`` file: a ``torch.export`` program (:func:`export_model`,
+  ``nns-tpu-torch-convert``), the port's counterpart of the JAX backend's
+  ``.jaxexport`` (:class:`ExportedModule`);
 * with custom prop ``arch:<zoo-name>``, a model family from
   ``nnstreamer_tpu_torch.models`` (``model=zoo
   custom=arch:mobilenet_v2,dtype:bfloat16``) initialized from ``seed``,
@@ -14,8 +17,9 @@ resolution (the ``model=`` property, after the filter resolved
   ``torch.save``d ``state_dict`` (the counterpart of the JAX backend's
   flax msgpack file).
 
-A ``jax.export`` artifact (ROADMAP A12) and an orbax checkpoint directory
-(ROADMAP A9) have no torch counterpart yet and raise.
+A ``jax.export`` artifact (``.jaxexport``, ``.stablehlo``: a StableHLO
+module, which torch cannot load) raises naming the ``.pt2`` route; an orbax
+checkpoint directory (ROADMAP A9) has no torch counterpart yet and raises.
 
 Placement: the model runs on ``cuda:0`` (``gpu.N`` picks another card)
 unless the accelerator wish list says ``cpu``; with no CUDA device and no
@@ -63,7 +67,8 @@ import torch
 
 from ..core.buffer import materialize
 from ..core.resilience import DeviceLostError, device_call
-from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec, dtype_to_name
+from ..core.types import (FORMAT_STATIC, StreamSpec, TensorSpec, dtype_from_name,
+                          dtype_to_name)
 from .base import FilterBackend, register_backend
 
 _registry_lock = threading.Lock()
@@ -134,6 +139,134 @@ def _placed(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
 
 #: the JAX package's serialized ``jax.export`` artifact extensions
 _EXPORTED_MODEL_EXTS = (".jaxexport", ".stablehlo")
+#: the port's serialized ``torch.export`` program
+PROGRAM_EXT = ".pt2"
+
+
+def _module_device(module: torch.nn.Module) -> torch.device:
+    t = next(itertools.chain(module.parameters(), module.buffers()), None)
+    return t.device if t is not None else torch.device("cpu")
+
+
+def export_model(module: torch.nn.Module, frame_specs, path: str,
+                 batch_polymorphic: bool = True) -> None:
+    """Serialize ``module`` as a ``.pt2`` ``torch.export`` program (weights
+    in it), the counterpart of the JAX backend's ``export_model``.
+
+    ``frame_specs``: one ``(shape, dtype)`` pair per input tensor, for a
+    SINGLE frame (no batch dim).  With ``batch_polymorphic`` (default) a
+    symbolic leading batch dim is prepended, so the program serves both
+    per-frame and micro-batched invokes natively; without it the program
+    takes the frame shapes only.  The trace runs on fake tensors of the
+    module's device in eval mode (the module's mode is restored after):
+    the port's kernels are recorded as their ``nns_torch::`` operators,
+    which pick the kernel or the plain version when the program runs.  The
+    example batch is 2: ``torch.export`` specializes sizes 0 and 1.
+    """
+    device = _module_device(module)
+    lead = (2,) if batch_polymorphic else ()
+    example = tuple(torch.zeros(lead + tuple(int(d) for d in shape),
+                                dtype=getattr(torch, np.dtype(dtype).name), device=device)
+                    for shape, dtype in frame_specs)
+    dynamic = None
+    if batch_polymorphic:
+        batch = torch.export.Dim("batch", min=1)
+        dynamic = tuple({0: batch} for _ in example)
+        if any(prm.kind is inspect.Parameter.VAR_POSITIONAL
+               for prm in inspect.signature(module.forward).parameters.values()):
+            dynamic = (dynamic,)  # ``forward(*xs)``: the inputs are one argument
+    was_training = module.training
+    module.eval()
+    try:
+        program = torch.export.export(module, example, dynamic_shapes=dynamic, strict=False)
+    finally:
+        module.train(was_training)
+    torch.export.save(program, path)
+
+
+def _program_device(program) -> torch.device:
+    t = next(itertools.chain(program.state_dict.values(), program.constants.values()), None)
+    return t.device if isinstance(t, torch.Tensor) else torch.device("cpu")
+
+
+class ExportedModule(torch.nn.Module):
+    """A ``.pt2`` program as the module the backend runs.
+
+    The operators are registered (``nnstreamer_tpu_torch.ops``) before
+    ``torch.export.load``; ``.to(device)`` places the program with
+    ``torch.export.passes.move_to_device_pass`` (weights, constants and the
+    devices named inside the graph, so a program exported on the CPU runs
+    on the card) and drops its parameters' ``requires_grad``.  Batch
+    handling as the JAX backend's ``_load_exported``: a per-frame call of
+    a batch-polymorphic program adds and strips a length-1 axis, and a
+    micro-batch against a fixed-shape program runs frame by frame.
+    :attr:`in_spec` / :attr:`out_spec` are the per-frame schemas from the
+    program's input and output metadata."""
+
+    def __init__(self, path: str):
+        super().__init__()
+        from .. import ops  # noqa: F401 -- registers the kernels' operators
+
+        program = torch.export.load(path)
+        sig = program.graph_signature
+        vals = {n.name: n.meta.get("val") for n in program.graph.nodes}
+        ins = [vals[name] for name in sig.user_inputs]
+        outs = [vals[name] for name in sig.user_outputs]
+        self.path = path
+        self.in_ranks = [v.dim() for v in ins]
+        self.symbolic = any(not isinstance(d, int) for v in ins for d in v.shape)
+        self.in_spec = self._frame_spec(ins)
+        self.out_spec = self._frame_spec(outs)
+        self.__dict__["_program"] = program  # not a submodule: eval()/to() are this class's
+        self._place(_program_device(program))
+
+    def _frame_spec(self, vals) -> Optional[StreamSpec]:
+        tensors = []
+        for v in vals:
+            if not isinstance(v, torch.Tensor):
+                return None
+            shape = tuple(v.shape[1:]) if self.symbolic else tuple(v.shape)
+            if any(not isinstance(d, int) for d in shape):
+                return None
+            tensors.append(TensorSpec(tuple(int(d) for d in shape),
+                                      dtype_from_name(str(v.dtype).removeprefix("torch."))))
+        return StreamSpec(tuple(tensors), FORMAT_STATIC)
+
+    def _place(self, device: torch.device) -> None:
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(self.__dict__["_program"], device)
+        self.__dict__["_program"] = program
+        gm = program.module()
+        for p in gm.parameters():
+            p.requires_grad_(False)
+        self.__dict__["_gm"] = gm
+        self.device = device
+
+    def to(self, *args, **kwargs):
+        device, dtype, _, _ = torch._C._nn._parse_to(*args, **kwargs)
+        if dtype is not None:
+            raise TypeError(f"{self.path}: an exported program keeps its own dtypes")
+        if device is not None and torch.device(device) != self.device:
+            self._place(torch.device(device))
+        return self
+
+    def train(self, mode: bool = True):
+        self.training = mode  # the program is traced in eval mode: nothing to switch
+        return self
+
+    def forward(self, *xs):
+        gm = self.__dict__["_gm"]
+        ranks = self.in_ranks
+        if self.symbolic:
+            if all(x.dim() == r - 1 for x, r in zip(xs, ranks)):
+                return [o[0] for o in _normalize_out(gm(*[x[None] for x in xs]))]
+            return _normalize_out(gm(*xs))
+        if all(x.dim() == r + 1 for x, r in zip(xs, ranks)):
+            frames = [_normalize_out(gm(*[x[b] for x in xs])) for b in range(int(xs[0].shape[0]))]
+            return [torch.stack(parts) for parts in zip(*frames)]
+        return _normalize_out(gm(*xs))
+
 
 #: attribute that :meth:`TorchCuda.to_device` sets on each staged CUDA
 #: tensor: the copy stream's event the compute stream must wait on
@@ -178,10 +311,15 @@ class TorchCuda(FilterBackend):
             entry = _model_registry.get(model_path)
         if entry is not None:
             return entry + (True,)
+        if model_path.lower().endswith(PROGRAM_EXT):
+            module = ExportedModule(model_path)
+            return module, module.in_spec, module.out_spec, False
         if model_path.endswith(_EXPORTED_MODEL_EXTS):
             raise NotImplementedError(
-                f"torch-cuda: {model_path}: a jax.export artifact has no torch counterpart yet "
-                "(ROADMAP A12)")
+                f"torch-cuda: {model_path}: a jax.export artifact is a StableHLO module, which "
+                "torch cannot load; convert the source model to a torch.export program (.pt2) "
+                "with nns-tpu-torch-convert, or save a module with "
+                "backends.torch_cuda.export_model")
         if model_path.endswith(".py") and os.path.isfile(model_path):
             spec = importlib.util.spec_from_file_location(
                 f"_nns_torch_model_{abs(hash(model_path))}", model_path)

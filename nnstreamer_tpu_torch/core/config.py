@@ -5,10 +5,11 @@ A reduced copy of ``nnstreamer_tpu/core/config.py`` (the reference's
 (``$NNS_TPU_CONF``, ``./nnstreamer_tpu.ini``,
 ``~/.config/nnstreamer_tpu.ini``), the first existing one read, and
 ``NNS_TPU_<SECTION>_<KEY>`` overrides unless ``[common] enable_envvar`` is
-false.  The port reads ``[model-repo] path`` (``core/model_uri.py``) and
+false.  The port reads ``[model-repo] path`` (``core/model_uri.py``),
 ``[framework-priority] <ext>`` (``framework_priority``, which
-``framework=auto`` consults); the filter's module list waits for ROADMAP
-A12.2.
+``framework=auto`` consults) and ``[cuda] cache_dir`` (the kernels' build
+directory, ``core/compile_cache.py``).  The JAX package's docstring names a
+``[filter] modules`` list, but no JAX code reads it, so the port has none.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict, List, Optional
 _ENV_PREFIX = "NNS_TPU_"
 _lock = threading.RLock()
 _parser: Optional[configparser.ConfigParser] = None
+_loaded_from: Optional[str] = None
 
 
 def _candidate_paths() -> List[str]:
@@ -36,23 +38,33 @@ def _candidate_paths() -> List[str]:
 def load(path: Optional[str] = None, *, force: bool = False) -> None:
     """Load the ini file (the first existing candidate).  Idempotent unless
     `force` or a `path` is given."""
-    global _parser
+    global _parser, _loaded_from
     with _lock:
         if _parser is not None and not force and path is None:
             return
         cp = configparser.ConfigParser(inline_comment_prefixes=(";", "#"))
+        src = None
         for p in [path] if path else _candidate_paths():
             if p and os.path.isfile(p):
                 cp.read(p)
+                src = p
                 break
         _parser = cp
+        _loaded_from = src
 
 
 def reset() -> None:
     """Forget the loaded file (the next lookup loads again)."""
-    global _parser
+    global _parser, _loaded_from
     with _lock:
         _parser = None
+        _loaded_from = None
+
+
+def loaded_from() -> Optional[str]:
+    """The ini file the configuration came from (None: defaults only)."""
+    load()
+    return _loaded_from
 
 
 def get_value(section: str, key: str, default: Optional[str] = None) -> Optional[str]:
@@ -66,6 +78,18 @@ def get_value(section: str, key: str, default: Optional[str] = None) -> Optional
             if env is not None:
                 return env
         return _parser.get(section, key, fallback=default)
+
+
+def get_bool(section: str, key: str, default: bool = False) -> bool:
+    v = get_value(section, key, None)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def get_int(section: str, key: str, default: int = 0) -> int:
+    v = get_value(section, key, None)
+    return default if v is None else int(v)
 
 
 def get_list(section: str, key: str) -> List[str]:
@@ -94,5 +118,6 @@ def framework_priority(model_ext: str) -> List[str]:
         "so": ["custom"],
         "pt": ["torch-cuda", "torch"],
         "pth": ["torch-cuda", "torch"],
+        "pt2": ["torch-cuda"],
     }
     return defaults.get(ext, [])

@@ -195,14 +195,15 @@ def detect_framework(model_path: str, custom: str = "") -> str:
     ``torch-cuda`` in the place of ``jax-xla``: it wins a file only when the
     pipeline supplies ``custom=arch:<zoo-family>`` (it loads a ``.pt`` as
     that family's state_dict, and cannot load a bare file), so a TorchScript
-    ``.pt`` goes to ``torch`` and ``.tflite``/``.onnx`` to the importers."""
+    ``.pt`` goes to ``torch`` and ``.tflite``/``.onnx`` to the importers;
+    a ``.pt2`` (a ``torch.export`` program) it loads bare."""
     ext = os.path.splitext(model_path)[1]
     has_arch = any(part.partition(":")[0].strip() == "arch"
                    for part in str(custom or "").split(",") if ":" in part)
     for cand in nns_config.framework_priority(ext):
         if not registry.exists(registry.KIND_FILTER, cand):
             continue
-        if cand == "torch-cuda" and ext not in ("", ".py") and not has_arch:
+        if cand == "torch-cuda" and ext not in ("", ".py", ".pt2") and not has_arch:
             continue
         return cand
     raise ElementError(f"cannot auto-detect a backend for model {model_path!r} (ext {ext!r})")

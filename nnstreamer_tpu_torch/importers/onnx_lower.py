@@ -19,6 +19,7 @@ Unsupported ops raise :class:`OnnxLowerError` at load.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,6 +99,7 @@ class _Lowering:
         #: values known from shapes alone (shape chains); reset per call
         self.static: Dict[str, np.ndarray] = {}
         self.fold = 1
+        self.folding = False
         self.batched: set = set()
         self.device = torch.device("cpu")
 
@@ -145,8 +147,15 @@ class _Lowering:
             self.static[node.outputs[0]] = np.asarray(static)
 
     # -- folded micro-batches ---------------------------------------------------
+    def set_fold(self, fold) -> None:
+        """Fold ``fold`` frames into the leading dimension of this call.  A
+        symbolic count (a traced program's batch) always folds: the program
+        must hold for every count, so an op that mixes frames refuses."""
+        self.fold = fold if isinstance(fold, torch.SymInt) else int(fold)
+        self.folding = isinstance(fold, torch.SymInt) or self.fold > 1
+
     def is_batched(self, name: str) -> bool:
-        return self.fold > 1 and name in self.batched
+        return self.folding and name in self.batched
 
     def frame_shape(self, x) -> Tuple[int, ...]:
         return (x.shape[0] // self.fold,) + tuple(x.shape[1:])
@@ -161,7 +170,7 @@ class _Lowering:
     def check_operands(self, node: OnnxNode, names: Sequence[str], xs) -> None:
         """A folded operand broadcasts against a constant one only where the
         constant's leading dim is 1 or it has fewer dims."""
-        if self.fold == 1:
+        if not self.folding:
             return
         ranks = [x.dim() for x, n in zip(xs, names) if self.is_batched(n)]
         for x, n in zip(xs, names):
@@ -179,7 +188,7 @@ class _Lowering:
             raise ValueError(f"model takes {len(m.inputs)} inputs, got {len(inputs)}")
         inputs = [torch.as_tensor(x) for x in inputs]
         self.device = inputs[0].device if inputs else torch.device("cpu")
-        self.fold = int(fold)
+        self.set_fold(fold)
         self.batched = {vi.name for vi in m.inputs}
         env: Dict[str, Any] = {k: torch.as_tensor(v, device=self.device)
                                for k, v in consts.items()}
@@ -289,7 +298,7 @@ def _op_gemm(L: _Lowering, env, node: OnnxNode):
     alpha = float(node.attrs.get("alpha", 1.0))
     beta = float(node.attrs.get("beta", 1.0))
     ta, tb = int(node.attrs.get("transA", 0)), int(node.attrs.get("transB", 0))
-    if L.fold > 1:
+    if L.folding:
         L.need(not (L.is_batched(node.inputs[0]) and ta) and not L.is_batched(node.inputs[1]),
                node, "a folded operand's rows in the contraction")
     if ta:
@@ -381,7 +390,7 @@ def _op_flatten(L: _Lowering, env, node: OnnxNode):
     axis = int(node.attrs.get("axis", 1)) % (x.dim() + 1)
     if L.is_batched(node.inputs[0]):
         L.need(axis != 0, node, "flattening axis 0")
-    lead = int(np.prod(x.shape[:axis])) if axis else 1
+    lead = math.prod(x.shape[:axis])  # symbolic where a traced batch folds in
     L.set_out(env, node, x.reshape(lead, -1))
 
 

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import _oplib
 from ..ops import quantize as q8
 from .tflite_reader import QuantParams, TFLiteModel, TFLOp, TFLTensor
 
@@ -283,9 +284,11 @@ class _Int8Layer:
     def const_term(self, h: int, w: int, pads, cg: int, device) -> torch.Tensor:
         """``-zp_in' * sum(w8) + K * zp_in' * zp_w'`` over each output
         position's valid taps, int32: (O,) where no tap leaves the image,
-        else (Ho, Wo, O)."""
+        else (Ho, Wo, O).  Cached per input size and device, except while
+        ``torch.export`` traces (the program keeps its own constant)."""
         key = (h, w, tuple(pads), device)
-        got = self._consts.get(key)
+        traced = _oplib.tracing()
+        got = None if traced else self._consts.get(key)
         if got is not None:
             return got
         if self.tap_sums is None or not any(p for pair in pads for p in pair):
@@ -304,7 +307,8 @@ class _Int8Layer:
             cnt = np.einsum("ay,bx->yx", my, mx)[:, :, None] * cg
             term = -self.zp_in_p * w_valid + cnt * self.zp_in_p * self.zp_w_p
         got = torch.from_numpy(term.astype(np.int32)).to(device)
-        self._consts[key] = got
+        if not traced:
+            self._consts[key] = got
         return got
 
 
@@ -322,6 +326,7 @@ class _Lowering:
         #: frames folded into the leading dimension of this call, and the
         #: tensors that carry them (see the module docstring)
         self.fold = 1
+        self.folding = False
         self.batched: set = set()
         #: float32 views of the constants, dequantized once at load
         self.consts: Dict[int, np.ndarray] = {}
@@ -400,8 +405,15 @@ class _Lowering:
             "would cost a host copy per call)")
 
     # -- folded micro-batches -------------------------------------------------
+    def set_fold(self, fold) -> None:
+        """Fold ``fold`` frames into the leading dimension of this call.  A
+        symbolic count (a traced program's batch) always folds: the program
+        must hold for every count, so an op that mixes frames refuses."""
+        self.fold = fold if isinstance(fold, torch.SymInt) else int(fold)
+        self.folding = isinstance(fold, torch.SymInt) or self.fold > 1
+
     def is_batched(self, idx: int) -> bool:
-        return self.fold > 1 and idx in self.batched
+        return self.folding and idx in self.batched
 
     def frame_shape(self, x) -> Tuple[int, ...]:
         """The shape one frame of a folded tensor has."""
@@ -441,7 +453,7 @@ class _Lowering:
             raise ValueError(f"model takes {len(m.inputs)} inputs, got {len(inputs)}")
         inputs = [torch.as_tensor(x) for x in inputs]
         self.device = inputs[0].device if inputs else torch.device("cpu")
-        self.fold = int(fold)
+        self.set_fold(fold)
         self.batched = set(m.inputs)
         env: Dict[int, Any] = {k: torch.as_tensor(v, device=self.device)
                                for k, v in consts.items()}
@@ -673,7 +685,7 @@ def _op_pool_max(L: _Lowering, env, op: TFLOp):
 def _check_operands(L: _Lowering, op: TFLOp, xs) -> None:
     """A folded operand broadcasts against a constant one only where the
     constant's leading dim is 1 or it has fewer dims."""
-    if L.fold == 1:
+    if not L.folding:
         return
     ranks = [x.dim() for x, i in xs if L.is_batched(i)]
     for x, i in xs:
@@ -736,7 +748,7 @@ def _axis(axis: int, rank: int) -> int:
 def _op_concat(L: _Lowering, env, op: TFLOp):
     parts = [L.val(env, i) for i in op.inputs]
     axis = op.options["axis"]
-    if L.fold > 1 and any(L.is_batched(i) for i in op.inputs):
+    if L.folding and any(L.is_batched(i) for i in op.inputs):
         L.need(_axis(axis, parts[0].dim()) != 0 and all(L.is_batched(i) for i in op.inputs),
                op, "concatenation along axis 0")
     y = torch.cat(parts, dim=axis)

@@ -5,16 +5,14 @@
 ``module(*inputs)`` takes batched tensors and returns a tensor or a list
 of tensors — the contract the torch-cuda backend consumes
 (``custom=arch:<name>``).  Without a ``dtype`` prop the compute dtype is
-bfloat16 when a CUDA device is present and float32 otherwise, as the JAX
-zoo picks it.
+``core.hw.preferred_dtype()``: bfloat16 when a CUDA device is present and
+float32 otherwise, as the JAX zoo picks it.
 """
 
 from __future__ import annotations
 
 from importlib import import_module
 from typing import Dict, Optional
-
-import torch
 
 _ZOO = {
     "mobilenet_v2": "nnstreamer_tpu_torch.models.mobilenet_v2",
@@ -35,5 +33,7 @@ def build(name: str, custom_props: Optional[Dict[str, str]] = None):
     if "dtype" not in props:
         # the device-probed default of the JAX zoo: bfloat16 with an
         # accelerator, float32 on a host CPU
-        props["dtype"] = "bfloat16" if torch.cuda.is_available() else "float32"
+        from ..core import hw
+
+        props["dtype"] = hw.preferred_dtype()
     return import_module(_ZOO[name]).build(props)

@@ -14,7 +14,8 @@ takes the input's dtype, the compute dtype, as the JAX layer's ``dtype``.
 The int8 weight and its scales are cached per weight version
 (``weight._version``, ``data_ptr``, device) in a plain attribute, not in
 the ``state_dict``; the JAX graph re-quantizes on every call, to the same
-values.
+values.  A traced module has no version to key on: its program quantizes
+the weight on every call, through the ``quantize_rows`` operator.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import _oplib
 from ..ops.quantize import Quantized, int8_conv, int8_dense, quantize_weight
 
 
@@ -34,6 +36,8 @@ class _QWeightCache:
 
     def qweight(self) -> Quantized:
         w = self.weight
+        if _oplib.tracing():
+            return quantize_weight(w.detach())
         key = (w._version, w.data_ptr(), w.device)
         if self._qweight is None or self._qweight[0] != key:
             with torch.no_grad():

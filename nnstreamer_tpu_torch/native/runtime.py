@@ -3,10 +3,12 @@
 Port of ``nnstreamer_tpu/native/runtime.py`` over the port's own copy of
 the C++ core: the library is built from this package's sources with
 ``g++ -O2 -std=c++17 -fPIC -shared -pthread`` at first use into
-``build/torch_native/`` at the root of a checkout (an installed package,
-with no checkout around it, builds into its own ``native/build/``, as the
-JAX runtime does), named by a hash of its source and flags (an edited
-source rebuilds, a stale build is never loaded), compiled to a temporary
+``core.compile_cache.cache_dir("native")`` (``build/torch_native/`` at the
+root of a checkout, ``~/.cache/nnstreamer_tpu_torch/native/`` for an
+installed package, unless ``[cuda] cache_dir`` says otherwise), named by a
+hash of its source, flags and the ``g++`` release (an edited source or
+another compiler rebuilds, a stale build is never loaded; a warm directory
+compiles nothing: :data:`COMPILES` counts the ``g++`` runs), compiled to a temporary
 name and renamed into place, so a concurrent loader never opens a
 half-written file.  Nothing here loads
 the JAX package's build or includes its header.
@@ -41,6 +43,7 @@ import threading
 from pathlib import Path
 from typing import Any, List, Optional
 
+from ..core import compile_cache
 from ..core.log import get_logger
 
 log = get_logger("native")
@@ -49,9 +52,10 @@ HERE = Path(__file__).resolve().parent
 CORE_SRC = HERE / "core" / "nns_tpu_core.cc"
 INCLUDE_DIR = HERE / "include"
 EXAMPLES_DIR = HERE / "examples"
-_ROOT = HERE.parents[1]
-BUILD_DIR = (_ROOT / "build" / "torch_native" if (_ROOT / "pyproject.toml").is_file()
-             else HERE / "build")
+#: the build directory where nothing is configured (``compile_cache``)
+BUILD_DIR = compile_cache.default_dir("native")
+#: ``g++`` runs made by this process
+COMPILES = 0
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread")
 #: the build's bound: a wedged compiler must not hold the caller forever
 BUILD_TIMEOUT_S = 120.0
@@ -68,27 +72,29 @@ def compile_command(src: Path, out: Path) -> List[str]:
 
 
 def library_path(src: Path) -> Path:
-    """``build/torch_native/lib<stem>-<hash>.so``: the hash covers the
-    source, the port's headers and the flags."""
+    """``<cache_dir("native")>/lib<stem>-<hash>.so``: the hash covers the
+    source, the port's headers, the flags and the ``g++`` release."""
     h = hashlib.sha256(Path(src).read_bytes())
     for header in sorted(INCLUDE_DIR.glob("*.h")):
         h.update(header.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
+    h.update(compile_cache.host_fingerprint("g++").encode())
+    return compile_cache.cache_dir("native") / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def compile_library(src: Path) -> Path:
     """Build `src` (if its hashed library is missing) and return the
     library's path; raises ``RuntimeError`` naming the compiler's output
     when ``g++`` is missing or fails."""
+    global COMPILES
     out = library_path(src)
     if out.exists():
         return out
     if shutil.which("g++") is None:
         raise RuntimeError(f"g++ not found: cannot build {Path(src).name}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
+    COMPILES += 1
     try:
         r = subprocess.run(compile_command(src, Path(tmp)), capture_output=True, text=True,
                            timeout=BUILD_TIMEOUT_S)

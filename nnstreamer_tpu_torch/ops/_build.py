@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` exports plain C entry points and is compiled at
-first use by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/torch_kernels/`` at the repository root, then loaded with
-``ctypes``.  The library's file name carries a hash of its source and
-flags, so an edited source rebuilds and a stale build is never loaded.
+first use by ``nvcc`` for Hopper (``sm_90a``) into a shared library in
+``core.compile_cache.cache_dir("kernels")`` (``build/torch_kernels/`` at
+the root of a checkout unless ``[cuda] cache_dir`` says otherwise), then
+loaded with ``ctypes``.  The library's file name carries a hash of its
+source, headers, flags and the ``nvcc`` release, so an edited source or
+another toolkit rebuilds and a stale build is never loaded; a warm
+directory compiles nothing (:data:`COMPILES` counts the ``nvcc`` runs).
 No PyTorch headers are involved: a build takes seconds, not minutes.
 
 Every entry point returns ``cudaGetLastError()`` after its launch as an
@@ -23,8 +26,13 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
+from ..core import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+#: the build directory where nothing is configured (``compile_cache``)
+BUILD_DIR = compile_cache.default_dir("kernels")
+#: ``nvcc`` processes started by this process
+COMPILES = 0
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -54,14 +62,16 @@ def _lib_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(compile_cache.host_fingerprint("nvcc").encode())
+    return compile_cache.cache_dir("kernels") / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str, out: Path) -> Tuple[subprocess.Popen, Path]:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    global COMPILES
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    COMPILES += 1
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, Path(tmp)
 

@@ -14,7 +14,10 @@ contiguous; the bfloat16 route reads q, k, v through TMA tensor maps, so
 it also needs 16-byte aligned bases and batch, token and head strides that
 are multiples of 8 elements (:func:`check_kernel_args`).  The
 recompute-backward ``flash_attention_grad`` waits for the training slice:
-a CUDA call that needs a gradient raises.
+a CUDA call that needs a gradient raises.  Both wrappers are also the
+operators ``nns_torch::flash_attention`` and
+``nns_torch::flash_attention_lse`` (``ops/_oplib.py``), which a traced
+module records; their backward raises the same message.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _oplib
 
 #: kernel launches made by :func:`flash_attention` / :func:`flash_attention_lse`, both routes
 LAUNCHES = 0
@@ -32,6 +35,8 @@ LAUNCHES = 0
 LAUNCHES_TENSOR_CORES = 0
 
 _NEG_INF = -1e30  # the masked score, as the Pallas kernel has it
+_NO_BACKWARD = ("flash attention on CUDA has no backward yet (the training slice, ROADMAP A9): "
+                "call it under torch.inference_mode()")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 #: query rows per work item (bfloat16) or block (float32) of each route
@@ -139,8 +144,7 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_l
         raise ValueError(f"flash attention: tensors on {q.device}, {k.device}, {v.device}")
     check_kernel_args(q.shape, k.shape, q.dtype, views=(q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash attention on CUDA has no backward yet (the training slice, "
-                           "ROADMAP A9): call it under torch.inference_mode()")
+        raise RuntimeError(_NO_BACKWARD)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     lib = _build.load("flash_attention", _SIGNATURES)
@@ -161,10 +165,52 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_l
     return out, lse
 
 
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    return _run(q, k, v, causal, with_lse=False)[0]
+
+
+def _flash_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _run(q, k, v, causal, with_lse=True)
+
+
+_flash_op = torch.library.custom_op(_oplib.name("flash_attention"), _flash, mutates_args=())
+_flash_lse_op = torch.library.custom_op(_oplib.name("flash_attention_lse"), _flash_lse,
+                                        mutates_args=())
+
+
+def _fake_out(q, k, v, causal):
+    _check_shapes(q.shape, k.shape, v.shape, causal)
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash attention: q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
+    return q.new_empty(q.shape)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal):
+    return _fake_out(q, k, v, causal)
+
+
+@_flash_lse_op.register_fake
+def _(q, k, v, causal):
+    out = _fake_out(q, k, v, causal)
+    return out, q.new_empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)
+
+
+def _no_backward(ctx, *grads):
+    raise RuntimeError(_NO_BACKWARD)
+
+
+_flash_op.register_autograd(_no_backward)
+_flash_lse_op.register_autograd(_no_backward)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Exact attention, (B, T, H, D) -> (B, T, H, D) in q's dtype."""
-    return _run(q, k, v, causal, with_lse=False)[0]
+    if _oplib.tracing():
+        return torch.ops.nns_torch.flash_attention(q, k, v, causal)
+    return _flash(q, k, v, causal)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -174,4 +220,6 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     differ from Tq when not causal.  The lse is the merge statistic of two
     partials over disjoint keys: ``lse = logaddexp(lse1, lse2)``, ``out =
     out1 * exp(lse1 - lse) + out2 * exp(lse2 - lse)``."""
-    return _run(q, k, v, causal, with_lse=True)
+    if _oplib.tracing():
+        return torch.ops.nns_torch.flash_attention_lse(q, k, v, causal)
+    return _flash_lse(q, k, v, causal)

@@ -7,7 +7,9 @@ launch the hand-written kernel ``csrc/top1.cu``; on a CPU tensor they run
 ``jnp.argmax``/``jnp.max`` for float32, bfloat16 and float16 logits: the
 first maximal index wins ties, NaN counts as the maximum (first NaN's
 index, value NaN), a row of all -inf gives index 0, and the max is the
-float32 of the winning element.
+float32 of the winning element.  The two wrappers' row forms are also
+the operators ``nns_torch::top1`` and ``nns_torch::top1_packed``
+(``ops/_oplib.py``), which a traced module records.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, _oplib
 
 #: kernel launches made by :func:`top1` and :func:`top1_packed` in this process
 LAUNCHES = 0
@@ -92,18 +94,49 @@ def _launch(x: torch.Tensor, idx=None, val=None, packed=None) -> None:
     LAUNCHES += 1
 
 
+def _top1(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, C) -> (argmax int32, max float32): the kernel on CUDA, else the plain version."""
+    if x.device.type == "cpu":
+        return top1_plain(x)
+    idx = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    val = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    _launch(x, idx=idx, val=val)
+    return idx, val
+
+
+def _top1_packed(x: torch.Tensor) -> torch.Tensor:
+    """(B, C) -> (B, 2) float32: the kernel on CUDA, else the plain version."""
+    if x.device.type == "cpu":
+        return top1_packed_plain(x)
+    packed = torch.empty(x.shape[0], 2, dtype=torch.float32, device=x.device)
+    _launch(x, packed=packed)
+    return packed
+
+
+_top1_op = torch.library.custom_op(_oplib.name("top1"), _top1, mutates_args=())
+_top1_packed_op = torch.library.custom_op(_oplib.name("top1_packed"), _top1_packed,
+                                          mutates_args=())
+
+
+@_top1_op.register_fake
+def _(x):
+    _rows(x, "top1")
+    return x.new_empty(x.shape[0], dtype=torch.int32), x.new_empty(x.shape[0], dtype=torch.float32)
+
+
+@_top1_packed_op.register_fake
+def _(x):
+    _rows(x, "top1_packed", PACKED_MAX_COLS)
+    return x.new_empty((x.shape[0], 2), dtype=torch.float32)
+
+
 def top1(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (B, C) or (C,) float32, bfloat16 or float16 -> (argmax int32,
     max float32) per row.  A CUDA view is read in place when its columns
     are unit stride, whatever its row stride and start; any other view is
     copied once with ``.contiguous()`` first."""
     x = _rows(logits, "top1")
-    if x.device.type == "cpu":
-        idx, val = top1_plain(x)
-    else:
-        idx = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
-        val = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-        _launch(x, idx=idx, val=val)
+    idx, val = torch.ops.nns_torch.top1(x) if _oplib.tracing() else _top1(x)
     return (idx[0], val[0]) if logits.dim() == 1 else (idx, val)
 
 
@@ -113,9 +146,5 @@ def top1_packed(logits: torch.Tensor) -> torch.Tensor:
     C must be below 2**24, where float32 stops holding every index exactly.
     Views are taken as by :func:`top1`."""
     x = _rows(logits, "top1_packed", PACKED_MAX_COLS)
-    if x.device.type == "cpu":
-        packed = top1_packed_plain(x)
-    else:
-        packed = torch.empty(x.shape[0], 2, dtype=torch.float32, device=x.device)
-        _launch(x, packed=packed)
+    packed = torch.ops.nns_torch.top1_packed(x) if _oplib.tracing() else _top1_packed(x)
     return packed[0] if logits.dim() == 1 else packed

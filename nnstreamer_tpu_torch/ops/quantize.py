@@ -38,6 +38,12 @@ a CPU tensor the plain versions run: the integer products in float64
 (``F.conv2d`` with ``groups``, ``torch.matmul``), exact since every partial
 sum stays below 2^53.
 
+:func:`quantize_rows` and :func:`conv_i8` are also the operators
+``nns_torch::quantize_rows`` and ``nns_torch::conv_i8`` (``ops/_oplib.py``):
+while a module is traced, every entry point here takes the kernels' route
+through them whatever the example tensors' device, and the operators choose
+route and plan from the real tensors when the program runs.
+
 Weight quantization is deterministic, so callers may quantize a weight
 once per version and pass it as ``qweight`` (``models/_quant_flax.py``
 caches it per ``weight._version`` and ``data_ptr``) where the JAX graph
@@ -50,12 +56,12 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _oplib
 
 #: launches of ``csrc/quantize_i8.cu`` (one per quantized tensor, either
 #: route) in this process, and of each route
@@ -214,16 +220,26 @@ def quantize_plan(rows: int, cols: int, itemsize: int, row_stride: int, x_ptr: i
     return QuantizePlan("one-pass", grid, n) if n else QuantizePlan("two-pass", 0, 0)
 
 
+def _check_rows(x: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"quantize_rows takes a 2-D tensor, got {tuple(x.shape)}")
+    if x.dtype not in _IN_CODES:
+        raise TypeError(f"quantize_rows takes float32/float16/bfloat16, not {x.dtype}")
+
+
 def quantize_rows(x: torch.Tensor) -> Quantized:
     """(rows, cols) float32, float16 or bfloat16 -> (int8 (rows, cols)
     contiguous, float32 scale (rows,)): one scale per row.  On a CUDA
     tensor each row must be contiguous (rows may sit at any stride); the
     route is :func:`quantize_plan`'s."""
+    _check_rows(x)
+    if _oplib.tracing():
+        return torch.ops.nns_torch.quantize_rows(x)
+    return _quantize_rows(x)
+
+
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global QUANTIZE_LAUNCHES, QUANTIZE_ONEPASS_LAUNCHES, QUANTIZE_TWOPASS_LAUNCHES
-    if x.dim() != 2:
-        raise ValueError(f"quantize_rows takes a 2-D tensor, got {tuple(x.shape)}")
-    if x.dtype not in _IN_CODES:
-        raise TypeError(f"quantize_rows takes float32/float16/bfloat16, not {x.dtype}")
     if x.device.type == "cpu":
         return quantize_rows_plain(x)
     rows, cols = x.shape
@@ -259,6 +275,17 @@ def quantize_rows(x: torch.Tensor) -> Quantized:
     return q, scale
 
 
+_quantize_rows_op = torch.library.custom_op(_oplib.name("quantize_rows"), _quantize_rows,
+                                            mutates_args=())
+
+
+@_quantize_rows_op.register_fake
+def _(x):
+    _check_rows(x)
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty(x.shape[0], dtype=torch.float32))
+
+
 def quantize_symmetric(
     x: torch.Tensor, axes: Optional[Sequence[int]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -266,7 +293,7 @@ def quantize_symmetric(
     reduced over ``axes`` with the dims kept (``None``: one per-tensor
     scale, 0-d).  On a CUDA tensor the reduced axes must be the trailing
     ones of a contiguous tensor (one row each); others raise."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _oplib.tracing():
         return quantize_symmetric_plain(x, axes)
     nd = x.dim()
     lead = 0 if axes is None else nd - len(axes)
@@ -496,7 +523,16 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
     accumulator, no epilogue).  CUDA: ``groups`` 1 through
     ``int8_conv.cu`` by :func:`int8_conv_plan`, ``groups == C == O``
     through ``int8_dwconv.cu`` by :func:`int8_dwconv_plan`."""
-    global CONV_LAUNCHES, CONV_GEMM_LAUNCHES, CONV_GATHER_LAUNCHES, DWCONV_LAUNCHES
+    if _oplib.tracing():
+        pads = _check_conv(xq, wq, stride, groups, out_dtype, pads)
+        return torch.ops.nns_torch.conv_i8(xq, s_x, wq, s_w, int(stride), int(groups), out_dtype,
+                                           list(pads))
+    return _conv_i8(xq, s_x, wq, s_w, stride, groups, out_dtype, pads)
+
+
+def _check_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, groups: int,
+                out_dtype: torch.dtype, pads: Optional[Sequence[int]]) -> Pads:
+    """The checks every route shares; returns the explicit pads."""
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"conv_i8 outputs float32/float16/bfloat16/int32, not {out_dtype}")
     n, h, w, c = xq.shape
@@ -504,7 +540,16 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
     if cg * groups != c or o % groups:
         raise ValueError(f"conv_i8: weight {tuple(wq.shape)} does not fit {c} channels "
                          f"in {groups} groups")
-    pads = conv_pads(h, w, kh, kw, stride, pads)
+    return conv_pads(h, w, kh, kw, stride, pads)
+
+
+def _conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
+             stride: int, groups: int, out_dtype: torch.dtype,
+             pads: Optional[List[int]]) -> torch.Tensor:
+    global CONV_LAUNCHES, CONV_GEMM_LAUNCHES, CONV_GATHER_LAUNCHES, DWCONV_LAUNCHES
+    pads = _check_conv(xq, wq, stride, groups, out_dtype, pads)
+    n, h, w, c = xq.shape
+    o, kh, kw, _ = wq.shape
     if xq.device.type == "cpu":
         return conv_i8_plain(xq, s_x, wq, s_w, stride, groups, out_dtype, pads)
     depthwise = check_kernel_args(xq, s_x, wq, s_w, groups)
@@ -543,6 +588,19 @@ def conv_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Te
     return out
 
 
+_conv_i8_op = torch.library.custom_op(_oplib.name("conv_i8"), _conv_i8, mutates_args=())
+
+
+@_conv_i8_op.register_fake
+def _(xq, s_x, wq, s_w, stride, groups, out_dtype, pads):
+    pads = _check_conv(xq, wq, stride, groups, out_dtype, pads)
+    n, h, w, _ = xq.shape
+    o, kh, kw, _ = wq.shape
+    ho, wo = conv_out(h, w, kh, kw, stride, pads)
+    return torch.empty((n, o, ho, wo), dtype=out_dtype, device=xq.device,
+                       memory_format=torch.channels_last)
+
+
 def dense_i8_plain(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The plain version of :func:`dense_i8`: the product in float64 (exact)."""
@@ -557,7 +615,7 @@ def dense_i8(xq: torch.Tensor, s_x: torch.Tensor, wq: torch.Tensor, s_w: torch.T
     the raw accumulator).  On CUDA, ``int8_conv.cu`` with H = W = 1 (a
     1 x 1 convolution: the GEMM route where :func:`int8_conv_route` allows)."""
     m, k = xq.shape
-    if xq.device.type == "cpu":
+    if xq.device.type == "cpu" and not _oplib.tracing():
         if out_dtype not in _OUT_CODES:
             raise TypeError(f"dense_i8 outputs float32/float16/bfloat16/int32, not {out_dtype}")
         return dense_i8_plain(xq, s_x, wq, s_w, out_dtype)
@@ -584,7 +642,7 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, groups: in
     ``weight``, int8 x int8 -> int32, SAME padding, rescaled to
     ``out_dtype``; ``qweight`` is :func:`quantize_weight` of ``weight``
     where the caller holds it.  Output (N, O, Ho, Wo) channels_last."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _oplib.tracing():
         return int8_conv_plain(x, weight, stride, groups, out_dtype, qweight)
     xq, s_x = _quantize_samples(x, plain=False)
     wq, s_w = qweight if qweight is not None else quantize_weight(weight)
@@ -604,7 +662,7 @@ def int8_dense(x: torch.Tensor, weight: torch.Tensor, out_dtype: torch.dtype = t
                qweight: Optional[Quantized] = None) -> torch.Tensor:
     """``x (..., in) @ weight.T`` for an ``(out, in)`` float weight, int8 x
     int8 -> int32, one scale per row of ``x``; (..., out) in ``out_dtype``."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _oplib.tracing():
         return int8_dense_plain(x, weight, out_dtype, qweight)
     xq, s_x = quantize_rows(x.reshape(-1, x.shape[-1]))
     wq, s_w = qweight if qweight is not None else quantize_weight(weight)

@@ -112,12 +112,14 @@ def test_build_is_seeded_and_keeps_classifier_float32():
 def test_zoo_default_dtype_follows_the_device(models, monkeypatch):
     # no dtype prop: the JAX zoo takes core/hw.py's probe, float32 on a host
     # CPU, so its model here is the float32 one of the `models` fixture; the
-    # port's zoo probes torch.cuda.is_available() and must agree with it
+    # port's zoo takes its own core/hw.py probe and must agree with it
     from nnstreamer_tpu.core.hw import preferred_dtype
+    from nnstreamer_tpu_torch.core import hw as port_hw
 
     size, fn, variables, _, _ = models
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert preferred_dtype() == "float32" == _PROPS["dtype"]
+    answer = dict(port_hw.probe(), accelerated=False)
+    monkeypatch.setattr(port_hw, "probe", lambda timeout_s=None: dict(answer))
+    assert preferred_dtype() == "float32" == _PROPS["dtype"] == port_hw.preferred_dtype()
     props = {k: v for k, v in _PROPS.items() if k != "dtype"}
     module, _, _ = torch_build("mobilenet_v2", dict(props, size=str(size)))
     module.load_state_dict(state_dict_from_flax(variables), strict=True)
@@ -127,6 +129,6 @@ def test_zoo_default_dtype_follows_the_device(models, monkeypatch):
         got = module.eval()(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(fn(variables, [x])[0]), rtol=1e-4, atol=1e-4)
     # with a card: bfloat16, for every family
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    answer["accelerated"] = True
     module, _, _ = torch_build("mobilenet_v2", dict(props, size=str(size)))
     assert module.stem.conv.weight.dtype == torch.bfloat16
