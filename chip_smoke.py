@@ -495,7 +495,7 @@ Phases (any failure exits non-zero before the result lines are printed):
          ``.onnx``'s ``--fixed`` conversion at 7 frames a call a frame:
          bit-equal to path j's graphs;
       4. ``confchk`` names the card and the six kernel libraries built,
-         ``inspect`` lists 41 element classes, path a's text round-trips
+         ``inspect`` lists 44 element classes, path a's text round-trips
          through ``pbtxt`` and labels alike, ``codegen`` C (g++) and Python
          filters pass frames through;
       5. a child process on a fresh ``NNS_TPU_CUDA_CACHE_DIR`` runs nvcc six
@@ -503,9 +503,48 @@ Phases (any failure exits non-zero before the result lines are printed):
          first micro-batch.
       Under ``--only q`` the kernel checks and ``time_int8`` run first, and
       the kernels line and the ok line close the output as in a whole run.
-   ``--only i,j,k,l,m,n,o,p,q`` runs paths i, j, k, l, m, n, o, p and q alone
-   after the kernel build (j with ``PAD_EDGES`` first), each summary a JSON
-   line.
+   r. in-pipeline training (``datareposrc ! tensor_trainer framework=torch``):
+      1. the MNIST CNN (28x28x1, 10 classes, float32) on the JAX trainer's
+         synthetic task (class = the brightest of 10 row bands), 2048 + 256
+         samples written from ``--seed`` through ``appsrc ! datareposink``,
+         trained ``datareposrc epochs=3 is-shuffle=true``, batch 32, adam
+         1e-3: per-epoch loss and accuracy, the last validation accuracy at
+         least ``TRAIN_VAL_FLOOR`` (0.9), the first epoch's 64 step losses
+         (from the step-64 checkpoint's cursor) within 1e-3 + 1e-2 * |cpu| of
+         the same run with ``accelerator=cpu`` in this process (TF32 off),
+         ms per step and steps/s, the card's busy share over a 1-epoch run;
+         no kernel launches (the model scales its uint8 input itself);
+      2. a child process with deterministic algorithms on and
+         ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, beside r3's gradient checks
+         and r4 (neither timed): r1's run with
+         ``checkpoint-steps=16`` uninterrupted, killed by ``FAULTS`` at
+         ``trainer.step`` (step 41) and resumed with ``resume=true``, and torn
+         at ``trainer.checkpoint.commit`` (step 32) and resumed from step 16:
+         the final weights, optimizer state and model file bit-identical to
+         the uninterrupted run's, the replay skip equal to the cursor's stream
+         position, every (epoch, sample) trained once in the uninterrupted
+         run's order, the torn step never resumed;
+      3. ViT-B/16 (path b's widths, bf16, ``attn:flash``) trained 8 adam steps
+         (1e-4) on one seeded batch of 32 repeated, through ``appsrc !
+         tensor_trainer`` with a step checkpoint and a model file: flash
+         exactly 12 times a forward, all on the tensor cores (its backward
+         recomputes through ``reference_attention_lse``: no launch); the loss
+         falling; one step's gradients against ``attn:xla`` on the same
+         weights within a relative L2 of 6e-2 per parameter in bf16 (batch
+         32; 3e-2 over all parameters together) and 1e-4 in float32 (batch
+         2); a direct step's ms, the flash
+         forward's and the recompute backward's device ms (``torch.profiler``)
+         and peak memory;
+      4. r3's checkpoint directory and model file each served by
+         ``tensor_filter framework=torch-cuda`` with the labeling decoder's
+         fused half, 64 frames: labels equal to the trained module called
+         directly in the same micro-batch sizes, 12 flash launches and one
+         ``top1`` a micro-batch.
+      Under ``--only r`` the kernel checks and ``time_int8`` run first, and
+      the kernels line and the ok line close the output.
+   ``--only i,j,k,l,m,n,o,p,q,r`` runs paths i, j, k, l, m, n, o, p, q and r
+   alone after the kernel build (j with ``PAD_EDGES`` first), each summary a
+   JSON line.
    Prints frames/s or sequences/s and tokens/s, latencies, the direct
    per-batch time and the feed's counters (lane staged and stacking ms per
    batch, window reaped, dispatch_waits and dwell, staging pool reuse rate)
@@ -521,7 +560,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``{"query": {...}}`` line (path m's), a ``{"distributed": {...}}`` line
    (path n's), a ``{"fleet": {...}}`` line (path o's: o1-o4's counts, times
    and peaks), a ``{"user_filters": {...}}`` line (path p's), an
-   ``{"exported": {...}}`` line (path q's), one
+   ``{"exported": {...}}`` line (path q's), a ``{"training": {...}}`` line
+   (path r's), one
    ``{"kernels": [...]}`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -818,6 +858,7 @@ def check_flash(torch, fa) -> dict:
     # (label, shape (B, Tq, H, D), Tk, dtype, causal, how q/k/v are laid out)
     cases = [
         ("ViT-B/16", (128, 197, 12, 64), None, bf16, False, "fused"),
+        ("ViT-B/16 training", (32, 197, 12, 64), None, bf16, False, "fused"),
         ("GPT-2 small", (8, 1024, 12, 64), None, bf16, True, "fused"),
         ("f32 ragged", (2, 100, 2, 64), None, f32, False, "plain"),
         ("f32 ragged", (2, 100, 2, 64), None, f32, True, "fused"),
@@ -889,7 +930,8 @@ def check_flash(torch, fa) -> dict:
     shapes = []
     for label, shape, causal, dtype in (("ViT-B/16", (128, 197, 12, 64), False, bf16),
                                         ("GPT-2 small", (8, 1024, 12, 64), True, bf16),
-                                        ("ViT-B/16", (128, 197, 12, 64), False, f32)):
+                                        ("ViT-B/16", (128, 197, 12, 64), False, f32),
+                                        ("ViT-B/16 training", (32, 197, 12, 64), False, bf16)):
         b, t, h, d = shape
         q, k, v = qkv(b, t, h, d, dtype, layout="fused")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -7402,7 +7444,7 @@ def run_q3(torch, np, q, counters, seed: int, card: str, programs, graphs) -> di
 
 def run_q4(torch, np, counters, seed: int, card: str, work, labels) -> dict:
     """q4: the port's command-line tools on the card: ``confchk``'s report names
-    the card and every kernel library built; ``inspect`` lists 41 element
+    the card and every kernel library built; ``inspect`` lists 44 element
     classes; path a's text through ``pbtxt`` and back, both texts labeling
     128 frames alike with the same launches; ``codegen --lang c`` built with
     g++ against the port's header and run as ``framework=custom``,
@@ -7429,7 +7471,7 @@ def run_q4(torch, np, counters, seed: int, card: str, work, labels) -> dict:
     first = buf.getvalue().splitlines()[0]
     classes = len({c for c in ELEMENT_TYPES.values()
                    if c.__module__.startswith("nnstreamer_tpu_torch.")})
-    if rc != 0 or classes != 41 or f"({len(set(ELEMENT_TYPES.values()))} classes)" not in first:
+    if rc != 0 or classes != 44 or f"({len(set(ELEMENT_TYPES.values()))} classes)" not in first:
         raise AssertionError(f"q4: inspect returned {rc}, listed {first!r} ({classes} classes)")
     text = labeling_text(MOBILENET_CUSTOM, seed, labels)
     pb = pbtxt.pipeline_text_to_pbtxt(text)
@@ -7602,6 +7644,583 @@ def run_exported(torch, np, lab, counters, seed: int, card: str, work, labels) -
     return paths, summary
 
 
+# -- path r: in-pipeline training ----------------------------------------------------------
+
+TRAIN_SAMPLES = 2048          # r1's training samples per epoch
+TRAIN_VALID = 256             # r1's validation samples per epoch
+TRAIN_EPOCHS = 3
+TRAIN_BATCH = 32
+TRAIN_LR = 1e-3
+TRAIN_VAL_FLOOR = 0.9         # r1: the last epoch's validation accuracy at least this
+TRAIN_CPU_ATOL, TRAIN_CPU_RTOL = 1e-3, 1e-2   # r1: first-epoch losses, card against CPU
+TRAIN_CKPT_STEPS = 16         # r2's checkpoint grain
+TRAIN_KILL_AFTER = 40         # r2: the 41st step raises (after the checkpoint at step 32)
+VIT_TRAIN_STEPS = 16          # r3's optimizer steps, each on the same batch
+TRAIN_WARM_STEPS = 2          # steps a trainer's step times leave out at the start
+VIT_DIRECT_STEPS = 20         # r3's direct steps timed outside the trainer
+FEED_SAMPLES = 256            # r1's card-tensor feed: samples (8 steps of 32)
+FEED_SPIN_S = 2.0             # the default stream's spin before it writes those samples
+VIT_TRAIN_BATCH = 32
+VIT_TRAIN_LR = 1e-4
+# r3: one step's gradients, flash against xla on the same weights, relative L2 of each
+# parameter's and of all of them together.  In bf16 each of the two is itself 1.5-3% off
+# the float32 gradient (measured on the CPU at 32 and 256 wide), so they may differ by
+# the sum; in float32 (batch 2, TF32 off) only the forward's last bits differ.
+VIT_GRAD_BF16_RTOL = (6e-2, 3e-2)
+VIT_GRAD_F32_RTOL = (1e-4, 1e-4)
+SERVE_TRAINED_FRAMES = 64     # r4's frames through each served artifact
+
+TRAIN_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+torch.use_deterministic_algorithms(True)
+import chip_smoke
+print("R2 " + json.dumps(chip_smoke.resume_child({work!r}, {seed})))
+"""
+
+
+def mnist_bands(np, n: int, seed: int):
+    """The JAX trainer's synthetic MNIST-shaped task (class = the brightest
+    of 10 row bands), `n` (image, label) pairs from `seed`."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        label = i % 10
+        img = rng.normal(0.2, 0.05, (28, 28, 1)).astype(np.float32)
+        img[label * 2:label * 2 + 3, :, :] += 0.8
+        yield img, np.int64([label])
+
+
+def write_mnist_repo(np, work: Path, seed: int) -> tuple:
+    """r1's repo through ``appsrc ! datareposink``; (data, meta, config)."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    d = work / "training"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    data, meta, cfg = d / "mnist.bin", d / "mnist.json", d / "mnist_cnn.json"
+    pipe = parse_pipeline(f"appsrc name=src ! datareposink location={data} json={meta}")
+    pipe.start()
+    try:
+        for img, label in mnist_bands(np, TRAIN_SAMPLES + TRAIN_VALID, seed):
+            pipe["src"].push([img, label])
+        pipe["src"].end_of_stream()
+        pipe.wait(timeout=120)
+    finally:
+        pipe.stop()
+    cfg.write_text(json.dumps({
+        "arch": "mnist_cnn", "arch_props": {"dtype": "float32", "classes": "10",
+                                            "seed": str(seed)},
+        "optimizer": "adam", "learning_rate": TRAIN_LR, "batch_size": TRAIN_BATCH}))
+    return data, meta, cfg
+
+
+def mnist_train_text(data, meta, cfg, seed: int, epochs: int, extra: str = "") -> str:
+    return (f"datareposrc location={data} json={meta} epochs={epochs} is-shuffle=true "
+            f"shuffle-seed={seed} ! tensor_trainer name=t framework=torch model-config={cfg} "
+            f"num-inputs=1 num-labels=1 num-training-samples={TRAIN_SAMPLES} "
+            f"num-validation-samples={TRAIN_VALID} epochs={epochs} {extra} ! tensor_sink name=out")
+
+
+def run_trainer(text: str, pushes=(), fail: bool = False) -> dict:
+    """Run a training pipeline to its end: the stats frames with their
+    arrival times, the backend's sample ledger and the element's health;
+    with `fail`, the run must end in the trainer's error."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+    from nnstreamer_tpu_torch.pipeline.element import ElementError
+
+    pipe = parse_pipeline(text)
+    arrivals = []
+    pipe["out"].connect_new_data(lambda f: arrivals.append(time.perf_counter()))
+    t = time.perf_counter()
+    pipe.start()
+    try:
+        for frame in pushes:
+            pipe["src"].push(frame)
+        if pushes:
+            pipe["src"].end_of_stream()
+        try:
+            pipe.wait(timeout=600)
+        except ElementError as e:
+            if not fail:
+                raise
+            error = str(e)
+        else:
+            if fail:
+                raise AssertionError(f"the faulted training run ended without an error: {text}")
+            error = None
+        wall = time.perf_counter() - t
+        be = pipe["t"].backend
+        ends = list(be.step_ends)
+        if ends:
+            ends[-1].synchronize()
+        out = {"stats": [f.tensors[0].tolist() for f in pipe["out"].frames],
+               "arrivals": arrivals, "wall_s": wall, "error": error,
+               "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+               "trained_log": list(be.trained_log), "module": be.module,
+               "health": pipe["t"].health_info()}
+    finally:
+        pipe.stop()
+    return out
+
+
+def spread(np, ms: list) -> dict:
+    """Median, least and most of per-step times after the warm-up steps."""
+    steady = ms[TRAIN_WARM_STEPS - 1:]
+    return {"median_ms": float(np.median(steady)), "min_ms": float(min(steady)),
+            "max_ms": float(max(steady)), "steps": len(steady)}
+
+
+def spread_text(sp: dict) -> str:
+    return (f"{sp['median_ms']:.3f} ms a step (median of {sp['steps']}, "
+            f"{sp['min_ms']:.3f}-{sp['max_ms']:.3f})")
+
+
+def state_leaves(torch, tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in state_leaves(torch, tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in state_leaves(torch, x)]
+    return []
+
+
+def resume_child(work: str, seed: int) -> dict:
+    """r2, in a child process whose parent set deterministic algorithms and
+    ``CUBLAS_WORKSPACE_CONFIG``: r1's run uninterrupted, killed by
+    ``FAULTS`` at ``trainer.step`` after the checkpoint at step 32 and
+    resumed, and torn at ``trainer.checkpoint.commit`` of step 32 and
+    resumed.  The resumed runs' final weights, optimizer state and model
+    file must be bit-identical to the uninterrupted run's, the replay skip
+    equal to the cursor's stream position, and every (epoch, sample) trained
+    exactly once in the uninterrupted run's order."""
+    import torch
+
+    from nnstreamer_tpu_torch.core import checkpoint as ckpt
+    from nnstreamer_tpu_torch.core.resilience import FAULTS
+
+    if not torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("r2: the child runs with deterministic algorithms on")
+    d = Path(work) / "training"
+    data, meta, cfg = d / "mnist.bin", d / "mnist.json", d / "mnist_cnn.json"
+    steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // TRAIN_BATCH)
+
+    def run(name: str, resume: bool = False, fail: bool = False) -> dict:
+        extra = (f"checkpoint-path={d / ('ck_' + name)} checkpoint-steps={TRAIN_CKPT_STEPS} "
+                 f"model-save-path={d / (name + '.pt')} resume={str(resume).lower()}")
+        return run_trainer(mnist_train_text(data, meta, cfg, seed, TRAIN_EPOCHS, extra),
+                           fail=fail)
+
+    def final(name: str) -> tuple:
+        path = str(d / ("ck_" + name))
+        if ckpt.latest_step(path) != steps:
+            raise AssertionError(f"r2 {name}: newest durable step {ckpt.latest_step(path)}, "
+                                 f"want {steps}")
+        state = ckpt.restore_state(path, steps)
+        model = torch.load(d / (name + ".pt"), weights_only=True)
+        return state_leaves(torch, state) + state_leaves(torch, model)
+
+    t0 = time.perf_counter()
+    control = run("control")
+    want = final("control")
+    out = {"control_s": control["wall_s"], "leaves": len(want)}
+    for site, after, durable in (("trainer.step", TRAIN_KILL_AFTER, 32),
+                                 ("trainer.checkpoint.commit", 1, TRAIN_CKPT_STEPS)):
+        name = site.split(".")[-1]
+        FAULTS.arm(site, exc=RuntimeError(f"r2: injected kill at {site}"), times=1, after=after)
+        try:
+            killed = run(name, fail=True)
+        finally:
+            FAULTS.reset()
+        path = str(d / ("ck_" + name))
+        if ckpt.latest_step(path) != durable:
+            raise AssertionError(f"r2 {site}: newest durable step {ckpt.latest_step(path)}, "
+                                 f"want {durable}")
+        torn = (d / ("ck_" + name) / f"step_{durable + TRAIN_CKPT_STEPS}" / "state.pt").is_file()
+        if site.endswith("commit") and not torn:
+            raise AssertionError("r2: the torn save left no state file behind its marker")
+        cursor = ckpt.load_meta(path, durable)["cursor"]
+        resumed = run(name, resume=True)
+        h = resumed["health"]
+        if h["train_resumes"] != 1 or h["train_replay_skipped"] != cursor["stream_pos"]:
+            raise AssertionError(f"r2 {site}: resumes {h['train_resumes']}, replay skipped "
+                                 f"{h['train_replay_skipped']}, cursor {cursor['stream_pos']}")
+        ledger = killed["trained_log"][:cursor["stream_pos"]] + resumed["trained_log"]
+        if ledger != control["trained_log"]:
+            raise AssertionError(f"r2 {site}: the samples trained before the checkpoint and "
+                                 "after the resume are not the uninterrupted run's, once each")
+        got = final(name)
+        same = len(got) == len(want) and all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(got, want))
+        if not same:
+            raise AssertionError(f"r2 {site}: the resumed run's weights or optimizer state "
+                                 "differ from the uninterrupted run's")
+        out[name] = {"durable_step": durable, "replay_skipped": h["train_replay_skipped"],
+                     "killed_steps_run": killed["health"]["train_steps"],
+                     "torn_state_left": torn, "resumed_s": resumed["wall_s"],
+                     "bit_identical": same}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_r1(torch, np, counters, seed: int, card: str, work: Path) -> dict:
+    """r1: the MNIST CNN (float32, 10 classes) trained through
+    ``datareposrc epochs=3 is-shuffle=true ! tensor_trainer framework=torch``
+    on 2048 + 256 samples a epoch, batch 32, adam: per-epoch loss and
+    accuracy, the validation floor, the first epoch's 64 per-step losses
+    against the same run on the CPU, ms per step and the card's busy share."""
+    data, meta, cfg = write_mnist_repo(np, work, seed)
+    d = data.parent
+    per_epoch = TRAIN_SAMPLES // TRAIN_BATCH
+    extra = f"checkpoint-path={d / 'ck_r1'} checkpoint-steps={per_epoch}"
+    counters.zero()
+    card_run = run_trainer(mnist_train_text(data, meta, cfg, seed, TRAIN_EPOCHS, extra))
+    launches = counters.read()
+    check_launches("r1", launches, {})  # the model scales uint8 itself: no ported kernel
+    stats = card_run["stats"]
+    if [int(s[0]) for s in stats] != list(range(1, TRAIN_EPOCHS + 1)) or not all(
+            np.isfinite(s).all() for s in stats):
+        raise AssertionError(f"r1: epoch stats {stats}")
+    if stats[-1][4] < TRAIN_VAL_FLOOR:
+        raise AssertionError(f"r1: validation accuracy {stats[-1][4]:.4f} < {TRAIN_VAL_FLOOR}")
+    arr = card_run["arrivals"]
+    step_ms = (arr[-1] - arr[0]) / ((TRAIN_EPOCHS - 1) * per_epoch) * 1e3
+    steps = spread(np, card_run["step_ms"])
+    busy = whole_run_busy(mnist_train_text(data, meta, cfg, seed, 1))
+    cpu_run = run_trainer(mnist_train_text(
+        data, meta, cfg, seed, 1,
+        f"accelerator=cpu checkpoint-path={d / 'ck_r1_cpu'} checkpoint-steps={per_epoch}"))
+    from nnstreamer_tpu_torch.core import checkpoint as ckpt
+
+    got = np.array(ckpt.load_meta(str(d / "ck_r1"), per_epoch)["cursor"]["ep_losses"])
+    want = np.array(ckpt.load_meta(str(d / "ck_r1_cpu"), per_epoch)["cursor"]["ep_losses"])
+    diff = np.abs(got - want)
+    if len(got) != per_epoch or not (diff <= TRAIN_CPU_ATOL + TRAIN_CPU_RTOL * np.abs(want)).all():
+        raise AssertionError(f"r1: the card's first-epoch losses are off the CPU's by up to "
+                             f"{diff.max():.3g} (losses {got[:4]}... against {want[:4]}...)")
+    for s in stats:
+        print(f"path r1: epoch {int(s[0])}: training loss {s[1]:.4f} accuracy {s[2]:.4f}, "
+              f"validation loss {s[3]:.4f} accuracy {s[4]:.4f}")
+    print(f"path r1: MNIST CNN float32 {TRAIN_EPOCHS} epochs of {TRAIN_SAMPLES}+{TRAIN_VALID} "
+          f"(batch {TRAIN_BATCH}, adam {TRAIN_LR}): validation accuracy {stats[-1][4]:.4f} >= "
+          f"{TRAIN_VAL_FLOOR}; first epoch's {per_epoch} step losses within "
+          f"{TRAIN_CPU_ATOL:g} + {TRAIN_CPU_RTOL:g}*|cpu| of the CPU run's (max abs diff "
+          f"{diff.max():.3g}, max rel {(diff / np.abs(want)).max():.3g}); {step_ms:.3f} ms per "
+          f"step ({1e3 / step_ms:.1f} steps/s, epochs 2-{TRAIN_EPOCHS} by the stats frames' "
+          f"arrivals, validation and the data path included); by the trainer's step events "
+          f"{spread_text(steps)}; {busy_text(busy)}, a 1-epoch run; whole 3-epoch run "
+          f"{card_run['wall_s']:.2f} s; on {card}", flush=True)
+    return {"launches": launches, "batches": TRAIN_EPOCHS * per_epoch, "summary": {
+        "epochs": stats, "val_accuracy_floor": TRAIN_VAL_FLOOR, "ms_per_step": step_ms,
+        "trainer_step_events": steps,
+        "steps_per_s": 1e3 / step_ms, "busy_share_1_epoch_run": busy,
+        "wall_s": card_run["wall_s"], "cpu_first_epoch_max_abs_diff": float(diff.max()),
+        "cpu_first_epoch_max_rel_diff": float((diff / np.abs(want)).max()),
+        "cpu_wall_s_1_epoch": cpu_run["wall_s"]}}
+
+
+def run_card_feed(torch, np, seed: int, card: str, work: Path) -> dict:
+    """r1's model fed card tensors: FEED_SAMPLES of r1's samples pushed as
+    card tensors that the default stream writes only after a FEED_SPIN_S
+    spin (``torch.cuda._sleep``), so a trainer that did not wait for their
+    producer would train on unwritten memory.  Per-step losses against the
+    same samples pushed as numpy arrays, within r1's CPU tolerance."""
+    from nnstreamer_tpu_torch.core import checkpoint as ckpt
+
+    d = work / "training"
+    samples = list(mnist_bands(np, FEED_SAMPLES, seed + 26))
+    images = np.stack([s[0] for s in samples])
+    targets = np.stack([s[1] for s in samples])
+    steps = FEED_SAMPLES // TRAIN_BATCH
+    losses, pending = {}, None
+    for name in ("numpy", "card"):
+        if name == "card":
+            src = [torch.from_numpy(a).cuda() for a in (images, targets)]
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda._sleep(int(FEED_SPIN_S * 2e9))  # cycles: 2 s at the H100's top clock
+            x, y = (torch.empty_like(a) for a in src)
+            x.copy_(src[0])
+            y.copy_(src[1])
+            written = torch.cuda.Event(enable_timing=True)
+            written.record()
+            pushes = [[x[i], y[i]] for i in range(FEED_SAMPLES)]
+        else:
+            pushes = [[images[i], targets[i]] for i in range(FEED_SAMPLES)]
+        ck = d / f"ck_feed_{name}"
+        shutil.rmtree(ck, ignore_errors=True)
+        text = (f"appsrc name=src ! tensor_trainer name=t framework=torch "
+                f"model-config={d / 'mnist_cnn.json'} num-inputs=1 num-labels=1 "
+                f"num-training-samples={FEED_SAMPLES} epochs=1 checkpoint-path={ck} "
+                f"checkpoint-steps={steps} ! tensor_sink name=out")
+        if name == "card":
+            pending = not written.query()  # still unwritten once the run starts
+        run_trainer(text, pushes)
+        losses[name] = np.array(ckpt.load_meta(str(ck), steps)["cursor"]["ep_losses"])
+    spin_ms = start.elapsed_time(written)
+    diff = np.abs(losses["card"] - losses["numpy"])
+    if not pending or spin_ms < FEED_SPIN_S * 500:
+        raise AssertionError(f"r1 card feed: the samples were written before the trainer "
+                             f"started (spin {spin_ms:.1f} ms), so the case shows nothing")
+    if len(diff) != steps or not (
+            diff <= TRAIN_CPU_ATOL + TRAIN_CPU_RTOL * np.abs(losses["numpy"])).all():
+        raise AssertionError(f"r1 card feed: losses {losses['card']} against the numpy "
+                             f"feed's {losses['numpy']}")
+    print(f"path r1: {FEED_SAMPLES} samples pushed as card tensors that the default stream "
+          f"wrote after a {spin_ms:.1f} ms spin (unwritten when the run started): {steps} step "
+          f"losses within {TRAIN_CPU_ATOL:g} + {TRAIN_CPU_RTOL:g}*|numpy| of the numpy feed's "
+          f"(max abs diff {diff.max():.3g}); on {card}", flush=True)
+    return {"spin_ms": spin_ms, "max_abs_diff": float(diff.max()), "steps": steps}
+
+
+def vit_batch(np, seed: int, n: int, size: int, classes: int) -> tuple:
+    rng = np.random.default_rng(seed + 24)
+    return (rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+            rng.integers(0, classes, (n, 1), dtype=np.int32))
+
+
+def grad_check(torch, np, props: dict, images, labels, rtol: tuple) -> tuple:
+    """One step's gradients of ViT-B/16 with ``attn:flash`` against the same
+    weights with ``attn:xla``: the largest relative L2 difference of a
+    parameter's and that of all of them together; raises above `rtol`'s."""
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.trainer.torch_trainer import make_loss_fn
+
+    x = torch.from_numpy(images).cuda()
+    y = torch.from_numpy(labels).cuda()
+    grads = []
+    for attn in ("flash", "xla"):
+        module = build("vit", props | {"attn": attn})[0].cuda().eval()
+        loss, _ = make_loss_fn(module, "softmax_ce")([x], [y])
+        loss.backward()
+        grads.append({n: p.grad.float() for n, p in module.named_parameters()})
+        del module
+    worst = max(((grads[0][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                for n, g in grads[1].items())
+    whole = (torch.cat([(grads[0][n] - g).flatten() for n, g in grads[1].items()]).norm()
+             / torch.cat([g.flatten() for g in grads[1].values()]).norm()).item()
+    if not (worst <= rtol[0] and whole <= rtol[1]):
+        raise AssertionError(f"r3: {props['dtype']} gradients, flash against xla, relative L2 "
+                             f"up to {worst:.3g} a parameter (<= {rtol[0]:g}), {whole:.3g} in "
+                             f"all (<= {rtol[1]:g})")
+    return worst, whole
+
+
+def profile_vit_steps(torch, np, props: dict, images, labels) -> dict:
+    """ViT-B/16 ``attn:flash`` stepped directly, outside the trainer and
+    its data path, by the trainer's own step (``make_steps``: loss,
+    backward, adam on float32 masters) on a batch already on the card:
+    VIT_DIRECT_STEPS steps timed by CUDA events, their peak card memory,
+    and over 2 profiled steps the device ms of the flash kernel and of the
+    recompute backward's range (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.models import build
+    from nnstreamer_tpu_torch.ops import flash_attention as fa
+    from nnstreamer_tpu_torch.trainer.torch_trainer import FloatMasters, make_steps
+
+    module = build("vit", props)[0].cuda().eval()
+    opt, train_step, _ = make_steps(FloatMasters(module), {
+        "optimizer": "adam", "learning_rate": VIT_TRAIN_LR})
+    x, y = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+
+    def step():
+        train_step([x], [y])
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(VIT_DIRECT_STEPS + 1)]
+    ends[0].record()
+    for e in ends[1:]:
+        step()
+        e.record()
+    torch.cuda.synchronize()
+    direct = spread(np, [a.elapsed_time(b) for a, b in zip(ends, ends[1:])])
+    step_ms = direct["median_ms"]
+    peak = torch.cuda.max_memory_allocated()
+    flash_ms = recompute_ms = None
+    for _ in range(2):  # a process's first profile may record no device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.2)
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+        rows = prof.key_averages()
+
+        def dev_ms(row):
+            return getattr(row, "device_time_total", getattr(row, "cuda_time_total", 0)) / 1e3
+
+        flash = [r for r in rows if "flash_fwd" in r.key]
+        rng = [r for r in rows if r.key == fa.RECOMPUTE_RANGE]
+        if flash and rng and dev_ms(rng[0]) > 0:
+            flash_ms = sum(dev_ms(r) for r in flash) / 2
+            recompute_ms = dev_ms(rng[0]) / 2
+            break
+    del module, opt
+    torch.cuda.empty_cache()
+    return {"direct_steps": direct, "direct_peak_bytes": peak,
+            "flash_forward_ms_per_step": flash_ms, "recompute_backward_ms_per_step": recompute_ms}
+
+
+def run_r3(torch, np, counters, seed: int, work: Path) -> dict:
+    """r3's pipeline: ViT-B/16 (bf16, ``attn:flash``) at full width trained
+    8 adam steps through ``appsrc ! tensor_trainer``, each on the same
+    seeded batch of 32, with a step checkpoint and a model file: 12 flash
+    launches a forward, all on the tensor cores; the loss falling."""
+    from nnstreamer_tpu_torch.core import checkpoint as ckpt
+
+    d = work / "training"
+    d.mkdir(parents=True, exist_ok=True)
+    props = custom_props(VIT_CUSTOM) | {"seed": str(seed)}
+    props.pop("arch")
+    layers = int(props["layers"])
+    cfg = d / "vit.json"
+    cfg.write_text(json.dumps({"arch": "vit", "arch_props": props, "optimizer": "adam",
+                               "learning_rate": VIT_TRAIN_LR, "batch_size": VIT_TRAIN_BATCH}))
+    images, targets = vit_batch(np, seed, VIT_TRAIN_BATCH, int(props["size"]),
+                                int(props["classes"]))
+    n = VIT_TRAIN_STEPS * VIT_TRAIN_BATCH
+    ck_dir, model_file = d / "ck_vit", d / "vit.pt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    text = (f"appsrc name=src ! tensor_trainer name=t framework=torch model-config={cfg} "
+            f"num-inputs=1 num-labels=1 num-training-samples={n} epochs=1 "
+            f"checkpoint-path={ck_dir} checkpoint-steps={VIT_TRAIN_STEPS} "
+            f"model-save-path={model_file} ! tensor_sink name=out")
+    pushes = [[images[i % VIT_TRAIN_BATCH], targets[i % VIT_TRAIN_BATCH]] for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.zero()
+    run = run_trainer(text, pushes)
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("r3", launches, {"flash_attention": layers * VIT_TRAIN_STEPS,
+                                    "flash_attention_tensor_cores": layers * VIT_TRAIN_STEPS})
+    losses = ckpt.load_meta(str(ck_dir), VIT_TRAIN_STEPS)["cursor"]["ep_losses"]
+    if len(losses) != VIT_TRAIN_STEPS or not losses[-1] < losses[0]:
+        raise AssertionError(f"r3: the loss on the repeated batch did not fall: {losses}")
+    return {"props": props, "images": images, "targets": targets, "launches": launches,
+            "losses": losses, "module": run["module"], "wall_s": run["wall_s"],
+            "steps": spread(np, run["step_ms"]), "peak_bytes": peak,
+            "artifacts": {"checkpoint_dir": ck_dir, "model_file": model_file}}
+
+
+def run_r4(torch, np, lab, counters, seed: int, r3: dict, labels) -> dict:
+    """r4: r3's ``checkpoint-path`` directory and ``model-save-path`` file
+    served by ``tensor_filter framework=torch-cuda`` with the labeling
+    decoder's fused half: labels equal to a direct call on the trained
+    module, 12 flash launches and one ``top1`` a micro-batch.  Returns the
+    two servings' launches and micro-batches."""
+    from nnstreamer_tpu_torch.pipeline import parse_pipeline
+
+    layers, size = int(r3["props"]["layers"]), int(r3["props"]["size"])
+    images = np.random.default_rng(seed + 25).integers(
+        0, 256, (SERVE_TRAINED_FRAMES, size, size, 3), dtype=np.uint8)
+    paths = {}
+    for name, model in r3["artifacts"].items():
+        pipe = parse_pipeline(
+            f"appsrc name=src ! tensor_filter name=f framework=torch-cuda model={model} "
+            f"custom={VIT_CUSTOM},seed:{seed + 1} max-batch=32 ! tensor_decoder "
+            f"mode=image_labeling option1={labels} ! tensor_sink name=out")
+        counters.zero()
+        pipe.start()
+        try:
+            with recording_batches(pipe, "f") as sizes:
+                for i in range(SERVE_TRAINED_FRAMES):
+                    pipe["src"].push(images[i], pts=float(i))
+                pipe["src"].end_of_stream()
+                pipe.wait(timeout=600)
+            launches = counters.read()
+            got = np.array([f.meta["label_index"] for f in pipe["out"].frames])
+        finally:
+            pipe.stop()
+        batches = len(sizes)
+        check_launches(f"r4 {name}", launches, {
+            "top1": batches, "flash_attention": layers * batches,
+            "flash_attention_tensor_cores": layers * batches})
+        want = np.concatenate([lab.top1_plain(logits)[0].cpu().numpy() for _, _, logits, _ in
+                               direct_batches(torch, r3["module"], images, sizes)])
+        if len(got) != SERVE_TRAINED_FRAMES or not np.array_equal(got, want):
+            raise AssertionError(f"r4 {name}: served labels differ from the trained module's")
+        paths[f"vit_trained_{name}"] = {"launches": launches, "batches": batches}
+    return paths
+
+
+def run_training(torch, np, lab, counters, seed: int, card: str, work: Path, labels) -> tuple:
+    """Path r: r1; r3's pipeline; r2's child process beside r3's gradient
+    checks and r4 (neither timed); then r3's timed steps alone on the card.
+    Returns (paths: launches and batches of r1, r3 and r4's two servings;
+    the summary)."""
+    t0 = time.perf_counter()
+    r1 = run_r1(torch, np, counters, seed, card, work)
+    feed = run_card_feed(torch, np, seed, card, work)
+    torch.cuda.empty_cache()
+    r3 = run_r3(torch, np, counters, seed, work)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = start_child(["-c", TRAIN_CHILD.format(root=str(ROOT), work=str(work), seed=seed)],
+                        env=env)
+    props, images, targets = r3["props"], r3["images"], r3["targets"]
+    bf16_err = grad_check(torch, np, props, images, targets, VIT_GRAD_BF16_RTOL)
+    f32_err = grad_check(torch, np, props | {"dtype": "float32"}, images[:2], targets[:2],
+                         VIT_GRAD_F32_RTOL)
+    torch.cuda.empty_cache()
+    paths = run_r4(torch, np, lab, counters, seed, r3, labels)
+    print(f"path r4: r3's checkpoint directory (step {VIT_TRAIN_STEPS}) and model file served "
+          f"by torch-cuda with the decoder's fused half: {SERVE_TRAINED_FRAMES} frames each, "
+          f"labels equal to the trained module called directly; {props['layers']} flash "
+          f"launches and one top1 a micro-batch; on {card}", flush=True)
+    r2 = json.loads(finish_child(child, "r2 (deterministic resume child)", 600)
+                    .split("R2 ", 1)[1])
+    print(f"path r2: deterministic algorithms on, CUBLAS_WORKSPACE_CONFIG=:4096:8 (a child "
+          f"process beside r3's gradient checks and r4): killed at trainer.step after step "
+          f"{TRAIN_KILL_AFTER} and resumed from step {r2['step']['durable_step']} (replay "
+          f"skipped {r2['step']['replay_skipped']}); torn at trainer.checkpoint.commit, resumed "
+          f"from step {r2['commit']['durable_step']} (replay skipped "
+          f"{r2['commit']['replay_skipped']}): {r2['leaves']} weight, optimizer and model-file "
+          f"tensors bit-identical to the uninterrupted run's, every sample trained once in its "
+          f"order; child {r2['seconds']:.1f} s of runs; on {card}", flush=True)
+    del r3["module"]
+    torch.cuda.empty_cache()
+    prof = profile_vit_steps(torch, np, props, images, targets)
+
+    def share(ms):
+        if ms is None:
+            return "not measured"
+        return f"{ms:.3f} ms ({ms / prof['direct_steps']['median_ms']:.1%})"
+
+    launches = r3["launches"]
+    print(f"path r3: ViT-B/16 bf16 attn:flash {VIT_TRAIN_STEPS} adam steps of {VIT_TRAIN_BATCH} "
+          f"through tensor_trainer: losses {[round(v, 4) for v in r3['losses']]}; flash "
+          f"launches {launches['flash_attention']} ({props['layers']} a forward, "
+          f"{launches['flash_attention_tensor_cores']} on the tensor cores); gradients against "
+          f"attn:xla relative L2 up to {bf16_err[0]:.3g} a parameter and {bf16_err[1]:.3g} in "
+          f"all (bf16, <= {VIT_GRAD_BF16_RTOL}), {f32_err[0]:.3g} and {f32_err[1]:.3g} (float32 "
+          f"batch 2, <= {VIT_GRAD_F32_RTOL}); the trainer's steps by its step events "
+          f"{spread_text(r3['steps'])}, peak {r3['peak_bytes'] / 2**30:.2f} GiB in the "
+          f"pipeline run ({r3['wall_s']:.2f} s: model build, {VIT_TRAIN_STEPS} steps, "
+          f"checkpoint and model file); direct steps outside the trainer (batch on the card, "
+          f"no data path) {spread_text(prof['direct_steps'])}, flash forward "
+          f"{share(prof['flash_forward_ms_per_step'])}, recompute backward "
+          f"{share(prof['recompute_backward_ms_per_step'])} of the direct step's median "
+          f"(torch.profiler device time), peak {prof['direct_peak_bytes'] / 2**30:.2f} GiB; "
+          f"on {card}", flush=True)
+    paths["vit_training"] = {"launches": launches, "batches": VIT_TRAIN_STEPS}
+    paths["mnist_training"] = {"launches": r1["launches"], "batches": r1["batches"]}
+    summary = {"card": card, "r1": r1["summary"] | {"card_feed": feed}, "r2": r2, "r3": {
+        "losses": r3["losses"], "grad_rel_l2_bf16": bf16_err, "grad_rel_l2_f32": f32_err,
+        "pipeline_wall_s": r3["wall_s"], "trainer_steps": r3["steps"],
+        "trainer_peak_bytes": r3["peak_bytes"], **prof,
+        "served": {k: v["batches"] for k, v in paths.items() if k.startswith("vit_trained")}},
+        "seconds": round(time.perf_counter() - t0, 3)}
+    print(f"path r: {summary['seconds']} s; on {card}", flush=True)
+    return paths, summary
+
+
 def fill_launches(kernels: list, paths: dict) -> None:
     """Each kernel entry's launches from the paths' counted runs: the total,
     by path, by route, the micro-batches of the paths that launched it."""
@@ -7653,9 +8272,9 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     from nnstreamer_tpu_torch.ops import quantize as q
 
     only = {p.strip() for p in args.only.split(",") if p.strip()}
-    if not only <= set("ijklmnopq"):
-        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m, n, o, p and q, not "
-                         f"{sorted(only - set('ijklmnopq'))}")
+    if not only <= set("ijklmnopqr"):
+        raise SystemExit(f"chip_smoke.py: --only takes i, j, k, l, m, n, o, p, q and r, not "
+                         f"{sorted(only - set('ijklmnopqr'))}")
     if "j" in only:
         check_pad_edges(torch, q)
         _, files = run_files(torch, np, lab, counters, args.seed, card, work, labels)
@@ -7681,16 +8300,26 @@ def run_only(torch, np, lab, counters, args, card: str, work, labels) -> int:
     if "p" in only:
         print(json.dumps({"user_filters": run_user_filters(torch, np, lab, counters, args.seed,
                                                            card, work, labels)[1]}))
-    if "q" in only:
+    if only & set("qr"):
         # every kernel checked and timed as the whole run does, its launches
-        # those of path q
+        # those of paths q and r
         from nnstreamer_tpu_torch.ops import flash_attention as fa
         from nnstreamer_tpu_torch.ops import preprocess as pre
 
         kernels = [check_normalize(torch, pre), check_top1(torch, lab), check_flash(torch, fa),
                    *time_int8(torch, q)]
-        paths, exported = run_exported(torch, np, lab, counters, args.seed, card, work, labels)
-        print(json.dumps({"exported": exported}))
+        paths = {}
+        if "q" in only:
+            q_paths, exported = run_exported(torch, np, lab, counters, args.seed, card, work,
+                                             labels)
+            paths.update(q_paths)
+            print(json.dumps({"exported": exported}))
+            torch.cuda.empty_cache()
+        if "r" in only:
+            r_paths, training = run_training(torch, np, lab, counters, args.seed, card, work,
+                                             labels)
+            paths.update(r_paths)
+            print(json.dumps({"training": training}))
         fill_launches(kernels, paths)
         print(json.dumps({"kernels": kernels}))
         print(card)
@@ -7710,7 +8339,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the inputs")
     ap.add_argument("--only", default="",
                     help="comma-separated paths to run alone after the kernel build: i, j, k, l, "
-                         "m, n, o, p, q (prints their summaries; without it every path runs)")
+                         "m, n, o, p, q, r (prints their summaries; without it every path runs)")
     args = ap.parse_args()
 
     if not (ROOT / "nnstreamer_tpu_torch" / "csrc").is_dir():
@@ -7836,6 +8465,10 @@ def main() -> int:
     exported_paths, exported = run_exported(torch, np, lab, counters, args.seed, card, work,
                                             labels)
     paths.update(exported_paths)
+    torch.cuda.empty_cache()
+    training_paths, training = run_training(torch, np, lab, counters, args.seed, card, work,
+                                            labels)
+    paths.update(training_paths)
     print(json.dumps({"feed_ab": feed_ab}))
     for p in paths.values():
         for k in ("labels", "feed"):
@@ -7856,6 +8489,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"user_filters": user}))
     print(json.dumps({"exported": exported}))
+    print(json.dumps({"training": training}))
 
     fill_launches(kernels, paths)
     flash = kernels[2]["launches_by_path"]

@@ -15,11 +15,16 @@ resolution (the ``model=`` property, after the filter resolved
   custom=arch:mobilenet_v2,dtype:bfloat16``) initialized from ``seed``,
   its weights then loaded from ``model`` when that is a file: a
   ``torch.save``d ``state_dict`` (the counterpart of the JAX backend's
-  flax msgpack file).
+  flax msgpack file, and what ``tensor_trainer model-save-path=`` writes),
+  or from the newest marker-committed step when it is a directory that
+  ``tensor_trainer checkpoint-path=`` writes (``core/checkpoint.py``; the
+  counterpart of the JAX backend's orbax directory), so a pipeline serves
+  what a co-hosted trainer wrote.  A directory without a committed step
+  raises and says whether it is empty.
 
 A ``jax.export`` artifact (``.jaxexport``, ``.stablehlo``: a StableHLO
-module, which torch cannot load) raises naming the ``.pt2`` route; an orbax
-checkpoint directory (ROADMAP A9) has no torch counterpart yet and raises.
+module, which torch cannot load) raises naming the ``.pt2`` route; a step
+that the JAX package wrote with orbax raises saying so.
 
 Placement: the model runs on ``cuda:0`` (``gpu.N`` picks another card)
 unless the accelerator wish list says ``cpu``; with no CUDA device and no
@@ -125,6 +130,19 @@ def pick_device(wishes: List[str], exclude=()) -> torch.device:
     raise RuntimeError(
         f"torch-cuda: no CUDA device for accelerator wishes {wishes} "
         "(pass accelerator=cpu to run on the CPU)")
+
+
+def _checkpoint_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The model weights of the newest marker-committed step under a
+    trainer's ``checkpoint-path``; raises where there is none."""
+    from ..core import checkpoint as ckpt
+
+    step = ckpt.latest_step(path)
+    if step is None:
+        what = ("the directory is empty" if not os.listdir(path)
+                else "no step_<N> directory has its step_<N>.ok marker")
+        raise FileNotFoundError(f"torch-cuda: {path}: no committed checkpoint step ({what})")
+    return ckpt.restore_state(path, step)["params"]
 
 
 def _placed(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
@@ -336,10 +354,8 @@ class TorchCuda(FilterBackend):
 
             module, in_spec, out_spec = zoo.build(arch, self.custom_props)
             if os.path.isdir(model_path):
-                raise NotImplementedError(
-                    f"torch-cuda: {model_path}: an orbax checkpoint directory has no torch "
-                    "counterpart yet (ROADMAP A9)")
-            if os.path.isfile(model_path):  # a torch.save'd state_dict of the zoo build
+                module.load_state_dict(_checkpoint_weights(model_path), strict=True)
+            elif os.path.isfile(model_path):  # a torch.save'd state_dict of the zoo build
                 state = torch.load(model_path, map_location="cpu", weights_only=True)
                 module.load_state_dict(state, strict=True)
             return module, in_spec, out_spec, False

@@ -28,10 +28,11 @@ the discovery plane's announce reconnects (``nns.query.reannounces``,
 announces), the query client's stream-resume counters, the slot engine's
 resume, hand-off and resize counters, the digest and fencing series, the
 fleet observatory's ``nns.fleet.*`` and the autoscaler's
-``nns.autoscale.*``.  Not ported: the serving mesh's ``nns.mesh.*``
-(ROADMAP A11), the trainer's
-``nns.train.*`` (A9), and the frame pool's ``nns.pool.frame_*`` (the port
-has no ``FramePool``).
+``nns.autoscale.*``, the trainer's ``nns.train.*`` and the datarepo's
+``nns.datarepo.truncated_samples``.  Not ported: the serving mesh's
+``nns.mesh.*`` (ROADMAP A11), the validator's ``nns.train.*`` series
+(A9.2), and the frame pool's ``nns.pool.frame_*`` (the port has no
+``FramePool``).
 """
 
 from __future__ import annotations
@@ -320,12 +321,26 @@ METRICS: Dict[str, Tuple[str, str]] = {
     # sources/sinks
     "nns.source.pending": ("gauge", "frames pushed but not yet pulled (appsrc)"),
     "nns.sink.rendered": ("counter", "logical frames rendered by the sink"),
+    "nns.datarepo.truncated_samples": ("counter", "samples lost to a truncated repo"),
     # pools (process-wide; core/buffer.py)
     "nns.pool.device_allocated": ("counter", "staging buffers freshly allocated"),
     "nns.pool.device_reused": ("counter", "staging buffers reused"),
     "nns.pool.device_reuse_rate": ("gauge", "staging-buffer reuse fraction"),
     "nns.pool.rings_evicted": ("counter", "staging-buffer rings evicted by the key-space LRU"),
     "nns.pool.trims": ("counter", "staging-pool memory-pressure trims"),
+    # -- in-pipeline training (elements/trainer.py) --
+    "nns.train.steps": ("counter", "optimizer steps taken (monotone across resumes)"),
+    "nns.train.samples": ("counter", "samples consumed by train steps"),
+    "nns.train.epochs": ("counter", "training epochs completed"),
+    "nns.train.loss": ("gauge", "most recent training loss"),
+    "nns.train.checkpoints": ("counter", "durable (marker-committed) checkpoints written"),
+    "nns.train.resumes": ("counter", "trainer starts that resumed from a durable checkpoint"),
+    "nns.train.replay_skipped": ("counter", "already-trained samples skipped on resume (exactly-once accounting)"),
+    "nns.train.gap_samples": ("counter", "partial-epoch samples dropped realigning after a mid-stream restart"),
+    "nns.train.pauses": ("counter", "memory-watermark pauses of the train loop"),
+    "nns.train.paused": ("gauge", "1 while train steps are paused (pressure or operator)"),
+    "nns.train.restarts": ("counter", "trainer-backend revivals through the supervisor"),
+    "nns.train.alive": ("gauge", "1 while the training thread is running"),
     # flight recorder
     "nns.flight.dumps": ("counter", "flight-recorder incident dumps written"),
 }
@@ -439,6 +454,20 @@ HEALTH_KEY_METRICS: Dict[str, str] = {
     "fence_epoch": "nns.query.fence_epoch",
     # pub/sub sources' integrity (mqttsrc, edgesrc, tensor_src_grpc)
     "corrupt_dropped": "nns.wire.corrupt_dropped",
+    "truncated_samples": "nns.datarepo.truncated_samples",
+    # in-pipeline training (tensor_trainer's health row)
+    "train_steps": "nns.train.steps",
+    "train_samples": "nns.train.samples",
+    "train_epochs": "nns.train.epochs",
+    "train_loss": "nns.train.loss",
+    "train_checkpoints": "nns.train.checkpoints",
+    "train_resumes": "nns.train.resumes",
+    "train_replay_skipped": "nns.train.replay_skipped",
+    "train_gap_samples": "nns.train.gap_samples",
+    "train_pauses": "nns.train.pauses",
+    "train_paused": "nns.train.paused",
+    "train_restarts": "nns.train.restarts",
+    "train_alive": "nns.train.alive",
 }
 
 #: non-numeric / structured health keys handled specially (or skipped) by

@@ -5,6 +5,7 @@ from . import (  # noqa: F401
     aggregator,
     basic,
     converter,
+    datarepo,
     debug,
     decoder,
     edge,
@@ -19,5 +20,6 @@ from . import (  # noqa: F401
     repo,
     sparse,
     src_iio,
+    trainer,
     transform,
 )

@@ -23,6 +23,7 @@ _ZOO = {
     "deeplab": "nnstreamer_tpu_torch.models.deeplab",
     "kws_cnn": "nnstreamer_tpu_torch.models.kws_cnn",
     "vit": "nnstreamer_tpu_torch.models.vit",
+    "mnist_cnn": "nnstreamer_tpu_torch.models.mnist_cnn",
 }
 
 

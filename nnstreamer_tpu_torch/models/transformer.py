@@ -8,8 +8,10 @@ bias-free in the compute dtype, GELU the tanh approximation
 
 * Logits entry: tokens (B, T) int32 -> logits (B, T, vocab) float32, one
   causal pass.  ``attn:flash`` runs the flash kernel
-  (``ops/flash_attention.py``), ``attn:xla`` (the default) the plain
-  reference (``parallel/ring_attention.py``).
+  (``ops/flash_attention.py``; ``flash_attention_grad``, its recompute
+  backward, where grad mode is on and q needs a gradient, as in training),
+  ``attn:xla`` (the default) the plain reference
+  (``parallel/ring_attention.py``).
 * Generation (``generate:<N>``, :func:`make_stream_generate`,
   :class:`SlotModel`): the forward with a :class:`KVCache`.  Attention
   over the cache is the reference's dense float32 computation whatever
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.types import FORMAT_STATIC, StreamSpec, TensorSpec
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_grad
 from ..ops.threefry import Key, fold_in, gumbel, prng_key
 from ..parallel.ring_attention import reference_attention
 from ._init_util import init_seeded
@@ -167,7 +169,8 @@ class Block(nn.Module):
         if kv is not None:
             a = cached_attention(q, k, v, *kv)
         elif self.attn_impl == "flash":
-            a = flash_attention(q, k, v, causal=self.causal)
+            train = torch.is_grad_enabled() and q.requires_grad
+            a = (flash_attention_grad if train else flash_attention)(q, k, v, causal=self.causal)
         else:
             a = reference_attention(q, k, v, causal=self.causal)
         x = x + self.attn_out(a.reshape(b, t, d))

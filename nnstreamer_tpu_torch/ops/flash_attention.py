@@ -12,12 +12,20 @@ Both take D a multiple of 8 up to 128, any T (the kernel streams K/V tiles
 and masks the ragged one itself) and strided (B, T, H, D) views with D
 contiguous; the bfloat16 route reads q, k, v through TMA tensor maps, so
 it also needs 16-byte aligned bases and batch, token and head strides that
-are multiples of 8 elements (:func:`check_kernel_args`).  The
-recompute-backward ``flash_attention_grad`` waits for the training slice:
-a CUDA call that needs a gradient raises.  Both wrappers are also the
+are multiples of 8 elements (:func:`check_kernel_args`).
+
+Training goes through :func:`flash_attention_grad` (the JAX package's
+``flash_attention_grad``, ``:314-352``): its forward is the wrapper's (the
+kernel on a CUDA tensor), it saves only q, k and v, and its backward
+recomputes the gradients through :func:`reference_attention_lse` under
+autograd, as JAX ``_fa_bwd`` takes them by XLA autodiff of its reference:
+no kernel computes the backward there either.  The recompute holds the
+(B, H, Tq, Tk) float32 scores of one layer at a time.  A direct
+:func:`flash_attention` call on a CUDA tensor that needs a gradient raises
+and names :func:`flash_attention_grad`.  Both wrappers are also the
 operators ``nns_torch::flash_attention`` and
 ``nns_torch::flash_attention_lse`` (``ops/_oplib.py``), which a traced
-module records; their backward raises the same message.
+module records; they register the same recompute backward.
 """
 
 from __future__ import annotations
@@ -35,8 +43,11 @@ LAUNCHES = 0
 LAUNCHES_TENSOR_CORES = 0
 
 _NEG_INF = -1e30  # the masked score, as the Pallas kernel has it
-_NO_BACKWARD = ("flash attention on CUDA has no backward yet (the training slice, ROADMAP A9): "
-                "call it under torch.inference_mode()")
+#: the profiler range of :func:`flash_attention_grad`'s recompute backward
+RECOMPUTE_RANGE = "nns_torch::flash_attention_recompute_backward"
+_NO_BACKWARD = ("flash_attention on a CUDA tensor that needs a gradient: call "
+                "flash_attention_grad (kernel forward, recompute backward), or run under "
+                "torch.inference_mode()")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 #: query rows per work item (bfloat16) or block (float32) of each route
@@ -133,6 +144,44 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse[..., 0]
 
 
+def reference_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact attention plus lse, differentiable: the counterpart of JAX
+    ``reference_attention_lse`` (``ops/flash_attention.py:279-297``) and
+    the function the recompute backward differentiates.  Scores are
+    accumulated in float32 and divided by sqrt(D) after the product,
+    masked scores are -inf, ``p`` is cast to v's dtype before the value
+    product (accumulated in float32), the output is cast to q's dtype, and
+    a fully masked row's lse is -1e30.  It shares no code with
+    :func:`flash_attention_plain`, the kernel's test version."""
+    _check_shapes(q.shape, k.shape, v.shape, causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (q.shape[-1] ** 0.5)
+    if causal:
+        t = torch.arange(q.shape[1], device=q.device)
+        s = s.masked_fill(t[:, None] < t[None, :], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)  # (B, H, Tq); -inf on fully masked rows
+    masked = torch.isinf(lse)
+    p = torch.exp(s - torch.where(masked, 0.0, lse)[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return out, torch.where(masked, _NEG_INF, lse)
+
+
+def _recompute_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                     g_out: torch.Tensor, g_lse=None):
+    """(dq, dk, dv) by autograd through :func:`reference_attention_lse`
+    (JAX ``_fa_bwd``); `g_lse` also pulls on the lse where given.  A
+    ``torch.profiler`` session sees it as the range
+    :data:`RECOMPUTE_RANGE`."""
+    with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_RANGE):
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out, lse = reference_attention_lse(*qkv, causal=causal)
+        outs, grads = [out], [g_out]
+        if g_lse is not None:
+            outs.append(lse)
+            grads.append(g_lse)
+        return torch.autograd.grad(outs, qkv, grads)
+
+
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_lse: bool):
     global LAUNCHES, LAUNCHES_TENSOR_CORES
     _check_shapes(q.shape, k.shape, v.shape, causal)
@@ -197,12 +246,48 @@ def _(q, k, v, causal):
     return out, q.new_empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)
 
 
-def _no_backward(ctx, *grads):
-    raise RuntimeError(_NO_BACKWARD)
+def _save_qkv(ctx, inputs, output):
+    q, k, v, causal = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal = causal
 
 
-_flash_op.register_autograd(_no_backward)
-_flash_lse_op.register_autograd(_no_backward)
+def _op_backward(ctx, g_out):
+    return (*_recompute_grads(*ctx.saved_tensors, ctx.causal, g_out), None)
+
+
+def _op_lse_backward(ctx, g_out, g_lse):
+    return (*_recompute_grads(*ctx.saved_tensors, ctx.causal, g_out, g_lse), None)
+
+
+_flash_op.register_autograd(_op_backward, setup_context=_save_qkv)
+_flash_lse_op.register_autograd(_op_lse_backward, setup_context=_save_qkv)
+
+
+class _FlashAttentionGrad(torch.autograd.Function):
+    """Kernel forward, recompute backward (JAX ``_fa_fwd``/``_fa_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)  # the only residuals, as JAX _fa_fwd keeps
+        ctx.causal = causal
+        return _flash(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        return (*_recompute_grads(*ctx.saved_tensors, ctx.causal, g_out), None)
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True) -> torch.Tensor:
+    """Differentiable flash attention, (B, T, H, D) -> (B, T, H, D) in q's
+    dtype: the forward launches the kernel on a CUDA tensor (the plain
+    version on a CPU one) and saves only q, k, v; the backward recomputes
+    through :func:`reference_attention_lse`.  A traced call records the
+    operator, whose backward is the same."""
+    if _oplib.tracing():
+        return torch.ops.nns_torch.flash_attention(q, k, v, causal)
+    return _FlashAttentionGrad.apply(q, k, v, causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

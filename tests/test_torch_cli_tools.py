@@ -193,11 +193,11 @@ class TestInspectCli:
 
         assert main([]) == 0
         out = capsys.readouterr().out
-        # the port's 41 element classes (45 names with their aliases); a
+        # the port's 44 element classes (48 names with their aliases); a
         # test of the same process may have registered more
         classes = set(ELEMENT_TYPES.values())
         assert out.startswith(f"{len(ELEMENT_TYPES)} elements ({len(classes)} classes):")
-        assert len({c for c in classes if c.__module__.startswith("nnstreamer_tpu_torch.")}) == 41
+        assert len({c for c in classes if c.__module__.startswith("nnstreamer_tpu_torch.")}) == 44
         assert "tensor_filter" in out and "appsrc" in out
         assert "decoder subplugins" in out and "torch-cuda" in out
 

@@ -58,6 +58,14 @@ def counters():
     return [getattr(m, n) for m, n in COUNTERS]
 
 
+@pytest.fixture(autouse=True)
+def zeroed_counters(monkeypatch):
+    """Every launch counter starts each test at 0 and gets its value back
+    after it, whatever tests ran before in this process."""
+    for module, name in COUNTERS:
+        monkeypatch.setattr(module, name, 0)
+
+
 def program_ops(module: ExportedModule):
     return [str(n.target) for n in module.__dict__["_program"].graph.nodes
             if str(n.target).startswith("nns_torch.")]
@@ -134,11 +142,29 @@ def test_an_eager_call_equals_its_operator():
 
 
 def test_flash_operator_backward_names_the_training_slice():
-    q = torch.randn(1, 4, 1, 8, requires_grad=True)
-    out = torch.ops.nns_torch.flash_attention(q, q.detach(), q.detach(), True)
-    assert torch.allclose(out, fa.flash_attention_plain(q.detach(), q.detach(), q.detach()))
-    with pytest.raises(RuntimeError, match="ROADMAP A9"):
-        out.sum().backward()
+    """The operators' backward is the training slice's recompute: the
+    gradients equal autograd's through ``reference_attention_lse``
+    (float32, within 1e-6: the same function summed in another order)."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 1, 8)).astype(np.float32))
+               for _ in range(3))
+    g = torch.from_numpy(rng.standard_normal((1, 4, 1, 8)).astype(np.float32))
+    g_lse = torch.from_numpy(rng.standard_normal((1, 1, 4)).astype(np.float32))
+
+    def grads(fn, with_lse):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, lse = fn(*qkv)
+        loss = (out * g).sum() + ((lse * g_lse).sum() if with_lse else 0)
+        loss.backward()
+        return [t.grad for t in qkv]
+
+    ref = lambda q, k, v: fa.reference_attention_lse(q, k, v, causal=True)  # noqa: E731
+    for op, with_lse in ((lambda q, k, v: (torch.ops.nns_torch.flash_attention(q, k, v, True),
+                                           torch.zeros(1, 1, 4)), False),
+                         (lambda q, k, v: torch.ops.nns_torch.flash_attention_lse(q, k, v, True),
+                          True)):
+        for a, b in zip(grads(op, with_lse), grads(ref, with_lse)):
+            assert torch.allclose(a, b, rtol=0, atol=1e-6)
 
 
 # -- the MobileNet-v2 file through both converters -------------------------------------------

@@ -10,6 +10,13 @@ sum in another order); bfloat16 inputs compared in float32 at
 ``reference_attention`` against the JAX one, and the CUDA kernel's route
 choice and argument checks as pure functions of dtypes, shapes, strides
 and addresses (views on the meta device; no card here).
+
+The training slice's ``flash_attention_grad`` (kernel forward, recompute
+backward) against JAX ``flash_attention_grad`` in interpret mode
+(``tests/test_flash_attention.py:191-208``): the three gradients of
+``sum(out * g)`` for a seeded cotangent ``g``, float32 at ``atol=5e-5``
+(that file's gradient tolerance) and bfloat16 at the bfloat16 tolerance
+above; ``reference_attention_lse`` against the JAX one.
 """
 
 import jax.numpy as jnp
@@ -18,7 +25,9 @@ import pytest
 import torch
 
 from nnstreamer_tpu.ops.flash_attention import flash_attention as jax_flash
+from nnstreamer_tpu.ops.flash_attention import flash_attention_grad as jax_flash_grad
 from nnstreamer_tpu.ops.flash_attention import flash_attention_lse as jax_flash_lse
+from nnstreamer_tpu.ops.flash_attention import reference_attention_lse as jax_reference_lse
 from nnstreamer_tpu.parallel.ring_attention import reference_attention as jax_reference
 from nnstreamer_tpu_torch.ops import flash_attention as fa
 from nnstreamer_tpu_torch.parallel.ring_attention import reference_attention
@@ -92,6 +101,48 @@ def test_reference_attention_matches_jax(causal):
                                np.asarray(jax_reference(jq, jk, jv, causal=causal)), **F32)
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_grad_matches_jax_flash_attention_grad(causal, bf16):
+    import jax
+
+    (jq, jk, jv), (q, k, v) = _qkv(1, 32, 2, 8, seed=9, bf16=bf16)
+    g = np.random.default_rng(10).standard_normal((1, 32, 2, 8)).astype(np.float32)
+
+    def loss(q, k, v):
+        out = jax_flash_grad(q, k, v, causal, 16, 16, True)
+        return jnp.sum(out.astype(jnp.float32) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_grad(*qkv, causal=causal)
+    assert out.dtype == q.dtype and out.grad_fn is not None
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    for t, w in zip(qkv, want):
+        assert t.grad.dtype == t.dtype
+        np.testing.assert_allclose(_f32(t.grad), _f32(w), **(BF16 if bf16 else dict(atol=5e-5,
+                                                                                   rtol=0)))
+
+
+@pytest.mark.parametrize("causal,tk", [(False, 24), (True, 16)])
+def test_reference_attention_lse_matches_jax(causal, tk):
+    (jq, jk, jv), (q, k, v) = _qkv(2, 16, 2, 8, tk=tk, seed=11)
+    want_out, want_lse = jax_reference_lse(jq, jk, jv, causal=causal)
+    out, lse = fa.reference_attention_lse(q, k, v, causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **F32)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **F32)
+
+
+def test_grad_on_cpu_launches_nothing_and_saves_only_qkv():
+    _, (q, k, v) = _qkv(1, 16, 1, 8, seed=12)
+    before = fa.LAUNCHES
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_grad(*qkv, causal=True)
+    assert fa.LAUNCHES == before
+    assert torch.equal(out.detach(), fa.flash_attention_plain(q, k, v, causal=True))
+    assert [t.data_ptr() for t in out.grad_fn.saved_tensors] == [t.data_ptr() for t in qkv]
+
+
 def test_causal_needs_aligned_positions():
     _, (q, k, v) = _qkv(1, 8, 1, 8, tk=16)
     for fn in (fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_plain):
@@ -163,6 +214,7 @@ def test_kernel_args_take_the_models_own_views(block, b, t, monkeypatch):
         return q
 
     monkeypatch.setattr(transformer, "flash_attention", record)
+    monkeypatch.setattr(transformer, "flash_attention_grad", record)  # grad mode: training
     with torch.device("meta"):
         cls = getattr(vit if block == "EncoderBlock" else transformer, block)
         cls(768, 12, 3072, torch.bfloat16, attn_impl="flash")(

@@ -190,7 +190,8 @@ def fake_kernel(monkeypatch):
     return calls
 
 
-def test_top1_launch_reads_views_in_place(fake_kernel):
+def test_top1_launch_reads_views_in_place(fake_kernel, monkeypatch):
+    monkeypatch.setattr(labeling, "LAUNCHES", labeling.LAUNCHES)  # restored after the test
     wide = torch.zeros(4, 1024, dtype=torch.bfloat16)
     launches = labeling.LAUNCHES
     x = wide[:, :1001]  # unit-stride columns: read in place with its row stride

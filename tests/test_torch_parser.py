@@ -200,9 +200,9 @@ WHOLE_BATCH_SINKS = {"edgesink", "mqttsink", "tensor_sink_grpc"}
 
 
 def test_element_classes_match_jax():
-    """41 of the JAX package's element classes (the three tensor_query
-    elements, the edge, MQTT and gRPC-stream pairs and tensor_src_iio
-    among them), each with
+    """44 of the JAX package's element classes (the three tensor_query
+    elements, the edge, MQTT and gRPC-stream pairs, tensor_src_iio, the
+    datarepo pair and tensor_trainer among them), each with
     the JAX class's factory aliases, pad counts and BATCH_AWARE contract
     (the pub/sub sinks take a micro-batch whole)."""
     from nnstreamer_tpu.pipeline.element import ELEMENT_TYPES as JAX_TYPES
@@ -210,7 +210,7 @@ def test_element_classes_match_jax():
 
     ours = {f: c for f, c in ELEMENT_TYPES.items()  # not classes other tests register
             if c.__module__.startswith("nnstreamer_tpu_torch.elements.")}
-    assert len(set(ours.values())) == 41
+    assert len(set(ours.values())) == 44
     for factory, cls in ours.items():
         ref = JAX_TYPES[factory]
         batch_aware = ref.BATCH_AWARE or factory in WHOLE_BATCH_SINKS
